@@ -1,0 +1,217 @@
+"""GAME scoring driver.
+
+Port of ``photon_ml_tpu/cli/score_game.py`` (reference
+cli/game/scoring/Driver.scala:37, run() :176-209): read data (response
+optional) → load the GAME model → score → write ScoringResultAvro → optional
+evaluation. Scoring runs on ``--device`` (default ``cuda``; ``cpu`` only
+when asked).
+
+Usage:
+    python -m photon_ml_tpu_torch.cli.score_game \
+        --data-dirs data/test --model-dir out/best \
+        --output-dir scores/ --evaluator AUC [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.cli.common import (
+    delete_dirs_if_exist,
+    parse_input_columns,
+    setup_logger,
+)
+from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
+from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, read_game_data
+from photon_ml_tpu_torch.io.model_io import load_game_model, load_game_model_metadata
+from photon_ml_tpu_torch.io.scores_io import ScoredItem, save_scores
+
+
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="photon-ml-tpu-torch score-game", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    p.add_argument("--data-dirs", nargs="+", required=True)
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--num-output-files", type=_positive_int, default=None,
+                   help="partition the score output into this many part "
+                        "files (reference --num-files)")
+    p.add_argument("--evaluator", default=None,
+                   help="optional metric over scored data, e.g. AUC, "
+                        "'RMSE:userId', or 'PRECISION@5:userId'")
+    p.add_argument("--delete-output-dir-if-exists", action="store_true",
+                   help="remove an existing --output-dir before writing")
+    p.add_argument("--random-effect-id-set", default=None,
+                   help="comma-separated random effect types to read from "
+                        "the records, overriding the set derived from the model")
+    p.add_argument("--input-columns-names", default=None,
+                   help="JSON map overriding input field names; keys: "
+                        "response, offset, weight, uid")
+    p.add_argument("--missing-entity-policy", choices=("fe-only", "error"),
+                   default="fe-only",
+                   help="rows naming entities absent from the model: "
+                        "'fe-only' (default) scores them with the fixed "
+                        "effects only (RE contribution 0, the reference "
+                        "left-join semantics); 'error' fails fast instead")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device to score on: 'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def _check_missing_entities(model, data) -> None:
+    """--missing-entity-policy=error: fail when the dataset names
+    random-effect entities the model has never seen."""
+    problems = []
+    for cid, sub in model.models.items():
+        re_type = model.meta[cid].random_effect_type
+        if not re_type:
+            continue
+        ids = data.id_tags.get(re_type)
+        if ids is None:
+            continue
+        missing = sorted({str(e) for e in ids if str(e) not in sub.entity_to_loc})
+        if missing:
+            problems.append(
+                f"[{cid}] {len(missing)} unknown {re_type!r} entities "
+                f"(e.g. {missing[:5]})"
+            )
+    if problems:
+        raise ValueError(
+            "--missing-entity-policy=error: the dataset references "
+            "entities absent from the model: " + "; ".join(problems)
+        )
+
+
+def run(args: argparse.Namespace) -> Optional[float]:
+    """Score the data; returns the evaluator's metric (None without one)."""
+    logger = setup_logger()
+    device = resolve_device(args.device)
+    durations = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        durations[name] = time.perf_counter() - t0
+        return out
+
+    metadata = load_game_model_metadata(args.model_dir)
+    model_id = metadata.get("modelName", "game-model")
+
+    # the saved config names the shard → feature bags mapping; without it,
+    # each shard reads the record field of the same name
+    shard_bags = {}
+    cfg = metadata.get("configurations") or {}
+    for sid, s in (cfg.get("feature_shards") or {}).items():
+        shard_bags[sid] = FeatureShardConfiguration(
+            feature_bags=s["feature_bags"],
+            add_intercept=bool(s.get("add_intercept", True)),
+        )
+
+    model, index_maps = timed("load model", load_game_model, args.model_dir, device=device)
+    for sid in index_maps:
+        shard_bags.setdefault(sid, FeatureShardConfiguration(feature_bags=[sid]))
+
+    if args.random_effect_id_set:
+        id_tags = sorted(
+            t.strip() for t in args.random_effect_id_set.split(",") if t.strip()
+        )
+    else:
+        id_tags = sorted(
+            {m.random_effect_type for m in model.meta.values() if m.random_effect_type}
+        )
+    # a grouped evaluator's tag must be read even if no sub-model uses it
+    if args.evaluator and ":" in args.evaluator:
+        tag = args.evaluator.partition(":")[2].strip()
+        if tag and tag not in id_tags:
+            id_tags.append(tag)
+
+    data, _, uids = timed(
+        "read data", read_game_data, args.data_dirs, shard_bags, index_maps,
+        id_tags=id_tags, is_response_required=False,
+        **parse_input_columns(args.input_columns_names),
+    )
+    logger.info("scoring rows: %d on %s", data.num_rows, device)
+
+    if args.missing_entity_policy == "error":
+        _check_missing_entities(model, data)
+
+    def score():
+        return (model.score(data) + _to(data.offsets, device)).cpu().numpy()
+
+    scores = timed("score", score)
+
+    if args.delete_output_dir_if_exists:
+        delete_dirs_if_exist(args.output_dir)
+
+    file_sizes = None
+    if args.num_output_files:
+        # exactly N part files (reference --num-files), the first rows % N
+        # of them one record larger
+        nf = args.num_output_files
+        base, rem = divmod(data.num_rows, nf)
+        file_sizes = [base + (1 if i < rem else 0) for i in range(nf)]
+    n = timed(
+        "save scores", save_scores,
+        args.output_dir,
+        (
+            ScoredItem(
+                prediction_score=float(s),
+                label=None if np.isnan(lab) else float(lab),
+                weight=float(w),
+                uid=uid,
+                id_tags={t: str(data.id_tags[t][i]) for t in id_tags},
+            )
+            for i, (s, lab, w, uid) in enumerate(
+                zip(scores, data.labels, data.weights, uids)
+            )
+        ),
+        model_id=model_id,
+        file_sizes=file_sizes,
+    )
+    logger.info("saved %d scores to %s", n, args.output_dir)
+
+    metric = None
+    if args.evaluator:
+        have_labels = ~np.isnan(data.labels)
+        if have_labels.any():
+            # group ids must align with the labeled subset being evaluated
+            sub = data.slice_rows(have_labels) if not have_labels.all() else data
+            ev = make_evaluator(args.evaluator, sub)
+            metric = ev.evaluate(
+                _to(scores[have_labels], device),
+                _to(data.labels[have_labels], device),
+                _to(data.weights[have_labels], device),
+            )
+            logger.info("%s: %.6f", ev.name, metric)
+    for name, seconds in durations.items():
+        logger.info("timing %-20s %.3fs", name, seconds)
+    return metric
+
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    run(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

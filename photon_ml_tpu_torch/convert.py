@@ -1,0 +1,96 @@
+"""Carry a GAME model's weights across from the JAX package.
+
+:func:`game_model_from_numpy` takes the arrays of a ``photon_ml_tpu``
+``GameModel`` as numpy (``np.asarray`` of each device array) and builds the
+port's :class:`~photon_ml_tpu_torch.models.game.GameModel` on a device, so
+that both packages can score one model. Enum-valued fields (task, projector
+type) may be given as this package's enums, as the JAX package's (matched by
+name) or as strings.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from photon_ml_tpu_torch.models.coefficients import Coefficients
+from photon_ml_tpu_torch.models.game import CoordinateMeta, GameModel
+from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.projector import ProjectorType
+from photon_ml_tpu_torch.types import TaskType
+
+
+def _task(task) -> TaskType:
+    return TaskType[task if isinstance(task, str) else task.name]
+
+
+def _projector(p) -> ProjectorType:
+    return ProjectorType[p.upper() if isinstance(p, str) else p.name]
+
+
+def game_model_from_numpy(
+    coordinates: Mapping[str, Mapping[str, Any]],
+    task,
+    device: DeviceLike = DEFAULT_DEVICE,
+) -> GameModel:
+    """Build the port's GameModel from per-coordinate numpy arrays.
+
+    ``coordinates`` maps a coordinate id to a dict with the coordinate
+    metadata (``feature_shard``, and ``random_effect_type`` for a random
+    effect; optional ``sparse_engine``) and either
+
+    - a fixed effect: ``means`` [d] and optional ``variances`` [d]; or
+    - a random effect: per-bucket lists ``coefficients`` [E_b, D_b],
+      ``proj_indices`` [E_b, D_b], ``proj_valid`` [E_b, D_b] and optional
+      ``variances``; ``entity_ids`` (per-bucket lists of ids),
+      ``entity_to_loc`` (id -> (bucket, row)), ``global_dim``, and optional
+      ``projector_type`` and ``projection_seed``.
+
+    Insertion order of ``coordinates`` is the order scores are summed in.
+    """
+    dev = resolve_device(device)
+    task = _task(task)
+
+    def t(a, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)  # a writable copy
+
+    models: Dict[str, object] = {}
+    meta: Dict[str, CoordinateMeta] = {}
+    for cid, c in coordinates.items():
+        meta[cid] = CoordinateMeta(
+            feature_shard=c["feature_shard"],
+            random_effect_type=c.get("random_effect_type"),
+            sparse_engine=c.get("sparse_engine", "auto"),
+        )
+        if "means" in c:
+            var = c.get("variances")
+            models[cid] = GeneralizedLinearModel(
+                coefficients=Coefficients(
+                    means=t(c["means"], np.float32),
+                    variances=None if var is None else t(var, np.float32),
+                ),
+                task=task,
+            )
+            continue
+        n_buckets = len(c["coefficients"])
+        variances = c.get("variances") or [None] * n_buckets
+        models[cid] = RandomEffectModel(
+            random_effect_type=c["random_effect_type"],
+            task=task,
+            coefficients=[t(w, np.float32) for w in c["coefficients"]],
+            variances=[None if v is None else t(v, np.float32) for v in variances],
+            proj_indices=[t(p, np.int64) for p in c["proj_indices"]],
+            proj_valid=[t(p, np.bool_) for p in c["proj_valid"]],
+            entity_ids=[[str(e) for e in ids] for ids in c["entity_ids"]],
+            entity_to_loc={
+                str(k): (int(b), int(e)) for k, (b, e) in c["entity_to_loc"].items()
+            },
+            global_dim=int(c["global_dim"]),
+            projector_type=_projector(c.get("projector_type", ProjectorType.INDEX_MAP)),
+            projection_seed=int(c.get("projection_seed", 0)),
+        )
+    return GameModel(models=models, meta=meta, task=task)
