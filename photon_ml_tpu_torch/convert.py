@@ -1,11 +1,16 @@
-"""Carry a GAME model's weights across from the JAX package.
+"""Carry a GAME model's weights across between the JAX package and the
+port.
 
 :func:`game_model_from_numpy` takes the arrays of a ``photon_ml_tpu``
-``GameModel`` as numpy (``np.asarray`` of each device array) and builds the
-port's :class:`~photon_ml_tpu_torch.models.game.GameModel` on a device, so
-that both packages can score one model. Enum-valued fields (task, projector
-type) may be given as this package's enums, as the JAX package's (matched by
-name) or as strings.
+``GameModel`` — a scoring model or a ``GameFit``'s trained models — as numpy
+(``np.asarray`` of each device array) and builds the port's
+:class:`~photon_ml_tpu_torch.models.game.GameModel` on a device, so that
+both packages can score one model, or the port can warm-start training from
+it (``GameEstimator.fit(initial_models=model.models)``).
+:func:`game_model_to_numpy` is its inverse, for comparing the port's
+fitted models with the reference's. Enum-valued fields (task, projector
+type) may be given as this package's enums, as the JAX package's (matched
+by name) or as strings.
 """
 
 from __future__ import annotations
@@ -94,3 +99,37 @@ def game_model_from_numpy(
             projection_seed=int(c.get("projection_seed", 0)),
         )
     return GameModel(models=models, meta=meta, task=task)
+
+
+def game_model_to_numpy(model: GameModel) -> Dict[str, Dict[str, Any]]:
+    """The port's GameModel as per-coordinate numpy arrays, in the form
+    :func:`game_model_from_numpy` takes."""
+
+    def arr(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    out: Dict[str, Dict[str, Any]] = {}
+    for cid, sub in model.models.items():
+        meta = model.meta[cid]
+        c: Dict[str, Any] = {
+            "feature_shard": meta.feature_shard,
+            "random_effect_type": meta.random_effect_type,
+            "sparse_engine": meta.sparse_engine,
+        }
+        if isinstance(sub, GeneralizedLinearModel):
+            c["means"] = arr(sub.coefficients.means)
+            c["variances"] = arr(sub.coefficients.variances)
+        else:
+            c.update(
+                coefficients=[arr(w) for w in sub.coefficients],
+                variances=[arr(v) for v in sub.variances],
+                proj_indices=[arr(p) for p in sub.proj_indices],
+                proj_valid=[arr(p) for p in sub.proj_valid],
+                entity_ids=[list(ids) for ids in sub.entity_ids],
+                entity_to_loc=dict(sub.entity_to_loc),
+                global_dim=sub.global_dim,
+                projector_type=sub.projector_type,
+                projection_seed=sub.projection_seed,
+            )
+        out[cid] = c
+    return out

@@ -1,0 +1,211 @@
+"""Random-effect training and scoring: batched per-entity solves.
+
+Port of ``photon_ml_tpu/estimators/random_effect.py`` (reference
+algorithm/RandomEffectCoordinate.scala:39 — updateModel :103-143 runs one
+local solve per entity; score :157-187 covers active + passive data). Each
+bucket is one batched L-BFGS over its entity lanes, whose value and
+gradient go through the fused kernel ``fused_value_grad_batched_f32`` on
+the card.
+
+Convergence-adaptive driver: a lockstep dispatch runs until its slowest
+entity converges. With ``configuration.adaptive.enabled`` a bucket instead
+runs in chunks of ``chunk_iters`` outer iterations (the whole solver state
+carried across chunks, so each lane's trajectory equals the one-shot
+dispatch's), pulls the per-lane converged mask after each chunk, and
+compacts the unconverged entities into a dense prefix of the next smaller
+power-of-two lane count.
+
+Not ported: ``overlap_buckets`` (the async schedule's bucket overlap) and
+entity axes sharded over several devices (ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket
+from photon_ml_tpu_torch.losses.objective import GlmObjective, make_glm_objective
+from photon_ml_tpu_torch.losses.pointwise import loss_for_task
+from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.ops.data import LabeledData
+from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
+from photon_ml_tpu_torch.opt.solve import (
+    solve,
+    solve_chunk,
+    solve_finalize,
+    solve_init,
+    solver_kind,
+)
+from photon_ml_tpu_torch.opt.state import SolveResult
+from photon_ml_tpu_torch.types import ConvergenceReason, TaskType
+
+_NOT_CONVERGED = ConvergenceReason.NOT_CONVERGED.value
+
+
+def _bucket_data(bucket: ReBucket) -> LabeledData:
+    return LabeledData(
+        features=DenseFeatures(matrix=bucket.X),
+        labels=bucket.labels,
+        offsets=bucket.offsets,
+        weights=bucket.weights,
+    )
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+@dataclasses.dataclass
+class _BucketSolver:
+    """One (task, configuration, compute_variances) combination."""
+
+    objective: GlmObjective
+    configuration: GlmOptimizationConfiguration
+    compute_variances: bool
+
+    @property
+    def l2(self) -> float:
+        return self.configuration.l2_weight
+
+    def mask_and_var(self, res: SolveResult, data: LabeledData, pv: torch.Tensor):
+        """Coefficients of padding columns forced to 0, and the optional
+        variances 1/(H_jj + eps) (reference
+        DistributedOptimizationProblem.scala:80-94)."""
+        w = torch.where(pv, res.w, torch.zeros_like(res.w))
+        var = None
+        if self.compute_variances:
+            diag = self.objective.hessian_diag(res.w, data, self.l2)
+            var = torch.where(pv, 1.0 / (diag + 1e-12), torch.zeros_like(diag))
+        return w, var
+
+    def oneshot(self, bucket: ReBucket, w0: torch.Tensor):
+        """Lockstep dispatch: every lane until the slowest is done."""
+        data = _bucket_data(bucket)
+        res = solve(self.objective, w0, data, self.configuration, l1_weight=0.0)
+        w, var = self.mask_and_var(res, data, bucket.proj_valid)
+        return res, w, var
+
+    def adaptive(self, bucket: ReBucket, w0: torch.Tensor):
+        """Chunked rounds + power-of-two lane compaction; results in the
+        bucket's entity order."""
+        cfg = self.configuration
+        E = bucket.num_entities
+        K = cfg.adaptive.chunk_iters
+        max_iter = cfg.optimizer_config.max_iterations
+        data = _bucket_data(bucket)
+        pv = bucket.proj_valid
+        state = solve_init(self.objective, w0, data, cfg, l1_weight=0.0)
+        live = torch.arange(E, device=w0.device)  # lane -> entity row
+        width = E
+        buffers: Dict[str, torch.Tensor] = {}
+
+        def scatter_extract():
+            # done lanes never advance, so re-scattering one is idempotent
+            res = solve_finalize(state, cfg)
+            w_m, var = self.mask_and_var(res, data, pv)
+            leaves = {"__w": w_m, "__var": var}
+            leaves.update({f.name: getattr(res, f.name) for f in dataclasses.fields(res)})
+            for name, arr in leaves.items():
+                if arr is None:
+                    continue
+                if name not in buffers:
+                    buffers[name] = torch.zeros(
+                        (E,) + tuple(arr.shape[1:]), dtype=arr.dtype, device=arr.device
+                    )
+                buffers[name][live] = arr
+
+        # ceil(max_iter/K) chunks finish every lane; +1 for the
+        # converged-at-init case where the first chunk advances nothing
+        for _ in range(-(-max_iter // K) + 1):
+            state = solve_chunk(self.objective, state, data, cfg, num_iters=K)
+            done = (state.reason != _NOT_CONVERGED) | (state.it >= max_iter)
+            n_live = int((~done).sum())
+            if n_live == 0:
+                break
+            new_width = _next_pow2(max(n_live, cfg.adaptive.min_lanes))
+            if new_width < width:
+                # freeze the current results, then move the survivors (and
+                # done lanes as filler up to the new width) to a dense prefix
+                scatter_extract()
+                keep = torch.argsort(done.to(torch.int8), stable=True)[:new_width]
+                state = state.take_lanes(keep)
+                data = data.take_lanes(keep)
+                pv, live, width = pv[keep], live[keep], new_width
+        scatter_extract()
+        res = SolveResult(**{
+            f.name: buffers.get(f.name) for f in dataclasses.fields(SolveResult)
+        })
+        return res, buffers["__w"], buffers.get("__var")
+
+
+def train_random_effects(
+    dataset: RandomEffectDataset,
+    task: TaskType,
+    configuration: GlmOptimizationConfiguration,
+    initial_model: Optional[RandomEffectModel] = None,
+    compute_variances: bool = False,
+) -> Tuple[RandomEffectModel, List[SolveResult]]:
+    """Solve one GLM per entity, bucket by bucket. Returns the model and the
+    per-bucket SolveResults (one lane per entity).
+
+    With ``configuration.adaptive.enabled``, buckets of more than
+    ``adaptive.min_lanes`` entities run through the convergence-adaptive
+    driver; its results equal the one-shot dispatch's lane for lane.
+    ``initial_model`` warm-starts from a model of the same dataset.
+    """
+    solver_kind(configuration)  # raises for the solvers not ported yet
+    solver = _BucketSolver(
+        make_glm_objective(loss_for_task(task)), configuration, compute_variances
+    )
+    adaptive = configuration.adaptive
+    coeffs, variances, results = [], [], []
+    for b, bucket in enumerate(dataset.buckets):
+        if initial_model is not None:
+            w0 = initial_model.coefficients[b].to(bucket.X.device, torch.float32)
+        else:
+            w0 = torch.zeros(
+                (bucket.num_entities, bucket.local_dim), dtype=torch.float32,
+                device=bucket.X.device,
+            )
+        if adaptive.enabled and bucket.num_entities > adaptive.min_lanes:
+            res, w, var = solver.adaptive(bucket, w0)
+        else:
+            res, w, var = solver.oneshot(bucket, w0)
+        coeffs.append(w)
+        variances.append(var)
+        results.append(res)
+    model = RandomEffectModel(
+        random_effect_type=dataset.config.random_effect_type,
+        task=task,
+        coefficients=coeffs,
+        variances=variances,
+        proj_indices=[b.proj_indices for b in dataset.buckets],
+        proj_valid=[b.proj_valid for b in dataset.buckets],
+        entity_ids=dataset.entity_ids,
+        entity_to_loc=dataset.entity_to_loc,
+        global_dim=dataset.global_dim,
+        projector_type=dataset.config.projector,
+        projection_seed=dataset.config.seed,
+    )
+    return model, results
+
+
+def score_random_effects_device(
+    model: RandomEffectModel, dataset: RandomEffectDataset
+) -> torch.Tensor:
+    """Raw per-row scores x·w_entity in the original row order (active +
+    passive rows, reference RandomEffectCoordinate.score :157-187; offsets
+    not included), on the device: every bucket's scores are concatenated and
+    gathered through ``dataset.row_gather`` (each row has exactly one source
+    slot; uncovered rows read the trailing 0). No per-row entity lookup."""
+    parts = []
+    for w, bucket, p in zip(model.coefficients, dataset.buckets, dataset.passive):
+        parts.append(torch.einsum("esd,ed->es", bucket.X, w).reshape(-1))
+        if p is not None:
+            parts.append((p.X * w[p.entity_index]).sum(-1))
+    flat = torch.cat(parts + [torch.zeros(1, dtype=torch.float32, device=dataset.row_gather.device)])
+    return flat[dataset.row_gather]

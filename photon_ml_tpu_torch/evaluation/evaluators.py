@@ -22,6 +22,7 @@ from photon_ml_tpu_torch.losses.pointwise import (
     SmoothedHingeLoss,
     SquaredLoss,
 )
+from photon_ml_tpu_torch.types import TaskType
 
 
 class EvaluatorType(enum.Enum):
@@ -50,7 +51,9 @@ def area_under_roc_curve(
     is_new = torch.ones_like(s_sorted, dtype=torch.bool)
     is_new[1:] = s_sorted[1:] != s_sorted[:-1]
     seg = torch.cumsum(is_new.long(), 0) - 1
-    seg_neg = torch.zeros_like(nw).index_add_(0, seg, nw)  # neg weight per group
+    # neg weight per group; an accumulating index_put_ repeats bitwise on the
+    # card, where index_add_ adds with atomics
+    seg_neg = torch.zeros_like(nw).index_put_((seg,), nw, accumulate=True)
     neg_below = torch.cumsum(seg_neg, 0)[seg] - seg_neg[seg]
     u = torch.sum(pw * (neg_below + 0.5 * seg_neg[seg]))
     w_pos, w_neg = pw.sum(), nw.sum()
@@ -76,16 +79,31 @@ def _operands(scores, labels, weights):
     return s, f64(labels), torch.ones_like(s) if weights is None else f64(weights)
 
 
+def nan_aware_better_than(a: float, b: float, larger_is_better: bool = True) -> bool:
+    """Is metric a better than b; any value beats NaN, NaN beats nothing
+    (reference Evaluator.betterThan semantics)."""
+    if b != b:
+        return True
+    if a != a:
+        return False
+    return a > b if larger_is_better else a < b
+
+
 @dataclasses.dataclass(frozen=True)
 class Evaluator:
     name: str
     fn: Callable  # (scores, labels, weights) -> 0-d tensor
+    larger_is_better: bool = False
 
     def evaluate(self, scores, labels, weights=None) -> float:
         return float(self.fn(*_operands(scores, labels, weights)))
 
+    def better_than(self, a: float, b: float) -> bool:
+        """Is metric value a better than b (reference Evaluator.betterThan)."""
+        return nan_aware_better_than(a, b, self.larger_is_better)
 
-AUC = Evaluator("AUC", area_under_roc_curve)
+
+AUC = Evaluator("AUC", area_under_roc_curve, larger_is_better=True)
 RMSE = Evaluator("RMSE", lambda s, y, w: torch.sqrt(_weighted_mean((s - y) ** 2, w)))
 MSE = Evaluator("MSE", lambda s, y, w: _weighted_mean((s - y) ** 2, w))
 MAE = Evaluator("MAE", lambda s, y, w: _weighted_mean(torch.abs(s - y), w))
@@ -111,7 +129,7 @@ def PrecisionAtK(k: int) -> Evaluator:
         top = torch.sort(-scores, stable=True).indices[:kk]
         return (labels[top] > 0.5).double().mean()
 
-    return Evaluator(f"PRECISION@{k}", fn)
+    return Evaluator(f"PRECISION@{k}", fn, larger_is_better=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +144,9 @@ class MultiEvaluator:
     @property
     def name(self) -> str:
         return f"{self.base.name}:{self.tag or 'grouped'}"
+
+    def better_than(self, a: float, b: float) -> bool:
+        return self.base.better_than(a, b)
 
     def evaluate(self, scores, labels, weights=None) -> float:
         s, y, w = _operands(scores, labels, weights)
@@ -160,6 +181,17 @@ def evaluator_for(etype: EvaluatorType, k: int = 10) -> Evaluator:
         EvaluatorType.SQUARED_LOSS: SquaredLossEvaluator,
         EvaluatorType.SMOOTHED_HINGE_LOSS: SmoothedHingeLossEvaluator,
     }[etype]
+
+
+def default_evaluator(task: TaskType) -> Evaluator:
+    """Task -> default validation metric (reference GameEstimator default
+    evaluators: AUC for logistic, RMSE for linear, Poisson loss for Poisson)."""
+    return {
+        TaskType.LOGISTIC_REGRESSION: AUC,
+        TaskType.LINEAR_REGRESSION: RMSE,
+        TaskType.POISSON_REGRESSION: PoissonLossEvaluator,
+        TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM: AUC,
+    }[task]
 
 
 def make_evaluator(spec: Optional[str], data):

@@ -132,4 +132,6 @@ def _score_re_rows(
         hit = (keys[j] == query) & (cols < stride)
         contrib = torch.where(hit, vals * weights[j], torch.zeros_like(vals))
     contrib = torch.where(seen, contrib, torch.zeros_like(contrib))
-    return out.index_add_(0, rows, contrib)
+    # index_put_ with accumulate sorts the rows on the card, so scores
+    # repeat bitwise run to run (index_add_ adds with atomics there)
+    return out.index_put_((rows,), contrib, accumulate=True)

@@ -2,13 +2,16 @@
 
 Port of ``photon_ml_tpu/ops/features.py``:
 
-- :class:`DenseFeatures` — plain ``[n, d]`` matrix.
+- :class:`DenseFeatures` — plain ``[n, d]`` matrix, or ``[E, s, d]``: one
+  dense problem per leading-axis lane (the reference wraps its 2-D maps in
+  ``jax.vmap`` for that; here ``torch.matmul`` batches them).
 - :class:`EllFeatures` — padded row-sparse (ELL) layout ``values/indices
   [n, k]`` with k = max nnz per row; padding slots carry value 0.0 so they
   are algebraic no-ops. ``matvec`` is ``torch.gather`` plus a sum over the
-  slot axis.
+  slot axis; ``rmatvec`` is an accumulating ``index_put_`` into the columns.
 
-Scoring needs only ``matvec``; the transposed maps arrive with training.
+Each layout has the three maps a GLM needs: ``matvec(w)`` = X·w,
+``rmatvec(c)`` = Xᵀ·c, ``rmatvec_sq(c)`` = (X∘X)ᵀ·c.
 """
 
 from __future__ import annotations
@@ -24,20 +27,36 @@ from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_devic
 
 @dataclasses.dataclass
 class DenseFeatures:
-    """Dense ``[n, d]`` feature matrix."""
+    """Dense ``[n, d]`` feature matrix, or ``[E, s, d]`` (E problems)."""
 
     matrix: torch.Tensor
 
     @property
     def num_rows(self) -> int:
-        return self.matrix.shape[0]
+        return self.matrix.shape[-2]
 
     @property
     def dim(self) -> int:
-        return self.matrix.shape[1]
+        return self.matrix.shape[-1]
 
     def matvec(self, w: torch.Tensor) -> torch.Tensor:
+        """[n, d]·[d] → [n], or [E, s, d]·[E, d] → [E, s]."""
+        if self.matrix.dim() == 3:
+            return torch.matmul(self.matrix, w.unsqueeze(-1)).squeeze(-1)
         return self.matrix @ w
+
+    def rmatvec(self, c: torch.Tensor) -> torch.Tensor:
+        """[n, d]ᵀ·[n] → [d], or [E, s, d]ᵀ·[E, s] → [E, d]."""
+        return self._rmatvec(self.matrix, c)
+
+    def rmatvec_sq(self, c: torch.Tensor) -> torch.Tensor:
+        return self._rmatvec(self.matrix * self.matrix, c)
+
+    @staticmethod
+    def _rmatvec(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 3:
+            return torch.matmul(c.unsqueeze(-2), x).squeeze(-2)
+        return x.T @ c
 
 
 @dataclasses.dataclass
@@ -64,6 +83,19 @@ class EllFeatures:
     def matvec(self, w: torch.Tensor) -> torch.Tensor:
         gathered = torch.gather(w.expand(self.num_rows, -1), 1, self.indices)
         return (self.values * gathered).sum(dim=-1)
+
+    def rmatvec(self, c: torch.Tensor) -> torch.Tensor:
+        """Xᵀ·c: c_i·v_is added into column indices_is; padding adds 0."""
+        return self._scatter(self.values * c[:, None])
+
+    def rmatvec_sq(self, c: torch.Tensor) -> torch.Tensor:
+        return self._scatter(self.values * self.values * c[:, None])
+
+    def _scatter(self, contrib: torch.Tensor) -> torch.Tensor:
+        # index_put_ with accumulate sorts the indices on the card, so the
+        # sums repeat bitwise run to run (index_add_ adds with atomics there)
+        out = torch.zeros(self.num_cols, dtype=contrib.dtype, device=contrib.device)
+        return out.index_put_((self.indices.reshape(-1),), contrib.reshape(-1), accumulate=True)
 
 
 FeatureMatrix = Union[DenseFeatures, EllFeatures]

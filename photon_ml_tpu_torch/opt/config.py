@@ -1,0 +1,164 @@
+"""Optimizer and regularization configuration.
+
+Copy of ``photon_ml_tpu/opt/config.py``. Reference parity:
+optimization/OptimizerConfig.scala:23, RegularizationContext.scala:35 (elastic-net α split :55-76),
+GLMOptimizationConfiguration.scala:28, OptimizerFactory.scala:27 (OWL-QN is
+selected automatically whenever the L1 component is positive). The reference's
+string mini-language (``maxIter,tol,λ,downSampleRate,optimizer,regType``) is
+replaced by typed dataclasses; cli/ provides parsing from structured config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+from photon_ml_tpu_torch.types import RegularizationType
+
+
+class OptimizerType(enum.Enum):
+    LBFGS = "lbfgs"
+    TRON = "tron"
+    # OWL-QN is not user-selectable in the reference either; it is LBFGS's
+    # L1 mode, chosen by the factory when l1_weight > 0.
+
+
+@dataclasses.dataclass(frozen=True)
+class RegularizationContext:
+    """Splits a single regularization weight λ into (l1, l2) parts.
+
+    ELASTIC_NET with mixing α: l1 = α·λ, l2 = (1-α)·λ
+    (reference RegularizationContext.scala:55-76).
+    """
+
+    reg_type: RegularizationType = RegularizationType.NONE
+    alpha: Optional[float] = None  # elastic-net mixing, required for ELASTIC_NET
+
+    def __post_init__(self) -> None:
+        if self.reg_type is RegularizationType.ELASTIC_NET:
+            a = self.alpha if self.alpha is not None else 0.5
+            if not (0.0 <= a <= 1.0):
+                raise ValueError(f"elastic net alpha must be in [0,1], got {a}")
+        elif self.alpha is not None:
+            raise ValueError(f"alpha is only valid for ELASTIC_NET, got {self.reg_type}")
+
+    def l1_weight(self, reg_weight: float) -> float:
+        if self.reg_type is RegularizationType.L1:
+            return reg_weight
+        if self.reg_type is RegularizationType.ELASTIC_NET:
+            return (self.alpha if self.alpha is not None else 0.5) * reg_weight
+        return 0.0
+
+    def l2_weight(self, reg_weight: float) -> float:
+        if self.reg_type is RegularizationType.L2:
+            return reg_weight
+        if self.reg_type is RegularizationType.ELASTIC_NET:
+            return (1.0 - (self.alpha if self.alpha is not None else 0.5)) * reg_weight
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Static solver knobs (hashable).
+
+    Defaults mirror the reference: LBFGS maxIter=100, m=10, tol=1e-7
+    (LBFGS.scala:147-152); TRON maxIter=15, ≤20 CG iterations, tol=1e-5
+    (TRON.scala:253-259).
+    """
+
+    optimizer: OptimizerType = OptimizerType.LBFGS
+    max_iterations: int = 100
+    tolerance: float = 1e-7
+    # LBFGS
+    history_length: int = 10
+    max_line_search_iterations: int = 25
+    # Storage dtype for the [m, d] s/y history ring buffers — "bfloat16"
+    # halves the dominant memory term of huge-d solves (SCALING.md: at 1e9
+    # coefficients the m=10 history is 10 GB/chip in f32); all dot products
+    # still accumulate in the working dtype. None = same dtype as w.
+    history_dtype: Optional[str] = None
+    # TRON
+    max_cg_iterations: int = 20
+    cg_tolerance: float = 0.1
+    max_improvement_failures: int = 5  # TRON.scala maxNumImprovementFailures
+    # Box constraints: (lower, upper) scalars or None. Per-coefficient boxes
+    # are passed at solve time as arrays (reference parses a per-feature
+    # constraint map; see estimators).
+    constraint_lower: Optional[float] = None
+    constraint_upper: Optional[float] = None
+    # Record per-iteration coefficients in SolveResult.w_history
+    # ([max_iterations+1, d] — the reference's ModelTracker). Costs a
+    # max_iter x d buffer; off by default.
+    track_coefficients: bool = False
+
+    def __post_init__(self) -> None:
+        if self.history_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"history_dtype must be None/float32/bfloat16, "
+                f"got {self.history_dtype!r}"
+            )
+
+    @classmethod
+    def lbfgs(cls, **kw) -> "OptimizerConfig":
+        return cls(optimizer=OptimizerType.LBFGS, **kw)
+
+    @classmethod
+    def tron(cls, **kw) -> "OptimizerConfig":
+        kw.setdefault("max_iterations", 15)
+        kw.setdefault("tolerance", 1e-5)
+        return cls(optimizer=OptimizerType.TRON, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveSolveConfig:
+    """Knobs for the convergence-adaptive random-effect driver (hashable).
+
+    The driver runs the batched per-entity solve in chunks of
+    ``chunk_iters`` outer iterations, pulls the per-lane converged mask
+    after each chunk, compacts unconverged entities into a dense prefix, and
+    re-dispatches at the next smaller power-of-two lane count.
+    ``enabled=False`` restores the one-shot lockstep dispatch exactly.
+    """
+
+    enabled: bool = True
+    # Outer solver iterations per chunk. Small K pulls the converged mask
+    # often (more savings on skewed workloads) at the cost of more dispatches.
+    chunk_iters: int = 8
+    # Stop shrinking below this lane count: tiny dispatches are dominated by
+    # launch overhead, so the tail just runs lockstep at this width.
+    min_lanes: int = 8
+
+    def __post_init__(self) -> None:
+        if self.chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {self.chunk_iters}")
+        if self.min_lanes < 1:
+            raise ValueError(f"min_lanes must be >= 1, got {self.min_lanes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GlmOptimizationConfiguration:
+    """Per-problem bundle: solver + regularization + λ + down-sampling rate
+    (reference GLMOptimizationConfiguration.scala:28)."""
+
+    optimizer_config: OptimizerConfig = OptimizerConfig()
+    regularization: RegularizationContext = RegularizationContext()
+    regularization_weight: float = 0.0
+    down_sampling_rate: float = 1.0
+    # Convergence-adaptive random-effect solving (chunked rounds + lane
+    # compaction); only consulted by train_random_effects.
+    adaptive: AdaptiveSolveConfig = AdaptiveSolveConfig()
+
+    def __post_init__(self) -> None:
+        if not (0.0 < self.down_sampling_rate <= 1.0):
+            raise ValueError(f"down_sampling_rate in (0,1], got {self.down_sampling_rate}")
+        if self.regularization_weight < 0:
+            raise ValueError("regularization_weight must be >= 0")
+
+    @property
+    def l1_weight(self) -> float:
+        return self.regularization.l1_weight(self.regularization_weight)
+
+    @property
+    def l2_weight(self) -> float:
+        return self.regularization.l2_weight(self.regularization_weight)

@@ -1,7 +1,8 @@
 """Random-effect projection types: ProjectorType and the shared Gaussian
 random projection.
 
-Copy of the parts of ``photon_ml_tpu/projector.py`` that scoring needs
+Copy of the parts of ``photon_ml_tpu/projector.py`` that scoring and the
+random-effect dataset builder need
 (reference projector/ProjectorType.scala, ProjectionMatrix.scala:32,95).
 The random projection matrix is never materialized over the full feature
 space: rows are generated deterministically per column id from a seeded
@@ -57,3 +58,23 @@ class RandomProjectionMatrix:
             ).standard_normal((self._CHUNK, self.projected_dim), dtype=np.float32)
             out[sel] = block[cols[sel] % self._CHUNK]
         return out / np.float32(np.sqrt(self.projected_dim))
+
+    def project_coo(
+        self,
+        sample_idx: np.ndarray,
+        cols: np.ndarray,
+        vals: np.ndarray,
+        num_samples: int,
+    ) -> np.ndarray:
+        """COO features → dense projected [num_samples, projected_dim]:
+        out[s] = Σ_nz v · B[c]."""
+        cols = np.asarray(cols, dtype=np.int64)
+        uniq, inv = np.unique(cols, return_inverse=True)
+        b_sub = self.rows(uniq)
+        out = np.zeros((num_samples, self.projected_dim), dtype=np.float32)
+        np.add.at(
+            out,
+            np.asarray(sample_idx, dtype=np.int64),
+            np.asarray(vals, dtype=np.float32)[:, None] * b_sub[inv],
+        )
+        return out

@@ -1,8 +1,8 @@
 """Core shared types.
 
-Copy of ``TaskType`` from ``photon_ml_tpu/types.py`` (reference
-TaskType.scala:20-24); the port's other enums arrive with the slices that
-use them.
+Copy of the enums of ``photon_ml_tpu/types.py`` (reference
+TaskType.scala:20-24, NormalizationType, RegularizationType,
+util/ConvergenceReason.scala:21).
 """
 
 from __future__ import annotations
@@ -24,3 +24,32 @@ class TaskType(enum.Enum):
             TaskType.LOGISTIC_REGRESSION,
             TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM,
         )
+
+
+class NormalizationType(enum.Enum):
+    """Feature normalization modes (reference NormalizationType)."""
+
+    NONE = "none"
+    SCALE_WITH_MAX_MAGNITUDE = "scale_with_max_magnitude"
+    SCALE_WITH_STANDARD_DEVIATION = "scale_with_standard_deviation"
+    STANDARDIZATION = "standardization"
+
+
+class RegularizationType(enum.Enum):
+    """Regularization family (reference RegularizationType)."""
+
+    NONE = "none"
+    L1 = "l1"
+    L2 = "l2"
+    ELASTIC_NET = "elastic_net"
+
+
+class ConvergenceReason(enum.Enum):
+    """Why an optimizer stopped (reference util/ConvergenceReason.scala:21);
+    kept as an int64 code per solver lane on the device."""
+
+    NOT_CONVERGED = 0
+    MAX_ITERATIONS = 1
+    FUNCTION_VALUES_CONVERGED = 2
+    GRADIENT_CONVERGED = 3
+    OBJECTIVE_NOT_IMPROVING = 4

@@ -106,6 +106,28 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
             "--data-dirs", str(tmp_path), "--model-dir", str(tmp_path),
             "--output-dir", str(tmp_path / "out"),
         ])
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+    )
+    from photon_ml_tpu_torch.types import TaskType
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        GameEstimator(TaskType.LOGISTIC_REGRESSION,
+                      {"fixed": FixedEffectCoordinateConfiguration("g")})
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_random_effect_dataset(["a"], rows, cols, vals, 3, np.zeros(1),
+                                    RandomEffectDataConfiguration("userId"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_game.main([
+            "--train-data-dirs", str(tmp_path), "--coordinate-config", str(tmp_path / "c.json"),
+            "--task", "LOGISTIC_REGRESSION", "--output-dir", str(tmp_path / "out"),
+        ])
     # asked for explicitly, the host is fine
     assert game_model_from_numpy(coords, "LOGISTIC_REGRESSION", device="cpu").device.type == "cpu"
 

@@ -123,10 +123,10 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_training_maps_raise():
-    f = fused_perm.from_coo([0], [1], [1.0], (1, 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        f.rmatvec(torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        f.rmatvec_sq(torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """The training maps are ported (rmatvec, rmatvec_sq on the CSC copy);
+    the bf16 payload still raises."""
+    f = fused_perm.from_coo([0, 0], [1, 2], [2.0, -3.0], (1, 3), device="cpu")
+    assert f.rmatvec(torch.full((1,), 0.5)).tolist() == [0.0, 1.0, -1.5]
+    assert f.rmatvec_sq(torch.full((1,), 0.5)).tolist() == [0.0, 2.0, 4.5]
+    with pytest.raises(NotImplementedError, match="bf16 payload"):
         fused_perm.from_coo([0], [1], [1.0], (1, 3), payload_dtype="bfloat16", device="cpu")
