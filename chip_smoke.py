@@ -20,7 +20,12 @@ exit code is not 0):
                       fused_value_grad_batched_f32 with the four losses over
                       batches (E, s, d) from E in {1, 7, 65,536}, s in {1,
                       16, 33, 512}, d in {1, 16, 100}, weight-0 rows whose
-                      loss overflows.
+                      loss overflows; lane_shuffle_f32 (m in {1, 31, 32,
+                      4097, 2^17} rows) and sublane_shuffle_f32 (R in {2, 4,
+                      8}, {1, 31, 32, 4097} groups and 2^17 rows) with
+                      identity, reversed and random indices, bitwise against
+                      their plain versions, with kernel/plain/torch.gather/
+                      bound times at 2^17 rows.
 4. score_full_width — GameModel.score of a GLMix logistic model at full width
                       (FE: 2^20 rows x 2^24 dims x 16 nonzeros a row; per-user
                       RE 65,536 x 16; per-item RE 16,384 x 16; ~3% unseen
@@ -41,12 +46,32 @@ exit code is not 0):
                       kernel/plain/library/bound times, each kernel against
                       its plain version at those shapes, and the device idle
                       share of one random-effect solve.
-7. train_game_cli   — photon_ml_tpu_torch.cli.train_game on the committed
+7. train_benes_full_width
+                    — the same training data with the fixed effect on the
+                      stage-by-stage Benes engine (sparse_engine "benes")
+                      under STANDARDIZATION (intercept column 2^24): the
+                      engine built with a fresh plan cache (cold routing
+                      timed, the layout the planner chose, device bytes),
+                      the Benes and fused summaries of the FE shard against
+                      each other, the fit through the shuffle kernels
+                      against the same fit through their plain versions
+                      (bitwise) and against itself (bitwise), the fused-
+                      engine fit under the same normalization (objective
+                      rtol 1e-4, AUC 1e-4), each shuffle kernel at the
+                      plan's own stage shapes (bitwise, with kernel/plain/
+                      torch.gather/bound times), Benes vs fused matvec and
+                      rmatvec times, and the device idle share of one FE
+                      solve.
+8. train_game_cli   — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
                       runs bitwise equal; then score_game on the saved
-                      model reproduces the RMSE.
+                      model reproduces the RMSE. Then the same under
+                      --normalization-type STANDARDIZATION with a Benes FE,
+                      on cuda and cpu: RMSE < 0.45, equal to 1e-4, and
+                      score_game on the saved model (which scores through the
+                      Benes engine again) reproduces it.
 
 Then a line with the card's name and power limit (nvidia-smi), a JSON line
 with one entry per kernel, and last {"ok": true, "device": {...}}.
@@ -58,8 +83,11 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,8 +102,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
-              "train_full_width", "train_game_cli")
+              "train_full_width", "train_benes_full_width", "train_game_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
+SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
 KERNEL_REPLACES = {
     "csr_matvec_f32": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), "
                       ":466 (_base_call), :421 (_ascend_call); matvec configuration",
@@ -83,11 +112,15 @@ KERNEL_REPLACES = {
                        ":466 (_base_call), :421 (_ascend_call); rmatvec configuration",
     "fused_value_grad_batched_f32": "photon_ml_tpu/ops/pallas_kernels.py:186 "
                                     "(fused_value_grad_single, _single_kernel :140)",
+    "lane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:96 (_lane_shuffle_pallas)",
+    "sublane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:129 (_sublane_shuffle_pallas)",
 }
 KERNEL_SOURCE = {
     "csr_matvec_f32": "photon_ml_tpu_torch/ops/csrc/spmv.cu",
     "csc_rmatvec_f32": "photon_ml_tpu_torch/ops/csrc/spmv_t.cu",
     "fused_value_grad_batched_f32": "photon_ml_tpu_torch/ops/csrc/value_grad.cu",
+    "lane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
+    "sublane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
 }
 RATINGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "ratings")
 
@@ -145,6 +178,13 @@ def csc_bound_ms(n: int, nnz: int, dim: int) -> tuple:
     """Least time for g = X^T c: col_ptr 8(dim+1), row_idx 4 nnz, vals 4 nnz
     and c 4n read once, g written once (4 dim); 2 flops a nonzero."""
     return _bound(8 * (dim + 1) + 8 * nnz + 4 * n + 4 * dim, 2 * nnz)
+
+
+def shuffle_bound_ms(m: int) -> tuple:
+    """Least time for one lane or sublane shuffle of [m, 128] f32: v read
+    once (4 B), its int8 index read once (1 B), out written once (4 B) an
+    element; no arithmetic."""
+    return _bound(9 * 128 * m, 0)
 
 
 def value_grad_bound_ms(E: int, s: int, d: int) -> tuple:
@@ -379,6 +419,80 @@ def _check_value_grad_kernel(gen, dev) -> tuple:
     return cases, worst
 
 
+def _shuffle_indices(kind: str, m: int, hi: int, gen, dev) -> torch.Tensor:
+    """[m, 128] int8 indices in [0, hi): the identity, reversed, or random
+    (hi = R for a sublane shuffle: positions within each group of R rows)."""
+    if kind == "random":
+        idx = torch.randint(0, hi, (m, 128), generator=gen, device=dev)
+    else:
+        pos = torch.arange(128, device=dev).expand(m, 128) if hi == 128 else (
+            torch.arange(m, device=dev).remainder(hi).unsqueeze(1).expand(m, 128))
+        idx = pos if kind == "identity" else hi - 1 - pos
+    return idx.to(torch.int8).contiguous()
+
+
+def shuffle_times(v: torch.Tensor, idx: torch.Tensor, rows: int) -> dict:
+    """Kernel, plain version and library (one torch.gather on int64 indices
+    made beforehand) ms of one lane (rows 0) or sublane shuffle, and its
+    bound; the kernel's output checked bitwise against the plain version's
+    on these inputs."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    m = v.shape[0]
+    idx64 = idx.long()
+    if rows == 0:
+        kernel = lambda: permute_net.lane_shuffle_f32(v, idx)  # noqa: E731
+        plain = lambda: permute_net.lane_shuffle_plain(v, idx)  # noqa: E731
+        library = lambda: torch.gather(v, 1, idx64)  # noqa: E731
+    else:
+        v3, i3 = v.view(m // rows, rows, 128), idx64.view(m // rows, rows, 128)
+        kernel = lambda: permute_net.sublane_shuffle_f32(v, idx, rows)  # noqa: E731
+        plain = lambda: permute_net.sublane_shuffle_plain(v, idx, rows)  # noqa: E731
+        library = lambda: torch.gather(v3, 1, i3)  # noqa: E731
+    equal = torch.equal(kernel(), plain())
+    ms = cuda_ms({"kernel": kernel, "plain": plain, "library": library})
+    bound_ms, bound_by = shuffle_bound_ms(m)
+    return {"m": m, "rows": rows, "bitwise_equal": equal, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"], "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
+    """One shuffle kernel (lane: rows_set (0,); sublane: (2, 4, 8)) against
+    its plain version, bitwise, with identity, reversed and random indices;
+    then its times at 2^17 rows."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    cases = []
+    for rows in rows_set:
+        sizes = (1, 31, 32, 4097, 1 << 17) if rows == 0 else (
+            rows, 31 * rows, 32 * rows, 4097 * rows, 1 << 17)
+        hi = 128 if rows == 0 else rows
+        for m in sizes:
+            v = torch.randn(m, 128, generator=gen, device=dev)
+            for kind in ("identity", "reversed", "random"):
+                idx = _shuffle_indices(kind, m, hi, gen, dev)
+                if rows == 0:
+                    out = permute_net.lane_shuffle_f32(v, idx)
+                    plain = permute_net.lane_shuffle_plain(v, idx)
+                else:
+                    out = permute_net.sublane_shuffle_f32(v, idx, rows)
+                    plain = permute_net.sublane_shuffle_plain(v, idx, rows)
+                torch.cuda.synchronize()
+                case = {"m": m, "rows": rows, "indices": kind,
+                        "ok": torch.equal(out, plain)}
+                cases.append(case)
+                if not case["ok"]:
+                    raise AssertionError(f"shuffle kernel differs from its plain version: {case}")
+    m = 1 << 17
+    v = torch.randn(m, 128, generator=gen, device=dev)
+    times = [shuffle_times(v, _shuffle_indices("random", m, 128 if r == 0 else r, gen, dev), r)
+             for r in rows_set]
+    if not all(t["bitwise_equal"] for t in times):
+        raise AssertionError(f"shuffle kernel differs from its plain version: {times}")
+    return {"cases": cases, "times_at_2^17_rows": times}, 0.0
+
+
 def phase_kernel(seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -387,11 +501,14 @@ def phase_kernel(seed: int) -> dict:
         ("csr_matvec_f32", _check_csr_kernel),
         ("csc_rmatvec_f32", _check_csc_kernel),
         ("fused_value_grad_batched_f32", _check_value_grad_kernel),
+        ("lane_shuffle_f32", lambda g, d: _check_shuffle_kernel((0,), g, d)),
+        ("sublane_shuffle_f32", lambda g, d: _check_shuffle_kernel((2, 4, 8), g, d)),
     ):
         results[name], worst[name] = check(gen, dev)
         torch.cuda.empty_cache()
     emit("kernel", tolerance="vs float64: atol = 1e-5 * max(1, sum of |terms|); vs plain: "
-         "that + terms * 2^-24 * max(1, sum of |terms|), elementwise", **results)
+         "that + terms * 2^-24 * max(1, sum of |terms|), elementwise; shuffles: bitwise",
+         **results)
     return {"max_abs_err": worst}
 
 
@@ -712,9 +829,10 @@ def make_glmix_training(seed: int, n: int, n_val: int, fe_dim: int, fe_k: int,
     return part(0, n), part(n, total)
 
 
-def _glmix_estimator(device: str):
-    """FE + per_user + per_item, L-BFGS 10 iterations, L2 lambda 1, one
-    outer iteration."""
+def _glmix_estimator(device: str, fe_engine: str = "auto", **kwargs):
+    """FE (on ``fe_engine``) + per_user + per_item, L-BFGS 10 iterations, L2
+    lambda 1, one outer iteration; ``kwargs`` go to GameEstimator
+    (normalization, intercept_indices)."""
     from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
     from photon_ml_tpu_torch.estimators.game import (
         FixedEffectCoordinateConfiguration as FE,
@@ -734,37 +852,45 @@ def _glmix_estimator(device: str):
     return GameEstimator(
         TaskType.LOGISTIC_REGRESSION,
         {
-            "fixed": FE("global", opt),
+            "fixed": FE("global", opt, sparse_engine=fe_engine),
             "per_user": RE("per_user", RandomEffectDataConfiguration("userId"), opt),
             "per_item": RE("per_item", RandomEffectDataConfiguration("itemId"), opt),
         },
         update_order=["fixed", "per_user", "per_item"],
         num_outer_iterations=1,
         device=device,
+        **kwargs,
     )
 
 
 class plain_versions:
-    """Within the block, every kernel wrapper of the path computes its plain
-    PyTorch version on the card instead of launching its kernel (a
-    comparison run; the package has no such switch)."""
+    """Within the block, the named kernel wrappers (default: every kernel of
+    the port) compute their plain PyTorch versions on the card instead of
+    launching their kernels (a comparison run; the package has no such
+    switch)."""
+
+    def __init__(self, kernels=KERNELS + SHUFFLES):
+        self.kernels = kernels
 
     def __enter__(self):
-        from photon_ml_tpu_torch.ops import fused_perm, pallas_kernels
+        from photon_ml_tpu_torch.ops import fused_perm, pallas_kernels, permute_net
 
-        self._saved = [
-            (fused_perm, "csr_matvec_f32", fused_perm.csr_matvec_f32),
-            (fused_perm, "csc_rmatvec_f32", fused_perm.csc_rmatvec_f32),
-            (pallas_kernels, "fused_value_grad_batched_f32",
-             pallas_kernels.fused_value_grad_batched_f32),
-        ]
-        fused_perm.csr_matvec_f32 = (
-            lambda row_ptr, col_idx, vals, w, dim: fused_perm.csr_matvec_plain(
-                row_ptr, col_idx, vals, w))
-        fused_perm.csc_rmatvec_f32 = (
-            lambda col_ptr, row_idx, vals, c, n, transform="id", segments=None:
-            fused_perm.csc_rmatvec_plain(col_ptr, row_idx, vals, c, transform))
-        pallas_kernels.fused_value_grad_batched_f32 = pallas_kernels.fused_value_grad_plain
+        plain = {
+            "csr_matvec_f32": (fused_perm, lambda row_ptr, col_idx, vals, w, dim:
+                               fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w)),
+            "csc_rmatvec_f32": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
+                                transform="id", segments=None: fused_perm.csc_rmatvec_plain(
+                                    col_ptr, row_idx, vals, c, transform)),
+            "fused_value_grad_batched_f32": (pallas_kernels,
+                                             pallas_kernels.fused_value_grad_plain),
+            "lane_shuffle_f32": (permute_net, permute_net.lane_shuffle_plain),
+            "sublane_shuffle_f32": (permute_net, permute_net.sublane_shuffle_plain),
+        }
+        self._saved = []
+        for name in self.kernels:
+            module, fn = plain[name]
+            self._saved.append((module, name, getattr(module, name)))
+            setattr(module, name, fn)
         return self
 
     def __exit__(self, *exc):
@@ -965,9 +1091,239 @@ def phase_train_full_width(seed: int) -> dict:
     return result
 
 
-def ratings_config(root: str) -> str:
-    """The ratings fixture's GLMix config (FE with L-BFGS + per_user +
-    per_movie), written under ``root``."""
+class routing_seconds:
+    """Within the block, host seconds spent building routing plans
+    (``sparse_perm._build_plan_cached``: the colorer, the stage arrays and
+    the plan-cache write) are summed into ``self.seconds``."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.ops import sparse_perm
+
+        self.seconds, self.plans = 0.0, 0
+        self._saved = sparse_perm._build_plan_cached
+
+        def timed(perm, cache_dir):
+            t0 = time.perf_counter()
+            try:
+                return self._saved(perm, cache_dir)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.plans += 1
+
+        sparse_perm._build_plan_cached = timed
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_tpu_torch.ops import sparse_perm
+
+        sparse_perm._build_plan_cached = self._saved
+
+
+def benes_layout(feats) -> dict:
+    """What the layout planner chose for a Benes engine, and its bytes on
+    the device."""
+    from photon_ml_tpu_torch.ops import sparse_perm
+
+    split = isinstance(feats, sparse_perm.ColumnSplitFeatures)
+    blocks = feats.blocks if split else (feats,)
+    engines = [b for b in blocks if isinstance(b, sparse_perm.BenesSparseFeatures)]
+    tensors = [feats.hot_matrix, feats.hot_cols] if split else []
+    for b in engines:
+        tensors += [b.ell_values, b.csc_values, b.hot_matrix, b.hot_cols, b.spill_rows,
+                    b.spill_cols, b.spill_vals, *b.plan.idx, *b.plan_inv.idx]
+    spill = [0 if b.spill_rows is None else b.spill_rows.numel() for b in engines]
+    return {
+        "engine": type(feats).__name__,
+        "column_blocks": len(blocks),
+        "empty_blocks": len(blocks) - len(engines),
+        "kp_cap": [b.csc_k if s else None for b, s in zip(engines, spill)],
+        "ell_k": [b.ell_k for b in engines],
+        "spill_entries": spill,
+        "hot_columns": 0 if feats.hot_cols is None else int(feats.hot_cols.numel()),
+        "network_slots": [b.plan.size for b in engines],
+        "stages_per_plan": [len(b.plan.kinds) for b in engines],
+        "lane_stages_per_plan": [sum(k[0] == "lane" for k in b.plan.kinds) for b in engines],
+        "sublane_stages_per_plan": [[k[1] for k in b.plan.kinds if k[0] == "sublane"]
+                                    for b in engines],
+        "device_bytes": sum(t.numel() * t.element_size() for t in tensors if t is not None),
+    }
+
+
+def _summaries_agree(a, b) -> dict:
+    """Two summaries of one shard: mean within 1e-5 of the column's mean
+    |x| (f32 sums of a few terms of either sign, in another order),
+    variance rtol 1e-4, min / max / nonzero counts / count exactly."""
+    mean_err = float(((a.mean - b.mean).abs() / torch.clamp(b.mean_abs, min=1e-30)).max())
+    var_err = float(((a.variance - b.variance).abs()
+                     / torch.clamp(b.variance.abs(), min=1e-30)).max())
+    exact = {k: bool(torch.equal(getattr(a, k), getattr(b, k)))
+             for k in ("num_nonzeros", "min_val", "max_val", "count")}
+    return {"mean_err_rel_mean_abs": mean_err, "variance_rel_err": var_err, "exact": exact,
+            "ok": mean_err <= 1e-5 and var_err <= 1e-4 and all(exact.values())}
+
+
+def phase_train_benes_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.normalization import build_normalization_context
+    from photon_ml_tpu_torch.ops import launches, sparse_perm
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.stat.summary import summarize
+    from photon_ml_tpu_torch.types import NormalizationType
+
+    n, n_val, fe_dim, fe_k = 1 << 20, 1 << 18, 1 << 24, 16
+    t0 = time.perf_counter()
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, 65_536, 16_384)
+    data_s = time.perf_counter() - t0
+
+    # the engines, routed cold: a fresh, empty plan cache
+    plan_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    saved_env = os.environ.get("PHOTON_ML_TPU_TORCH_PLAN_CACHE")
+    os.environ["PHOTON_ML_TPU_TORCH_PLAN_CACHE"] = plan_dir
+    try:
+        build = {}
+        for name, data in (("train", train), ("validation", val)):
+            with routing_seconds() as rs:
+                t0 = time.perf_counter()
+                feats_of = data.sparse_features("global", engine="benes", device="cuda")
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+            build[name] = {"rows": data.num_rows, "build_s": total, "routing_s": rs.seconds,
+                           "rest_of_build_s": total - rs.seconds, "plans": rs.plans,
+                           "layout": benes_layout(feats_of),
+                           "host_peak_rss_gb_so_far": resource.getrusage(
+                               resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    finally:
+        if saved_env is None:
+            os.environ.pop("PHOTON_ML_TPU_TORCH_PLAN_CACHE", None)
+        else:
+            os.environ["PHOTON_ML_TPU_TORCH_PLAN_CACHE"] = saved_env
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    emit("train_benes_full_width", engine_build=build)  # before the checks that may fail
+    feats = train.sparse_features("global", engine="benes", device="cuda")
+    t0 = time.perf_counter()
+    fused = train.sparse_features("global", engine="fused", device="cuda")
+    torch.cuda.synchronize()
+    fused_build_s = time.perf_counter() - t0
+
+    # the FE shard's statistics through both engines, and the context
+    labels = torch.from_numpy(train.labels).cuda()
+    weights = torch.from_numpy(train.weights).cuda()
+    t0 = time.perf_counter()
+    summary = summarize(LabeledData.create(feats, labels, weights=weights))
+    torch.cuda.synchronize()
+    summary_s = time.perf_counter() - t0
+    fused_summary = summarize(LabeledData.create(fused, labels, weights=weights))
+    summaries = _summaries_agree(summary, fused_summary)
+    if not summaries["ok"]:
+        raise AssertionError(f"Benes and fused summaries of the FE shard differ: {summaries}")
+    ctx = build_normalization_context(NormalizationType.STANDARDIZATION, summary.mean,
+                                      summary.variance, summary.max_abs, fe_dim)
+    norm_kw = {"normalization": {"global": ctx}, "intercept_indices": {"global": fe_dim}}
+
+    estimator = _glmix_estimator("cuda", fe_engine="benes", **norm_kw)
+    t0 = time.perf_counter()
+    coords = estimator.build_coordinates(train)
+    torch.cuda.synchronize()
+    build_coordinates_s = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before, read just after
+    launches.reset()
+    t0 = time.perf_counter()
+    fit = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launches.counts()
+    missing = [k for k in SHUFFLES + ("fused_value_grad_batched_f32",) if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the Benes fit did not launch {missing}: {counts}")
+
+    def history(f):
+        return [v for _, v in f.objective_history]
+
+    again = estimator.fit(train, val, coordinates=coords)
+    launches.reset()
+    with plain_versions(SHUFFLES):
+        t0 = time.perf_counter()
+        plain_fit = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        plain_fit_s = time.perf_counter() - t0
+    if any(launches.counts()[k] for k in SHUFFLES):
+        raise AssertionError(f"the plain run launched shuffle kernels: {launches.counts()}")
+    for name, other in (("plain", plain_fit), ("again", again)):
+        if history(other) != history(fit) or other.validation_metric != fit.validation_metric:
+            raise AssertionError(
+                f"the Benes fit and its {name} run differ: {history(fit)} {fit.validation_metric}"
+                f" vs {history(other)} {other.validation_metric}")
+
+    # the fused engine under the same normalization (same RE datasets)
+    fused_estimator = _glmix_estimator("cuda", fe_engine="fused", **norm_kw)
+    fused_coords = dict(coords)
+    fe = coords["fixed"]
+    fused_coords["fixed"] = dataclasses.replace(
+        fe, data=dataclasses.replace(fe.data, features=fused))
+    fused_fit = fused_estimator.fit(train, val, coordinates=fused_coords)
+    obj_rel = max(abs(a - b) / abs(b) for a, b in zip(history(fit), history(fused_fit)))
+    auc_diff = abs(fit.validation_metric - fused_fit.validation_metric)
+    if not (np.isfinite(fit.validation_metric) and obj_rel <= 1e-4 and auc_diff <= 1e-4):
+        raise AssertionError(f"Benes and fused fits differ: objective rel {obj_rel}, "
+                             f"AUC {auc_diff}")
+
+    # each shuffle kernel at the first network's own stage shapes and indices
+    block = next(b for b in getattr(feats, "blocks", (feats,))
+                 if isinstance(b, sparse_perm.BenesSparseFeatures))
+    plan = block.plan
+    m = plan.size // 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(m, 128, generator=gen, device="cuda")
+    stages = list(zip([k for k in plan.kinds if k[0] in ("lane", "sublane")], plan.idx))
+    lane_idx = next(i for k, i in stages if k[0] == "lane")
+    sub_kind, sub_idx = next((k, i) for k, i in stages if k[0] == "sublane" and k[1] > 1)
+    kernels = {
+        "lane_shuffle_f32": shuffle_times(v, lane_idx, 0),
+        "sublane_shuffle_f32": shuffle_times(v, sub_idx, sub_kind[1]),
+    }
+    for name, k in kernels.items():
+        if not k["bitwise_equal"]:
+            raise AssertionError(f"{name} differs from its plain version at the plan's shapes")
+        k["launches"] = counts[name]
+
+    # one map of each engine at the same data
+    w = fit.model.models["fixed"].coefficients.means
+    c = torch.randn(n, generator=gen, device="cuda")
+    engines = cuda_ms({
+        "benes_matvec": lambda: feats.matvec(w), "fused_matvec": lambda: fused.matvec(w),
+        "benes_rmatvec": lambda: feats.rmatvec(c), "fused_rmatvec": lambda: fused.rmatvec(c),
+    }, reps=10)
+    launches.reset()
+    feats.matvec(w)
+    per_matvec = launches.counts()
+
+    # device idle share of one FE solve (warm start)
+    fe_solve = profile_device_idle(
+        lambda: coords["fixed"].update_model_device(fit.model.models["fixed"],
+                                                    torch.zeros(n, device="cuda")))
+    result = {
+        "rows": n, "validation_rows": n_val, "fe_dim": feats.dim, "data_s": data_s,
+        "engine_build": build, "fused_build_s": fused_build_s, "summary_s": summary_s,
+        "summaries_benes_vs_fused": summaries,
+        "build_coordinates_s": build_coordinates_s, "fit_s": fit_s, "plain_fit_s": plain_fit_s,
+        "seconds_per_coordinate": fit.update_seconds,
+        "objective_history": fit.objective_history,
+        "fused_objective_history": fused_fit.objective_history,
+        "objective_rel_diff_vs_fused": obj_rel,
+        "validation_auc": fit.validation_metric,
+        "fused_validation_auc": fused_fit.validation_metric, "auc_diff_vs_fused": auc_diff,
+        "bitwise_equal_to_plain_and_to_itself": True,
+        "launches": counts, "launches_per_benes_matvec": per_matvec,
+        "kernels": kernels, "engine_ms": engines, "fe_solve_profile": fe_solve,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit("train_benes_full_width", **result)
+    return result
+
+
+def ratings_config(root: str, fe_engine: str = "auto") -> str:
+    """The ratings fixture's GLMix config (FE with L-BFGS on ``fe_engine`` +
+    per_user + per_movie), written under ``root``."""
     optimizer = {"optimizer": "LBFGS", "regularization": "L2"}
     cfg = {
         "feature_shards": {
@@ -976,7 +1332,7 @@ def ratings_config(root: str) -> str:
             "per_movie": {"feature_bags": ["movieFeatures"], "add_intercept": False},
         },
         "coordinates": {
-            "fixed": {"type": "fixed", "feature_shard": "global",
+            "fixed": {"type": "fixed", "feature_shard": "global", "sparse_engine": fe_engine,
                       "optimizer": {**optimizer, "regularization_weight": 10.0}},
             "per_user": {"type": "random", "feature_shard": "per_user",
                          "random_effect_type": "userId",
@@ -987,7 +1343,7 @@ def ratings_config(root: str) -> str:
         },
         "update_order": ["fixed", "per_user", "per_movie"],
     }
-    path = os.path.join(root, "game.json")
+    path = os.path.join(root, f"game_{fe_engine}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -999,14 +1355,18 @@ def phase_train_game_cli(seed: int) -> dict:
 
     result = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
-        config = ratings_config(root)
-        for run, device in (("cuda", "cuda"), ("cuda_again", "cuda"), ("cpu", "cpu")):
+        std = ("--normalization-type", "STANDARDIZATION")
+        runs = (("cuda", "cuda", "auto", ()), ("cuda_again", "cuda", "auto", ()),
+                ("cpu", "cpu", "auto", ()), ("cuda_std_benes", "cuda", "benes", std),
+                ("cpu_std_benes", "cpu", "benes", std))
+        for run, device, engine, extra in runs:
             argv = [
                 "--train-data-dirs", os.path.join(RATINGS, "train"),
                 "--validation-data-dirs", os.path.join(RATINGS, "test"),
-                "--coordinate-config", config, "--task", "LINEAR_REGRESSION",
+                "--coordinate-config", ratings_config(root, engine),
+                "--task", "LINEAR_REGRESSION",
                 "--output-dir", os.path.join(root, run), "--evaluator", "RMSE",
-                "--num-outer-iterations", "2", "--device", device,
+                "--num-outer-iterations", "2", "--device", device, *extra,
             ]
             launches.reset()
             t0 = time.perf_counter()
@@ -1015,21 +1375,29 @@ def phase_train_game_cli(seed: int) -> dict:
             result[f"{run}_launches"] = launches.counts()
             result[f"{run}_rmse"] = fit.validation_metric
             result[f"{run}_objectives"] = [v for _, v in fit.objective_history]
-        launches.reset()
-        rescored = score_game.run(score_game.parse_args([
-            "--data-dirs", os.path.join(RATINGS, "test"),
-            "--model-dir", os.path.join(root, "cuda", "best"),
-            "--output-dir", os.path.join(root, "scores"), "--evaluator", "RMSE",
-        ]))
-        result["score_game_rmse"] = rescored
-        result["score_game_launches"] = launches.counts()
+        for run in ("cuda", "cuda_std_benes"):
+            launches.reset()
+            result[f"score_game_rmse_{run}"] = score_game.run(score_game.parse_args([
+                "--data-dirs", os.path.join(RATINGS, "test"),
+                "--model-dir", os.path.join(root, run, "best"),
+                "--output-dir", os.path.join(root, f"scores_{run}"), "--evaluator", "RMSE",
+            ]))
+            result[f"score_game_launches_{run}"] = launches.counts()
+    rescored = result["score_game_rmse_cuda"]
     if result["cuda_launches"]["fused_value_grad_batched_f32"] < 1:
         raise AssertionError(f"train_game on cuda did not launch the RE kernel: {result}")
-    for device in ("cuda", "cpu"):
-        if not result[f"{device}_rmse"] < 0.45:
-            raise AssertionError(f"{device} RMSE {result[f'{device}_rmse']} not under 0.45")
-    if abs(result["cuda_rmse"] - result["cpu_rmse"]) > 1e-4:
-        raise AssertionError(f"RMSE on cuda and cpu differ: {result}")
+    missing = [k for k in SHUFFLES if result["cuda_std_benes_launches"][k] < 1
+               or result["score_game_launches_cuda_std_benes"][k] < 1]
+    if missing:
+        raise AssertionError(f"the standardized Benes run did not launch {missing}: {result}")
+    for run in ("cuda", "cpu", "cuda_std_benes", "cpu_std_benes"):
+        if not result[f"{run}_rmse"] < 0.45:
+            raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.45")
+    for a, b in (("cuda", "cpu"), ("cuda_std_benes", "cpu_std_benes")):
+        if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
+            raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
+    if abs(result["score_game_rmse_cuda_std_benes"] - result["cuda_std_benes_rmse"]) > 1e-5:
+        raise AssertionError(f"score_game does not reproduce the standardized RMSE: {result}")
     # the sync schedule, and scoring, repeat bitwise on one device
     if (result["cuda_objectives"] != result["cuda_again_objectives"]
             or result["cuda_rmse"] != result["cuda_again_rmse"]):
@@ -1070,11 +1438,16 @@ def main(argv=None) -> int:
     if "train_full_width" in phases:
         results["train_full_width"] = phase_train_full_width(args.seed)
     torch.cuda.empty_cache()
+    if "train_benes_full_width" in phases:
+        results["train_benes_full_width"] = phase_train_benes_full_width(args.seed)
+    torch.cuda.empty_cache()
     if "train_game_cli" in phases:
         results["train_game_cli"] = phase_train_game_cli(args.seed)
 
-    # launches and times from the training path, which runs all three
-    train = results.get("train_full_width", {}).get("kernels", {})
+    # launches and times from the phase that runs each kernel: the training
+    # path runs the first three, the Benes training path the shuffles
+    train = {**results.get("train_full_width", {}).get("kernels", {}),
+             **results.get("train_benes_full_width", {}).get("kernels", {})}
     errors = results.get("kernel", {}).get("max_abs_err", {})
     kernels = [{
         "name": name,
@@ -1088,7 +1461,7 @@ def main(argv=None) -> int:
         "bound_ms": train.get(name, {}).get("bound_ms"),
         "bound_by": train.get(name, {}).get("bound_by"),
         "library_ms": train.get(name, {}).get("library_ms"),
-    } for name in KERNELS]
+    } for name in KERNELS + SHUFFLES]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

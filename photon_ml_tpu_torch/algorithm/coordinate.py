@@ -49,31 +49,37 @@ class FixedEffectCoordinate:
     """Global GLM over one feature shard (reference
     FixedEffectCoordinate.scala:34), solved by the batched L-BFGS with one
     lane. ``data`` carries the GAME-level base offsets; the residual scores
-    are added on top per update."""
+    are added on top per update. With ``data.norm`` the solve runs in the
+    normalized space."""
 
     data: LabeledData
     task: TaskType
     configuration: GlmOptimizationConfiguration
+    # with a shift normalization on data.norm, the intercept's slot: the
+    # back-transform of the coefficients needs it
+    intercept_index: Optional[int] = None
     # attach per-coefficient variances ~ 1/(H_jj + eps) to trained models
     # (reference COMPUTE_VARIANCE -> DistributedOptimizationProblem.scala:80-94)
     compute_variances: bool = False
 
     def __post_init__(self) -> None:
         _check_down_sampling(self.configuration)
-        if self.data.norm is not None and not self.data.norm.is_identity:
-            raise NotImplementedError(
-                "a normalized fixed effect maps its coefficients back to the "
-                "original space, which is not ported yet (ROADMAP.md, Queue A: "
-                "build_normalization_context with stat/summary.py)"
-            )
 
     def update_model_device(
         self, model: Optional[GeneralizedLinearModel], residual_scores: torch.Tensor
     ) -> GeneralizedLinearModel:
+        """Solve against the residual offsets. Models carry original-space
+        coefficients: with ``data.norm`` the warm start is mapped into the
+        normalized space and the optimum and its variances back (reference
+        train_glm, model_training.py:96-97, 162-166)."""
         data = self.data.with_offsets(self.data.offsets + residual_scores)
+        norm = data.norm if data.norm is not None and not data.norm.is_identity else None
         objective = make_glm_objective(loss_for_task(self.task))
         if model is not None:
-            w0 = model.coefficients.means.reshape(1, -1)
+            w0 = model.coefficients.means
+            if norm is not None:
+                w0 = norm.inverse_transform_model_coefficients(w0, self.intercept_index)
+            w0 = w0.reshape(1, -1)
         else:
             w0 = torch.zeros((1, data.dim), dtype=torch.float32, device=data.labels.device)
         w = solve(objective, w0, data, self.configuration).w[0]
@@ -81,6 +87,10 @@ class FixedEffectCoordinate:
         if self.compute_variances:
             diag = objective.hessian_diag(w, data, self.configuration.l2_weight)
             variances = 1.0 / (diag + 1e-12)
+        if norm is not None:
+            w = norm.transform_model_coefficients(w, self.intercept_index)
+            if variances is not None:
+                variances = norm.transform_model_variances(variances, self.intercept_index)
         return GeneralizedLinearModel(
             coefficients=Coefficients(means=w, variances=variances), task=self.task
         )

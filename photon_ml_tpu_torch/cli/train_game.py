@@ -2,16 +2,19 @@
 
 Port of ``photon_ml_tpu/cli/train_game.py`` (reference
 cli/game/training/Driver.scala:50, run() :64-119): read Avro training data
-(building the feature index maps) → read validation data → GameEstimator.fit
-by block coordinate descent → best model by the first evaluator → save the
-model (Driver.scala:389-433). Training runs on ``--device`` (default
-``cuda``; ``cpu`` only when asked).
+(building the feature index maps) → read validation data → feature statistics and normalization contexts of
+the fixed-effect shards when ``--normalization-type`` asks for them →
+GameEstimator.fit by block coordinate descent → best model by the first
+evaluator → save the model, in original-space coefficients
+(Driver.scala:389-433). Training runs on ``--device`` (default ``cuda``;
+``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_game \\
         --train-data-dirs data/train --validation-data-dirs data/test \\
         --coordinate-config game.json --task LOGISTIC_REGRESSION \\
-        --output-dir out/ [--evaluator AUC] [--device cpu]
+        --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \
+        [--device cpu]
 
 The reference's other flags are not ported yet (ROADMAP.md, Queue A).
 """
@@ -24,6 +27,8 @@ import sys
 import time
 from typing import List, Optional
 
+import torch
+
 from photon_ml_tpu_torch.cli.common import (
     delete_dirs_if_exist,
     load_game_config,
@@ -32,13 +37,18 @@ from photon_ml_tpu_torch.cli.common import (
 )
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.estimators.game import (
+    FixedEffectCoordinateConfiguration,
     GameEstimator,
     GameFit,
     RandomEffectCoordinateConfiguration,
 )
 from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
+from photon_ml_tpu_torch.indexmap import INTERCEPT_KEY
 from photon_ml_tpu_torch.io.data_reader import read_game_data
 from photon_ml_tpu_torch.io.model_io import save_game_model
+from photon_ml_tpu_torch.normalization import build_normalization_context
+from photon_ml_tpu_torch.ops.data import LabeledData
+from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
 
 
@@ -61,7 +71,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "are logged per coordinate update")
     p.add_argument("--normalization-type", default="NONE",
                    choices=[n.name for n in NormalizationType],
-                   help="only NONE is ported so far")
+                   help="feature normalization of the fixed-effect shards, from "
+                        "their summary statistics (STANDARDIZATION needs an "
+                        "intercept)")
+    p.add_argument("--summarization-output-dir", default=None,
+                   help="not ported yet (ROADMAP.md, Queue A item 1)")
+    p.add_argument("--save-feature-stats", action="store_true",
+                   help="not ported yet (ROADMAP.md, Queue A item 1)")
     p.add_argument("--compute-variance", action="store_true",
                    help="attach per-coefficient variances ~ 1/(H_jj+eps) to "
                         "FE and RE models (reference --compute-variance)")
@@ -79,11 +95,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def run(args: argparse.Namespace) -> GameFit:
     logger = setup_logger()
     device = resolve_device(args.device)
-    if args.normalization_type != "NONE":
+    if args.summarization_output_dir or args.save_feature_stats:
         raise NotImplementedError(
-            f"--normalization-type {args.normalization_type} needs "
-            "build_normalization_context and stat/summary.py, which are not "
-            "ported yet (ROADMAP.md, Queue A)"
+            "--summarization-output-dir / --save-feature-stats write the feature "
+            "statistics, which is not ported yet (ROADMAP.md, Queue A item 1)"
         )
     durations = {}
 
@@ -124,6 +139,29 @@ def run(args: argparse.Namespace) -> GameFit:
         )
         logger.info("validation rows: %d", validation_data.num_rows)
 
+    norm_type = NormalizationType[args.normalization_type]
+    normalization, intercept_indices = {}, {}
+    if norm_type is not NormalizationType.NONE:
+        fe_shards = sorted({
+            c.feature_shard for c in coordinates.values()
+            if isinstance(c, FixedEffectCoordinateConfiguration)
+        })
+        for sid in fe_shards:
+            t0 = time.perf_counter()
+            labeled = LabeledData.create(
+                data.sparse_features(sid, engine="auto", device=device),
+                torch.from_numpy(data.labels).to(device),
+                weights=torch.from_numpy(data.weights).to(device),
+            )
+            summary = summarize(labeled)
+            icpt = index_maps[sid].get_index(INTERCEPT_KEY)
+            intercept_indices[sid] = icpt if icpt >= 0 else None
+            normalization[sid] = build_normalization_context(
+                norm_type, mean=summary.mean, variance=summary.variance,
+                max_magnitude=summary.max_abs, intercept_index=intercept_indices[sid],
+            )
+            durations[f"feature stats [{sid}]"] = time.perf_counter() - t0
+
     evaluator, extra = None, []
     if validation_data is not None and args.evaluator:
         evaluator = make_evaluator(args.evaluator[0], validation_data)
@@ -141,6 +179,8 @@ def run(args: argparse.Namespace) -> GameFit:
         evaluator=evaluator,
         extra_evaluators=extra,
         compute_variance=args.compute_variance,
+        normalization=normalization,
+        intercept_indices=intercept_indices,
         device=device,
     )
     fit = timed("fit", estimator.fit, data, validation_data=validation_data)

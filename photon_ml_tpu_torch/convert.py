@@ -10,7 +10,9 @@ it (``GameEstimator.fit(initial_models=model.models)``).
 :func:`game_model_to_numpy` is its inverse, for comparing the port's
 fitted models with the reference's. Enum-valued fields (task, projector
 type) may be given as this package's enums, as the JAX package's (matched
-by name) or as strings.
+by name) or as strings. :func:`normalization_context_from_numpy` carries a
+``NormalizationContext`` across the same way, from its ``factor`` and
+``shift`` as numpy.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.game import CoordinateMeta, GameModel
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.projector import ProjectorType
 from photon_ml_tpu_torch.types import TaskType
 
@@ -133,3 +136,17 @@ def game_model_to_numpy(model: GameModel) -> Dict[str, Dict[str, Any]]:
             )
         out[cid] = c
     return out
+
+
+def normalization_context_from_numpy(
+    factor, shift, device: DeviceLike = DEFAULT_DEVICE
+) -> NormalizationContext:
+    """The port's NormalizationContext from ``factor`` and ``shift`` [d]
+    arrays (``np.asarray`` of the JAX context's fields; None for a field the
+    context does not have)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return NormalizationContext(factor=t(factor), shift=t(shift))

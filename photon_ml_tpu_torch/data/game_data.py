@@ -11,9 +11,10 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
-from photon_ml_tpu_torch.ops import fused_perm
+from photon_ml_tpu_torch.ops import fused_perm, sparse_perm
 from photon_ml_tpu_torch.ops.features import from_scipy_like
 
 # "auto" picks the fused engine for shards at least this large on the card
@@ -100,7 +101,10 @@ class GameData:
         - "ell"   — padded row-sparse layout (gather + sum).
         - "fused" — CSR with the hand-written ``csr_matvec_f32`` kernel
           (counterpart of the reference's fused Benes engine).
-        - "benes" — the stage-by-stage permutation engine: not ported yet.
+        - "benes" — the stage-by-stage Benes permutation engine
+          (``ops/sparse_perm.py``: the ``lane_shuffle_f32`` and
+          ``sublane_shuffle_f32`` kernels on the card); its routing plans
+          are cached in ``sparse_perm.default_plan_cache()``.
         - "auto"  — "fused" on ``cuda`` for a shard with at least 2^20
           nonzeros, else "ell" (the reference's rule).
         """
@@ -113,16 +117,18 @@ class GameData:
         if engine == "auto":
             big = shard.rows.size >= FUSED_MIN_NNZ
             engine = "fused" if dev.type == "cuda" and big else "ell"
-        if engine == "benes":
-            raise NotImplementedError(
-                "engine='benes' (ops/sparse_perm.py, ops/permute_net.py) is not "
-                "ported yet: ROADMAP.md, Queue B, K4/K5"
-            )
+        if dev.type == "cuda" and dev.index is None:
+            # "cuda" and "cuda:0" name one card: one cache entry
+            dev = torch.device("cuda", torch.cuda.current_device())
         key = (shard_name, engine, str(dev))
         if key not in self._feat_cache:
             shape = (self.num_rows, shard.dim)
             if engine == "fused":
                 feats = fused_perm.from_coo(
+                    shard.rows, shard.cols, shard.vals, shape, device=dev
+                )
+            elif engine == "benes":
+                feats = sparse_perm.from_coo(
                     shard.rows, shard.cols, shard.vals, shape, device=dev
                 )
             else:

@@ -8,9 +8,13 @@ validation data after every coordinate update, keep the best model by the
 evaluator. Everything runs on ``device`` (default ``cuda``; raises without
 a card unless ``device="cpu"``).
 
+Fixed effects may train normalized (``normalization`` per feature shard,
+reference prepareNormalizationContexts); random effects train unnormalized,
+as in the reference.
+
 Not ported (ROADMAP.md, Queue A): ``fit_streaming``, ``fit_multiple`` and
 tuning, checkpoints, the async schedule, the device mesh, factored random
-effects, feature normalization and ``resolve_coordinate``.
+effects and ``resolve_coordinate``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from photon_ml_tpu_torch.losses.pointwise import loss_for_task
 from photon_ml_tpu_torch.models.game import CoordinateMeta, GameModel
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
 from photon_ml_tpu_torch.types import TaskType
@@ -50,9 +55,9 @@ class FixedEffectCoordinateConfiguration:
 
     feature_shard: str
     optimizer: GlmOptimizationConfiguration = GlmOptimizationConfiguration()
-    # sparse engine for the global problem: "auto" | "ell" | "fused"
-    # (GameData.sparse_features; "auto" picks the fused kernels on the card
-    # for a shard of at least 2^20 nonzeros)
+    # sparse engine for the global problem: "auto" | "ell" | "fused" |
+    # "benes" (GameData.sparse_features; "auto" picks the fused kernels on
+    # the card for a shard of at least 2^20 nonzeros)
     sparse_engine: str = "auto"
 
 
@@ -103,12 +108,16 @@ class GameEstimator:
         evaluator=None,
         extra_evaluators: Sequence = (),
         compute_variance: bool = False,
+        normalization: Optional[Dict[str, NormalizationContext]] = None,
+        intercept_indices: Optional[Dict[str, Optional[int]]] = None,
         device: DeviceLike = DEFAULT_DEVICE,
     ) -> None:
         """``evaluator`` selects the best model (default by task);
         ``extra_evaluators`` are computed and logged per coordinate update
         (reference CoordinateDescent.scala:283-293) without affecting the
-        choice."""
+        choice. ``normalization`` and ``intercept_indices`` are per feature
+        shard and apply to fixed-effect coordinates: their solves run in the
+        normalized space and the models hold original-space coefficients."""
         if not coordinates:
             raise ValueError("need at least one coordinate configuration")
         for cid, cfg in coordinates.items():
@@ -126,6 +135,8 @@ class GameEstimator:
         self.evaluator = evaluator or default_evaluator(task)
         self.extra_evaluators = list(extra_evaluators)
         self.compute_variance = compute_variance
+        self.normalization = dict(normalization or {})
+        self.intercept_indices = dict(intercept_indices or {})
         self.device = resolve_device(device)
 
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
@@ -136,9 +147,11 @@ class GameEstimator:
                 torch.from_numpy(data.labels).to(dev),
                 offsets=torch.from_numpy(data.offsets).to(dev),
                 weights=torch.from_numpy(data.weights).to(dev),
+                norm=self.normalization.get(cfg.feature_shard),
             )
             return FixedEffectCoordinate(
                 data=labeled, task=self.task, configuration=cfg.optimizer,
+                intercept_index=self.intercept_indices.get(cfg.feature_shard),
                 compute_variances=self.compute_variance,
             )
         shard = data.feature_shards[cfg.feature_shard]

@@ -262,6 +262,7 @@ def load_game_model(
     dev = resolve_device(device)
     metadata = load_game_model_metadata(models_dir)
     task = TaskType[metadata["modelType"]]
+    coord_configs = (metadata.get("configurations") or {}).get("coordinates") or {}
     fe_specs: Dict[str, tuple] = {}
     re_specs: Dict[str, tuple] = {}
     meta: Dict[str, CoordinateMeta] = {}
@@ -300,7 +301,10 @@ def load_game_model(
             means = _record_sparse(rec, "means", imap, builder, positional, dropped)
             variances = _record_sparse(rec, "variances", imap, builder, positional)
             fe_specs[cid] = (means, variances or None)
-            meta[cid] = CoordinateMeta(feature_shard=shard)
+            # the engine the coordinate was trained with, from the saved
+            # coordinate config, so that scoring goes through it again
+            engine = (coord_configs.get(cid) or {}).get("sparse_engine", "auto")
+            meta[cid] = CoordinateMeta(feature_shard=shard, sparse_engine=engine)
 
     re_dir = os.path.join(models_dir, RANDOM_EFFECT)
     if os.path.isdir(re_dir):

@@ -22,7 +22,7 @@ from photon_ml_tpu_torch.ops import fused_perm
 RTOL, ATOL = 2e-4, 1e-5
 
 
-@pytest.mark.parametrize("engine", ["auto", "ell", "fused"])
+@pytest.mark.parametrize("engine", ["auto", "ell", "fused", "benes"])
 def test_score_matches_jax(engine):
     labels, shards, id_tags, coords = glmix_numpy(seed=1)
     jmodel = jax_game_model(coords)
@@ -82,9 +82,18 @@ def test_unseen_entities_and_dropped_features_score_zero():
 
 
 def test_benes_engine_names_its_roadmap_entry():
+    """The "benes" engine, once refused with a pointer to the roadmap, is
+    built and cached: its matvec equals the ELL engine's. An unknown engine
+    name still raises."""
+    from photon_ml_tpu_torch.ops.sparse_perm import BenesSparseFeatures, ColumnSplitFeatures
+
     labels, shards, id_tags, _ = glmix_numpy(seed=5)
     data = torch_game_data(labels, shards, id_tags)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        data.sparse_features("global", engine="benes", device="cpu")
+    benes = data.sparse_features("global", engine="benes", device="cpu")
+    assert isinstance(benes, (BenesSparseFeatures, ColumnSplitFeatures))
+    assert data.sparse_features("global", engine="benes", device="cpu") is benes
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(benes.dim).astype(np.float32))
+    ell = data.sparse_features("global", engine="ell", device="cpu")
+    np.testing.assert_allclose(benes.matvec(w).numpy(), ell.matvec(w).numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="unknown sparse engine"):
         data.sparse_features("global", engine="dense", device="cpu")

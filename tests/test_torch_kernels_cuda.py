@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card (the same checks as chip_smoke.py's kernel phase, at smaller sizes:
-several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32
-and fused_value_grad_batched_f32.
+several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32,
+fused_value_grad_batched_f32, and the two shuffles of a Benes plan,
+lane_shuffle_f32 and sublane_shuffle_f32 (bitwise: they move values
+without arithmetic).
 
 Run on a machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Without one, every test here skips.
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 from photon_ml_tpu_torch.losses import pointwise
-from photon_ml_tpu_torch.ops import fused_perm, launches, pallas_kernels
+from photon_ml_tpu_torch.ops import fused_perm, launches, pallas_kernels, permute_net
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +175,91 @@ def test_ell_rmatvec_repeats_bitwise_on_the_card(card):
     first = ell.rmatvec(c)
     for _ in range(3):
         assert torch.equal(ell.rmatvec(c), first)
+
+
+def _shuffle_indices(kind, m, hi, gen, dev):
+    """[m, 128] int8 indices in [0, hi): the identity, reversed, or random
+    (for a sublane shuffle, hi = R and index i of row r points within r's
+    group of R rows)."""
+    if kind == "random":
+        idx = torch.randint(0, hi, (m, 128), generator=gen, device=dev)
+    else:
+        pos = torch.arange(128, device=dev).expand(m, 128) if hi == 128 else (
+            torch.arange(m, device=dev).remainder(hi).unsqueeze(1).expand(m, 128))
+        idx = pos if kind == "identity" else hi - 1 - pos
+    return idx.to(torch.int8).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["identity", "reversed", "random"])
+@pytest.mark.parametrize("m", [1, 31, 32, 4097, 1 << 17])
+def test_lane_shuffle_f32_equals_plain_bitwise(card, m, kind):
+    gen = torch.Generator(device=card).manual_seed(m)
+    v = torch.randn(m, 128, generator=gen, device=card)
+    idx = _shuffle_indices(kind, m, 128, gen, card)
+    before = launches.counts()[permute_net.LANE_KERNEL]
+    out = permute_net.lane_shuffle_f32(v, idx)
+    torch.cuda.synchronize()
+    assert launches.counts()[permute_net.LANE_KERNEL] == before + 1
+    assert torch.equal(out, permute_net.lane_shuffle_plain(v, idx))
+
+
+@pytest.mark.parametrize("kind", ["identity", "reversed", "random"])
+@pytest.mark.parametrize("rows", [2, 4, 8])
+@pytest.mark.parametrize("groups", [1, 31, 32, 4097, "2^17 rows"])
+def test_sublane_shuffle_f32_equals_plain_bitwise(card, groups, rows, kind):
+    m = (1 << 17) if groups == "2^17 rows" else groups * rows
+    gen = torch.Generator(device=card).manual_seed(m + rows)
+    v = torch.randn(m, 128, generator=gen, device=card)
+    idx = _shuffle_indices(kind, m, rows, gen, card)
+    before = launches.counts()[permute_net.SUBLANE_KERNEL]
+    out = permute_net.sublane_shuffle_f32(v, idx, rows)
+    torch.cuda.synchronize()
+    assert launches.counts()[permute_net.SUBLANE_KERNEL] == before + 1
+    assert torch.equal(out, permute_net.sublane_shuffle_plain(v, idx, rows))
+
+
+def test_benes_engine_runs_its_plans_through_the_kernels(card, monkeypatch):
+    """The engine's maps launch the shuffle kernels, agree with the same
+    engine on the host, and equal the same maps through the plain versions
+    on the card bitwise."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.ops import sparse_perm
+
+    rng = np.random.default_rng(4)
+    n, d = 3000, 5000
+    rows = np.repeat(np.arange(n), 6)
+    cols = rng.integers(0, d, n * 6)
+    vals = rng.standard_normal(n * 6).astype(np.float32)
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    # a flat engine, and a column split with KP 1 (each block's matvec then
+    # routes a slice of w at an odd offset)
+    for layout in ({}, {"col_split": 2, "kp_cap": 1}):
+        f = sparse_perm.from_coo(rows, cols, vals, (n, d), plan_cache="", device="cuda", **layout)
+        host = sparse_perm.from_coo(rows, cols, vals, (n, d), plan_cache="", device="cpu",
+                                    **layout)
+        launches.reset()
+        z, g = f.matvec(w.to(card)), f.rmatvec(c.to(card))
+        assert launches.counts()[permute_net.LANE_KERNEL] > 0
+        np.testing.assert_allclose(z.cpu().numpy(), host.matvec(w).numpy(), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(g.cpu().numpy(), host.rmatvec(c).numpy(), atol=1e-5, rtol=1e-5)
+        with monkeypatch.context() as mp:
+            mp.setattr(permute_net, "lane_shuffle_f32", permute_net.lane_shuffle_plain)
+            mp.setattr(permute_net, "sublane_shuffle_f32", permute_net.sublane_shuffle_plain)
+            assert torch.equal(f.matvec(w.to(card)), z) and torch.equal(f.rmatvec(c.to(card)), g)
+
+
+def test_game_data_caches_one_layout_per_card(card):
+    """"cuda" and "cuda:<current>" name one card, so scoring on a model's
+    device reuses the layout that training built (a Benes layout takes
+    seconds to route)."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
+
+    data = GameData(labels=np.zeros(2), id_tags={}, feature_shards={
+        "g": FeatureShard(np.array([0, 1]), np.array([1, 2]), np.ones(2, np.float32), 4)})
+    first = data.sparse_features("g", engine="benes", device="cuda")
+    assert data.sparse_features("g", engine="benes",
+                                device=f"cuda:{torch.cuda.current_device()}") is first

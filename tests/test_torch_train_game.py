@@ -8,7 +8,12 @@
 - warm starts carried across from the JAX fit with ``convert``;
 - the port's ``train_game`` CLI on the committed ratings fixture with
   ``--device cpu``: RMSE under the reference's golden gate of 0.45, and the
-  port's ``score_game`` on the saved model reproduces it.
+  port's ``score_game`` on the saved model reproduces it;
+- a normalized fit (STANDARDIZATION, the fixed effect on the Benes engine)
+  against the JAX fit under the same normalization context: coefficients
+  atol 2e-3, objectives rtol 1e-4; and the ratings CLI under
+  ``--normalization-type STANDARDIZATION`` with a Benes fixed effect against
+  the JAX CLI: RMSE under 0.45 and equal to 1e-4.
 """
 
 import json
@@ -135,7 +140,7 @@ def test_fit_is_repeatable_bitwise(fits):
     assert again.validation_metric == tfit.validation_metric
 
 
-def _ratings_config(tmp_path, fixed_optimizer="LBFGS"):
+def _ratings_config(tmp_path, fixed_optimizer="LBFGS", engine=None):
     opt = {"optimizer": "LBFGS", "regularization": "L2"}
     cfg = {
         "feature_shards": {
@@ -156,7 +161,9 @@ def _ratings_config(tmp_path, fixed_optimizer="LBFGS"):
         },
         "update_order": ["fixed", "per_user", "per_movie"],
     }
-    path = tmp_path / f"game_{fixed_optimizer}.json"
+    if engine is not None:
+        cfg["coordinates"]["fixed"]["sparse_engine"] = engine
+    path = tmp_path / f"game_{fixed_optimizer}_{engine}.json"
     path.write_text(json.dumps(cfg))
     return str(path)
 
@@ -189,10 +196,9 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
         train_game.run(train_game.parse_args(
             _train_argv(tmp_path, _ratings_config(tmp_path, fixed_optimizer="TRON"))
         ))
-    with pytest.raises(NotImplementedError, match="normalization"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_game.run(train_game.parse_args(
-            _train_argv(tmp_path, _ratings_config(tmp_path),
-                        "--normalization-type", "STANDARDIZATION")
+            _train_argv(tmp_path, _ratings_config(tmp_path), "--save-feature-stats")
         ))
 
 
@@ -205,3 +211,63 @@ def test_estimator_rejects_unported_coordinate_options():
     with pytest.raises(NotImplementedError, match="sampler"):
         t.fit(torch_game_data(labels, shards, id_tags))
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_standardized_benes_fit_matches_jax():
+    """The fixed effect trains on the Benes engine in the standardized space
+    (intercept column 0) and its model holds original-space coefficients,
+    as the JAX fit's does under the same context."""
+    from photon_ml_tpu.normalization import build_normalization_context as jax_context
+    from photon_ml_tpu.ops.data import LabeledData as JaxLabeledData
+    from photon_ml_tpu.stat.summary import summarize as jax_summarize
+    from photon_ml_tpu.types import NormalizationType as JaxNorm
+    from photon_ml_tpu_torch.convert import normalization_context_from_numpy
+
+    train, val = _glmix(4, 500), _glmix(5, 400)
+    jtrain = jax_game_data(*train)
+    jfeats = jtrain.sparse_features("global", engine="benes")
+    stats = jax_summarize(JaxLabeledData.create(jfeats, jtrain.labels, weights=jtrain.weights))
+    jctx = jax_context(JaxNorm.STANDARDIZATION, stats.mean, stats.variance, stats.max_abs, 0)
+    tctx = normalization_context_from_numpy(np.asarray(jctx.factor), np.asarray(jctx.shift),
+                                            device="cpu")
+
+    j, t = _estimators()
+    fe = j.coordinate_configs["fixed"]
+    j.coordinate_configs["fixed"] = jax_game.FixedEffectCoordinateConfiguration(
+        "global", fe.optimizer, sparse_engine="benes")
+    j.normalization, j.intercept_indices = {"global": jctx}, {"global": 0}
+    t = game.GameEstimator(TaskType.LOGISTIC_REGRESSION, {
+        **t.coordinate_configs,
+        "fixed": game.FixedEffectCoordinateConfiguration(
+            "global", t.coordinate_configs["fixed"].optimizer, sparse_engine="benes"),
+    }, normalization={"global": tctx}, intercept_indices={"global": 0}, device="cpu")
+    jfit = j.fit(jtrain, jax_game_data(*val))
+    tfit = t.fit(torch_game_data(*train), torch_game_data(*val))
+    np.testing.assert_allclose([v for _, v in tfit.objective_history],
+                               [v for _, v in jfit.objective_history], rtol=1e-4)
+    assert abs(tfit.validation_metric - jfit.validation_metric) <= 1e-4
+    np.testing.assert_allclose(game_model_to_numpy(tfit.model)["fixed"]["means"],
+                               coordinates_of_jax_model(jfit.model)["fixed"]["means"], atol=2e-3)
+
+
+def test_standardized_benes_cli_matches_jax(tmp_path):
+    from photon_ml_tpu.cli import train_game as jax_train_game
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+
+    argv = _train_argv(tmp_path, _ratings_config(tmp_path, engine="benes"),
+                       "--normalization-type", "STANDARDIZATION")
+    fit = train_game.run(train_game.parse_args(argv))
+    at = argv.index("--device")
+    jargv = argv[:at] + argv[at + 2:] + ["--output-dir", str(tmp_path / "jax_out")]
+    jfit = jax_train_game.run(jax_train_game.parse_args(jargv))
+    assert fit.validation_metric < 0.45  # the reference's gate (captured 0.3875)
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    # the saved model remembers its engine: score_game scores through Benes
+    model, _ = load_game_model(str(tmp_path / "out" / "best"), device="cpu")
+    assert model.meta["fixed"].sparse_engine == "benes"
+    rmse = score_game.run(score_game.parse_args([
+        "--data-dirs", os.path.join(RATINGS, "test"),
+        "--model-dir", str(tmp_path / "out" / "best"),
+        "--output-dir", str(tmp_path / "scores"), "--evaluator", "RMSE", "--device", "cpu",
+    ]))
+    assert abs(rmse - fit.validation_metric) <= 1e-6
