@@ -25,7 +25,18 @@ exit code is not 0):
                       8}, {1, 31, 32, 4097} groups and 2^17 rows) with
                       identity, reversed and random indices, bitwise against
                       their plain versions, with kernel/plain/torch.gather/
-                      bound times at 2^17 rows.
+                      bound times at 2^17 rows; csr_matvec_bf16 and
+                      csc_rmatvec_bf16 (four
+                      transforms) at the full-width shape (2^20 rows, 2^24
+                      dims) and a ragged small one, against their plain
+                      versions and a float64 sum of the rounded terms;
+                      fused_value_grad_f32 with the four losses at [2^20,
+                      256], [700, 37], [1000, 130], [65,537, 129] (weight-0
+                      rows whose loss overflows; bitwise repeats), with
+                      kernel/plain/library/bound times at [2^20, 256];
+                      the objective's value_and_grad on one dense [s, d]
+                      problem (s d from 2^10 to 2M) as routed, through the
+                      single-block kernel and through the plain maps.
 4. score_full_width — GameModel.score of a GLMix logistic model at full width
                       (FE: 2^20 rows x 2^24 dims x 16 nonzeros a row; per-user
                       RE 65,536 x 16; per-item RE 16,384 x 16; ~3% unseen
@@ -46,7 +57,21 @@ exit code is not 0):
                       kernel/plain/library/bound times, each kernel against
                       its plain version at those shapes, and the device idle
                       share of one random-effect solve.
-7. train_benes_full_width
+7. fe_bf16_full_width
+                    — the fixed-effect shard of train_full_width (2^20 rows
+                      x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
+                      on the fused engine built twice, float32 and bfloat16
+                      payload, each solved alone (logistic, L-BFGS 50
+                      iterations, lambda 1, L2; the reference's fused_bf16
+                      solve): the f32 objective at the bf16 solution within
+                      1e-4 of the f32 optimum (the reference's quality
+                      gate), the bf16 solve through the kernels against the
+                      same solve through the plain versions (objective
+                      1e-4) and against itself (bitwise), with the layout,
+                      build and solve seconds, one map of each engine,
+                      kernel/plain/library/bound times at the rounded set's
+                      shapes and the device idle share of one bf16 solve.
+8. train_benes_full_width
                     — the same training data with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
@@ -62,7 +87,7 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-8. train_game_cli   — photon_ml_tpu_torch.cli.train_game on the committed
+9. train_game_cli   — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -102,9 +127,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
-              "train_full_width", "train_benes_full_width", "train_game_cli")
+              "train_full_width", "fe_bf16_full_width", "train_benes_full_width",
+              "train_game_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
 SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
+BF16_KERNELS = ("csr_matvec_bf16", "csc_rmatvec_bf16")
+BLOCKED = "fused_value_grad_f32"
 KERNEL_REPLACES = {
     "csr_matvec_f32": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), "
                       ":466 (_base_call), :421 (_ascend_call); matvec configuration",
@@ -114,6 +142,12 @@ KERNEL_REPLACES = {
                                     "(fused_value_grad_single, _single_kernel :140)",
     "lane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:96 (_lane_shuffle_pallas)",
     "sublane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:129 (_sublane_shuffle_pallas)",
+    "csr_matvec_bf16": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), :466 "
+                       "(_base_call), :421 (_ascend_call); matvec, bfloat16 payload",
+    "csc_rmatvec_bf16": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), :466 "
+                        "(_base_call), :421 (_ascend_call); rmatvec, bfloat16 payload",
+    "fused_value_grad_f32": "photon_ml_tpu/ops/pallas_kernels.py:115 "
+                            "(fused_value_grad, _kernel :45)",
 }
 KERNEL_SOURCE = {
     "csr_matvec_f32": "photon_ml_tpu_torch/ops/csrc/spmv.cu",
@@ -121,6 +155,9 @@ KERNEL_SOURCE = {
     "fused_value_grad_batched_f32": "photon_ml_tpu_torch/ops/csrc/value_grad.cu",
     "lane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
     "sublane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
+    "csr_matvec_bf16": "photon_ml_tpu_torch/ops/csrc/spmv.cu",
+    "csc_rmatvec_bf16": "photon_ml_tpu_torch/ops/csrc/spmv_t.cu",
+    "fused_value_grad_f32": "photon_ml_tpu_torch/ops/csrc/value_grad.cu",
 }
 RATINGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "ratings")
 
@@ -493,6 +530,203 @@ def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
     return {"cases": cases, "times_at_2^17_rows": times}, 0.0
 
 
+def _check_csr_bf16_kernel(gen, dev) -> tuple:
+    """csr_matvec_bf16 at the full-width shape (2^20 rows, 2^24 dims) and a
+    ragged small one, against the plain version and the float64 sum of
+    vals * bf16(w), and for bitwise repeats; the kernel, the plain version
+    and torch.mv timed at the full-width shape."""
+    from photon_ml_tpu_torch.ops import fused_perm
+
+    cases, worst, times = [], 0.0, None
+    for n, dim in ((1 << 20, 1 << 24), (31, 1000)):
+        w = torch.randn(dim, generator=gen, device=dev)
+        row_ptr, col_idx, vals = _random_csr(n, dim, gen, dev)
+        z = fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)
+        torch.cuda.synchronize()
+        z_plain = fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)
+        rows = torch.repeat_interleave(torch.arange(n, device=dev), row_ptr.diff())
+        prod = vals.double() * w.to(torch.bfloat16).double()[col_idx.long()]
+        z64 = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, rows, prod)
+        row_abs = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, rows, prod.abs())
+        case = _compare(z, z_plain, z64, row_abs, row_ptr.diff(), (n,), n=n, dim=dim,
+                        nnz=int(row_ptr[-1]))
+        repeat = fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)
+        case["bitwise_repeatable"] = bool(torch.equal(z, repeat))
+        case["ok"] = case["ok"] and case["bitwise_repeatable"]
+        cases.append(case)
+        worst = max(worst, case["max_abs_err_plain"])
+        if not case["ok"]:
+            emit("kernel", csr_matvec_bf16=cases)
+            raise AssertionError(f"csr_matvec_bf16 disagrees with its plain version: {case}")
+        if times is None:
+            csr = torch.sparse_csr_tensor(row_ptr, col_idx.long(), vals, size=(n, dim))
+            fns = {"kernel": lambda: fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)}
+            fns["plain"] = lambda: fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)
+            fns["library"] = lambda: torch.mv(csr, w)
+            bound_ms, bound_by = csr_bound_ms(n, int(row_ptr[-1]), dim)
+            times = {"n": n, "dim": dim, **cuda_ms(fns), "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    return {"cases": cases, "times_at_full_width": times}, worst
+
+
+def _check_csc_bf16_kernel(gen, dev) -> tuple:
+    """csc_rmatvec_bf16 with the four transforms at the full-width shape and
+    a ragged small one, against the plain version and the float64 sum of
+    bf16(t(vals) * c) (the f32 product rounded), and for bitwise repeats."""
+    from photon_ml_tpu_torch.ops import fused_perm
+
+    transforms = {
+        "id": lambda v: v, "sq": lambda v: v * v, "abs": lambda v: v.abs(),
+        "nnz": lambda v: (v != 0).to(v.dtype),
+    }
+    cases, worst = [], 0.0
+    for n, dim in ((1 << 20, 1 << 24), (31, 1000)):
+        col_ptr, row_idx, vals = _random_csc(n, dim, gen, dev)
+        c = torch.randn(n, generator=gen, device=dev)
+        seg = fused_perm.CscSegments.of(col_ptr)
+        cols = torch.repeat_interleave(torch.arange(dim, device=dev), col_ptr.diff())
+        for name, t in transforms.items():
+            g = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, seg)
+            torch.cuda.synchronize()
+            g_plain = fused_perm.csc_rmatvec_bf16_plain(col_ptr, row_idx, vals, c, name)
+            terms = (t(vals) * c[row_idx.long()]).to(torch.bfloat16).double()
+            g64 = torch.zeros(dim, dtype=torch.float64, device=dev).index_add_(0, cols, terms)
+            col_abs = torch.zeros(dim, dtype=torch.float64, device=dev).index_add_(
+                0, cols, terms.abs())
+            case = _compare(g, g_plain, g64, col_abs, col_ptr.diff(), (dim,), n=n, dim=dim,
+                            nnz=int(col_ptr[-1]), transform=name)
+            repeat = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, seg)
+            case["bitwise_repeatable"] = bool(torch.equal(g, repeat))
+            case["ok"] = case["ok"] and case["bitwise_repeatable"]
+            cases.append(case)
+            worst = max(worst, case["max_abs_err_plain"])
+            if not case["ok"]:
+                emit("kernel", csc_rmatvec_bf16=cases)
+                raise AssertionError(f"csc_rmatvec_bf16 disagrees with its plain version: {case}")
+    return cases, worst
+
+
+BLOCKED_SHAPES = ((1 << 20, 256), (700, 37), (1000, 130), (65_537, 129))
+
+
+def _check_blocked_value_grad_kernel(gen, dev) -> tuple:
+    """fused_value_grad_f32 with the four losses at BLOCKED_SHAPES against
+    its plain version and float64, and for bitwise repeats; kernel, plain,
+    library (torch.mv, the elementwise loss, torch.mv on X^T) and bound
+    times at [2^20, 256]."""
+    from photon_ml_tpu_torch.losses.pointwise import (
+        LogisticLoss, PoissonLoss, SmoothedHingeLoss, SquaredLoss,
+    )
+    from photon_ml_tpu_torch.ops import pallas_kernels
+
+    cases, worst, times = [], 0.0, None
+    for n, d in BLOCKED_SHAPES:
+        inputs = tuple(t[0] for t in _value_grad_inputs(1, n, d, gen, dev))
+        for kind in (LogisticLoss, SquaredLoss, PoissonLoss, SmoothedHingeLoss):
+            out = pallas_kernels.fused_value_grad_f32(*inputs, kind)
+            torch.cuda.synchronize()
+            plain = pallas_kernels.fused_value_grad_plain(*inputs, kind)
+            ref, scale = _value_grad_f64(*inputs, kind)
+            parts = [
+                _compare(o, p, r, a, n, o.shape, part=name)
+                for name, o, p, r, a in zip(("value", "grad", "csum"), out, plain, ref, scale)
+            ]
+            again = pallas_kernels.fused_value_grad_f32(*inputs, kind)
+            case = {"n": n, "d": d, "loss": kind.__name__,
+                    "max_abs_err_plain": max(p["max_abs_err_plain"] for p in parts),
+                    "max_abs_err_f64": max(p["max_abs_err_f64"] for p in parts),
+                    "bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(out, again)),
+                    "ok": all(p["ok"] for p in parts)}
+            case["ok"] = case["ok"] and case["bitwise_repeatable"]
+            cases.append(case)
+            worst = max(worst, case["max_abs_err_plain"])
+            if not case["ok"]:
+                emit("kernel", fused_value_grad_f32=cases)
+                raise AssertionError(
+                    f"fused_value_grad_f32 disagrees with its plain version: {case} {parts}")
+        if times is None:
+            X, y, off, wt, w = inputs
+
+            def library():
+                z = torch.mv(X, w) + off
+                pos = wt > 0
+                lw = torch.where(pos, wt * LogisticLoss.value(z, y), 0.0)
+                dz = torch.where(pos, wt * LogisticLoss.d1(z, y), 0.0)
+                return lw.sum(), torch.mv(X.T, dz), dz.sum()
+
+            ms = cuda_ms({
+                "kernel": lambda: pallas_kernels.fused_value_grad_f32(*inputs, LogisticLoss),
+                "plain": lambda: pallas_kernels.fused_value_grad_plain(*inputs, LogisticLoss),
+                "library": library,
+            })
+            bound_ms, bound_by = value_grad_bound_ms(1, n, d)
+            times = {"shape": [n, d], "ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "library_ms": ms["library"], "bound_ms": bound_ms, "bound_by": bound_by}
+        del inputs
+        torch.cuda.empty_cache()
+    return {"cases": cases, "times": times}, worst
+
+
+LONE_DENSE_SHAPES = ((64, 16), (256, 64), (1024, 64), (1024, 128), (2048, 128), (4096, 244),
+                     (8192, 244))
+
+
+def _time_lone_dense_route(gen, dev) -> list:
+    """The objective's value_and_grad on one dense [s, d] problem (labels,
+    offsets, weights as the kernel checks make them) three ways: as
+    fused_value_grad_auto routes it ("objective": the single-block kernel
+    up to LONE_PROBLEM_MAX_ELEMENTS, else the maps), through the
+    single-block kernel as a batch of one at every size ("single_block"),
+    and through the plain maps ("plain_maps": torch.mv, the elementwise
+    loss, torch.mv on X^T); and fused_value_grad_f32 on the same inputs.
+    Values and gradients agree to rtol 2e-4."""
+    from photon_ml_tpu_torch.losses.objective import make_glm_objective
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import launches, pallas_kernels
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+
+    objective = make_glm_objective(LogisticLoss)
+    auto = pallas_kernels.fused_value_grad_auto
+
+    def single_block(X, y, off, wt, w, kind):
+        v, g, c = pallas_kernels.fused_value_grad_batched_f32(
+            X[None], y[None], off[None], wt[None], w[None], kind)
+        return v[0], g[0], c[0]
+
+    out = []
+    for s, d in LONE_DENSE_SHAPES:
+        X, y, off, wt, w = (t[0] for t in _value_grad_inputs(1, s, d, gen, dev))
+        off = torch.where(wt > 0, off, torch.zeros_like(off))  # finite margins
+        data = LabeledData.create(DenseFeatures(X), y, offsets=off, weights=wt)
+        before = launches.counts()
+        routed = objective.value_and_grad(w, data, 1.0)
+        took = {k: v - before[k] for k, v in launches.counts().items() if v > before[k]}
+        want = {KERNELS[2]: 1} if s * d <= pallas_kernels.LONE_PROBLEM_MAX_ELEMENTS else {}
+        results = {"objective": routed}
+        ms = cuda_ms({"objective": lambda: objective.value_and_grad(w, data, 1.0)}, reps=10)
+        for name, route in (("single_block", single_block), ("plain_maps", lambda *a: None)):
+            pallas_kernels.fused_value_grad_auto = route
+            try:
+                results[name] = objective.value_and_grad(w, data, 1.0)
+                ms.update(cuda_ms({name: lambda: objective.value_and_grad(w, data, 1.0)},
+                                  reps=10))
+            finally:
+                pallas_kernels.fused_value_grad_auto = auto
+        ms.update(cuda_ms({"blocked_f32": lambda: pallas_kernels.fused_value_grad_f32(
+            X, y, off, wt, w, LogisticLoss)}, reps=10))
+        maps = results["plain_maps"]
+        agree = all(
+            bool(torch.allclose(a, b, rtol=2e-4, atol=2e-5 * float(b.abs().max())))
+            for r in results.values() for a, b in zip(r, maps))
+        case = {"s": s, "d": d, "elements": s * d, "objective_launches": took, **ms,
+                "agree": agree}
+        out.append(case)
+        if not agree or took != want:
+            raise AssertionError(f"the lone dense problem's route is wrong: {case}")
+    return out
+
+
 def phase_kernel(seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -503,13 +737,18 @@ def phase_kernel(seed: int) -> dict:
         ("fused_value_grad_batched_f32", _check_value_grad_kernel),
         ("lane_shuffle_f32", lambda g, d: _check_shuffle_kernel((0,), g, d)),
         ("sublane_shuffle_f32", lambda g, d: _check_shuffle_kernel((2, 4, 8), g, d)),
+        ("csr_matvec_bf16", _check_csr_bf16_kernel),
+        ("csc_rmatvec_bf16", _check_csc_bf16_kernel),
+        (BLOCKED, _check_blocked_value_grad_kernel),
     ):
         results[name], worst[name] = check(gen, dev)
         torch.cuda.empty_cache()
+    results["lone_dense_route"] = _time_lone_dense_route(gen, dev)
     emit("kernel", tolerance="vs float64: atol = 1e-5 * max(1, sum of |terms|); vs plain: "
-         "that + terms * 2^-24 * max(1, sum of |terms|), elementwise; shuffles: bitwise",
+         "that + terms * 2^-24 * max(1, sum of |terms|), elementwise; shuffles: bitwise; "
+         "bf16 kernels: the float64 sum of the same rounded terms",
          **results)
-    return {"max_abs_err": worst}
+    return {"max_abs_err": worst, "blocked_times": results[BLOCKED]["times"]}
 
 
 def _distinct_cols(rng, rows: int, k: int, dim: int) -> np.ndarray:
@@ -869,7 +1108,7 @@ class plain_versions:
     launching their kernels (a comparison run; the package has no such
     switch)."""
 
-    def __init__(self, kernels=KERNELS + SHUFFLES):
+    def __init__(self, kernels=KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)):
         self.kernels = kernels
 
     def __enter__(self):
@@ -885,6 +1124,12 @@ class plain_versions:
                                              pallas_kernels.fused_value_grad_plain),
             "lane_shuffle_f32": (permute_net, permute_net.lane_shuffle_plain),
             "sublane_shuffle_f32": (permute_net, permute_net.sublane_shuffle_plain),
+            "csr_matvec_bf16": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, gather=None:
+                                fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)),
+            "csc_rmatvec_bf16": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
+                                 transform="id", segments=None: fused_perm.csc_rmatvec_bf16_plain(
+                                     col_ptr, row_idx, vals, c, transform)),
+            "fused_value_grad_f32": (pallas_kernels, pallas_kernels.fused_value_grad_plain),
         }
         self._saved = []
         for name in self.kernels:
@@ -1088,6 +1333,160 @@ def phase_train_full_width(seed: int) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit("train_full_width", **result)
+    return result
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two f32 tensors, NaN padding included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_fe_bf16_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.losses.objective import make_glm_objective
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import fused_perm, launches
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.opt.config import (
+        GlmOptimizationConfiguration, OptimizerConfig, RegularizationContext,
+    )
+    from photon_ml_tpu_torch.opt.solve import solve
+    from photon_ml_tpu_torch.types import RegularizationType
+
+    n, n_val, fe_dim, fe_k = 1 << 20, 1 << 18, 1 << 24, 16
+    t0 = time.perf_counter()
+    train, _ = make_glmix_training(seed, n, n_val, fe_dim, fe_k, 65_536, 16_384)
+    data_s = time.perf_counter() - t0
+    shard = train.feature_shards["global"]
+    labels = torch.from_numpy(train.labels).cuda()
+    engines, build_s = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        engines[dtype] = fused_perm.from_coo(shard.rows, shard.cols, shard.vals,
+                                             (n, shard.dim), payload_dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        build_s[dtype] = time.perf_counter() - t0
+    bf = engines["bfloat16"]
+    emit("fe_bf16_full_width", build_s=build_s, layout=bf.layout)  # before the checks
+    data = {dtype: LabeledData.create(f, labels) for dtype, f in engines.items()}
+    objective = make_glm_objective(LogisticLoss)
+    cfg = GlmOptimizationConfiguration(
+        optimizer_config=OptimizerConfig(max_iterations=50),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0,
+    )
+    w0 = torch.zeros(1, shard.dim, device="cuda")
+    # each engine's first maps load its kernels (an nvcc build when the
+    # build phase did not run) and make its CSC segments: not solve time
+    for f in engines.values():
+        f.matvec(w0[0])
+        f.rmatvec(labels)
+    torch.cuda.synchronize()
+
+    def timed_solve(dtype):
+        t0 = time.perf_counter()
+        res = solve(objective, w0, data[dtype], cfg)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    r32, solve32_s = timed_solve("float32")
+    # the main path: counts set to 0 just before, read just after
+    launches.reset()
+    r16, solve16_s = timed_solve("bfloat16")
+    counts = launches.counts()
+    path = BF16_KERNELS + ("csr_matvec_f32", "csc_rmatvec_f32")  # rounded and exact sets
+    missing = [k for k in path if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the bf16 solve did not launch {missing}: {counts}")
+
+    # the reference's quality gate: the exact objective at the bf16 solution
+    f32_final = float(r32.value[0])
+    f32_at_bf16 = float(objective.value(r16.w[0], data["float32"], 1.0))
+    gate_rel = abs(f32_at_bf16 - f32_final) / abs(f32_final)
+    launches.reset()
+    with plain_versions(path):
+        r16_plain, plain_solve_s = timed_solve("bfloat16")
+    if any(launches.counts()[k] for k in path):
+        raise AssertionError(f"the plain run launched kernels: {launches.counts()}")
+    plain_rel = abs(float(r16.value[0]) - float(r16_plain.value[0])) / abs(float(r16.value[0]))
+    r16_again, _ = timed_solve("bfloat16")
+    bitwise = (_bits_equal(r16.value_history, r16_again.value_history)
+               and _bits_equal(r16.w, r16_again.w))
+    checks = {"f32_objective": f32_final, "f32_objective_at_bf16_solution": f32_at_bf16,
+              "quality_gate_rel": gate_rel, "bf16_objective": float(r16.value[0]),
+              "plain_bf16_objective": float(r16_plain.value[0]), "kernel_vs_plain_rel": plain_rel,
+              "two_bf16_solves_bitwise_equal": bitwise}
+    if not (np.isfinite(f32_at_bf16) and gate_rel <= 1e-4 and plain_rel <= 1e-4 and bitwise):
+        raise AssertionError(f"the bf16 solve fails its checks: {checks}")
+
+    # one map of each engine, and the kernels at the rounded set's shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = r16.w[0].contiguous()
+    c = torch.randn(n, generator=gen, device="cuda")
+    f32 = engines["float32"]
+    engine_ms = cuda_ms({
+        "bf16_matvec": lambda: bf.matvec(w), "f32_matvec": lambda: f32.matvec(w),
+        "bf16_rmatvec": lambda: bf.rmatvec(c), "f32_rmatvec": lambda: f32.rmatvec(c),
+    }, reps=10)
+    dim, nnz = bf.dim, bf.vals.numel()
+    seg = fused_perm.CscSegments.of(bf.col_ptr)
+    csr = torch.sparse_csr_tensor(bf.row_ptr, bf.col_idx.long(), bf.vals, size=(n, dim))
+    csr_t = torch.sparse_csr_tensor(bf.col_ptr, bf.row_idx.long(), bf.vals_csc, size=(dim, n))
+    times = {
+        "csr_matvec_bf16": cuda_ms({
+            "kernel": lambda: fused_perm.csr_matvec_bf16(bf.row_ptr, bf.col_idx, bf.vals, w, dim),
+            "plain": lambda: fused_perm.csr_matvec_bf16_plain(bf.row_ptr, bf.col_idx, bf.vals, w),
+            "library": lambda: torch.mv(csr, w),
+        }),
+        "csc_rmatvec_bf16": cuda_ms({
+            "kernel": lambda: fused_perm.csc_rmatvec_bf16(
+                bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", seg),
+            "plain": lambda: fused_perm.csc_rmatvec_bf16_plain(
+                bf.col_ptr, bf.row_idx, bf.vals_csc, c),
+            "library": lambda: torch.mv(csr_t, c),
+        }),
+    }
+    # each kernel against its plain version and float64 on the inputs timed
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), bf.row_ptr.diff())
+    prod = bf.vals.double() * w.to(torch.bfloat16).double()[bf.col_idx.long()]
+    z64 = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod)
+    row_abs = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod.abs())
+    cols = torch.repeat_interleave(torch.arange(dim, device="cuda"), bf.col_ptr.diff())
+    terms = (bf.vals_csc * c[bf.row_idx.long()]).to(torch.bfloat16).double()
+    g64 = torch.zeros(dim, dtype=torch.float64, device="cuda").index_add_(0, cols, terms)
+    col_abs = torch.zeros(dim, dtype=torch.float64, device="cuda").index_add_(0, cols, terms.abs())
+    main_checks = {
+        "csr_matvec_bf16": _compare(
+            fused_perm.csr_matvec_bf16(bf.row_ptr, bf.col_idx, bf.vals, w, dim),
+            fused_perm.csr_matvec_bf16_plain(bf.row_ptr, bf.col_idx, bf.vals, w),
+            z64, row_abs, bf.row_ptr.diff(), (n,)),
+        "csc_rmatvec_bf16": _compare(
+            fused_perm.csc_rmatvec_bf16(bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", seg),
+            fused_perm.csc_rmatvec_bf16_plain(bf.col_ptr, bf.row_idx, bf.vals_csc, c),
+            g64, col_abs, bf.col_ptr.diff(), (dim,)),
+    }
+    if not all(case["ok"] for case in main_checks.values()):
+        raise AssertionError(f"bf16 kernels disagree at the main path's shapes: {main_checks}")
+    bounds = {"csr_matvec_bf16": csr_bound_ms(n, nnz, dim),
+              "csc_rmatvec_bf16": csc_bound_ms(n, nnz, dim)}
+    kernels = {
+        k: {"launches": counts[k], "ms": times[k]["kernel"], "plain_ms": times[k]["plain"],
+            "library_ms": times[k]["library"], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1]}
+        for k in BF16_KERNELS
+    }
+    result = {
+        "rows": n, "fe_dim": dim, "rounded_nnz": nnz, "exact_nnz": bf.exact.nnz,
+        "layout": bf.layout, "data_s": data_s, "build_s": build_s,
+        "solve_s": {"float32": solve32_s, "bfloat16": solve16_s,
+                    "bfloat16_plain_versions": plain_solve_s},
+        "iterations": {"float32": int(r32.iterations[0]), "bfloat16": int(r16.iterations[0])},
+        **checks, "launches": counts, "engine_ms": engine_ms, "kernels": kernels,
+        "main_path_kernel_checks": main_checks,
+        "bf16_solve_profile": profile_device_idle(lambda: solve(objective, w0, data["bfloat16"],
+                                                                cfg)),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit("fe_bf16_full_width", **result)
     return result
 
 
@@ -1438,6 +1837,9 @@ def main(argv=None) -> int:
     if "train_full_width" in phases:
         results["train_full_width"] = phase_train_full_width(args.seed)
     torch.cuda.empty_cache()
+    if "fe_bf16_full_width" in phases:
+        results["fe_bf16_full_width"] = phase_fe_bf16_full_width(args.seed)
+    torch.cuda.empty_cache()
     if "train_benes_full_width" in phases:
         results["train_benes_full_width"] = phase_train_benes_full_width(args.seed)
     torch.cuda.empty_cache()
@@ -1445,9 +1847,16 @@ def main(argv=None) -> int:
         results["train_game_cli"] = phase_train_game_cli(args.seed)
 
     # launches and times from the phase that runs each kernel: the training
-    # path runs the first three, the Benes training path the shuffles
+    # path runs the first three, the Benes training path the shuffles, the
+    # bf16 fixed-effect solve the bf16 kernels; the blocked value+gradient
+    # kernel is on no path (its launches there: 0), timed by the kernel phase
     train = {**results.get("train_full_width", {}).get("kernels", {}),
-             **results.get("train_benes_full_width", {}).get("kernels", {})}
+             **results.get("train_benes_full_width", {}).get("kernels", {}),
+             **results.get("fe_bf16_full_width", {}).get("kernels", {})}
+    blocked = results.get("kernel", {}).get("blocked_times")
+    if blocked is not None:
+        fit_launches = results.get("train_full_width", {}).get("launches", {})
+        train[BLOCKED] = {**blocked, "launches": fit_launches.get(BLOCKED)}
     errors = results.get("kernel", {}).get("max_abs_err", {})
     kernels = [{
         "name": name,
@@ -1461,7 +1870,7 @@ def main(argv=None) -> int:
         "bound_ms": train.get(name, {}).get("bound_ms"),
         "bound_by": train.get(name, {}).get("bound_by"),
         "library_ms": train.get(name, {}).get("library_ms"),
-    } for name in KERNELS + SHUFFLES]
+    } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

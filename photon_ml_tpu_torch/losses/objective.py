@@ -13,11 +13,14 @@ Every function takes either one problem — w [d] over data with [n] rows —
 or a batch of them — w [E, d] over batched data ([E, s] rows, dense
 [E, s, d] features) — and reduces over the last axis, so one definition
 serves the fixed effect and a whole random-effect bucket. ``value_and_grad``
-sends a batch of dense problems with identity normalization through the
-fused kernel ``ops.pallas_kernels.fused_value_grad_batched_f32`` (the
-reference's ``fused_value_grad_auto`` route); everything else goes through
-the features' ``matvec``/``rmatvec``, which on the fused sparse engine are
-the ``csr_matvec_f32`` and ``csc_rmatvec_f32`` kernels.
+sends a batch of dense problems with identity normalization and at most
+``SINGLE_BLOCK_MAX_ELEMENTS`` elements a problem, or a lone one of at most
+``LONE_PROBLEM_MAX_ELEMENTS``, through the fused kernel
+``ops.pallas_kernels.fused_value_grad_batched_f32`` (the reference's
+``fused_value_grad_auto`` route); everything else goes through the
+features' ``matvec``/``rmatvec``, which on the fused sparse engine are the
+``csr_matvec_f32`` and ``csc_rmatvec_f32`` kernels (their ``_bf16`` twins
+on a bfloat16-payload engine's rounded entries).
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def make_glm_objective(loss: Type[PointwiseLoss]) -> GlmObjective:
         norm = _norm_of(data)
         if isinstance(data.features, DenseFeatures) and norm.is_identity:
             # one pass over X for value + gradient (the fused kernel on the
-            # card); None: not a batch of small dense problems
+            # card); None: a dense problem too large for it
             fused = pallas_kernels.fused_value_grad_auto(
                 data.features.matrix.contiguous(), data.labels.contiguous(),
                 data.offsets.contiguous(), data.weights.contiguous(),

@@ -1,5 +1,6 @@
 // csc_rmatvec_f32: g = X^T (t(vals) * c) for a CSC matrix X, with
 // t in {id, sq, abs, nnz} chosen at run time; f32 accumulation.
+// csc_rmatvec_bf16: the same with each product rounded to bfloat16.
 //
 // Replaces, in the rmatvec configuration, the three TPU kernels that
 // photon_ml_tpu/ops/fused_perm.py chains in fused_execute (:476):
@@ -37,10 +38,19 @@
 // by the Python wrapper. The kernels allocate nothing and run on the
 // caller's stream.
 //
+// csc_rmatvec_bf16 is the same pair of kernels for the reference's
+// bfloat16 payload (fused_perm.py:330): there the network input is the
+// product t(vals) * c[row], computed in f32 and rounded once to bf16 on
+// entry (fused_perm.py:522-524; prologue MulBroadcast :211-213), then
+// reduced per column in f32. So each term is bf16_rn(t(v) * c[row]) (the
+// product rounded, never its factors) and the sums stay f32. The kernels
+// are instantiated for both term rules (Fma, RoundedProduct below).
+//
 // Left to a later change: a warp per column for mid-length columns, TMA
 // staging, and binning columns by length.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,6 +72,20 @@ __device__ __forceinline__ float transformed(float v, int transform) {
   }
 }
 
+// acc + one column term
+struct Fma {
+  __device__ __forceinline__ float operator()(float acc, float v, float c) const {
+    return fmaf(v, c, acc);
+  }
+};
+
+struct RoundedProduct {
+  __device__ __forceinline__ float operator()(float acc, float v, float c) const {
+    return acc + __bfloat162float(__float2bfloat16_rn(v * c));
+  }
+};
+
+template <typename Term>
 __global__ void __launch_bounds__(kThreads)
 csc_rmatvec_main_kernel(const int64_t* __restrict__ col_ptr,
                         const int32_t* __restrict__ row_idx,
@@ -74,12 +98,13 @@ csc_rmatvec_main_kernel(const int64_t* __restrict__ col_ptr,
                         float* __restrict__ partial,
                         int64_t num_segments) {
   __shared__ float warp_sums[kWarps];
+  const Term term{};
   const int64_t block = blockIdx.x;
   if (block < num_segments) {
     const int64_t end = seg_end[block];
     float acc = 0.0f;
     for (int64_t p = seg_begin[block] + threadIdx.x; p < end; p += kThreads) {
-      acc = fmaf(transformed(vals[p], transform), __ldg(c + row_idx[p]), acc);
+      acc = term(acc, transformed(vals[p], transform), __ldg(c + row_idx[p]));
     }
 #pragma unroll
     for (int offset = 16; offset > 0; offset >>= 1) {
@@ -108,7 +133,7 @@ csc_rmatvec_main_kernel(const int64_t* __restrict__ col_ptr,
     }
     float acc = 0.0f;
     for (int64_t p = begin; p < end; ++p) {
-      acc = fmaf(transformed(vals[p], transform), __ldg(c + row_idx[p]), acc);
+      acc = term(acc, transformed(vals[p], transform), __ldg(c + row_idx[p]));
     }
     g[j] = acc;
   }
@@ -130,22 +155,11 @@ csc_rmatvec_finish_kernel(const int32_t* __restrict__ long_cols,
   g[long_cols[l]] = total;
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Pointers are device pointers; stream is a
-// cudaStream_t. transform: 0 id, 1 sq, 2 abs, 3 nnz. The segment table
-// (seg_begin/seg_end [num_segments], long_cols [num_long], seg_ptr
-// [num_long+1]) must cover exactly the columns longer than short_max;
-// partial is scratch of num_segments floats. Returns cudaGetLastError()
-// after the launches (0 on success).
-extern "C" int csc_rmatvec_f32(const void* col_ptr, const void* row_idx,
-                               const void* vals, const void* c, void* g,
-                               int64_t d, int transform, int64_t short_max,
-                               const void* seg_begin, const void* seg_end,
-                               void* partial, int64_t num_segments,
-                               const void* long_cols, const void* seg_ptr,
-                               int64_t num_long, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename Term>
+int launch(const void* col_ptr, const void* row_idx, const void* vals, const void* c, void* g,
+           int64_t d, int transform, int64_t short_max, const void* seg_begin,
+           const void* seg_end, void* partial, int64_t num_segments, const void* long_cols,
+           const void* seg_ptr, int64_t num_long, cudaStream_t s) {
   int64_t short_blocks = (d + kThreads - 1) / kThreads;
   if (short_blocks > kMaxShortBlocks) {
     short_blocks = kMaxShortBlocks;
@@ -155,7 +169,7 @@ extern "C" int csc_rmatvec_f32(const void* col_ptr, const void* row_idx,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (blocks > 0) {
-    csc_rmatvec_main_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+    csc_rmatvec_main_kernel<Term><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const int64_t*>(col_ptr), static_cast<const int32_t*>(row_idx),
         static_cast<const float*>(vals), static_cast<const float*>(c),
         static_cast<float*>(g), d, transform, short_max,
@@ -175,7 +189,40 @@ extern "C" int csc_rmatvec_f32(const void* col_ptr, const void* row_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Message for a code returned by csc_rmatvec_f32.
+}  // namespace
+
+// Plain C entry points for ctypes (csc_rmatvec_f32 and csc_rmatvec_bf16,
+// one signature). Pointers are device pointers; stream is a cudaStream_t.
+// transform: 0 id, 1 sq, 2 abs, 3 nnz. The segment table
+// (seg_begin/seg_end [num_segments], long_cols [num_long], seg_ptr
+// [num_long+1]) must cover exactly the columns longer than short_max;
+// partial is scratch of num_segments floats. Returns cudaGetLastError()
+// after the launches (0 on success).
+extern "C" int csc_rmatvec_f32(const void* col_ptr, const void* row_idx,
+                               const void* vals, const void* c, void* g,
+                               int64_t d, int transform, int64_t short_max,
+                               const void* seg_begin, const void* seg_end,
+                               void* partial, int64_t num_segments,
+                               const void* long_cols, const void* seg_ptr,
+                               int64_t num_long, void* stream) {
+  return launch<Fma>(col_ptr, row_idx, vals, c, g, d, transform, short_max, seg_begin,
+                     seg_end, partial, num_segments, long_cols, seg_ptr, num_long,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int csc_rmatvec_bf16(const void* col_ptr, const void* row_idx,
+                                const void* vals, const void* c, void* g,
+                                int64_t d, int transform, int64_t short_max,
+                                const void* seg_begin, const void* seg_end,
+                                void* partial, int64_t num_segments,
+                                const void* long_cols, const void* seg_ptr,
+                                int64_t num_long, void* stream) {
+  return launch<RoundedProduct>(col_ptr, row_idx, vals, c, g, d, transform, short_max,
+                                seg_begin, seg_end, partial, num_segments, long_cols,
+                                seg_ptr, num_long, static_cast<cudaStream_t>(stream));
+}
+
+// Message for a code returned by csc_rmatvec_f32 or csc_rmatvec_bf16.
 extern "C" const char* spmv_t_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

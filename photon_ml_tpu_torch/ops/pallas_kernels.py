@@ -10,10 +10,17 @@ Pallas). The reference's per-entity kernel ``fused_value_grad_single``
 :func:`fused_value_grad_batched_f32` (``csrc/value_grad.cu``, one warp an
 entity) covers the whole bucket [E, s, d].
 
-On a CPU tensor the wrapper takes the kernel's plain version,
+The reference's blocked kernel ``fused_value_grad`` (K7, ``_kernel``), the
+same sums over one dense [n, d] problem of any size in 256-row grid steps,
+is :func:`fused_value_grad` here: :func:`fused_value_grad_f32`
+(``csrc/value_grad.cu``, 64-row tiles staged in shared memory, a
+deterministic second pass over the CTAs' partial sums). As in the
+reference, no objective routes to it: :func:`fused_value_grad_auto` takes
+only the single-block kernel.
+
+On a CPU tensor each wrapper takes the kernels' plain version,
 :func:`fused_value_grad_plain`; on a CUDA tensor it launches the kernel or
-raises. The reference's blocked multi-row kernel ``fused_value_grad`` (K7)
-is not on the training path and is not ported yet (ROADMAP.md, Queue B).
+raises.
 """
 
 from __future__ import annotations
@@ -33,8 +40,10 @@ from photon_ml_tpu_torch.ops import launches
 from photon_ml_tpu_torch.utils import cudalib
 
 KERNEL = "fused_value_grad_batched_f32"
+KERNEL_BLOCKED = "fused_value_grad_f32"
 SOURCE = "value_grad"  # ops/csrc/value_grad.cu
 launches.register(KERNEL)
+launches.register(KERNEL_BLOCKED)
 
 # the kernel's run-time loss codes
 LOSS_CODES = {LogisticLoss: 0, SquaredLoss: 1, PoissonLoss: 2, SmoothedHingeLoss: 3}
@@ -43,6 +52,13 @@ LOSS_CODES = {LogisticLoss: 0, SquaredLoss: 1, PoissonLoss: 2, SmoothedHingeLoss
 # (the reference's routing rule, photon_ml_tpu/ops/pallas_kernels.py:200)
 SINGLE_BLOCK_MAX_ELEMENTS = 2_000_000
 
+# A lone [s, d] problem gets one warp of the single-block kernel (one warp
+# an entity), where the plain maps spread over the card: on an H100 the
+# route won up to 65,536 elements and lost from 262,144 on (7.7x at the
+# reference's limit; PERF.md), so a lone problem goes through the kernel
+# only up to this size.
+LONE_PROBLEM_MAX_ELEMENTS = 1 << 16
+
 
 def _library() -> ctypes.CDLL:
     lib = cudalib.load_library(SOURCE)
@@ -50,37 +66,49 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.fused_value_grad_batched_f32.restype = ctypes.c_int
+    lib.fused_value_grad_f32.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.fused_value_grad_f32.restype = ctypes.c_int
+    lib.fused_value_grad_f32_grid.argtypes = [ctypes.c_int64]
+    lib.fused_value_grad_f32_grid.restype = ctypes.c_int64
     lib.value_grad_error_string.argtypes = [ctypes.c_int]
     lib.value_grad_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(X, y, off, wt, w, kind) -> None:
+def _check(kernel, X, y, off, wt, w, kind) -> None:
+    """Operand checks: X [*batch, s, d], the row vectors [*batch, s], w
+    [*batch, d]; f32, contiguous, on one device."""
     if kind not in LOSS_CODES:
-        raise ValueError(f"{KERNEL}: no kernel loss code for {kind!r}")
-    if X.dim() != 3:
-        raise ValueError(f"{KERNEL}: X must be [E, s, d], got shape {tuple(X.shape)}")
-    E, s, d = X.shape
+        raise ValueError(f"{kernel}: no kernel loss code for {kind!r}")
+    rank = 3 if kernel == KERNEL else 2
+    if X.dim() != rank:
+        want = "[E, s, d]" if rank == 3 else "[n, d]"
+        raise ValueError(f"{kernel}: X must be {want}, got shape {tuple(X.shape)}")
+    *batch, s, d = X.shape
+    batch = tuple(batch)
     for name, t, shape in (
-        ("X", X, (E, s, d)), ("labels", y, (E, s)), ("offsets", off, (E, s)),
-        ("weights", wt, (E, s)), ("w", w, (E, d)),
+        ("X", X, (*batch, s, d)), ("labels", y, (*batch, s)), ("offsets", off, (*batch, s)),
+        ("weights", wt, (*batch, s)), ("w", w, (*batch, d)),
     ):
         if t.dtype != torch.float32:
-            raise TypeError(f"{KERNEL}: {name} must be torch.float32, got {t.dtype}")
+            raise TypeError(f"{kernel}: {name} must be torch.float32, got {t.dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"{KERNEL}: {name} has shape {tuple(t.shape)}, expected {shape}")
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
-            raise ValueError(f"{KERNEL}: {name} must be contiguous")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.device != X.device:
             raise ValueError(
-                f"{KERNEL}: {name} on {t.device}, X on {X.device}; all operands "
+                f"{kernel}: {name} on {t.device}, X on {X.device}; all operands "
                 "must share one device"
             )
 
 
 def fused_value_grad_plain(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of the kernel: the same sums, elementwise
-    products reduced over the row and column axes."""
+    """Plain PyTorch version of both kernels: the same sums, elementwise
+    products reduced over the row and column axes, for one problem X [n, d]
+    or a batch X [E, s, d]."""
     z = (X * w.unsqueeze(-2)).sum(-1) + off
     pos = wt > 0
     lw = torch.where(pos, wt * kind.value(z, y), torch.zeros_like(z))
@@ -94,7 +122,7 @@ def fused_value_grad_batched_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, 
     PointwiseLoss class). Launches the CUDA kernel for CUDA tensors (and
     counts the launch); takes :func:`fused_value_grad_plain` for CPU
     tensors."""
-    _check(X, y, off, wt, w, kind)
+    _check(KERNEL, X, y, off, wt, w, kind)
     if X.device.type == "cpu":
         return fused_value_grad_plain(X, y, off, wt, w, kind)
     if X.device.type != "cuda":
@@ -119,11 +147,66 @@ def fused_value_grad_batched_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, 
     return value, grad, csum
 
 
+def fused_value_grad_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, ...]:
+    """(Σ wt·l, Xᵀ·dz, Σ dz) for one dense problem X [n, d] with
+    dz = where(wt > 0, wt·l′, 0), z = X·w + off, l = ``kind``; value and
+    csum are 0-d. Launches the CUDA kernel for CUDA tensors (and counts the
+    launch); takes :func:`fused_value_grad_plain` for CPU tensors."""
+    _check(KERNEL_BLOCKED, X, y, off, wt, w, kind)
+    if X.device.type == "cpu":
+        return fused_value_grad_plain(X, y, off, wt, w, kind)
+    if X.device.type != "cuda":
+        raise ValueError(f"{KERNEL_BLOCKED}: unsupported device {X.device}")
+    lib = _library()
+    n, d = X.shape
+    grid = lib.fused_value_grad_f32_grid(n)
+    value = torch.empty((), dtype=torch.float32, device=X.device)
+    grad = torch.empty(d, dtype=torch.float32, device=X.device)
+    csum = torch.empty((), dtype=torch.float32, device=X.device)
+    partial_grad = torch.empty(grid, d, dtype=torch.float32, device=X.device)
+    partial_sums = torch.empty(2, grid, dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.fused_value_grad_f32(
+            X.data_ptr(), y.data_ptr(), off.data_ptr(), wt.data_ptr(), w.data_ptr(),
+            value.data_ptr(), grad.data_ptr(), csum.data_ptr(), partial_grad.data_ptr(),
+            partial_sums[0].data_ptr(), partial_sums[1].data_ptr(), n, d,
+            LOSS_CODES[kind], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"{KERNEL_BLOCKED} launch failed: {lib.value_grad_error_string(rc).decode()} ({rc})"
+        )
+    launches.record(KERNEL_BLOCKED)
+    return value, grad, csum
+
+
+def fused_value_grad(matrix, labels, offsets, weights, w, kind=None) -> Tuple[torch.Tensor, ...]:
+    """One pass (Σ wᵢ·l, Σ wᵢ·l′·xᵢ, Σ wᵢ·l′) over a dense [n, d] problem:
+    the loss sum, the gradient and the coefficient sum that the
+    normalization shift needs (the reference's blocked ``fused_value_grad``;
+    ``kind`` a PointwiseLoss class, required)."""
+    if kind is None:
+        raise ValueError("kind (a PointwiseLoss class) is required")
+    f32 = [t.to(torch.float32).contiguous() for t in (matrix, labels, offsets, weights, w)]
+    return fused_value_grad_f32(*f32, kind)
+
+
 def fused_value_grad_auto(matrix, labels, offsets, weights, w, kind) -> Optional[tuple]:
     """The objective's entry (the reference's routing rule): a batch of
-    dense problems whose entities hold at most ``SINGLE_BLOCK_MAX_ELEMENTS``
-    elements each goes through the fused kernel; anything else returns None
-    and the caller stays on the plain maps."""
-    if matrix.dim() != 3 or matrix.shape[1] * matrix.shape[2] > SINGLE_BLOCK_MAX_ELEMENTS:
+    dense problems [E, s, d] of at most ``SINGLE_BLOCK_MAX_ELEMENTS``
+    elements each, or a lone problem [s, d] of at most
+    ``LONE_PROBLEM_MAX_ELEMENTS``, goes through the single-block kernel (a
+    lone problem as a batch of one); anything else returns None and the
+    caller stays on the plain maps. The blocked kernel is never routed
+    here, as in the reference."""
+    limit = {2: LONE_PROBLEM_MAX_ELEMENTS, 3: SINGLE_BLOCK_MAX_ELEMENTS}.get(matrix.dim())
+    if limit is None or matrix.shape[-2] * matrix.shape[-1] > limit:
         return None
-    return fused_value_grad_batched_f32(matrix, labels, offsets, weights, w, kind)
+    if matrix.dim() == 3:
+        return fused_value_grad_batched_f32(matrix, labels, offsets, weights, w, kind)
+    value, grad, csum = fused_value_grad_batched_f32(
+        matrix.unsqueeze(0), labels.unsqueeze(0), offsets.unsqueeze(0),
+        weights.unsqueeze(0), w.unsqueeze(0), kind,
+    )
+    return value[0], grad[0], csum[0]

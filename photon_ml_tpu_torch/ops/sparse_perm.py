@@ -25,6 +25,11 @@ with atomics). A column split (:class:`ColumnSplitFeatures`) keeps each
 network on the valid-size ladder. The layout planner, the routing and the
 plan cache are host numpy and the same code as the reference's, so one
 pattern gives the reference's layout and plans.
+
+The planner also serves the fused engine's bfloat16 payload
+(:func:`fused_payload_partition`): which entries the reference's fused
+builder routes, and so rounds, follows from its layout alone (power-of-two
+slot groups, an optional network size floor and hot-column threshold).
 """
 
 from __future__ import annotations
@@ -256,16 +261,17 @@ def plan_column_layout(
     K: int,
     kp_full: int,
     row_block_k: Optional[Callable[[int], int]] = None,
+    size_floor: int = 0,
 ):
     """Jointly pick (kp_cap, n_col_blocks) minimizing total cost in routed
     slots, over-cap (spilled) entries priced at ``SPILL_SLOT_COST`` slots
     each. Candidates: every power-of-two cap whose spill stays under nnz/8,
     crossed with block counts {1, 2, 4, ..., 16}; ``row_block_k(t)``
-    gives the per-block row group size of a t-way split. Returns
-    ``(cap_or_None, n_blocks)``; a multi-block layout must beat the plain one
-    by >= 2x in total cost."""
+    gives the per-block row group size of a t-way split; every network has
+    at least ``size_floor`` slots. Returns ``(cap_or_None, n_blocks)``; a
+    multi-block layout must beat the plain one by >= 2x in total cost."""
     nnz = int(col_counts.sum())
-    s_plain = routing.valid_size(max(n * K, d * kp_full, 1))
+    s_plain = routing.valid_size(max(n * K, d * kp_full, size_floor, 1))
     if not nnz or (kp_full <= 1 and d <= 1):
         return None, 1
     max_spill = max(nnz // _MAX_SPILL_FRACTION, 4096)
@@ -286,7 +292,7 @@ def plan_column_layout(
         while t <= _MAX_BLOCKS:
             d_b = -(-d // t)
             k_t = row_block_k(t) if (row_block_k and t > 1) else K
-            s_t = t * routing.valid_size(max(n * k_t, d_b * cap, 1)) + spill_cost
+            s_t = t * routing.valid_size(max(n * k_t, d_b * cap, size_floor, 1)) + spill_cost
             if s_t < best[2]:
                 best = (None if cap >= kp_full else cap, t, s_t)
             t *= 2
@@ -298,17 +304,18 @@ def plan_column_layout(
         for cap, spill_cost in caps:
             if cap >= kp_full:
                 continue
-            cost = routing.valid_size(max(n * K, d * cap, 1)) + spill_cost
+            cost = routing.valid_size(max(n * K, d * cap, size_floor, 1)) + spill_cost
             if cost < best_cost:
                 best_cap, best_cost = cap, cost
         return best_cap, 1
     return cap, t
 
 
-def make_row_block_k(rows, cols, n: int, d: int):
+def make_row_block_k(rows, cols, n: int, d: int, pow2: bool = False):
     """Per-block row group size estimator for the layout planner: for a
     t-way column split, the max nnz any single row holds within one block.
-    Memoized per t."""
+    Memoized per t; ``pow2`` rounds up for the fused engine's power-of-two
+    slot groups."""
     cache: dict = {}
 
     def row_block_k(t: int) -> int:
@@ -321,37 +328,40 @@ def make_row_block_k(rows, cols, n: int, d: int):
                 k = int(counts.max())
             else:
                 k = 1
+            if pow2:
+                k = next_pow2(k)
             cache[t] = max(k, 1)
         return cache[t]
 
     return row_block_k
 
 
-def auto_kp_cap(col_counts: np.ndarray, n: int, d: int, K: int, kp_full: int) -> Optional[int]:
+def auto_kp_cap(col_counts: np.ndarray, n: int, d: int, K: int, kp_full: int,
+                size_floor: int = 0) -> Optional[int]:
     """The smallest power-of-two cap on the CSC slot-group size KP whose
     spill stays under nnz/128, when it shrinks the network; else None."""
     nnz = int(col_counts.sum())
     if not nnz or kp_full <= 1:
         return None
-    s_now = routing.valid_size(max(n * K, d * kp_full, 1))
+    s_now = routing.valid_size(max(n * K, d * kp_full, size_floor, 1))
     budget = max(nnz // 128, 4096)
     p = 1
     while p < kp_full:
         spill = int(np.maximum(col_counts - p, 0).sum())
         if spill <= budget:
-            s_new = routing.valid_size(max(n * K, d * p, 1))
+            s_new = routing.valid_size(max(n * K, d * p, size_floor, 1))
             return p if s_new < s_now else None
         p *= 2
     return None
 
 
-def resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full) -> Optional[int]:
+def resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full, size_floor: int = 0) -> Optional[int]:
     """Normalize a ``kp_cap`` argument ("auto" | int | None/0) to an
     effective cap strictly below ``kp_full``, or None."""
     if not kp_cap:
         return None
     if kp_cap == "auto":
-        return auto_kp_cap(col_counts, n, d, K, kp_full)
+        return auto_kp_cap(col_counts, n, d, K, kp_full, size_floor)
     cap = int(kp_cap)
     if cap <= 0 or cap >= kp_full:
         return None
@@ -360,28 +370,30 @@ def resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full) -> Optional[int]:
     return cap
 
 
-def _best_split(n: int, d: int, K: int, kp_eff: int) -> int:
+def _best_split(n: int, d: int, K: int, kp_eff: int, size_floor: int = 0) -> int:
     """Best block count for a FIXED effective KP (2x-win hysteresis)."""
-    s_one = routing.valid_size(max(n * K, d * kp_eff, 1))
+    s_one = routing.valid_size(max(n * K, d * kp_eff, size_floor, 1))
     best_t, best_s = 1, s_one
     t = 2
     while t <= _MAX_BLOCKS:
-        s_t = t * routing.valid_size(max(n * K, -(-d // t) * kp_eff, 1))
+        s_t = t * routing.valid_size(max(n * K, -(-d // t) * kp_eff, size_floor, 1))
         if s_t < best_s:
             best_t, best_s = t, s_t
         t *= 2
     return best_t if best_s * 2 <= s_one else 1
 
 
-def resolve_layout(kp_cap, col_split, col_counts, n, d, K, kp_full, row_block_k=None):
+def resolve_layout(kp_cap, col_split, col_counts, n, d, K, kp_full, row_block_k=None,
+                   size_floor: int = 0):
     """Normalize (kp_cap, col_split) arguments to an effective
     ``(cap_or_None, n_blocks)`` layout. "auto"/"auto" runs the joint
     planner; manual values are validated and used as they are."""
     if kp_cap == "auto" and col_split == "auto":
-        return plan_column_layout(col_counts, n, d, K, kp_full, row_block_k=row_block_k)
-    cap = resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full)
+        return plan_column_layout(col_counts, n, d, K, kp_full, row_block_k=row_block_k,
+                                  size_floor=size_floor)
+    cap = resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full, size_floor)
     if col_split == "auto":
-        t = _best_split(n, d, K, cap or kp_full)
+        t = _best_split(n, d, K, cap or kp_full, size_floor)
     else:
         t = max(int(col_split or 1), 1)
         if t > 1 and t & (t - 1):
@@ -481,10 +493,8 @@ def prepare_cold_entries(rows, cols, vals, shape, max_nnz_row: Optional[int],
     hot_ids, row_counts, col_counts)`` with rows/cols/vals the cold
     entries."""
     n, d = shape
-    rows, cols, vals, counts = coalesce_coo(rows, cols, vals, n, d)
+    rows, cols, vals = _coalesce_checked(rows, cols, vals, n, d, max_nnz_row)
     nnz = rows.size
-    if max_nnz_row is not None and nnz and int(counts.max()) > int(max_nnz_row):
-        raise ValueError(f"row with {int(counts.max())} nnz exceeds max_nnz_row={max_nnz_row}")
     hot_ids = select_hot_cols(rows, cols, n, d, max_hot_cols)
     hot_matrix = None
     if hot_ids is not None:
@@ -495,10 +505,18 @@ def prepare_cold_entries(rows, cols, vals, shape, max_nnz_row: Optional[int],
     return rows, cols, vals, hot_matrix, hot_ids, row_counts, col_counts
 
 
-def split_spill_entries(rows, cols, vals, col_counts: np.ndarray, cap: int):
-    """Split entries so every column keeps at most ``cap`` routed entries:
-    each column's first ``cap`` in (col, row) order. Returns ``(cold_rows,
-    cold_cols, cold_vals, spill_rows, spill_cols, spill_vals)``."""
+def _coalesce_checked(rows, cols, vals, n: int, d: int, max_nnz_row: Optional[int]):
+    """Coalesced (row, col)-sorted triplets; raises when a row holds more
+    than ``max_nnz_row`` entries."""
+    rows, cols, vals, counts = coalesce_coo(rows, cols, vals, n, d)
+    if max_nnz_row is not None and rows.size and int(counts.max()) > int(max_nnz_row):
+        raise ValueError(f"row with {int(counts.max())} nnz exceeds max_nnz_row={max_nnz_row}")
+    return rows, cols, vals
+
+
+def spill_mask(rows, cols, col_counts: np.ndarray, cap: int) -> np.ndarray:
+    """Which entries exceed their column's cap of ``cap`` routed entries:
+    each column keeps its first ``cap`` in (col, row) order."""
     nnz = rows.size
     corder = lexsort_pairs(cols, rows)
     col_starts = np.zeros(col_counts.size + 1, dtype=np.int64)
@@ -506,21 +524,33 @@ def split_spill_entries(rows, cols, vals, col_counts: np.ndarray, cap: int):
     rank = np.arange(nnz, dtype=np.int64) - col_starts[cols[corder]]
     spill = np.zeros(nnz, dtype=bool)
     spill[corder] = rank >= cap
+    return spill
+
+
+def split_spill_entries(rows, cols, vals, col_counts: np.ndarray, cap: int):
+    """Split entries so every column keeps at most ``cap`` routed entries
+    (:func:`spill_mask`). Returns ``(cold_rows, cold_cols, cold_vals,
+    spill_rows, spill_cols, spill_vals)``."""
+    spill = spill_mask(rows, cols, col_counts, cap)
     keep = ~spill
     return rows[keep], cols[keep], vals[keep], rows[spill], cols[spill], vals[spill]
 
 
 def select_hot_cols(rows: np.ndarray, cols: np.ndarray, n_rows: int, d: int,
-                    max_hot_cols: int) -> Optional[np.ndarray]:
-    """The hot-column set (sorted ids) or None: degree above max(8, 4x the
-    mean degree, n/16) (densifying such a column inflates its storage at
-    most 16x), at most ``max_hot_cols`` columns and a dense block of about
-    512 MB."""
+                    max_hot_cols: int,
+                    hot_col_threshold: Optional[int] = None) -> Optional[np.ndarray]:
+    """The hot-column set (sorted ids) or None: degree above
+    ``hot_col_threshold``, by default max(8, 4x the mean degree, n/16)
+    (densifying such a column inflates its storage at most 16x), at most
+    ``max_hot_cols`` columns and a dense block of about 512 MB."""
     nnz = rows.size
     if not nnz or max_hot_cols <= 0:
         return None
     col_counts_all = np.bincount(cols, minlength=d)
-    thr = max(8, int(4 * np.ceil(nnz / max(d, 1))), n_rows // 16)
+    if hot_col_threshold is None:
+        thr = max(8, int(4 * np.ceil(nnz / max(d, 1))), n_rows // 16)
+    else:
+        thr = int(hot_col_threshold)
     h_cap = min(int(max_hot_cols), max(1, (128 << 20) // max(n_rows, 1)))
     hot_mask = col_counts_all > thr
     n_hot = int(hot_mask.sum())
@@ -540,6 +570,107 @@ def split_hot_entries(rows, cols, vals, n: int, d: int, hot_ids: np.ndarray):
     hot_matrix = np.zeros((n, hot_ids.size), dtype=np.float32)
     hot_matrix[rows[is_hot], hot_pos[cols[is_hot]]] = vals[is_hot]
     return rows[~is_hot], cols[~is_hot], vals[~is_hot], hot_matrix
+
+
+def next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+@dataclasses.dataclass
+class PayloadPartition:
+    """Which entries of a sparse matrix the reference's fused engine sends
+    through its network (and so rounds to a reduced payload dtype): the
+    cold entries that are routed and not spilled. The rest, the hot columns
+    and each block's over-cap spill, it evaluates exactly in f32.
+
+    ``rows``/``cols``/``vals`` are the coalesced, (row, col)-sorted entries;
+    ``hot`` and ``spilled`` mask them. The layout behind the masks:
+    ``hot_cols`` (sorted ids or None), the column blocks ``col_bounds``
+    (t + 1 offsets) and each block's effective KP cap (None: no spill)."""
+
+    rows: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    hot: np.ndarray      # [nnz] bool
+    spilled: np.ndarray  # [nnz] bool
+    hot_cols: Optional[np.ndarray]
+    col_bounds: Tuple[int, ...]
+    kp_caps: Tuple[Optional[int], ...]
+
+    @property
+    def payload(self) -> np.ndarray:
+        return ~(self.hot | self.spilled)
+
+    def summary(self) -> dict:
+        return {
+            "hot_columns": 0 if self.hot_cols is None else int(self.hot_cols.size),
+            "column_blocks": len(self.col_bounds) - 1,
+            "kp_caps": list(self.kp_caps),
+            "spilled_entries": int(self.spilled.sum()),
+            "rounded_entries": int(self.payload.sum()),
+            "exact_entries": int((self.hot | self.spilled).sum()),
+        }
+
+
+def fused_payload_partition(rows, cols, vals, shape, max_nnz_row: Optional[int] = None,
+                            hot_col_threshold: Optional[int] = None, max_hot_cols: int = 128,
+                            kp_cap="auto", col_split="auto",
+                            size_floor: int = 0) -> PayloadPartition:
+    """The reference fused builder's layout (``fused_perm.from_coo``,
+    pins off) without its routing: hot columns as :func:`select_hot_cols`;
+    power-of-two slot groups K and KP; :func:`resolve_layout` with
+    ``size_floor`` and the power-of-two ``row_block_k``; then either one
+    network spilling at the cap, or ``t`` column blocks each planned again
+    as a builder of its own (``kp_cap=cap, col_split=1``, no hot columns,
+    no size floor) that spills within its own columns. The partition
+    follows from row and column degrees alone."""
+    n, d = int(shape[0]), int(shape[1])
+    rows, cols, vals = _coalesce_checked(rows, cols, vals, n, d, max_nnz_row)
+    hot_ids = select_hot_cols(rows, cols, n, d, max_hot_cols, hot_col_threshold)
+    hot = np.zeros(rows.size, dtype=bool)
+    if hot_ids is not None:
+        is_hot_col = np.zeros(d, dtype=bool)
+        is_hot_col[hot_ids] = True
+        hot = is_hot_col[cols]
+    cold = np.flatnonzero(~hot)
+    r, c = rows[cold], cols[cold]
+    spilled = np.zeros(rows.size, dtype=bool)
+    bounds, caps = (0, d), (None,)
+    if cold.size:
+        row_counts = np.bincount(r, minlength=n)
+        col_counts = np.bincount(c, minlength=d)
+        K = max(next_pow2(int(row_counts.max())),
+                next_pow2(int(max_nnz_row)) if max_nnz_row is not None else 1, 1)
+        KP = max(next_pow2(int(col_counts.max())), 1)
+        cap, t = resolve_layout(kp_cap, col_split, col_counts, n, d, K, KP,
+                                row_block_k=make_row_block_k(r, c, n, d, pow2=True),
+                                size_floor=size_floor)
+        if t == 1:
+            caps = (cap,)
+            if cap is not None:
+                spilled[cold[spill_mask(r, c, col_counts, cap)]] = True
+        else:
+            d_b = -(-d // t)
+            bounds = tuple(min(b * d_b, d) for b in range(t + 1))
+            blk_of = c // d_b
+            block_caps = []
+            for b in range(t):
+                width = bounds[b + 1] - bounds[b]
+                m = np.flatnonzero(blk_of == b)
+                if width <= 0 or not m.size:
+                    block_caps.append(None)
+                    continue
+                bc = c[m] - bounds[b]
+                counts_b = np.bincount(bc, minlength=width)
+                # the block's own builder: an int cap at or above its own
+                # power-of-two KP spills nothing
+                cap_b = resolve_kp_cap(cap, counts_b, n, width, K,
+                                       next_pow2(int(counts_b.max())))
+                block_caps.append(cap_b)
+                if cap_b is not None:
+                    spilled[cold[m[spill_mask(r[m], bc, counts_b, cap_b)]]] = True
+            caps = tuple(block_caps)
+    return PayloadPartition(rows, cols, vals, hot, spilled, hot_ids, tuple(bounds), caps)
 
 
 def build_slot_perm(rows, cols, n: int, d: int, K: int, KP: int, S: int,

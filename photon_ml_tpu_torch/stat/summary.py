@@ -16,7 +16,7 @@ feature layout's own maps:
 - the fused engine: ``abs``/``nnz`` through the ``csc_rmatvec_f32``
   transforms; min and max a segmented reduction over its CSC values with
   rows masked by ``weights[row] > 0`` (the port's counterpart of the
-  reference's ``csc_view``).
+  reference's ``csc_view``), over both entry sets of a bf16 payload.
 
 Variance is the unbiased weighted sample variance, MLlib's estimator.
 """
@@ -122,12 +122,20 @@ def _benes_stats(feats: BenesSparseFeatures, weights: torch.Tensor):
 
 
 def _fused_stats(feats: FusedSparseFeatures, weights: torch.Tensor):
-    """The sums through the ``csc_rmatvec_f32`` transforms; min/max a
-    segmented reduction over the CSC values of the live rows."""
+    """The sums through the ``csc_rmatvec_f32`` transforms (with a bf16
+    payload, those of both entry sets); min/max :func:`_fused_minmax`."""
     s1 = feats.rmatvec(weights)
     s2 = feats.rmatvec_sq(weights)
     sabs = feats._rmatvec_impl(weights, "abs")
     nnz = feats._rmatvec_impl(weights, "nnz")
+    mn, mx = _fused_minmax(feats, weights)
+    return s1, s2, sabs, nnz, mn, mx, weights.sum()
+
+
+def _fused_minmax(feats: FusedSparseFeatures, weights: torch.Tensor):
+    """Per-column min/max: a segmented reduction over the CSC values of the
+    live rows, the exact entry set (hot columns and spill of a bf16
+    payload) folded in."""
     vals = feats.vals_csc
     live = (vals != 0) & (weights[feats.row_idx.long()] > 0)
     lengths = feats.col_ptr.diff()
@@ -135,7 +143,10 @@ def _fused_stats(feats: FusedSparseFeatures, weights: torch.Tensor):
                               unsafe=True, initial=-_INF)
     mn = torch.segment_reduce(torch.where(live, vals, _INF), "min", lengths=lengths,
                               unsafe=True, initial=_INF)
-    return s1, s2, sabs, nnz, mn, mx, weights.sum()
+    if feats.exact is not None:
+        emn, emx = _fused_minmax(feats.exact, weights)
+        mn, mx = torch.minimum(mn, emn), torch.maximum(mx, emx)
+    return mn, mx
 
 
 def _split_stats(feats: ColumnSplitFeatures, weights: torch.Tensor):

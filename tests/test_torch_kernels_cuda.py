@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card (the same checks as chip_smoke.py's kernel phase, at smaller sizes:
 several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32,
-fused_value_grad_batched_f32, and the two shuffles of a Benes plan,
-lane_shuffle_f32 and sublane_shuffle_f32 (bitwise: they move values
-without arithmetic).
+their bf16-payload twins csr_matvec_bf16 and csc_rmatvec_bf16,
+fused_value_grad_batched_f32, the blocked fused_value_grad_f32, and the two
+shuffles of a Benes plan, lane_shuffle_f32 and sublane_shuffle_f32
+(bitwise: they move values without arithmetic).
 
 Run on a machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Without one, every test here skips.
@@ -117,6 +118,77 @@ def test_fused_engine_rmatvec_launches_the_kernel(card):
     assert launches.counts()[fused_perm.KERNEL_T] == before + 1
 
 
+@pytest.mark.parametrize("n", [1, 31, 4097, 1 << 16])
+@pytest.mark.parametrize("dim", [1 << 17, 1 << 20])
+def test_csr_matvec_bf16_matches_plain(card, n, dim):
+    """The kernel agrees with the plain version (the same rounded
+    coefficients, f32 sums in another order) and repeats bitwise."""
+    gen = torch.Generator(device=card).manual_seed(n + dim + 1)
+    row_ptr, col, vals = _csr(n, dim, gen, card)
+    w = torch.randn(dim, generator=gen, device=card)
+    before = launches.counts()[fused_perm.KERNEL_BF16]
+    z = fused_perm.csr_matvec_bf16(row_ptr, col, vals, w, dim)
+    torch.cuda.synchronize()
+    assert launches.counts()[fused_perm.KERNEL_BF16] == before + 1
+    assert torch.equal(z, fused_perm.csr_matvec_bf16(row_ptr, col, vals, w, dim))
+    plain = fused_perm.csr_matvec_bf16_plain(row_ptr, col, vals, w)
+    rows = torch.repeat_interleave(torch.arange(n, device=card), row_ptr.diff())
+    wb = w.to(torch.bfloat16).double()
+    row_abs = torch.zeros(n, dtype=torch.float64, device=card).index_add_(
+        0, rows, (vals.double() * wb[col.long()]).abs())
+    tol = 1e-5 * torch.clamp(row_abs, min=1.0)
+    assert z.shape == (n,) and bool(torch.isfinite(z).all())
+    assert bool(((z.double() - plain.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("transform", ["id", "sq", "abs", "nnz"])
+@pytest.mark.parametrize("n", [1, 4097, 1 << 16])
+def test_csc_rmatvec_bf16_matches_plain(card, n, transform):
+    dim = 1 << 17
+    gen = torch.Generator(device=card).manual_seed(n + 2)
+    col_ptr, row, vals = _csc(n, dim, gen, card)
+    c = torch.randn(n, generator=gen, device=card)
+    before = launches.counts()[fused_perm.KERNEL_T_BF16]
+    g = fused_perm.csc_rmatvec_bf16(col_ptr, row, vals, c, n, transform)
+    torch.cuda.synchronize()
+    assert launches.counts()[fused_perm.KERNEL_T_BF16] == before + 1
+    plain = fused_perm.csc_rmatvec_bf16_plain(col_ptr, row, vals, c, transform)
+    cols = torch.repeat_interleave(torch.arange(dim, device=card), col_ptr.diff())
+    t = {"id": vals, "sq": vals * vals, "abs": vals.abs(), "nnz": (vals != 0).float()}[transform]
+    terms = (t * c[row.long()]).to(torch.bfloat16).double()
+    col_abs = torch.zeros(dim, dtype=torch.float64, device=card).index_add_(0, cols, terms.abs())
+    tol = 1e-5 * torch.clamp(col_abs, min=1.0)
+    assert g.shape == (dim,) and bool(torch.isfinite(g).all())
+    assert bool(((g.double() - plain.double()).abs() <= tol).all())
+    assert torch.equal(g, fused_perm.csc_rmatvec_bf16(col_ptr, row, vals, c, n, transform))
+
+
+def test_bf16_engine_launches_both_sets(card):
+    """A bf16 engine with a hot column and spill runs the bf16 kernels on
+    its rounded set and the f32 kernels on its exact set, and agrees with
+    the same engine on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    n, d = 2048, 70000
+    rows = np.concatenate([np.repeat(np.arange(n), 16), np.arange(n)])
+    cols = np.concatenate([rng.integers(0, d, n * 16), np.full(n, 3)])
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    f = fused_perm.from_coo(rows, cols, vals, (n, d), payload_dtype="bfloat16", device="cuda")
+    host = fused_perm.from_coo(rows, cols, vals, (n, d), payload_dtype="bfloat16", device="cpu")
+    assert f.exact is not None and f.layout["spilled_entries"] > 0
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    launches.reset()
+    z, g = f.matvec(w.to(card)), f.rmatvec(c.to(card))
+    counts = launches.counts()
+    for k in (fused_perm.KERNEL, fused_perm.KERNEL_BF16, fused_perm.KERNEL_T,
+              fused_perm.KERNEL_T_BF16):
+        assert counts[k] == 1, counts
+    np.testing.assert_allclose(z.cpu().numpy(), host.matvec(w).numpy(), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), host.rmatvec(c).numpy(), atol=1e-4, rtol=1e-5)
+
+
 LOSSES = [pointwise.LogisticLoss, pointwise.SquaredLoss, pointwise.PoissonLoss,
           pointwise.SmoothedHingeLoss]
 
@@ -157,6 +229,37 @@ def test_fused_value_grad_rejects_host_and_device_mix(card):
             X, torch.zeros(2, 3, device=card), torch.zeros(2, 3), torch.ones(2, 3, device=card),
             torch.zeros(2, 4, device=card), pointwise.LogisticLoss,
         )
+
+
+@pytest.mark.parametrize("kind", LOSSES, ids=lambda k: k.__name__)
+@pytest.mark.parametrize("shape", [(1, 1), (700, 37), (1000, 130), (65_537, 129), (4097, 300)])
+def test_fused_value_grad_f32_matches_plain(card, kind, shape):
+    n, d = shape
+    gen = torch.Generator(device=card).manual_seed(n + d)
+    X = torch.randn(n, d, generator=gen, device=card) / d ** 0.5
+    y = (torch.rand(n, generator=gen, device=card) < 0.5).float()
+    off = torch.randn(n, generator=gen, device=card) * 0.5
+    wt = torch.rand(n, generator=gen, device=card) + 0.5
+    zero = torch.rand(n, generator=gen, device=card) < 0.2
+    wt[zero] = 0.0
+    off[zero] = 1e20  # weight-0 rows whose squared / Poisson loss overflows
+    w = torch.randn(d, generator=gen, device=card)
+    before = launches.counts()[pallas_kernels.KERNEL_BLOCKED]
+    out = pallas_kernels.fused_value_grad_f32(X, y, off, wt, w, kind)
+    torch.cuda.synchronize()
+    assert launches.counts()[pallas_kernels.KERNEL_BLOCKED] == before + 1
+    plain = pallas_kernels.fused_value_grad_plain(X, y, off, wt, w, kind)
+    z = X @ w + off
+    pos = wt > 0
+    lw = torch.where(pos, wt * kind.value(z, y), torch.zeros_like(z)).abs()
+    dz = torch.where(pos, wt * kind.d1(z, y), torch.zeros_like(z))
+    scales = (lw.sum(), (dz.unsqueeze(-1) * X).abs().sum(0), dz.abs().sum())
+    for o, p, scale in zip(out, plain, scales):
+        assert o.shape == p.shape and bool(torch.isfinite(o).all())
+        assert bool(((o - p).abs() <= 2e-5 * torch.clamp(scale, min=1.0)).all())
+    # a fixed grid and fixed-order sums: the same bits every call
+    again = pallas_kernels.fused_value_grad_f32(X, y, off, wt, w, kind)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 def test_ell_rmatvec_repeats_bitwise_on_the_card(card):

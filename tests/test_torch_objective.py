@@ -270,12 +270,33 @@ def test_fused_value_grad_plain_matches_jax_kernel(loss, shape):
 
 def test_fused_value_grad_routing():
     """The reference's routing rule: batched dense problems of at most
-    SINGLE_BLOCK_MAX_ELEMENTS elements an entity take the fused pass."""
+    SINGLE_BLOCK_MAX_ELEMENTS elements each take the single-block fused
+    pass, a lone one up to LONE_PROBLEM_MAX_ELEMENTS; a larger one returns
+    None."""
     X = torch.zeros(2, 3, 4)
     args = (torch.zeros(2, 3), torch.zeros(2, 3), torch.ones(2, 3), torch.zeros(2, 4))
     assert pallas_kernels.fused_value_grad_auto(X, *args, pointwise.LogisticLoss) is not None
-    assert pallas_kernels.fused_value_grad_auto(X[0], *(a[0] for a in args),
-                                                pointwise.LogisticLoss) is None
+    one = pallas_kernels.fused_value_grad_auto(X[0], *(a[0] for a in args),
+                                               pointwise.LogisticLoss)
+    assert [tuple(t.shape) for t in one] == [(), (4,), ()]
+    wide = torch.zeros(2, pallas_kernels.SINGLE_BLOCK_MAX_ELEMENTS // 2 + 1)
+    assert pallas_kernels.fused_value_grad_auto(
+        wide, torch.zeros(2), torch.zeros(2), torch.ones(2), torch.zeros(wide.shape[1]),
+        pointwise.LogisticLoss) is None
+    assert pallas_kernels.fused_value_grad_auto(
+        wide[None], torch.zeros(1, 2), torch.zeros(1, 2), torch.ones(1, 2),
+        torch.zeros(1, wide.shape[1]), pointwise.LogisticLoss) is None
+    for width, routed in ((pallas_kernels.LONE_PROBLEM_MAX_ELEMENTS // 2, True),
+                          (pallas_kernels.LONE_PROBLEM_MAX_ELEMENTS // 2 + 1, False)):
+        lone = torch.zeros(2, width)
+        out = pallas_kernels.fused_value_grad_auto(
+            lone, torch.zeros(2), torch.zeros(2), torch.ones(2), torch.zeros(width),
+            pointwise.LogisticLoss)
+        assert (out is not None) == routed, width
+        # the batch of one at the same size stays routed
+        assert pallas_kernels.fused_value_grad_auto(
+            lone[None], torch.zeros(1, 2), torch.zeros(1, 2), torch.ones(1, 2),
+            torch.zeros(1, width), pointwise.LogisticLoss) is not None
     with pytest.raises(ValueError, match="shape"):
         pallas_kernels.fused_value_grad_batched_f32(
             X, args[0], args[1], args[2], torch.zeros(2, 5), pointwise.LogisticLoss
