@@ -31,8 +31,10 @@ exit code is not 0):
                       dims) and a ragged small one, against their plain
                       versions and a float64 sum of the rounded terms;
                       fused_value_grad_f32 with the four losses at [2^20,
-                      256], [700, 37], [1000, 130], [65,537, 129] (weight-0
-                      rows whose loss overflows; bitwise repeats), with
+                      256], [700, 37], [1000, 130], [65,537, 129], [4097,
+                      1], [3001, 300], [1001, 2500] and [1000, 128] with X
+                      a view that is not 16-byte aligned (weight-0 rows
+                      whose loss overflows; bitwise repeats), with
                       kernel/plain/library/bound times at [2^20, 256];
                       the objective's value_and_grad on one dense [s, d]
                       problem (s d from 2^10 to 2M) as routed, through the
@@ -97,6 +99,11 @@ exit code is not 0):
                       on cuda and cpu: RMSE < 0.45, equal to 1e-4, and
                       score_game on the saved model (which scores through the
                       Benes engine again) reproduces it.
+
+Every kernel, plain version and library call that a phase times gets two
+figures (cuda_ms): "ms", one call between two CUDA events, and
+"device_ms", a run of back-to-back calls between two events over their
+count, which keeps the wrapper's host work out of the kernel's time.
 
 Then a line with the card's name and power limit (nvidia-smi), a JSON line
 with one entry per kernel, and last {"ok": true, "device": {...}}.
@@ -174,15 +181,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fns: dict, reps: int = 20, warmup: int = 3) -> dict:
-    """Median milliseconds of each function on the card over ``reps`` calls,
-    each call timed with CUDA events. The functions take turns in blocks of
-    reps/2 calls, in order and then in reverse (a b c c b a), so that a
-    drift of the card's clock falls on all of them alike."""
+def cuda_ms(fns: dict, reps: int = 20, warmup: int = 3, batch: int = 32,
+            rounds: int = 6) -> dict:
+    """Two times of each function on the card, in milliseconds:
+
+    - ``name``: the median over ``reps`` calls of one call between two CUDA
+      events (the per-call figure: the caller's host work inside the window,
+      while the card waits for the launch, is counted);
+    - ``name + "_device"``: the median over ``rounds`` runs of ``batch``
+      back-to-back calls between one pair of events, over ``batch`` (the
+      device time: the host enqueues ahead of the card, so a call's host
+      work hides behind the calls before it, unless it takes longer).
+
+    The functions take turns, in order and then in reverse (a b c c b a),
+    so that a drift of the card's clock falls on all of them alike."""
     for fn in fns.values():
         for _ in range(warmup):
             fn()
     times = {name: [] for name in fns}
+    device = {name: [] for name in fns}
     for order in (list(fns), list(reversed(list(fns)))):
         for name in order:
             for _ in range(reps // 2):
@@ -193,7 +210,26 @@ def cuda_ms(fns: dict, reps: int = 20, warmup: int = 3) -> dict:
                 end.record()
                 end.synchronize()
                 times[name].append(start.elapsed_time(end))
-    return {name: statistics.median(t) for name, t in times.items()}
+            for _ in range(rounds // 2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(batch):
+                    fns[name]()
+                end.record()
+                end.synchronize()
+                device[name].append(start.elapsed_time(end) / batch)
+    out = {name: statistics.median(t) for name, t in times.items()}
+    out.update({f"{name}_device": statistics.median(t) for name, t in device.items()})
+    return out
+
+
+def kernel_times(ms: dict) -> dict:
+    """A kernel entry's time fields from a ``cuda_ms`` result over the
+    functions "kernel", "plain" and "library"."""
+    return {f"{prefix}{kind}": ms[name + suffix]
+            for name, prefix in (("kernel", ""), ("plain", "plain_"), ("library", "library_"))
+            for kind, suffix in (("ms", ""), ("device_ms", "_device"))}
 
 
 def _bound(nbytes: float, flops: float) -> tuple:
@@ -334,9 +370,9 @@ def _compare(out, plain, ref64, abs_sum, terms, shape, **info) -> dict:
 
 def _random_csc(n: int, dim: int, gen: torch.Generator, dev) -> tuple:
     """Columns of 0/1/1/2/1/0/3/1 nonzeros in turn (empty columns), 40 in
-    every 1021st column and 9000 in every 65,537th (long columns, one and
-    two segments), every row in column 0; row indices drawn with
-    replacement, so a column may name a row twice."""
+    every 1021st column and 9000 in every 65,537th (long columns; one of
+    9000 is cut by five shares of the merge path), every row in column 0;
+    row indices drawn with replacement, so a column may name a row twice."""
     pattern = torch.tensor([0, 1, 1, 2, 1, 0, 3, 1], dtype=torch.int64, device=dev)
     j = torch.arange(dim, device=dev)
     lengths = pattern[j % 8]
@@ -365,10 +401,10 @@ def _check_csc_kernel(gen, dev) -> tuple:
         for n in (1, 4097, 1 << 20):
             col_ptr, row_idx, vals = _random_csc(n, dim, gen, dev)
             c = torch.randn(n, generator=gen, device=dev)
-            seg = fused_perm.CscSegments.of(col_ptr)
+            split = fused_perm.merge_path_split(col_ptr, row_idx.numel())
             cols = torch.repeat_interleave(torch.arange(dim, device=dev), col_ptr.diff())
             for name, t in transforms.items():
-                g = fused_perm.csc_rmatvec_f32(col_ptr, row_idx, vals, c, n, name, seg)
+                g = fused_perm.csc_rmatvec_f32(col_ptr, row_idx, vals, c, n, name, split)
                 torch.cuda.synchronize()
                 g_plain = fused_perm.csc_rmatvec_plain(col_ptr, row_idx, vals, c, name)
                 prod = t(vals.double()) * c.double()[row_idx.long()]
@@ -378,9 +414,8 @@ def _check_csc_kernel(gen, dev) -> tuple:
                 )
                 case = _compare(g, g_plain, g64, col_abs, col_ptr.diff(), (dim,), n=n, dim=dim,
                                 nnz=int(col_ptr[-1]), transform=name,
-                                long_columns=int(seg.long_cols.numel()),
-                                segments=int(seg.seg_begin.numel()))
-                repeat = fused_perm.csc_rmatvec_f32(col_ptr, row_idx, vals, c, n, name, seg)
+                                ctas=split.shape[1] - 1)
+                repeat = fused_perm.csc_rmatvec_f32(col_ptr, row_idx, vals, c, n, name, split)
                 case["bitwise_repeatable"] = bool(torch.equal(g, repeat))
                 case["ok"] = case["ok"] and case["bitwise_repeatable"]
                 cases.append(case)
@@ -489,9 +524,8 @@ def shuffle_times(v: torch.Tensor, idx: torch.Tensor, rows: int) -> dict:
     equal = torch.equal(kernel(), plain())
     ms = cuda_ms({"kernel": kernel, "plain": plain, "library": library})
     bound_ms, bound_by = shuffle_bound_ms(m)
-    return {"m": m, "rows": rows, "bitwise_equal": equal, "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "library_ms": ms["library"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return {"m": m, "rows": rows, "bitwise_equal": equal, **kernel_times(ms),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
@@ -564,7 +598,7 @@ def _check_csr_bf16_kernel(gen, dev) -> tuple:
             fns["plain"] = lambda: fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)
             fns["library"] = lambda: torch.mv(csr, w)
             bound_ms, bound_by = csr_bound_ms(n, int(row_ptr[-1]), dim)
-            times = {"n": n, "dim": dim, **cuda_ms(fns), "bound_ms": bound_ms,
+            times = {"n": n, "dim": dim, **kernel_times(cuda_ms(fns)), "bound_ms": bound_ms,
                      "bound_by": bound_by}
     return {"cases": cases, "times_at_full_width": times}, worst
 
@@ -583,10 +617,10 @@ def _check_csc_bf16_kernel(gen, dev) -> tuple:
     for n, dim in ((1 << 20, 1 << 24), (31, 1000)):
         col_ptr, row_idx, vals = _random_csc(n, dim, gen, dev)
         c = torch.randn(n, generator=gen, device=dev)
-        seg = fused_perm.CscSegments.of(col_ptr)
+        split = fused_perm.merge_path_split(col_ptr, row_idx.numel())
         cols = torch.repeat_interleave(torch.arange(dim, device=dev), col_ptr.diff())
         for name, t in transforms.items():
-            g = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, seg)
+            g = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, split)
             torch.cuda.synchronize()
             g_plain = fused_perm.csc_rmatvec_bf16_plain(col_ptr, row_idx, vals, c, name)
             terms = (t(vals) * c[row_idx.long()]).to(torch.bfloat16).double()
@@ -595,7 +629,7 @@ def _check_csc_bf16_kernel(gen, dev) -> tuple:
                 0, cols, terms.abs())
             case = _compare(g, g_plain, g64, col_abs, col_ptr.diff(), (dim,), n=n, dim=dim,
                             nnz=int(col_ptr[-1]), transform=name)
-            repeat = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, seg)
+            repeat = fused_perm.csc_rmatvec_bf16(col_ptr, row_idx, vals, c, n, name, split)
             case["bitwise_repeatable"] = bool(torch.equal(g, repeat))
             case["ok"] = case["ok"] and case["bitwise_repeatable"]
             cases.append(case)
@@ -606,7 +640,12 @@ def _check_csc_bf16_kernel(gen, dev) -> tuple:
     return cases, worst
 
 
-BLOCKED_SHAPES = ((1 << 20, 256), (700, 37), (1000, 130), (65_537, 129))
+# [2^20, 256] (timed), ragged last tiles with d % 4 != 0, d = 1, rows of
+# more than 256 columns and of more than 2048 (the column-split kernel)
+BLOCKED_SHAPES = ((1 << 20, 256), (700, 37), (1000, 130), (65_537, 129), (4097, 1),
+                  (3001, 300), (1001, 2500))
+# a shape run again with X a view 4 bytes past a 16-byte boundary
+BLOCKED_UNALIGNED = (1000, 128)
 
 
 def _check_blocked_value_grad_kernel(gen, dev) -> tuple:
@@ -620,8 +659,13 @@ def _check_blocked_value_grad_kernel(gen, dev) -> tuple:
     from photon_ml_tpu_torch.ops import pallas_kernels
 
     cases, worst, times = [], 0.0, None
-    for n, d in BLOCKED_SHAPES:
+    for (n, d), unaligned in [(shape, False) for shape in BLOCKED_SHAPES] + [
+            (BLOCKED_UNALIGNED, True)]:
         inputs = tuple(t[0] for t in _value_grad_inputs(1, n, d, gen, dev))
+        if unaligned:
+            X = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+            X.copy_(inputs[0])
+            inputs = (X,) + inputs[1:]
         for kind in (LogisticLoss, SquaredLoss, PoissonLoss, SmoothedHingeLoss):
             out = pallas_kernels.fused_value_grad_f32(*inputs, kind)
             torch.cuda.synchronize()
@@ -632,7 +676,7 @@ def _check_blocked_value_grad_kernel(gen, dev) -> tuple:
                 for name, o, p, r, a in zip(("value", "grad", "csum"), out, plain, ref, scale)
             ]
             again = pallas_kernels.fused_value_grad_f32(*inputs, kind)
-            case = {"n": n, "d": d, "loss": kind.__name__,
+            case = {"n": n, "d": d, "loss": kind.__name__, "x_16_byte_aligned": not unaligned,
                     "max_abs_err_plain": max(p["max_abs_err_plain"] for p in parts),
                     "max_abs_err_f64": max(p["max_abs_err_f64"] for p in parts),
                     "bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(out, again)),
@@ -660,8 +704,8 @@ def _check_blocked_value_grad_kernel(gen, dev) -> tuple:
                 "library": library,
             })
             bound_ms, bound_by = value_grad_bound_ms(1, n, d)
-            times = {"shape": [n, d], "ms": ms["kernel"], "plain_ms": ms["plain"],
-                     "library_ms": ms["library"], "bound_ms": bound_ms, "bound_by": bound_by}
+            times = {"shape": [n, d], **kernel_times(ms), "bound_ms": bound_ms,
+                     "bound_by": bound_by}
         del inputs
         torch.cuda.empty_cache()
     return {"cases": cases, "times": times}, worst
@@ -889,8 +933,7 @@ def phase_score_full_width(seed: int) -> dict:
         "setup_s": setup_s, "first_score_s": first_score_s,
         "launches": counts["csr_matvec_f32"],
         "max_abs_err_vs_plain_path": float(diff.max()),
-        "kernel_ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
-        "library_max_abs_diff": lib_diff,
+        **kernel_times(ms), "library_max_abs_diff": lib_diff,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "score_ms_median_of_5": statistics.median(score_times),
         "re_entity_lookup_ms": re_lookup_ms,
@@ -1118,7 +1161,7 @@ class plain_versions:
             "csr_matvec_f32": (fused_perm, lambda row_ptr, col_idx, vals, w, dim:
                                fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w)),
             "csc_rmatvec_f32": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
-                                transform="id", segments=None: fused_perm.csc_rmatvec_plain(
+                                transform="id", split=None: fused_perm.csc_rmatvec_plain(
                                     col_ptr, row_idx, vals, c, transform)),
             "fused_value_grad_batched_f32": (pallas_kernels,
                                              pallas_kernels.fused_value_grad_plain),
@@ -1127,7 +1170,7 @@ class plain_versions:
             "csr_matvec_bf16": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, gather=None:
                                 fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)),
             "csc_rmatvec_bf16": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
-                                 transform="id", segments=None: fused_perm.csc_rmatvec_bf16_plain(
+                                 transform="id", split=None: fused_perm.csc_rmatvec_bf16_plain(
                                      col_ptr, row_idx, vals, c, transform)),
             "fused_value_grad_f32": (pallas_kernels, pallas_kernels.fused_value_grad_plain),
         }
@@ -1228,7 +1271,7 @@ def phase_train_full_width(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     w = fit.model.models["fixed"].coefficients.means
     c = torch.randn(n, generator=gen, device="cuda")
-    seg = fused_perm.CscSegments.of(feats.col_ptr)
+    split = fused_perm.merge_path_split(feats.col_ptr, feats.row_idx.numel())
     csr = torch.sparse_csr_tensor(feats.row_ptr, feats.col_idx.long(), feats.vals,
                                   size=(n, feats.dim))
     csr_t = torch.sparse_csr_tensor(feats.col_ptr, feats.row_idx.long(), feats.vals_csc,
@@ -1243,7 +1286,7 @@ def phase_train_full_width(seed: int) -> dict:
         }),
         "csc_rmatvec_f32": cuda_ms({
             "kernel": lambda: fused_perm.csc_rmatvec_f32(
-                feats.col_ptr, feats.row_idx, feats.vals_csc, c, n, "id", seg),
+                feats.col_ptr, feats.row_idx, feats.vals_csc, c, n, "id", split),
             "plain": lambda: fused_perm.csc_rmatvec_plain(
                 feats.col_ptr, feats.row_idx, feats.vals_csc, c),
             "library": lambda: torch.mv(csr_t, c),
@@ -1284,7 +1327,7 @@ def phase_train_full_width(seed: int) -> dict:
             z64, row_abs, feats.row_ptr.diff(), (n,))],
         "csc_rmatvec_f32": [_compare(
             fused_perm.csc_rmatvec_f32(feats.col_ptr, feats.row_idx, feats.vals_csc, c, n,
-                                       "id", seg),
+                                       "id", split),
             g_plain, g_plain.double(), col_abs, feats.col_ptr.diff(), (feats.dim,))],
         "fused_value_grad_batched_f32": [
             _compare(o, p, r, a, s, o.shape, part=part)
@@ -1303,8 +1346,7 @@ def phase_train_full_width(seed: int) -> dict:
         "fused_value_grad_batched_f32": value_grad_bound_ms(E, s, d),
     }
     kernels = {
-        k: {"launches": counts[k], "ms": times[k]["kernel"], "plain_ms": times[k]["plain"],
-            "library_ms": times[k]["library"], "bound_ms": bounds[k][0],
+        k: {"launches": counts[k], **kernel_times(times[k]), "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1]}
         for k in KERNELS
     }
@@ -1376,7 +1418,7 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     )
     w0 = torch.zeros(1, shard.dim, device="cuda")
     # each engine's first maps load its kernels (an nvcc build when the
-    # build phase did not run) and make its CSC segments: not solve time
+    # build phase did not run) and make its CSC split: not solve time
     for f in engines.values():
         f.matvec(w0[0])
         f.rmatvec(labels)
@@ -1428,7 +1470,7 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
         "bf16_rmatvec": lambda: bf.rmatvec(c), "f32_rmatvec": lambda: f32.rmatvec(c),
     }, reps=10)
     dim, nnz = bf.dim, bf.vals.numel()
-    seg = fused_perm.CscSegments.of(bf.col_ptr)
+    split = fused_perm.merge_path_split(bf.col_ptr, bf.row_idx.numel())
     csr = torch.sparse_csr_tensor(bf.row_ptr, bf.col_idx.long(), bf.vals, size=(n, dim))
     csr_t = torch.sparse_csr_tensor(bf.col_ptr, bf.row_idx.long(), bf.vals_csc, size=(dim, n))
     times = {
@@ -1439,7 +1481,7 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
         }),
         "csc_rmatvec_bf16": cuda_ms({
             "kernel": lambda: fused_perm.csc_rmatvec_bf16(
-                bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", seg),
+                bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", split),
             "plain": lambda: fused_perm.csc_rmatvec_bf16_plain(
                 bf.col_ptr, bf.row_idx, bf.vals_csc, c),
             "library": lambda: torch.mv(csr_t, c),
@@ -1460,7 +1502,7 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
             fused_perm.csr_matvec_bf16_plain(bf.row_ptr, bf.col_idx, bf.vals, w),
             z64, row_abs, bf.row_ptr.diff(), (n,)),
         "csc_rmatvec_bf16": _compare(
-            fused_perm.csc_rmatvec_bf16(bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", seg),
+            fused_perm.csc_rmatvec_bf16(bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", split),
             fused_perm.csc_rmatvec_bf16_plain(bf.col_ptr, bf.row_idx, bf.vals_csc, c),
             g64, col_abs, bf.col_ptr.diff(), (dim,)),
     }
@@ -1469,8 +1511,7 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     bounds = {"csr_matvec_bf16": csr_bound_ms(n, nnz, dim),
               "csc_rmatvec_bf16": csc_bound_ms(n, nnz, dim)}
     kernels = {
-        k: {"launches": counts[k], "ms": times[k]["kernel"], "plain_ms": times[k]["plain"],
-            "library_ms": times[k]["library"], "bound_ms": bounds[k][0],
+        k: {"launches": counts[k], **kernel_times(times[k]), "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1]}
         for k in BF16_KERNELS
     }
@@ -1866,10 +1907,13 @@ def main(argv=None) -> int:
         "launches": train.get(name, {}).get("launches"),
         "max_abs_err": errors.get(name),
         "ms": train.get(name, {}).get("ms"),
+        "device_ms": train.get(name, {}).get("device_ms"),
         "plain_ms": train.get(name, {}).get("plain_ms"),
+        "plain_device_ms": train.get(name, {}).get("plain_device_ms"),
         "bound_ms": train.get(name, {}).get("bound_ms"),
         "bound_by": train.get(name, {}).get("bound_by"),
         "library_ms": train.get(name, {}).get("library_ms"),
+        "library_device_ms": train.get(name, {}).get("library_device_ms"),
     } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

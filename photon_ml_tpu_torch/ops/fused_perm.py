@@ -13,8 +13,9 @@ two plain layouts:
 - CSR (``row_ptr`` int64 [n+1], ``col_idx`` int32 [nnz], ``vals`` f32
   [nnz]) for :func:`csr_matvec_f32` (``csrc/spmv.cu``, one warp per row);
 - CSC (``col_ptr`` int64 [d+1], ``row_idx`` int32 [nnz], ``vals_csc`` f32
-  [nnz]) for :func:`csc_rmatvec_f32` (``csrc/spmv_t.cu``, short columns a
-  thread each, long columns split into segments a block each, no atomics).
+  [nnz]) for :func:`csc_rmatvec_f32` (``csrc/spmv_t.cu``, the column ends
+  and nonzeros cut into equal shares by a merge path, a fixed-order
+  segmented reduction in each share, no atomics).
 
 The reference's bfloat16 payload (``from_coo(payload_dtype="bfloat16")``)
 rounds each network input once: the broadcast coefficient bf16(w[col]) in
@@ -65,10 +66,9 @@ PAYLOAD_DTYPES = ("float32", "bfloat16")
 # the feature statistics
 TRANSFORMS = {"id": 0, "sq": 1, "abs": 2, "nnz": 3}
 
-# columns with more nonzeros than this are summed in segments of at most
-# SEGMENT nonzeros, one thread block each (csrc/spmv_t.cu)
-SHORT_MAX = 32
-SEGMENT = 8192
+# items of the merged list (column ends + nonzeros) one CTA of the CSC
+# kernel takes (csrc/spmv_t.cu kItems; the library checks it)
+MERGE_ITEMS = 2048
 
 
 def _library() -> ctypes.CDLL:
@@ -89,9 +89,8 @@ def _library_t() -> ctypes.CDLL:
     for entry in (KERNEL_T, KERNEL_T_BF16):
         fn = getattr(lib, entry)
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
-            + [ctypes.c_int64, ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
         )
         fn.restype = ctypes.c_int
     lib.spmv_t_error_string.argtypes = [ctypes.c_int]
@@ -211,34 +210,24 @@ def csr_matvec_bf16(
     return z
 
 
-@dataclasses.dataclass
-class CscSegments:
-    """Where :func:`csc_rmatvec_f32` splits its work: the columns with more
-    than ``SHORT_MAX`` nonzeros (``long_cols`` int32 [L]), cut into
-    segments of at most ``SEGMENT`` nonzeros (``seg_begin``/``seg_end``
-    int64 [S], positions in the CSC arrays); long column ``l`` owns the
-    segments ``seg_ptr[l]:seg_ptr[l+1]`` (int64 [L+1])."""
+def merge_path_split(col_ptr: torch.Tensor, nnz: int) -> torch.Tensor:
+    """Where :func:`csc_rmatvec_f32` cuts its work: the merge of the d
+    column ends and the ``nnz`` nonzeros of the CSC matrix, cut every
+    :data:`MERGE_ITEMS` items, as int64 [2, ctas+1] coordinates (columns
+    ended, nonzeros taken); the last is (d, nnz).
 
-    long_cols: torch.Tensor
-    seg_begin: torch.Tensor
-    seg_end: torch.Tensor
-    seg_ptr: torch.Tensor
-
-    @classmethod
-    def of(cls, col_ptr: torch.Tensor) -> "CscSegments":
-        lengths = col_ptr.diff()
-        long_cols = torch.nonzero(lengths > SHORT_MAX).flatten()
-        long_len = lengths[long_cols]
-        nseg = (long_len + SEGMENT - 1) // SEGMENT
-        seg_ptr = torch.zeros(long_cols.numel() + 1, dtype=torch.int64, device=col_ptr.device)
-        torch.cumsum(nseg, 0, out=seg_ptr[1:])
-        owner = torch.repeat_interleave(
-            torch.arange(long_cols.numel(), device=col_ptr.device), nseg
-        )
-        within = torch.arange(owner.numel(), device=col_ptr.device) - seg_ptr[owner]
-        seg_begin = col_ptr[long_cols][owner] + within * SEGMENT
-        seg_end = torch.minimum(seg_begin + SEGMENT, col_ptr[long_cols + 1][owner])
-        return cls(long_cols.to(torch.int32), seg_begin, seg_end, seg_ptr)
+    Column end i stands at position col_ptr[i+1] + i of the merged list
+    (after its nonzeros and the earlier ends), so the columns ended before
+    item k are those with col_ptr[i+1] + i + 1 <= k: one ``searchsorted``
+    on the device, no host sync. The cut depends only on ``col_ptr``."""
+    d = col_ptr.numel() - 1
+    total = d + int(nnz)
+    ctas = max(1, -(-total // MERGE_ITEMS))
+    dev = col_ptr.device
+    diag = torch.clamp(torch.arange(ctas + 1, device=dev) * MERGE_ITEMS, max=total)
+    ends = col_ptr[1:] + torch.arange(1, d + 1, device=dev)
+    cols = torch.searchsorted(ends, diag, right=True)
+    return torch.stack([cols, diag - cols])
 
 
 def _check_csc(kernel, col_ptr, row_idx, vals, c, num_rows: int, transform: str) -> None:
@@ -293,45 +282,59 @@ def csc_rmatvec_bf16_plain(
     )
 
 
-def _csc_rmatvec(kernel, col_ptr, row_idx, vals, c, num_rows, transform, segments):
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start 16-byte aligned
+    (the kernel loads it 16 bytes at a time)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _csc_rmatvec(kernel, col_ptr, row_idx, vals, c, num_rows, transform, split):
     """Launch the CSC kernel ``kernel`` (csc_rmatvec_f32 or _bf16, one
     signature) on CUDA tensors."""
     if c.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {c.device}")
-    seg = segments if segments is not None else CscSegments.of(col_ptr)
+    nnz = row_idx.numel()
+    if split is None:
+        split = merge_path_split(col_ptr, nnz)
+    elif (split.dtype != torch.int64 or split.dim() != 2 or split.shape[0] != 2
+          or not split.is_contiguous() or split.device != c.device):
+        raise ValueError(f"{kernel}: split must be merge_path_split's int64 [2, ctas+1] "
+                         "on the operands' device")
     lib = _library_t()
     d = col_ptr.numel() - 1
+    ctas = split.shape[1] - 1
+    # the copies stay referenced until the launch is queued
+    row_idx, vals = _aligned16(row_idx), _aligned16(vals)
     g = torch.empty(d, dtype=torch.float32, device=c.device)
-    partial = torch.empty(seg.seg_begin.numel(), dtype=torch.float32, device=c.device)
+    carry_key = torch.empty(2 * ctas, dtype=torch.int32, device=c.device)
+    carry_val = torch.empty(2 * ctas, dtype=torch.float32, device=c.device)
     _launch(kernel, getattr(lib, kernel), lib.spmv_t_error_string, c.device,
             col_ptr.data_ptr(), row_idx.data_ptr(), vals.data_ptr(), c.data_ptr(),
-            g.data_ptr(), d, TRANSFORMS[transform], SHORT_MAX,
-            seg.seg_begin.data_ptr(), seg.seg_end.data_ptr(), partial.data_ptr(),
-            seg.seg_begin.numel(), seg.long_cols.data_ptr(), seg.seg_ptr.data_ptr(),
-            seg.long_cols.numel())
+            g.data_ptr(), d, nnz, TRANSFORMS[transform], split.data_ptr(), ctas,
+            MERGE_ITEMS, carry_key.data_ptr(), carry_val.data_ptr())
     return g
 
 
 def csc_rmatvec_f32(
     col_ptr: torch.Tensor, row_idx: torch.Tensor, vals: torch.Tensor,
     c: torch.Tensor, num_rows: int, transform: str = "id",
-    segments: Optional[CscSegments] = None,
+    split: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """g = Xᵀ·(t(vals)·c) for the CSC matrix (col_ptr, row_idx, vals) with
     ``num_rows`` rows, t one of :data:`TRANSFORMS`. Launches the CUDA kernel
     for CUDA tensors (and counts the launch); takes
-    :func:`csc_rmatvec_plain` for CPU tensors. ``segments`` is the matrix's
-    :class:`CscSegments`, built here when not given."""
+    :func:`csc_rmatvec_plain` for CPU tensors. ``split`` is the matrix's
+    :func:`merge_path_split`, computed here when not given."""
     _check_csc(KERNEL_T, col_ptr, row_idx, vals, c, num_rows, transform)
     if c.device.type == "cpu":
         return csc_rmatvec_plain(col_ptr, row_idx, vals, c, transform)
-    return _csc_rmatvec(KERNEL_T, col_ptr, row_idx, vals, c, num_rows, transform, segments)
+    return _csc_rmatvec(KERNEL_T, col_ptr, row_idx, vals, c, num_rows, transform, split)
 
 
 def csc_rmatvec_bf16(
     col_ptr: torch.Tensor, row_idx: torch.Tensor, vals: torch.Tensor,
     c: torch.Tensor, num_rows: int, transform: str = "id",
-    segments: Optional[CscSegments] = None,
+    split: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """g[j] = Σ bf16(t(vals)·c[row]) with f32 sums, for the CSC matrix
     (col_ptr, row_idx, vals) with ``num_rows`` rows. Launches the CUDA
@@ -340,8 +343,7 @@ def csc_rmatvec_bf16(
     _check_csc(KERNEL_T_BF16, col_ptr, row_idx, vals, c, num_rows, transform)
     if c.device.type == "cpu":
         return csc_rmatvec_bf16_plain(col_ptr, row_idx, vals, c, transform)
-    return _csc_rmatvec(KERNEL_T_BF16, col_ptr, row_idx, vals, c, num_rows, transform,
-                        segments)
+    return _csc_rmatvec(KERNEL_T_BF16, col_ptr, row_idx, vals, c, num_rows, transform, split)
 
 
 @dataclasses.dataclass
@@ -366,7 +368,7 @@ class FusedSparseFeatures:
     vals_csc: torch.Tensor  # [nnz] float32, column-major
     num_rows_: int
     num_cols_: int
-    segments: Optional[CscSegments] = dataclasses.field(default=None, repr=False)
+    split: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     payload_dtype: str = "float32"
     exact: Optional["FusedSparseFeatures"] = None
     layout: Optional[dict] = dataclasses.field(default=None, repr=False)
@@ -397,11 +399,11 @@ class FusedSparseFeatures:
     def _rmatvec_impl(self, c: torch.Tensor, transform: str) -> torch.Tensor:
         """Xᵀ·c with the stored values elementwise-transformed first
         ("id" / "sq" / "abs" / "nnz", the reference's ``_rmatvec_impl``)."""
-        if self.segments is None and self.col_ptr.device.type == "cuda":
-            self.segments = CscSegments.of(self.col_ptr)
+        if self.split is None and self.col_ptr.device.type == "cuda":
+            self.split = merge_path_split(self.col_ptr, self.row_idx.numel())
         kernel = csc_rmatvec_bf16 if self.payload_dtype == "bfloat16" else csc_rmatvec_f32
         g = kernel(self.col_ptr, self.row_idx, self.vals_csc, c, self.num_rows_,
-                   transform, self.segments)
+                   transform, self.split)
         return g if self.exact is None else g + self.exact._rmatvec_impl(c, transform)
 
 

@@ -13,8 +13,9 @@ entity) covers the whole bucket [E, s, d].
 The reference's blocked kernel ``fused_value_grad`` (K7, ``_kernel``), the
 same sums over one dense [n, d] problem of any size in 256-row grid steps,
 is :func:`fused_value_grad` here: :func:`fused_value_grad_f32`
-(``csrc/value_grad.cu``, 64-row tiles staged in shared memory, a
-deterministic second pass over the CTAs' partial sums). As in the
+(``csrc/value_grad.cu``, persistent CTAs fed full-row tiles through a ring
+of bulk copies into shared memory, a deterministic second pass over the
+CTAs' partial sums). As in the
 reference, no objective routes to it: :func:`fused_value_grad_auto` takes
 only the single-block kernel.
 
@@ -70,7 +71,7 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.fused_value_grad_f32.restype = ctypes.c_int
-    lib.fused_value_grad_f32_grid.argtypes = [ctypes.c_int64]
+    lib.fused_value_grad_f32_grid.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.fused_value_grad_f32_grid.restype = ctypes.c_int64
     lib.value_grad_error_string.argtypes = [ctypes.c_int]
     lib.value_grad_error_string.restype = ctypes.c_char_p
@@ -159,7 +160,9 @@ def fused_value_grad_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"{KERNEL_BLOCKED}: unsupported device {X.device}")
     lib = _library()
     n, d = X.shape
-    grid = lib.fused_value_grad_f32_grid(n)
+    if X.data_ptr() % 16:
+        X = X.clone()  # the kernel's bulk tile copies need a 16-byte aligned X
+    grid = lib.fused_value_grad_f32_grid(n, d)
     value = torch.empty((), dtype=torch.float32, device=X.device)
     grad = torch.empty(d, dtype=torch.float32, device=X.device)
     csum = torch.empty((), dtype=torch.float32, device=X.device)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card (the same checks as chip_smoke.py's kernel phase, at smaller sizes:
-several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32,
+several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32
+(also on skewed columns that stress its merge-path split),
 their bf16-payload twins csr_matvec_bf16 and csc_rmatvec_bf16,
 fused_value_grad_batched_f32, the blocked fused_value_grad_f32, and the two
 shuffles of a Benes plan, lane_shuffle_f32 and sublane_shuffle_f32
@@ -108,6 +109,57 @@ def test_csc_rmatvec_f32_matches_plain(card, n, transform):
     assert bool(((g.double() - plain.double()).abs() <= tol).all())
     # deterministic: no atomics, the same bits every call
     assert torch.equal(g, fused_perm.csc_rmatvec_f32(col_ptr, row, vals, c, n, transform))
+
+
+def _skewed_csc(layout, n, dim, gen, dev):
+    """CSC matrices that stress the merge-path split: empty columns around
+    one column longer than a CTA's share, a column cut by several shares,
+    every nonzero in the last column."""
+    share = fused_perm.MERGE_ITEMS
+    lengths = torch.zeros(dim, dtype=torch.int64, device=dev)
+    if layout == "empty_and_one_long":
+        lengths[dim // 2] = share + 5
+    elif layout == "cut_by_several_shares":
+        lengths[::3] = 1
+        lengths[7] = 5 * share + 123
+    else:  # all_in_last_column
+        lengths[-1] = 3 * share + 1
+    col_ptr = torch.zeros(dim + 1, dtype=torch.int64, device=dev)
+    col_ptr[1:] = torch.cumsum(lengths, 0)
+    nnz = int(col_ptr[-1])
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev).to(torch.int32)
+    return col_ptr, row, torch.randn(nnz, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("kernel", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["empty_and_one_long", "cut_by_several_shares",
+                                    "all_in_last_column"])
+def test_csc_rmatvec_on_skewed_columns(card, layout, kernel):
+    n, dim = 5000, 3001
+    gen = torch.Generator(device=card).manual_seed(dim + len(layout))
+    col_ptr, row, vals = _skewed_csc(layout, n, dim, gen, card)
+    c = torch.randn(n, generator=gen, device=card)
+    fn, plain = {
+        "f32": (fused_perm.csc_rmatvec_f32, fused_perm.csc_rmatvec_plain),
+        "bf16": (fused_perm.csc_rmatvec_bf16, fused_perm.csc_rmatvec_bf16_plain),
+    }[kernel]
+    g = fn(col_ptr, row, vals, c, n)
+    torch.cuda.synchronize()
+    want = plain(col_ptr, row, vals, c)
+    cols = torch.repeat_interleave(torch.arange(dim, device=card), col_ptr.diff())
+    col_abs = torch.zeros(dim, dtype=torch.float64, device=card).index_add_(
+        0, cols, (vals.double() * c.double()[row.long()]).abs())
+    tol = 1e-5 * torch.clamp(col_abs, min=1.0)
+    assert g.shape == (dim,) and bool(torch.isfinite(g).all())
+    assert bool(((g.double() - want.double()).abs() <= tol).all())
+    assert bool((g[col_ptr.diff() == 0] == 0).all())  # empty columns written as 0
+    assert torch.equal(g, fn(col_ptr, row, vals, c, n))
+    # row_idx / vals at an offset that is not 16-byte aligned are copied
+    row_off = torch.empty(row.numel() + 1, dtype=torch.int32, device=card)[1:]
+    vals_off = torch.empty(vals.numel() + 1, device=card)[1:]
+    row_off.copy_(row)
+    vals_off.copy_(vals)
+    assert torch.equal(fn(col_ptr, row_off, vals_off, c, n), g)
 
 
 def test_fused_engine_rmatvec_launches_the_kernel(card):
@@ -232,11 +284,17 @@ def test_fused_value_grad_rejects_host_and_device_mix(card):
 
 
 @pytest.mark.parametrize("kind", LOSSES, ids=lambda k: k.__name__)
-@pytest.mark.parametrize("shape", [(1, 1), (700, 37), (1000, 130), (65_537, 129), (4097, 300)])
+@pytest.mark.parametrize("shape", [(1, 1), (700, 37), (1000, 130), (65_537, 129), (4097, 300),
+                                   (4097, 1), (257, 4), (1001, 2500), "unaligned"])
 def test_fused_value_grad_f32_matches_plain(card, kind, shape):
-    n, d = shape
+    """Ragged last tiles, d % 4 != 0, d = 1, rows wider than 256 and than
+    2048 columns, and X a view 4 bytes past a 16-byte boundary."""
+    n, d = (1000, 128) if shape == "unaligned" else shape
     gen = torch.Generator(device=card).manual_seed(n + d)
     X = torch.randn(n, d, generator=gen, device=card) / d ** 0.5
+    if shape == "unaligned":
+        X = torch.empty(n * d + 1, device=card)[1:].view(n, d).copy_(X)
+        assert X.data_ptr() % 16 != 0
     y = (torch.rand(n, generator=gen, device=card) < 0.5).float()
     off = torch.randn(n, generator=gen, device=card) * 0.5
     wt = torch.rand(n, generator=gen, device=card) + 0.5

@@ -221,14 +221,78 @@ def test_csc_layout_and_segments():
     assert f.row_idx.tolist() == [2, 1, 2, 0]
     assert f.vals_csc.tolist() == [4.0, 5.0, 4.0, 2.0]
     assert f.row_idx.dtype == torch.int32 and f.col_ptr.dtype == torch.int64
-    # one column past SHORT_MAX, cut into two segments
-    long = fused_perm.SEGMENT + 1
-    col_ptr = torch.tensor([0, 3, 3 + long, 3 + long + fused_perm.SHORT_MAX])
-    seg = fused_perm.CscSegments.of(col_ptr)
-    assert seg.long_cols.tolist() == [1]
-    assert seg.seg_begin.tolist() == [3, 3 + fused_perm.SEGMENT]
-    assert seg.seg_end.tolist() == [3 + fused_perm.SEGMENT, 3 + long]
-    assert seg.seg_ptr.tolist() == [0, 2]
+    # one CTA's share of the merge path takes all 5 column ends and 4 nonzeros
+    split = fused_perm.merge_path_split(f.col_ptr, 4)
+    assert split.dtype == torch.int64 and split.tolist() == [[0, 5], [0, 4]]
+
+
+def _merge_path_numpy(col_ptr, items):
+    """The merged list walked one item at a time: each column's nonzeros,
+    then its end; the coordinate (ends, nonzeros) at every multiple of
+    ``items`` and at the end."""
+    coords, ends, nz = [(0, 0)], 0, 0
+    order = []
+    for i in range(len(col_ptr) - 1):
+        order += ["nz"] * int(col_ptr[i + 1] - col_ptr[i]) + ["end"]
+    for k, item in enumerate(order, start=1):
+        ends, nz = ends + (item == "end"), nz + (item == "nz")
+        if k % items == 0 or k == len(order):
+            coords.append((ends, nz))
+    if not order:
+        coords.append((0, 0))  # one (empty) share
+    return np.array(coords).T
+
+
+@pytest.mark.parametrize("items", [4, 7, 2048])
+@pytest.mark.parametrize("lengths", [
+    "empty", "one_long_column", "long_last_column", "skewed", "many_empty",
+])
+def test_merge_path_split_matches_numpy(monkeypatch, items, lengths):
+    """The CSC kernel's work split against a numpy merge path: every column
+    end and every nonzero in exactly one share, shares of ``items`` items,
+    the column left open at each share's end (its carry) in column order;
+    and the column sums assembled as the kernel does (each column's part in
+    the share where it ends plus the carries of the shares before, in
+    order) equal the plain column sums."""
+    rng = np.random.default_rng(len(lengths) * 31 + items)
+    d = 50
+    col_len = {
+        "empty": np.zeros(d, np.int64),
+        "one_long_column": np.where(np.arange(d) == 7, 300, rng.integers(0, 3, d)),
+        "long_last_column": np.where(np.arange(d) == d - 1, 400, 0),
+        "skewed": rng.integers(0, 3, d) + np.where(np.arange(d) % 17 == 0, 60, 0),
+        "many_empty": np.where(rng.random(d) < 0.8, 0, rng.integers(1, 9, d)),
+    }[lengths]
+    col_ptr = np.concatenate([[0], np.cumsum(col_len)]).astype(np.int64)
+    nnz = int(col_ptr[-1])
+    monkeypatch.setattr(fused_perm, "MERGE_ITEMS", items)
+    split = fused_perm.merge_path_split(torch.from_numpy(col_ptr), nnz).numpy()
+    np.testing.assert_array_equal(split, _merge_path_numpy(col_ptr, items))
+    cols, nzs = split
+    assert (cols[0], nzs[0]) == (0, 0) and (cols[-1], nzs[-1]) == (d, nnz)
+    sizes = np.diff(cols) + np.diff(nzs)
+    assert np.all(sizes[:-1] == items) and 0 < sizes[-1] <= items
+    assert np.all(np.diff(cols) >= 0) and np.all(np.diff(nzs) >= 0)  # carries in order
+
+    terms = rng.standard_normal(nnz)
+    g = np.full(d, np.nan)
+    carries = []  # (column, partial), one a share, in share order
+    for b in range(len(cols) - 1):
+        part, x = 0.0, cols[b]
+        for p in range(nzs[b], nzs[b + 1]):
+            while col_ptr[x + 1] <= p:  # columns that end before nonzero p
+                assert np.isnan(g[x])
+                g[x], part, x = part, 0.0, x + 1
+            part += terms[p]
+        while x < cols[b + 1]:
+            assert np.isnan(g[x])
+            g[x], part, x = part, 0.0, x + 1
+        carries.append((x, part))
+    for x, part in carries:  # the carry rounds
+        if x < d:
+            g[x] += part
+    want = np.array([terms[col_ptr[j]:col_ptr[j + 1]].sum() for j in range(d)])
+    np.testing.assert_allclose(g, want, atol=1e-12)
 
 
 def test_csc_wrapper_rejects_bad_operands():
