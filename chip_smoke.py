@@ -12,21 +12,25 @@ exit code is not 0):
 3. kernel           — each kernel against its plain PyTorch version and a
                       float64 computation, on the card: csr_matvec_f32 over
                       random CSR matrices (n in {1, 31, 4097, 2^20}, rows of
-                      0/1/16/33/4096 nonzeros, dim in {2^17, 2^24});
+                      0/1/16/33/4096 nonzeros, and a row holding every
+                      column, dim in {2^17, 2^24}; bitwise repeats);
                       csc_rmatvec_f32 with all four value transforms over
                       random CSC matrices (n in {1, 4097, 2^20}, dim in
                       {2^17, 2^24}; empty columns, duplicate rows, a column
                       holding every row, long columns);
                       fused_value_grad_batched_f32 with the four losses over
-                      batches (E, s, d) from E in {1, 7, 65,536}, s in {1,
-                      16, 33, 512}, d in {1, 16, 100}, weight-0 rows whose
-                      loss overflows; lane_shuffle_f32 (m in {1, 31, 32,
+                      batches (E, s, d) of VALUE_GRAD_SHAPES (s d odd,
+                      entities larger than a ring slot, rows wider than
+                      2048, the two buckets of train_full_width), weight-0
+                      rows whose loss overflows, and an entity's outputs
+                      bitwise the same alone, at another position and in
+                      batches of 7 and E; lane_shuffle_f32 (m in {1, 31, 32,
                       4097, 2^17} rows) and sublane_shuffle_f32 (R in {2, 4,
                       8}, {1, 31, 32, 4097} groups and 2^17 rows) with
                       identity, reversed and random indices, bitwise against
                       their plain versions, with kernel/plain/torch.gather/
-                      bound times at 2^17 rows; csr_matvec_bf16 and
-                      csc_rmatvec_bf16 (four
+                      bound times at 2^17 rows; csr_matvec_bf16 (every 7th
+                      entry exact, stored as ~col) and csc_rmatvec_bf16 (four
                       transforms) at the full-width shape (2^20 rows, 2^24
                       dims) and a ragged small one, against their plain
                       versions and a float64 sum of the rounded terms;
@@ -56,9 +60,12 @@ exit code is not 0):
                       on 2^18 held-out rows; checked against the same training
                       through the plain versions on the card (objective rtol
                       1e-4, AUC 1e-4), with seconds per coordinate, launches,
-                      kernel/plain/library/bound times, each kernel against
-                      its plain version at those shapes, and the device idle
-                      share of one random-effect solve.
+                      kernel/plain/library/bound times (the batched
+                      value+gradient at both buckets; csr_matvec_f32 also
+                      with a sequential col_idx, the gather's share), one
+                      L2-flushed time of each redesigned kernel, each kernel
+                      against its plain version at those shapes, and the
+                      device idle share of one random-effect solve.
 7. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
@@ -70,9 +77,12 @@ exit code is not 0):
                       gate), the bf16 solve through the kernels against the
                       same solve through the plain versions (objective
                       1e-4) and against itself (bitwise), with the layout,
-                      build and solve seconds, one map of each engine,
-                      kernel/plain/library/bound times at the rounded set's
-                      shapes and the device idle share of one bf16 solve.
+                      build and solve seconds, one map of each engine (the
+                      bf16 matvec one csr_matvec_bf16 pass over both entry
+                      sets), kernel/plain/library/bound times at the path's
+                      shapes, csr_matvec_bf16 also with a sequential col_idx
+                      and L2-flushed, and the device idle share of one bf16
+                      solve.
 8. train_benes_full_width
                     — the same training data with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
@@ -103,7 +113,10 @@ exit code is not 0):
 Every kernel, plain version and library call that a phase times gets two
 figures (cuda_ms): "ms", one call between two CUDA events, and
 "device_ms", a run of back-to-back calls between two events over their
-count, which keeps the wrapper's host work out of the kernel's time.
+count, which keeps the wrapper's host work out of the kernel's time; the
+redesigned kernels also "flushed_ms" (flushed_ms: one call after a 256 MB
+write that evicts L2). compare_kernels.py times kernels against another
+commit's in turns.
 
 Then a line with the card's name and power limit (nvidia-smi), a JSON line
 with one entry per kernel, and last {"ok": true, "device": {...}}.
@@ -232,6 +245,38 @@ def kernel_times(ms: dict) -> dict:
             for kind, suffix in (("ms", ""), ("device_ms", "_device"))}
 
 
+# a buffer written before each call of flushed_ms: larger than the 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+
+
+# cycles of a spin on the card (about 0.2 ms) queued between the L2 flush
+# and a flushed call's start event, longer than the call's host work
+FLUSH_SPIN_CYCLES = 400_000
+
+
+def flushed_ms(fn, reps: int = 10) -> float:
+    """Median ms of one call of ``fn`` between two CUDA events, a buffer of
+    L2_FLUSH_BYTES written on the card just before each call, so that the
+    call starts with none of its operands in L2. A spin that touches no
+    memory is queued between the writes and the start event: the card is
+    still spinning while the host does the call's own work, so the events
+    hold the call's device time alone."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        buf.fill_(1.0)
+        torch.cuda._sleep(FLUSH_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _bound(nbytes: float, flops: float) -> tuple:
     """The larger of bytes over the HBM rate and flops over the f32 rate,
     in ms, and which of the two it is."""
@@ -320,14 +365,26 @@ def _random_csr(n: int, dim: int, gen: torch.Generator, dev) -> tuple:
     return row_ptr, col_idx.to(torch.int32), vals
 
 
+def _row_of_every_column(dim: int, gen, dev) -> tuple:
+    """Four rows: empty, every column once (in order), 3 nonzeros, empty."""
+    lengths = torch.tensor([0, dim, 3, 0], dtype=torch.int64, device=dev)
+    row_ptr = torch.zeros(5, dtype=torch.int64, device=dev)
+    row_ptr[1:] = torch.cumsum(lengths, 0)
+    col_idx = torch.cat([torch.arange(dim, device=dev),
+                         torch.randint(0, dim, (3,), generator=gen, device=dev)])
+    return row_ptr, col_idx.to(torch.int32), torch.randn(dim + 3, generator=gen, device=dev)
+
+
 def _check_csr_kernel(gen, dev) -> tuple:
     from photon_ml_tpu_torch.ops import fused_perm
 
     cases, worst = [], 0.0
     for dim in (1 << 17, 1 << 24):
         w = torch.randn(dim, generator=gen, device=dev)
-        for n in (1, 31, 4097, 1 << 20):
-            row_ptr, col_idx, vals = _random_csr(n, dim, gen, dev)
+        for n in (1, 31, 4097, 1 << 20, "every_column"):
+            row_ptr, col_idx, vals = (_random_csr(n, dim, gen, dev) if n != "every_column"
+                                      else _row_of_every_column(dim, gen, dev))
+            n = row_ptr.numel() - 1
             z = fused_perm.csr_matvec_f32(row_ptr, col_idx, vals, w, dim)
             torch.cuda.synchronize()
             z_plain = fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w)
@@ -339,12 +396,29 @@ def _check_csr_kernel(gen, dev) -> tuple:
             )
             case = _compare(z, z_plain, z64, row_abs, row_ptr.diff(), (n,),
                             n=n, dim=dim, nnz=int(row_ptr[-1]))
+            case["bitwise_repeatable"] = bool(torch.equal(
+                z, fused_perm.csr_matvec_f32(row_ptr, col_idx, vals, w, dim)))
+            case["ok"] = case["ok"] and case["bitwise_repeatable"]
             cases.append(case)
             worst = max(worst, case["max_abs_err_plain"])
             if not case["ok"]:
                 emit("kernel", csr_matvec_f32=cases)
                 raise AssertionError(f"csr_matvec_f32 disagrees with its plain version: {case}")
     return cases, worst
+
+
+def row_major_csr(feats) -> tuple:
+    """(row_ptr [n+1], col_idx, vals) of a fused engine's CSR copy in plain
+    row-major order, its column blocks merged (a stable sort by row keeps
+    each row's blocks, and so its columns, in order)."""
+    from photon_ml_tpu_torch.ops import fused_perm
+
+    n = feats.num_rows
+    rows = fused_perm.csr_rows_of_nonzeros(feats.row_ptr, feats.row_blocks)
+    order = torch.argsort(rows, stable=True)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return row_ptr, feats.col_idx[order], feats.vals[order]
 
 
 def _compare(out, plain, ref64, abs_sum, terms, shape, **info) -> dict:
@@ -426,8 +500,15 @@ def _check_csc_kernel(gen, dev) -> tuple:
     return cases, worst
 
 
-VALUE_GRAD_SHAPES = ((1, 1, 1), (1, 512, 100), (7, 33, 16), (7, 16, 100),
-                     (65_536, 16, 16), (65_536, 33, 1))
+# tiles of whole entities (s d odd: (7, 33, 5), (65,536, 33, 1)), entities
+# larger than a slot ((1, 512, 100); (3, 1000, 33) with s d odd), rows
+# wider than 2048 columns (the warp kernel), the two buckets of
+# train_full_width
+VALUE_GRAD_SHAPES = ((1, 1, 1), (1, 512, 100), (7, 33, 16), (7, 16, 100), (7, 33, 5),
+                     (3, 1000, 33), (2, 5, 2100), (65_536, 16, 16), (65_536, 33, 1),
+                     (65_536, 38, 16), (16_384, 96, 16))
+# batches in which one entity's outputs must not depend on its company
+VALUE_GRAD_INVARIANCE_SHAPES = ((65_536, 38, 16), (701, 33, 5), (9, 600, 17))
 
 
 def _value_grad_f64(X, y, off, wt, w, kind):
@@ -489,6 +570,36 @@ def _check_value_grad_kernel(gen, dev) -> tuple:
                     f"fused_value_grad_batched_f32 disagrees with its plain version: {case} {parts}"
                 )
     return cases, worst
+
+
+def _check_value_grad_invariance(gen, dev) -> list:
+    """fused_value_grad_batched_f32 gives an entity the same bits alone (a
+    batch of 1, X a view that may start off a 16-byte boundary), at another
+    position (the batch rolled by 5), in a batch of 7 and in the whole
+    batch of E."""
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import pallas_kernels
+
+    def run(inputs):
+        return pallas_kernels.fused_value_grad_batched_f32(*inputs, LogisticLoss)
+
+    cases = []
+    for E, s, d in VALUE_GRAD_INVARIANCE_SHAPES:
+        inputs = _value_grad_inputs(E, s, d, gen, dev)
+        full = run(inputs)
+        rolled = run(tuple(t.roll(5, 0).contiguous() for t in inputs))
+        ok = all(torch.equal(a.roll(5, 0), b) for a, b in zip(full, rolled))
+        for e in sorted({0, E // 2 + 1, E - 1}):
+            alone = run(tuple(t[e:e + 1] for t in inputs))
+            idx = torch.tensor([(e + i) % E for i in range(-3, 4)], device=dev)
+            seven = run(tuple(t[idx].contiguous() for t in inputs))
+            ok = (ok and all(torch.equal(a[e:e + 1], b) for a, b in zip(full, alone))
+                  and all(torch.equal(a[e], b[3]) for a, b in zip(full, seven)))
+        plan = pallas_kernels.entity_tiling(E, s, d)
+        cases.append({"E": E, "s": s, "d": d, "mode": plan.mode, "bitwise_invariant": ok})
+        if not ok:
+            raise AssertionError(f"an entity's outputs depend on its batch: {cases}")
+    return cases
 
 
 def _shuffle_indices(kind: str, m: int, hi: int, gen, dev) -> torch.Tensor:
@@ -566,24 +677,30 @@ def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
 
 def _check_csr_bf16_kernel(gen, dev) -> tuple:
     """csr_matvec_bf16 at the full-width shape (2^20 rows, 2^24 dims) and a
-    ragged small one, against the plain version and the float64 sum of
-    vals * bf16(w), and for bitwise repeats; the kernel, the plain version
-    and torch.mv timed at the full-width shape."""
+    ragged small one, every 7th entry exact (its column stored as ~col, as
+    the bf16 engine stores its exact set), against the plain version and the
+    float64 sum of vals * bf16(w) (vals * w for the exact entries), and for
+    bitwise repeats; the kernel, the plain version and torch.mv timed at the
+    full-width shape."""
     from photon_ml_tpu_torch.ops import fused_perm
 
     cases, worst, times = [], 0.0, None
     for n, dim in ((1 << 20, 1 << 24), (31, 1000)):
         w = torch.randn(dim, generator=gen, device=dev)
-        row_ptr, col_idx, vals = _random_csr(n, dim, gen, dev)
+        row_ptr, col_real, vals = _random_csr(n, dim, gen, dev)
+        exact = torch.arange(col_real.numel(), device=dev) % 7 == 3
+        col_idx = torch.where(exact, ~col_real, col_real)
         z = fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)
         torch.cuda.synchronize()
         z_plain = fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)
         rows = torch.repeat_interleave(torch.arange(n, device=dev), row_ptr.diff())
-        prod = vals.double() * w.to(torch.bfloat16).double()[col_idx.long()]
+        w_terms = torch.where(exact, w[col_real.long()],
+                              w.to(torch.bfloat16).float()[col_real.long()])
+        prod = vals.double() * w_terms.double()
         z64 = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, rows, prod)
         row_abs = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, rows, prod.abs())
         case = _compare(z, z_plain, z64, row_abs, row_ptr.diff(), (n,), n=n, dim=dim,
-                        nnz=int(row_ptr[-1]))
+                        nnz=int(row_ptr[-1]), exact_entries=int(exact.sum()))
         repeat = fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)
         case["bitwise_repeatable"] = bool(torch.equal(z, repeat))
         case["ok"] = case["ok"] and case["bitwise_repeatable"]
@@ -593,7 +710,7 @@ def _check_csr_bf16_kernel(gen, dev) -> tuple:
             emit("kernel", csr_matvec_bf16=cases)
             raise AssertionError(f"csr_matvec_bf16 disagrees with its plain version: {case}")
         if times is None:
-            csr = torch.sparse_csr_tensor(row_ptr, col_idx.long(), vals, size=(n, dim))
+            csr = torch.sparse_csr_tensor(row_ptr, col_real.long(), vals, size=(n, dim))
             fns = {"kernel": lambda: fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, dim)}
             fns["plain"] = lambda: fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)
             fns["library"] = lambda: torch.mv(csr, w)
@@ -787,6 +904,7 @@ def phase_kernel(seed: int) -> dict:
     ):
         results[name], worst[name] = check(gen, dev)
         torch.cuda.empty_cache()
+    results["fused_value_grad_batched_f32_invariance"] = _check_value_grad_invariance(gen, dev)
     results["lone_dense_route"] = _time_lone_dense_route(gen, dev)
     emit("kernel", tolerance="vs float64: atol = 1e-5 * max(1, sum of |terms|); vs plain: "
          "that + terms * 2^-24 * max(1, sum of |terms|), elementwise; shuffles: bitwise; "
@@ -889,13 +1007,14 @@ def phase_score_full_width(seed: int) -> dict:
 
     # the same scoring through the plain versions, on the card
     means = model.models["fixed"].coefficients.means
-    z_plain = fused_perm.csr_matvec_plain(feats.row_ptr, feats.col_idx, feats.vals, means)
+    row_ptr, col_idx, vals = row_major_csr(feats)
+    z_plain = fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, means)
     for cid in model.models:
         if cid != "fixed":
             z_plain = z_plain + model.score_coordinate(cid, data)
-    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), feats.row_ptr.diff())
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), row_ptr.diff())
     row_abs = torch.zeros(n, device="cuda").index_add_(
-        0, rows, (feats.vals * means[feats.col_idx.long()]).abs()
+        0, rows, (vals * means[col_idx.long()]).abs()
     )
     tol = 1e-5 * torch.clamp(row_abs, min=1.0)
     diff = (z - z_plain).abs()
@@ -904,13 +1023,11 @@ def phase_score_full_width(seed: int) -> dict:
 
     # times at the main path's shapes
     kernel = lambda: fused_perm.csr_matvec_f32(  # noqa: E731
-        feats.row_ptr, feats.col_idx, feats.vals, means, fe_dim)
-    plain = lambda: fused_perm.csr_matvec_plain(  # noqa: E731
-        feats.row_ptr, feats.col_idx, feats.vals, means)
-    csr = torch.sparse_csr_tensor(
-        feats.row_ptr, feats.col_idx.long(), feats.vals, size=(n, fe_dim),
-        check_invariants=True,
-    )
+        feats.row_ptr, feats.col_idx, feats.vals, means, fe_dim, feats.row_split,
+        feats.row_blocks)
+    plain = lambda: fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, means)  # noqa: E731
+    csr = torch.sparse_csr_tensor(row_ptr, col_idx.long(), vals, size=(n, fe_dim),
+                                  check_invariants=True)
     library = lambda: torch.mv(csr, means)  # noqa: E731
     ms = cuda_ms({"kernel": kernel, "plain": plain, "library": library})
     lib_diff = float((library() - kernel()).abs().max())
@@ -1158,8 +1275,9 @@ class plain_versions:
         from photon_ml_tpu_torch.ops import fused_perm, pallas_kernels, permute_net
 
         plain = {
-            "csr_matvec_f32": (fused_perm, lambda row_ptr, col_idx, vals, w, dim:
-                               fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w)),
+            "csr_matvec_f32": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, split=None,
+                               blocks=1: fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w,
+                                                                     blocks)),
             "csc_rmatvec_f32": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
                                 transform="id", split=None: fused_perm.csc_rmatvec_plain(
                                     col_ptr, row_idx, vals, c, transform)),
@@ -1167,8 +1285,9 @@ class plain_versions:
                                              pallas_kernels.fused_value_grad_plain),
             "lane_shuffle_f32": (permute_net, permute_net.lane_shuffle_plain),
             "sublane_shuffle_f32": (permute_net, permute_net.sublane_shuffle_plain),
-            "csr_matvec_bf16": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, gather=None:
-                                fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w)),
+            "csr_matvec_bf16": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, split=None,
+                                blocks=1: fused_perm.csr_matvec_bf16_plain(
+                                    row_ptr, col_idx, vals, w, blocks)),
             "csc_rmatvec_bf16": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
                                  transform="id", split=None: fused_perm.csc_rmatvec_bf16_plain(
                                      col_ptr, row_idx, vals, c, transform)),
@@ -1213,6 +1332,51 @@ def profile_device_idle(fn) -> dict:
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top if device_us(e) > 0},
     }
+
+
+def sequential_cols(kernel, feats, w) -> dict:
+    """A CSR kernel on the matrix's own rows with col_idx replaced by the
+    sequential pattern p mod dim (the same nonzeros a row, w read in order),
+    as a cuda_ms entry "sequential": its gap to the random pattern is the
+    cost of the w gather."""
+    from photon_ml_tpu_torch.ops import fused_perm
+
+    nnz = feats.col_idx.numel()
+    col_seq = (torch.arange(nnz, device="cuda") % feats.dim).to(torch.int32)
+    row_split = fused_perm.merge_path_split(feats.row_ptr, nnz)
+    return {"sequential": lambda: kernel(feats.row_ptr, col_seq, feats.vals, w, feats.dim,
+                                         row_split, feats.row_blocks)}
+
+
+def value_grad_times(bucket, gen) -> dict:
+    """fused_value_grad_batched_f32 at a random-effect bucket's shape (its
+    X, labels, offsets and weights, random coefficients): kernel, plain,
+    library (torch.bmm, the elementwise loss, torch.bmm) and L2-flushed
+    times, and the bound; "inputs" the operands."""
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import pallas_kernels
+
+    E, s, d = bucket.X.shape
+    w_re = torch.randn(E, d, generator=gen, device="cuda") * 0.1
+    vg_in = (bucket.X, bucket.labels, bucket.offsets, bucket.weights, w_re)
+
+    def library():
+        z = torch.bmm(bucket.X, w_re.unsqueeze(-1)).squeeze(-1) + bucket.offsets
+        pos = bucket.weights > 0
+        lw = torch.where(pos, bucket.weights * LogisticLoss.value(z, bucket.labels), 0.0)
+        dz = torch.where(pos, bucket.weights * LogisticLoss.d1(z, bucket.labels), 0.0)
+        return lw.sum(-1), torch.bmm(dz.unsqueeze(1), bucket.X).squeeze(1), dz.sum(-1)
+
+    kernel = lambda: pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss)  # noqa: E731
+    ms = cuda_ms({
+        "kernel": kernel,
+        "plain": lambda: pallas_kernels.fused_value_grad_plain(*vg_in, LogisticLoss),
+        "library": library,
+    })
+    bound_ms, bound_by = value_grad_bound_ms(E, s, d)
+    return {"shape": [E, s, d], "plan": dataclasses.asdict(pallas_kernels.entity_tiling(E, s, d)),
+            **kernel_times(ms), "flushed_ms": flushed_ms(kernel), "bound_ms": bound_ms,
+            "bound_by": bound_by, "inputs": vg_in}
 
 
 def phase_train_full_width(seed: int) -> dict:
@@ -1272,17 +1436,19 @@ def phase_train_full_width(seed: int) -> dict:
     w = fit.model.models["fixed"].coefficients.means
     c = torch.randn(n, generator=gen, device="cuda")
     split = fused_perm.merge_path_split(feats.col_ptr, feats.row_idx.numel())
-    csr = torch.sparse_csr_tensor(feats.row_ptr, feats.col_idx.long(), feats.vals,
-                                  size=(n, feats.dim))
+    row_split = fused_perm.merge_path_split(feats.row_ptr, feats.col_idx.numel())
+    row_ptr, col_idx, vals = row_major_csr(feats)
+    csr = torch.sparse_csr_tensor(row_ptr, col_idx.long(), vals, size=(n, feats.dim))
     csr_t = torch.sparse_csr_tensor(feats.col_ptr, feats.row_idx.long(), feats.vals_csc,
                                     size=(feats.dim, n))
+    csr_kernel = lambda: fused_perm.csr_matvec_f32(  # noqa: E731
+        feats.row_ptr, feats.col_idx, feats.vals, w, feats.dim, row_split, feats.row_blocks)
     times = {
         "csr_matvec_f32": cuda_ms({
-            "kernel": lambda: fused_perm.csr_matvec_f32(
-                feats.row_ptr, feats.col_idx, feats.vals, w, feats.dim),
-            "plain": lambda: fused_perm.csr_matvec_plain(
-                feats.row_ptr, feats.col_idx, feats.vals, w),
+            "kernel": csr_kernel,
+            "plain": lambda: fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w),
             "library": lambda: torch.mv(csr, w),
+            **sequential_cols(fused_perm.csr_matvec_f32, feats, w),
         }),
         "csc_rmatvec_f32": cuda_ms({
             "kernel": lambda: fused_perm.csc_rmatvec_f32(
@@ -1292,28 +1458,18 @@ def phase_train_full_width(seed: int) -> dict:
             "library": lambda: torch.mv(csr_t, c),
         }),
     }
-    bucket = coords["per_user"].dataset.buckets[0]
-    E, s, d = bucket.X.shape
-    w_re = torch.randn(E, d, generator=gen, device="cuda") * 0.1
-    vg_in = (bucket.X, bucket.labels, bucket.offsets, bucket.weights, w_re)
-
-    def library_value_grad():
-        z = torch.bmm(bucket.X, w_re.unsqueeze(-1)).squeeze(-1) + bucket.offsets
-        pos = bucket.weights > 0
-        lw = torch.where(pos, bucket.weights * LogisticLoss.value(z, bucket.labels), 0.0)
-        dz = torch.where(pos, bucket.weights * LogisticLoss.d1(z, bucket.labels), 0.0)
-        return lw.sum(-1), torch.bmm(dz.unsqueeze(1), bucket.X).squeeze(1), dz.sum(-1)
-
-    times["fused_value_grad_batched_f32"] = cuda_ms({
-        "kernel": lambda: pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss),
-        "plain": lambda: pallas_kernels.fused_value_grad_plain(*vg_in, LogisticLoss),
-        "library": library_value_grad,
-    })
+    vg_times = {cid: value_grad_times(coords[cid].dataset.buckets[0], gen)
+                for cid in ("per_user", "per_item")}
+    vg_in = vg_times["per_user"].pop("inputs")
+    vg_times["per_item"].pop("inputs")
+    E, s, d = vg_in[0].shape
+    flushed = {"csr_matvec_f32": flushed_ms(csr_kernel),
+               "fused_value_grad_batched_f32": vg_times["per_user"]["flushed_ms"]}
 
     # each kernel against its plain version and float64, on the inputs timed
     # above (the main path's shapes)
-    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), feats.row_ptr.diff())
-    prod = feats.vals.double() * w.double()[feats.col_idx.long()]
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), row_ptr.diff())
+    prod = vals.double() * w.double()[col_idx.long()]
     z64 = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod)
     row_abs = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod.abs())
     g_plain = fused_perm.csc_rmatvec_plain(feats.col_ptr, feats.row_idx, feats.vals_csc, c)
@@ -1322,9 +1478,9 @@ def phase_train_full_width(seed: int) -> dict:
     vg_ref, vg_scale = _value_grad_f64(*vg_in, LogisticLoss)
     checks = {
         "csr_matvec_f32": [_compare(
-            fused_perm.csr_matvec_f32(feats.row_ptr, feats.col_idx, feats.vals, w, feats.dim),
-            fused_perm.csr_matvec_plain(feats.row_ptr, feats.col_idx, feats.vals, w),
-            z64, row_abs, feats.row_ptr.diff(), (n,))],
+            csr_kernel(),
+            fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w),
+            z64, row_abs, row_ptr.diff(), (n,))],
         "csc_rmatvec_f32": [_compare(
             fused_perm.csc_rmatvec_f32(feats.col_ptr, feats.row_idx, feats.vals_csc, c, n,
                                        "id", split),
@@ -1340,17 +1496,26 @@ def phase_train_full_width(seed: int) -> dict:
     if not all(case["ok"] for cases in checks.values() for case in cases):
         raise AssertionError(f"kernels disagree with their plain versions at the main "
                              f"path's shapes: {checks}")
+    if not torch.equal(csr_kernel(), csr_kernel()) or not all(
+            torch.equal(a, b) for a, b in zip(
+                pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss),
+                pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss))):
+        raise AssertionError("a redesigned kernel does not repeat bitwise at the path's shapes")
     bounds = {
         "csr_matvec_f32": csr_bound_ms(n, feats.nnz, feats.dim),
         "csc_rmatvec_f32": csc_bound_ms(n, feats.nnz, feats.dim),
-        "fused_value_grad_batched_f32": value_grad_bound_ms(E, s, d),
     }
     kernels = {
         k: {"launches": counts[k], **kernel_times(times[k]), "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1]}
-        for k in KERNELS
+        for k in KERNELS[:2]
     }
-    kernels["fused_value_grad_batched_f32"]["shape"] = [E, s, d]
+    kernels["csr_matvec_f32"].update(
+        sequential_cols_device_ms=times["csr_matvec_f32"]["sequential_device"],
+        flushed_ms=flushed["csr_matvec_f32"])
+    kernels["fused_value_grad_batched_f32"] = {
+        "launches": counts["fused_value_grad_batched_f32"], **vg_times["per_user"],
+        "per_item": vg_times["per_item"]}
 
     # device idle share of one random-effect solve (per_user, warm start)
     re_coord = coords["per_user"]
@@ -1435,7 +1600,9 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     launches.reset()
     r16, solve16_s = timed_solve("bfloat16")
     counts = launches.counts()
-    path = BF16_KERNELS + ("csr_matvec_f32", "csc_rmatvec_f32")  # rounded and exact sets
+    # the matvec takes both entry sets in one csr_matvec_bf16 pass; the
+    # rmatvec the rounded set by csc_rmatvec_bf16, the exact by csc_rmatvec_f32
+    path = BF16_KERNELS + ("csc_rmatvec_f32",)
     missing = [k for k in path if counts[k] < 1]
     if missing:
         raise AssertionError(f"the bf16 solve did not launch {missing}: {counts}")
@@ -1467,17 +1634,25 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     f32 = engines["float32"]
     engine_ms = cuda_ms({
         "bf16_matvec": lambda: bf.matvec(w), "f32_matvec": lambda: f32.matvec(w),
+        "bf16_exact_set_matvec": lambda: bf.exact.matvec(w),
         "bf16_rmatvec": lambda: bf.rmatvec(c), "f32_rmatvec": lambda: f32.rmatvec(c),
     }, reps=10)
-    dim, nnz = bf.dim, bf.vals.numel()
+    dim, nnz = bf.dim, bf.vals.numel()  # the CSR copy: both entry sets
     split = fused_perm.merge_path_split(bf.col_ptr, bf.row_idx.numel())
-    csr = torch.sparse_csr_tensor(bf.row_ptr, bf.col_idx.long(), bf.vals, size=(n, dim))
+    row_split = fused_perm.merge_path_split(bf.row_ptr, nnz)
+    csr_kernel = lambda: fused_perm.csr_matvec_bf16(  # noqa: E731
+        bf.row_ptr, bf.col_idx, bf.vals, w, dim, row_split, bf.row_blocks)
+    row_ptr, col_idx, vals = row_major_csr(bf)
+    exact = col_idx < 0  # the exact set's entries, stored as ~col
+    col_real = torch.where(exact, ~col_idx, col_idx).long()
+    csr = torch.sparse_csr_tensor(row_ptr, col_real, vals, size=(n, dim))
     csr_t = torch.sparse_csr_tensor(bf.col_ptr, bf.row_idx.long(), bf.vals_csc, size=(dim, n))
     times = {
         "csr_matvec_bf16": cuda_ms({
-            "kernel": lambda: fused_perm.csr_matvec_bf16(bf.row_ptr, bf.col_idx, bf.vals, w, dim),
-            "plain": lambda: fused_perm.csr_matvec_bf16_plain(bf.row_ptr, bf.col_idx, bf.vals, w),
+            "kernel": csr_kernel,
+            "plain": lambda: fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w),
             "library": lambda: torch.mv(csr, w),
+            **sequential_cols(fused_perm.csr_matvec_bf16, bf, w),
         }),
         "csc_rmatvec_bf16": cuda_ms({
             "kernel": lambda: fused_perm.csc_rmatvec_bf16(
@@ -1488,8 +1663,9 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
         }),
     }
     # each kernel against its plain version and float64 on the inputs timed
-    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), bf.row_ptr.diff())
-    prod = bf.vals.double() * w.to(torch.bfloat16).double()[bf.col_idx.long()]
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), row_ptr.diff())
+    w_terms = torch.where(exact, w[col_real], w.to(torch.bfloat16).float()[col_real])
+    prod = vals.double() * w_terms.double()
     z64 = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod)
     row_abs = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod.abs())
     cols = torch.repeat_interleave(torch.arange(dim, device="cuda"), bf.col_ptr.diff())
@@ -1498,9 +1674,9 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     col_abs = torch.zeros(dim, dtype=torch.float64, device="cuda").index_add_(0, cols, terms.abs())
     main_checks = {
         "csr_matvec_bf16": _compare(
-            fused_perm.csr_matvec_bf16(bf.row_ptr, bf.col_idx, bf.vals, w, dim),
-            fused_perm.csr_matvec_bf16_plain(bf.row_ptr, bf.col_idx, bf.vals, w),
-            z64, row_abs, bf.row_ptr.diff(), (n,)),
+            csr_kernel(),
+            fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w),
+            z64, row_abs, row_ptr.diff(), (n,)),
         "csc_rmatvec_bf16": _compare(
             fused_perm.csc_rmatvec_bf16(bf.col_ptr, bf.row_idx, bf.vals_csc, c, n, "id", split),
             fused_perm.csc_rmatvec_bf16_plain(bf.col_ptr, bf.row_idx, bf.vals_csc, c),
@@ -1509,14 +1685,17 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
     if not all(case["ok"] for case in main_checks.values()):
         raise AssertionError(f"bf16 kernels disagree at the main path's shapes: {main_checks}")
     bounds = {"csr_matvec_bf16": csr_bound_ms(n, nnz, dim),
-              "csc_rmatvec_bf16": csc_bound_ms(n, nnz, dim)}
+              "csc_rmatvec_bf16": csc_bound_ms(n, bf.row_idx.numel(), dim)}
     kernels = {
         k: {"launches": counts[k], **kernel_times(times[k]), "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1]}
         for k in BF16_KERNELS
     }
+    kernels["csr_matvec_bf16"].update(
+        sequential_cols_device_ms=times["csr_matvec_bf16"]["sequential_device"],
+        flushed_ms=flushed_ms(csr_kernel))
     result = {
-        "rows": n, "fe_dim": dim, "rounded_nnz": nnz, "exact_nnz": bf.exact.nnz,
+        "rows": n, "fe_dim": dim, "rounded_nnz": bf.vals_csc.numel(), "exact_nnz": bf.exact.nnz,
         "layout": bf.layout, "data_s": data_s, "build_s": build_s,
         "solve_s": {"float32": solve32_s, "bfloat16": solve16_s,
                     "bfloat16_plain_versions": plain_solve_s},
@@ -1914,6 +2093,7 @@ def main(argv=None) -> int:
         "bound_by": train.get(name, {}).get("bound_by"),
         "library_ms": train.get(name, {}).get("library_ms"),
         "library_device_ms": train.get(name, {}).get("library_device_ms"),
+        "flushed_ms": train.get(name, {}).get("flushed_ms"),
     } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,30 +13,63 @@
 //
 // Bound: bytes moved, 4*E*(s*d + 3s + 2d + 2): X, y, off, wt and w read
 // once, value, grad and csum written once. The arithmetic (about 4*s*d
-// flops an entity) is far below the card's f32 rate at these shapes
-// (s of 16-64, d of 16), so entities per launch, not per-entity work, set
-// the time.
+// flops an entity) is far below the card's f32 rate at these shapes (s of
+// 16-100, d of 16), so the design streams the bucket at the memory's rate
+// and does the rest from shared memory. At the random-effect buckets
+// [65,536, 38, 16] and [16,384, 96, 16] that is 198 MB (0.0592 ms at
+// 3.35 TB/s) and 121 MB.
 //
-// Design: one warp per entity, a grid-stride loop over entities, four warps
-// a block. The warp walks its entity's rows 32 at a time:
-//   * lane r computes z for row r (a dot over d in a fixed order, w read
-//     through the read-only path, the same address on every lane), then
-//     l and l' in registers; a weight-0 row contributes an exact 0 and its
-//     loss is never multiplied by its weight, so a loss that overflows to
-//     inf on such a row cannot make 0*inf = NaN;
-//   * the 32 values of dz go to shared memory, and lane j then adds
-//     dz_r * X[r, j] into grad[e, j] for the columns it owns (j = lane,
-//     lane+32, ...), row by row, keeping the running sum in the output;
-//   * value and csum are per-lane partial sums, reduced at the end with a
-//     fixed butterfly of warp shuffles.
-// Every output is summed by one fixed sequence of operations (no atomics),
-// so a lane's result does not depend on which other entities share the
-// launch. X is read straight from global memory, so any s and d run; the
-// kernel allocates nothing and runs on the caller's stream.
+// Design: K7's ring (below), applied to a batch of small problems. The
+// old kernel gave each entity a warp: lane r looped over row r's d
+// columns with loads 64 B apart across the warp and a chain of dependent
+// FMAs, half of the warp idled in the gradient pass at d = 16, and that
+// pass read X a second time and read and wrote grad[e, :] in global memory
+// every 32 rows (45 % of the bound). Now, for 1 <= d <= 2048:
+//   * a constant grid of persistent CTAs (the wrapper's plan: 396, three
+//     an SM of an H100, in "tiles" mode; a constant, not the SM count);
+//     CTA b takes a contiguous run of tiles. The grid changes no bits;
+//   * "tiles" mode (entities that fit a 32 KiB slot): a tile is k whole
+//     entities, k from the wrapper's plan (pallas_kernels.entity_tiling:
+//     the most that fit, rounded down to a multiple of the 8 warps, or of
+//     the period that keeps every tile start 16-byte aligned in X, y,
+//     off, wt and w). One thread stages a tile's five contiguous spans
+//     (X [k, s, d], y, off, wt [k, s], w [k, d]) into a ring of
+//     kTileStages slots by cp.async.bulk on the slot's mbarrier; a span
+//     that starts or ends off a 16-byte boundary has its head and tail
+//     (< 4 floats each) loaded plainly and keeps its offset within the
+//     line in shared memory, so any shape and any base address run. Then
+//     each warp takes whole entities of the tile with no block-wide
+//     barrier between its steps: z from shared memory, G lanes a row (G
+//     from d: 4 at d = 16, at most one 16-byte chunk a lane below 32
+//     lanes), a fixed butterfly in the group; the loss terms a lane a row;
+//     X^T dz with the rows cut into P parts (2 at d = 16), a lane a (part,
+//     column), each part's rows in order in two chains (even and odd rows,
+//     joined even + odd), the parts joined in a fixed tree; value and csum
+//     as lane partials joined by a fixed butterfly. G and P are template
+//     parameters (8 instantiations, chosen by d). What is left between
+//     the kernel and its bound is the latency of this arithmetic more than
+//     the loads: builds for the experiment that dropped one or the other
+//     each kept most of the time. A first design in steps of the whole
+//     CTA, separated by __syncthreads, was slower than the old kernel, and
+//     two slots of 32 KiB with three CTAs an SM beat three slots with two;
+//   * "rows" mode (an entity larger than a slot, up to the 2 M elements
+//     the objective routes here): CTA b takes a contiguous run of
+//     entities and streams each through the ring in chunks of R rows (R a
+//     multiple of 4, R d <= 8192, R <= 256), keeping the entity's gradient
+//     in registers (a thread a column, up to 8 columns a thread) until its
+//     last chunk, as K7 does for one problem;
+//   * d > 2048, s = 0 or d = 0: the old warp-an-entity kernel ("warp").
+// Weight-0 rows contribute exact zeros, and their loss is never multiplied
+// by their weight, so a loss that overflows to inf on such a row cannot
+// make 0*inf = NaN. Every output is one thread's or one group's fixed
+// sequence of operations (no atomics), and the sequence depends only on
+// (s, d) and the mode, which depends only on (s, d): an entity's outputs
+// do not depend on which entities share the launch, on their number, on
+// the tile or CTA that takes it, or on the card. The kernels allocate
+// nothing and run on the caller's stream.
 //
-// Left to a later change: staging X tiles in shared memory with coalesced
-// (TMA) loads, several entities a warp when s*d is small, and the tensor
-// cores for larger d.
+// Left to a later change: the "rows" mode in warp-sized steps as the
+// "tiles" mode now runs, and a ring for rows wider than 2048 columns.
 //
 // fused_value_grad_f32: the same three sums over ONE dense problem X [n, d]
 // of any size (value, grad [d], csum).
@@ -89,8 +122,7 @@
 // objective routes only the single-block one); the port keeps the same
 // rule, and this kernel serves callers of pallas_kernels.fused_value_grad.
 //
-// Left to a later change: the same ring for K6 (a batch of small
-// problems), and a ring for rows wider than 2048 columns.
+// Left to a later change: a ring for rows wider than 2048 columns.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -138,8 +170,11 @@ __device__ __forceinline__ void loss_terms(int loss, float z, float y, float* l,
   }
 }
 
+// The old K6 design, kept for rows wider than kRingMaxCols (and s = 0 or
+// d = 0): a warp an entity, lane r computing row r's z, the gradient
+// summed into grad[e, :] in global memory 32 rows at a time.
 __global__ void __launch_bounds__(kThreads)
-fused_value_grad_kernel(const float* __restrict__ X, const float* __restrict__ y,
+batched_warp_kernel(const float* __restrict__ X, const float* __restrict__ y,
                         const float* __restrict__ offsets, const float* __restrict__ wt,
                         const float* __restrict__ w, float* __restrict__ value,
                         float* __restrict__ grad, float* __restrict__ csum,
@@ -298,12 +333,12 @@ __device__ __forceinline__ void stage_tile(float* slot, uint64_t* bar,
   }
 }
 
-// The CTA's value and csum: a fixed butterfly in each warp, then the warps
-// in order.
+// The CTA's value and csum into *value_out and *csum_out: a fixed
+// butterfly in each warp, then the warps in order.
 __device__ __forceinline__ void write_cta_sums(float value_acc, float csum_acc,
                                                float (*warp_sums)[kBlockedWarps],
-                                               float* __restrict__ partial_value,
-                                               float* __restrict__ partial_csum) {
+                                               float* __restrict__ value_out,
+                                               float* __restrict__ csum_out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -324,8 +359,8 @@ __device__ __forceinline__ void write_cta_sums(float value_acc, float csum_acc,
       v += warp_sums[0][i];
       c += warp_sums[1][i];
     }
-    partial_value[blockIdx.x] = v;
-    partial_csum[blockIdx.x] = c;
+    *value_out = v;
+    *csum_out = c;
   }
 }
 
@@ -462,7 +497,8 @@ fused_value_grad_ring_kernel(const float* __restrict__ X, const float* __restric
       pg[j] = grad_acc[c];
     }
   }
-  write_cta_sums(value_acc, csum_acc, warp_sums, partial_value, partial_csum);
+  write_cta_sums(value_acc, csum_acc, warp_sums, partial_value + blockIdx.x,
+                 partial_csum + blockIdx.x);
 }
 
 __host__ __device__ __forceinline__ int tile_cols(int64_t d) {
@@ -566,7 +602,8 @@ fused_value_grad_wide_kernel(const float* __restrict__ X, const float* __restric
     }
     first = false;
   }
-  write_cta_sums(value_acc, csum_acc, warp_sums, partial_value, partial_csum);
+  write_cta_sums(value_acc, csum_acc, warp_sums, partial_value + blockIdx.x,
+                 partial_csum + blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kBlockedThreads)
@@ -595,30 +632,602 @@ fused_value_grad_finish_kernel(const float* __restrict__ partial_grad,
   }
 }
 
+// ---------------------------------------------------------------- K6 ring
+// (the batched kernel's "tiles" and "rows" modes; see the note at the top)
+
+constexpr int kModeTiles = 0;
+constexpr int kModeRows = 1;
+constexpr int kModeWarp = 2;
+// "rows" mode: kStages slots, each a chunk of at most kStageFloats floats
+// plus room to keep the chunk's offset within its 16-byte line
+constexpr int kSlotStride = kStageFloats + 4;
+// "tiles" mode: kTileStages slots of kTileFloats floats (32 KiB) and rows
+// of at most kEntityTileMaxRows a tile: 74 KiB a CTA, so that three CTAs
+// (24 warps) share an SM (measured faster than three 32 KiB slots and two
+// CTAs, or two 24 KiB slots and four; PERF.md)
+constexpr int kTileFloats = 8192;
+constexpr int kTileStages = 2;
+constexpr int kEntityTileMaxRows = 1024;
+
+__host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~int64_t{3}; }
+
+// Where a tile of k entities keeps its five spans in a slot (floats): X at
+// 0, then y, off, wt and w, each with 4 floats of room for its offset in
+// its 16-byte line; end is the slot's use.
+struct TileLayout {
+  int64_t y, off, wt, w, end;
+};
+
+__host__ __device__ __forceinline__ TileLayout tile_layout(int64_t k, int64_t s, int64_t d) {
+  TileLayout L;
+  L.y = round4(k * s * d) + 4;
+  L.off = L.y + round4(k * s) + 4;
+  L.wt = L.off + round4(k * s) + 4;
+  L.w = L.wt + round4(k * s) + 4;
+  L.end = L.w + round4(k * d) + 4;
+  return L;
+}
+
+// p's offset in floats within its 16-byte line
+__device__ __forceinline__ int line_offset(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// A span of count floats at src, placed at seg + line_offset(src) so that
+// it keeps src's alignment: its head and tail (< 4 floats each) copied here
+// by plain loads, its 16-byte aligned interior returned for one bulk copy.
+struct Bulk {
+  float* dst;
+  const float* src;
+  uint32_t bytes;
+};
+
+__device__ __forceinline__ Bulk stage_edges(float* seg, const float* src, int64_t count) {
+  const int m = line_offset(src);
+  float* dst = seg + m;
+  const int64_t aligned_at = (4 - m) & 3;
+  const int64_t head = aligned_at < count ? aligned_at : count;
+  const int64_t tail = head + ((count - head) & ~int64_t{3});
+  float v[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v[i] = i < head ? src[i] : 0.0f;
+    v[3 + i] = tail + i < count ? src[tail + i] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i < head) {
+      dst[i] = v[i];
+    }
+    if (tail + i < count) {
+      dst[tail + i] = v[3 + i];
+    }
+  }
+  return {dst + head, src + head, static_cast<uint32_t>((tail - head) * sizeof(float))};
+}
+
+// Arrive on bar expecting the spans' interiors, then start their copies.
+// One thread calls this.
+template <int kSpans>
+__device__ __forceinline__ void stage_spans(const Bulk (&spans)[kSpans], uint64_t* bar) {
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int i = 0; i < kSpans; ++i) {
+    bytes += spans[i].bytes;
+  }
+  barrier_expect_bytes(bar, bytes);
+#pragma unroll
+  for (int i = 0; i < kSpans; ++i) {
+    if (spans[i].bytes > 0) {
+      bulk_copy(spans[i].dst, spans[i].src, spans[i].bytes, bar);
+    }
+  }
+}
+
+// Lanes a row in the z pass: enough for one float4 of the row each, a
+// power of two up to the warp.
+__host__ __device__ __forceinline__ int group_lanes(int64_t d) {
+  int g = 1;
+  while (g < 32 && 4 * g < d) {
+    g <<= 1;
+  }
+  return g;
+}
+
+// One lane's part of the dot of row x with w (d entries): the 4-float
+// chunks q, q + G, ... in order, each an FMA chain over its 4 entries. The
+// 16-byte path (both rows aligned, d a multiple of 4) does the same
+// operations in the same order as the scalar one.
+__device__ __forceinline__ float row_dot_part(const float* x, const float* w, int d, int G,
+                                              int q, bool vec4) {
+  float acc = 0.0f;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    for (int c = q; c < (d >> 2); c += G) {
+      const float4 a = x4[c];
+      const float4 b = w4[c];
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+  } else {
+    for (int c = q; 4 * c < d; c += G) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (4 * c + t < d) {
+          acc = fmaf(x[4 * c + t], w[4 * c + t], acc);
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+// z_s[r] = x_r . w for the rows of a staged chunk (of one entity), G lanes
+// a row (a fixed butterfly within the group); every lane of a warp runs
+// the same rounds, so the shuffles never diverge.
+__device__ __forceinline__ void chunk_dot(const float* xs, const float* ws, int rows, int64_t d,
+                                          float* z_s) {
+  const int G = group_lanes(d);
+  const int q = threadIdx.x & (G - 1);
+  const int group = threadIdx.x / G;
+  const int groups = kBlockedThreads / G;
+  const bool vec4 = (d & 3) == 0 && ((reinterpret_cast<uintptr_t>(xs) |
+                                      reinterpret_cast<uintptr_t>(ws)) & 15) == 0;
+  for (int base = 0; base < rows; base += groups) {
+    const int r = base + group;
+    float acc = 0.0f;
+    if (r < rows) {
+      acc = row_dot_part(xs + static_cast<int64_t>(r) * d, ws, static_cast<int>(d), G, q,
+                         vec4);
+    }
+    for (int offset = G >> 1; offset > 0; offset >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, offset);
+    }
+    if (r < rows && q == 0) {
+      z_s[r] = acc;
+    }
+  }
+}
+
+// The loss terms of one row: weight * l and dz = weight * l', exact zeros
+// for a row of weight 0 (its loss is never evaluated against the weight).
+__device__ __forceinline__ void row_terms(int loss, float z, float y, float weight, float* lw,
+                                          float* dz) {
+  *lw = 0.0f;
+  *dz = 0.0f;
+  if (weight > 0.0f) {
+    float l, d1;
+    loss_terms(loss, z, y, &l, &d1);
+    *lw = weight * l;
+    *dz = weight * d1;
+  }
+}
+
+// row_dot_part for a group of G lanes (G from group_lanes(d)): below 32
+// lanes each lane holds at most one chunk, so no loop.
+template <int G>
+__device__ __forceinline__ float group_dot_part(const float* x, const float* w, int d, int q,
+                                                bool vec4) {
+  if (G == 32) {
+    return row_dot_part(x, w, d, G, q, vec4);
+  }
+  float acc = 0.0f;
+  if (vec4) {
+    if (q < (d >> 2)) {
+      const float4 a = reinterpret_cast<const float4*>(x)[q];
+      const float4 b = reinterpret_cast<const float4*>(w)[q];
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (4 * q + t < d) {
+        acc = fmaf(x[4 * q + t], w[4 * q + t], acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// One entity of a staged tile, by one warp, with only warp-level
+// synchronisation: xs [s, d], ws [d] and ys / os / wts [s] in shared
+// memory, z_w / dz_w [s] the entity's scratch rows. z by G lanes a row;
+// the loss terms a lane a row (value and csum as lane partials joined by
+// a fixed butterfly); X^T dz by P row parts (P d <= 32 lanes; lane = part
+// d + col, each a part's rows in order for one column) joined in a fixed
+// tree, or (P = 1) a lane a column over all rows. G and P (functions of d)
+// are compile-time, so the lane arithmetic and the shuffles unroll.
+template <int G, int P>
+__device__ __forceinline__ void warp_entity(const float* xs, const float* ws, const float* ys,
+                                            const float* os, const float* wts, int s, int d,
+                                            int part, int col, int loss, float* z_w,
+                                            float* dz_w, float* __restrict__ value_out,
+                                            float* __restrict__ grad_out,
+                                            float* __restrict__ csum_out) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & (G - 1);
+  const bool vec4 = (d & 3) == 0 && ((reinterpret_cast<uintptr_t>(xs) |
+                                      reinterpret_cast<uintptr_t>(ws)) & 15) == 0;
+  for (int base = 0; base < s; base += 32 / G) {
+    const int r = base + lane / G;
+    float acc = 0.0f;
+    if (r < s) {
+      acc = group_dot_part<G>(xs + r * d, ws, d, q, vec4);
+    }
+#pragma unroll
+    for (int offset = G >> 1; offset > 0; offset >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, offset);
+    }
+    if (r < s && q == 0) {
+      z_w[r] = acc;
+    }
+  }
+  __syncwarp();
+  float value_acc = 0.0f;
+  float csum_acc = 0.0f;
+  for (int r = lane; r < s; r += 32) {
+    float lw, dz;
+    row_terms(loss, z_w[r] + os[r], ys[r], wts[r], &lw, &dz);
+    value_acc += lw;
+    csum_acc += dz;
+    dz_w[r] = dz;
+  }
+  __syncwarp();
+  if (P > 1) {
+    const int span = (s + P - 1) / P;
+    const int r1 = min(s, (part + 1) * span);
+    // two chains (even and odd rows of the part), joined even + odd
+    float acc = 0.0f;
+    if (part < P) {
+      float odd = 0.0f;
+      int r = part * span;
+#pragma unroll 2
+      for (; r + 1 < r1; r += 2) {
+        acc = fmaf(dz_w[r], xs[r * d + col], acc);
+        odd = fmaf(dz_w[r + 1], xs[(r + 1) * d + col], odd);
+      }
+      if (r < r1) {
+        acc = fmaf(dz_w[r], xs[r * d + col], acc);
+      }
+      acc += odd;
+    }
+#pragma unroll
+    for (int half = P >> 1; half > 0; half >>= 1) {
+      const float other = __shfl_down_sync(0xffffffffu, acc, half * d);
+      if (part < half) {
+        acc += other;
+      }
+    }
+    if (part == 0) {
+      grad_out[col] = acc;
+    }
+  } else {
+    for (int j = lane; j < d; j += 32) {
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < s; ++r) {
+        acc = fmaf(dz_w[r], xs[r * d + j], acc);
+      }
+      grad_out[j] = acc;
+    }
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    value_acc += __shfl_xor_sync(0xffffffffu, value_acc, offset);
+    csum_acc += __shfl_xor_sync(0xffffffffu, csum_acc, offset);
+  }
+  if (lane == 0) {
+    *value_out = value_acc;
+    *csum_out = csum_acc;
+  }
+}
+
+// Stage tile t (entities [t k, min(E, t k + k))) into slot.
+__device__ __forceinline__ void stage_entity_tile(float* slot, uint64_t* bar,
+                                                  const float* __restrict__ X,
+                                                  const float* __restrict__ y,
+                                                  const float* __restrict__ offsets,
+                                                  const float* __restrict__ wt,
+                                                  const float* __restrict__ w, int64_t E,
+                                                  int64_t s, int64_t d, int64_t k,
+                                                  const TileLayout& L, int64_t t) {
+  const int64_t e0 = t * k;
+  const int64_t kt = E - e0 < k ? E - e0 : k;
+  const Bulk spans[5] = {
+      stage_edges(slot, X + e0 * s * d, kt * s * d),
+      stage_edges(slot + L.y, y + e0 * s, kt * s),
+      stage_edges(slot + L.off, offsets + e0 * s, kt * s),
+      stage_edges(slot + L.wt, wt + e0 * s, kt * s),
+      stage_edges(slot + L.w, w + e0 * d, kt * d),
+  };
+  stage_spans(spans, bar);
+}
+
+template <int G, int P>
+__global__ void __launch_bounds__(kBlockedThreads)
+batched_tiles_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                     const float* __restrict__ offsets, const float* __restrict__ wt,
+                     const float* __restrict__ w, float* __restrict__ value,
+                     float* __restrict__ grad, float* __restrict__ csum, int64_t E, int64_t s,
+                     int64_t d, int64_t k, int loss) {
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;                             // [kTileStages][kTileFloats]
+  float* z_s = ring + kTileStages * kTileFloats;  // [kEntityTileMaxRows]
+  float* dz_s = z_s + kEntityTileMaxRows;         // [kEntityTileMaxRows]
+  __shared__ uint64_t full[kTileStages];
+  const int tid = threadIdx.x;
+  const TileLayout L = tile_layout(k, s, d);
+  const int64_t tiles = (E + k - 1) / k;
+  const int64_t first = tiles * blockIdx.x / gridDim.x;
+  const int64_t last = tiles * (blockIdx.x + 1) / gridDim.x;
+  const int si = static_cast<int>(s);
+  const int di = static_cast<int>(d);
+  const int part = P > 1 ? (tid & 31) / di : 0;  // this lane's (part, column)
+  const int col = (tid & 31) - part * di;
+
+  if (tid == 0) {
+    for (int st = 0; st < kTileStages; ++st) {
+      barrier_init(&full[st], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kTileStages && first + st < last; ++st) {
+      stage_entity_tile(ring + st * kTileFloats, &full[st], X, y, offsets, wt, w, E, s, d, k,
+                        L, first + st);
+    }
+  }
+
+  for (int64_t t = first; t < last; ++t) {
+    const int64_t kk = t - first;
+    const int stage = static_cast<int>(kk % kTileStages);
+    float* slot = ring + stage * kTileFloats;
+    const int64_t e0 = t * k;
+    const int kt = static_cast<int>(E - e0 < k ? E - e0 : k);
+    const float* xs = slot + line_offset(X + e0 * s * d);
+    const float* ys = slot + L.y + line_offset(y + e0 * s);
+    const float* os = slot + L.off + line_offset(offsets + e0 * s);
+    const float* wts = slot + L.wt + line_offset(wt + e0 * s);
+    const float* ws = slot + L.w + line_offset(w + e0 * d);
+    barrier_wait(&full[stage], static_cast<uint32_t>((kk / kTileStages) & 1));
+
+    // a warp an entity of the tile
+    for (int el = tid >> 5; el < kt; el += kBlockedWarps) {
+      const int rows0 = el * si;
+      warp_entity<G, P>(xs + rows0 * di, ws + el * di, ys + rows0, os + rows0, wts + rows0, si,
+                        di, part, col, loss, z_s + rows0, dz_s + rows0, value + e0 + el,
+                        grad + (e0 + el) * d, csum + e0 + el);
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (tid == 0 && t + kTileStages < last) {
+      // the slot's next contents come through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      stage_entity_tile(slot, &full[stage], X, y, offsets, wt, w, E, s, d, k, L,
+                        t + kTileStages);
+    }
+  }
+}
+
+// Stage chunk t of the flattened (entity, chunk) list: rows [c R, c R + R)
+// of entity t / chunks.
+__device__ __forceinline__ void stage_chunk(float* slot, uint64_t* bar,
+                                            const float* __restrict__ X, int64_t s, int64_t d,
+                                            int64_t R, int64_t chunks, int64_t t) {
+  const int64_t e = t / chunks;
+  const int64_t r0 = (t - e * chunks) * R;
+  const int64_t rows = s - r0 < R ? s - r0 : R;
+  const Bulk spans[1] = {stage_edges(slot, X + (e * s + r0) * d, rows * d)};
+  stage_spans(spans, bar);
+}
+
+__global__ void __launch_bounds__(kBlockedThreads)
+batched_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                    const float* __restrict__ offsets, const float* __restrict__ wt,
+                    const float* __restrict__ w, float* __restrict__ value,
+                    float* __restrict__ grad, float* __restrict__ csum, int64_t E, int64_t s,
+                    int64_t d, int64_t R, int loss) {
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;                             // [kStages][kSlotStride]
+  float* w_s = ring + kStages * kSlotStride;      // [d rounded up to 4]
+  float* z_s = w_s + round4(d);                   // [kMaxTileRows]
+  float* dz_s = z_s + kMaxTileRows;               // [kMaxTileRows]
+  __shared__ uint64_t full[kStages];
+  __shared__ float warp_sums[2][kBlockedWarps];
+  const int tid = threadIdx.x;
+  const int64_t chunks = (s + R - 1) / R;
+  const int64_t first = E * blockIdx.x / gridDim.x * chunks;
+  const int64_t last = E * (blockIdx.x + 1) / gridDim.x * chunks;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      barrier_init(&full[st], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kStages && first + st < last; ++st) {
+      stage_chunk(ring + st * kSlotStride, &full[st], X, s, d, R, chunks, first + st);
+    }
+  }
+
+  float grad_acc[kColsPerThread];
+  float value_acc = 0.0f;
+  float csum_acc = 0.0f;
+  for (int64_t t = first; t < last; ++t) {
+    const int64_t kk = t - first;
+    const int stage = static_cast<int>(kk % kStages);
+    float* slot = ring + stage * kSlotStride;
+    const int64_t e = t / chunks;
+    const int64_t c = t - e * chunks;
+    const int64_t r0 = c * R;
+    const int rows = static_cast<int>(s - r0 < R ? s - r0 : R);
+    if (c == 0) {
+      for (int64_t j = tid; j < d; j += kBlockedThreads) {
+        w_s[j] = w[e * d + j];
+      }
+#pragma unroll
+      for (int cc = 0; cc < kColsPerThread; ++cc) {
+        grad_acc[cc] = 0.0f;
+      }
+      value_acc = 0.0f;
+      csum_acc = 0.0f;
+    }
+    // this chunk's row operands, loaded while it lands
+    float y_r = 0.0f, off_r = 0.0f, wt_r = 0.0f;
+    if (tid < rows) {
+      y_r = y[e * s + r0 + tid];
+      off_r = offsets[e * s + r0 + tid];
+      wt_r = wt[e * s + r0 + tid];
+    }
+    const float* xs = slot + line_offset(X + (e * s + r0) * d);
+    barrier_wait(&full[stage], static_cast<uint32_t>((kk / kStages) & 1));
+    if (c == 0) {
+      __syncthreads();  // w_s
+    }
+
+    chunk_dot(xs, w_s, rows, d, z_s);
+    __syncthreads();
+    if (tid < rows) {
+      float lw, dz;
+      row_terms(loss, z_s[tid] + off_r, y_r, wt_r, &lw, &dz);
+      value_acc += lw;
+      csum_acc += dz;
+      dz_s[tid] = dz;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int cc = 0; cc < kColsPerThread; ++cc) {
+      const int64_t j = tid + cc * kBlockedThreads;
+      if (j < d) {
+        float acc = grad_acc[cc];
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+          acc = fmaf(dz_s[r], xs[r * d + j], acc);
+        }
+        grad_acc[cc] = acc;
+      }
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (tid == 0 && t + kStages < last) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      stage_chunk(slot, &full[stage], X, s, d, R, chunks, t + kStages);
+    }
+    if (c == chunks - 1) {  // the entity's last chunk
+#pragma unroll
+      for (int cc = 0; cc < kColsPerThread; ++cc) {
+        const int64_t j = tid + cc * kBlockedThreads;
+        if (j < d) {
+          grad[e * d + j] = grad_acc[cc];
+        }
+      }
+      write_cta_sums(value_acc, csum_acc, warp_sums, value + e, csum + e);
+    }
+  }
+}
+
+size_t tiles_smem_bytes() {
+  return sizeof(float) * (kTileStages * kTileFloats + 2 * kEntityTileMaxRows);
+}
+
+size_t rows_smem_bytes(int64_t d) {
+  return sizeof(float) * (kStages * kSlotStride + round4(d) + 2 * kMaxTileRows);
+}
+
+// Whether (mode, per_tile, grid) is a plan the kernels can run for [E, s, d].
+bool batched_plan_ok(int64_t E, int64_t s, int64_t d, int mode, int64_t per_tile,
+                     int64_t grid) {
+  if (grid < 1 || grid > 0x7fffffff) {
+    return false;
+  }
+  if (mode == kModeWarp) {
+    return grid <= kMaxBlocks;
+  }
+  if (s < 1 || d < 1 || d > kRingMaxCols || per_tile < 1) {
+    return false;
+  }
+  if (mode == kModeTiles) {
+    return per_tile * s <= kEntityTileMaxRows && tile_layout(per_tile, s, d).end <= kTileFloats;
+  }
+  return mode == kModeRows && per_tile <= kMaxTileRows && per_tile * d <= kStageFloats;
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers to
 // contiguous f32 arrays; stream is a cudaStream_t; loss: 0 logistic,
-// 1 squared, 2 Poisson, 3 smoothed hinge. Returns cudaGetLastError() after
-// the launch (0 on success).
+// 1 squared, 2 Poisson, 3 smoothed hinge. The plan is the wrapper's
+// (pallas_kernels.entity_tiling): mode 0 "tiles" (per_tile entities a
+// tile), 1 "rows" (per_tile rows a chunk of one entity), 2 "warp", on grid
+// CTAs. Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for a plan the kernels cannot run.
 extern "C" int fused_value_grad_batched_f32(const void* X, const void* y,
                                             const void* offsets, const void* wt,
                                             const void* w, void* value, void* grad,
                                             void* csum, int64_t E, int64_t s,
-                                            int64_t d, int loss, void* stream) {
+                                            int64_t d, int loss, int mode, int64_t per_tile,
+                                            int64_t grid, void* stream) {
   if (E <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  int64_t blocks = (E + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) {
-    blocks = kMaxBlocks;
+  if (!batched_plan_ok(E, s, d, mode, per_tile, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  fused_value_grad_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(y),
-      static_cast<const float*>(offsets), static_cast<const float*>(wt),
-      static_cast<const float*>(w), static_cast<float*>(value),
-      static_cast<float*>(grad), static_cast<float*>(csum), E, s, d, loss);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* args[5] = {static_cast<const float*>(X), static_cast<const float*>(y),
+                          static_cast<const float*>(offsets), static_cast<const float*>(wt),
+                          static_cast<const float*>(w)};
+  float* out[3] = {static_cast<float*>(value), static_cast<float*>(grad),
+                   static_cast<float*>(csum)};
+  if (mode == kModeWarp) {
+    batched_warp_kernel<<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+        args[0], args[1], args[2], args[3], args[4], out[0], out[1], out[2], E, s, d, loss);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using Kernel = void (*)(const float*, const float*, const float*, const float*,
+                         const float*, float*, float*, float*, int64_t, int64_t, int64_t,
+                         int64_t, int);
+  Kernel kernel = batched_rows_kernel;
+  if (mode == kModeTiles) {
+    // (G, P) as group_lanes(d) and row_parts(d) give them
+    switch (group_lanes(d)) {
+      case 1:
+        kernel = d == 1 ? batched_tiles_kernel<1, 32>
+                        : d == 2 ? batched_tiles_kernel<1, 16> : batched_tiles_kernel<1, 8>;
+        break;
+      case 2:
+        kernel = batched_tiles_kernel<2, 4>;
+        break;
+      case 4:
+        kernel = batched_tiles_kernel<4, 2>;
+        break;
+      case 8:
+        kernel = batched_tiles_kernel<8, 1>;
+        break;
+      case 16:
+        kernel = batched_tiles_kernel<16, 1>;
+        break;
+      default:
+        kernel = batched_tiles_kernel<32, 1>;
+    }
+  }
+  const size_t smem_bytes = mode == kModeTiles ? tiles_smem_bytes() : rows_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(grid), kBlockedThreads, smem_bytes, st>>>(
+      args[0], args[1], args[2], args[3], args[4], out[0], out[1], out[2], E, s, d, per_tile,
+      loss);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,10 @@ Pallas). The reference's per-entity kernel ``fused_value_grad_single``
 (K6, ``_single_kernel``) computes, over one dense block X [s, d] in one pass,
 Σ wt·l(z, y), Xᵀ·(wt·l′) and Σ wt·l′ with z = X·w + off, and runs under
 ``jax.vmap`` over a bucket's entities. Here one launch of
-:func:`fused_value_grad_batched_f32` (``csrc/value_grad.cu``, one warp an
-entity) covers the whole bucket [E, s, d].
+:func:`fused_value_grad_batched_f32` (``csrc/value_grad.cu``) covers the
+whole bucket [E, s, d]: persistent CTAs stream tiles of whole entities (or
+chunks of rows of one large entity) through a ring of bulk copies into
+shared memory, as :func:`entity_tiling` plans.
 
 The reference's blocked kernel ``fused_value_grad`` (K7, ``_kernel``), the
 same sums over one dense [n, d] problem of any size in 256-row grid steps,
@@ -27,6 +29,8 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -53,18 +57,85 @@ LOSS_CODES = {LogisticLoss: 0, SquaredLoss: 1, PoissonLoss: 2, SmoothedHingeLoss
 # (the reference's routing rule, photon_ml_tpu/ops/pallas_kernels.py:200)
 SINGLE_BLOCK_MAX_ELEMENTS = 2_000_000
 
-# A lone [s, d] problem gets one warp of the single-block kernel (one warp
-# an entity), where the plain maps spread over the card: on an H100 the
-# route won up to 65,536 elements and lost from 262,144 on (7.7x at the
-# reference's limit; PERF.md), so a lone problem goes through the kernel
-# only up to this size.
-LONE_PROBLEM_MAX_ELEMENTS = 1 << 16
+# A lone [s, d] problem goes through the single-block kernel as a batch of
+# one, where the plain maps spread over the card; one CTA streams it, so
+# the route pays only up to a size: on an H100 it won up to 2^18 elements
+# and lost from about 10^6 (PERF.md), short of the reference's 2 M.
+LONE_PROBLEM_MAX_ELEMENTS = 1 << 18
+
+# The batched kernel's rings (csrc/value_grad.cu; the library refuses a
+# plan that breaks these): "tiles" slots of TILE_FLOATS floats holding at
+# most TILE_MAX_ROWS rows, "rows" slots of CHUNK_FLOATS floats holding at
+# most CHUNK_MAX_ROWS rows of at most RING_MAX_COLS columns; constant grids
+# of at most TILE_GRID (three an SM of an H100) and RING_GRID (two) CTAs of
+# WARPS warps; the "warp" kernel's grid is at most WARP_MAX_BLOCKS blocks
+# of 4 entities. The grid changes no bits: an entity is one warp's or one
+# CTA's work, whichever CTA takes it.
+TILE_FLOATS = 8192
+TILE_MAX_ROWS = 1024
+CHUNK_FLOATS = 8192
+CHUNK_MAX_ROWS = 256
+RING_MAX_COLS = 2048
+TILE_GRID = 396
+RING_GRID = 264
+WARPS = 8
+WARP_MAX_BLOCKS = 1 << 16
+_MODES = {"tiles": 0, "rows": 1, "warp": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class EntityTiling:
+    """How :func:`fused_value_grad_batched_f32` cuts a batch [E, s, d]:
+    ``mode`` "tiles" (``per_tile`` whole entities a tile), "rows" (one
+    entity a time, ``per_tile`` rows a chunk) or "warp" (a warp an entity,
+    ``per_tile`` 0), on ``grid`` CTAs."""
+
+    mode: str
+    per_tile: int
+    grid: int
+
+
+def tile_floats(k: int, s: int, d: int) -> int:
+    """Floats of a slot that a tile of k entities takes: its spans of X, y,
+    off, wt and w, each rounded up to 16 bytes with 16 bytes of room for its
+    offset within a 16-byte line (csrc/value_grad.cu ``tile_layout``)."""
+    def round4(x):
+        return -(-x // 4) * 4
+    return round4(k * s * d) + 3 * round4(k * s) + round4(k * d) + 20
+
+
+def entity_tiling(E: int, s: int, d: int) -> EntityTiling:
+    """The batched kernel's plan for [E, s, d]. "tiles": the most entities
+    k that fit a tile slot (and TILE_MAX_ROWS rows), rounded down to a
+    multiple of the CTA's 8 warps (a warp takes whole entities) when k
+    reaches it, else to a multiple of the period that puts every tile's
+    start on a 16-byte boundary in X, y, off, wt and w (4 / gcd(4, s),
+    4 / gcd(4, d) entities; 8 is a multiple of it) when k reaches that;
+    "rows" for an entity too large for a slot: chunks of the most rows, a
+    multiple of 4, that fit (at most CHUNK_MAX_ROWS); "warp" for rows wider
+    than RING_MAX_COLS (or s = 0, d = 0). The mode depends only on (s, d),
+    so an entity's outputs do not depend on E."""
+    if s < 1 or d < 1 or d > RING_MAX_COLS:
+        return EntityTiling("warp", 0, max(1, min(-(-E // 4), WARP_MAX_BLOCKS)))
+    k = min(TILE_MAX_ROWS // s, TILE_FLOATS // (s * d + 3 * s + d))
+    while k > 0 and tile_floats(k, s, d) > TILE_FLOATS:
+        k -= 1
+    if k >= 1:
+        period = math.lcm(4 // math.gcd(4, s), 4 // math.gcd(4, d))
+        for step in (WARPS, period):
+            if k >= step:
+                k -= k % step
+                break
+        return EntityTiling("tiles", k, max(1, min(-(-E // k), TILE_GRID)))
+    rows = min(CHUNK_MAX_ROWS, CHUNK_FLOATS // d // 4 * 4)
+    return EntityTiling("rows", rows, max(1, min(E, RING_GRID)))
 
 
 def _library() -> ctypes.CDLL:
     lib = cudalib.load_library(SOURCE)
     lib.fused_value_grad_batched_f32.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
     )
     lib.fused_value_grad_batched_f32.restype = ctypes.c_int
     lib.fused_value_grad_f32.argtypes = (
@@ -130,6 +201,7 @@ def fused_value_grad_batched_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, 
         raise ValueError(f"{KERNEL}: unsupported device {X.device}")
     lib = _library()
     E, s, d = X.shape
+    plan = entity_tiling(E, s, d)
     value = torch.empty(E, dtype=torch.float32, device=X.device)
     grad = torch.empty(E, d, dtype=torch.float32, device=X.device)
     csum = torch.empty(E, dtype=torch.float32, device=X.device)
@@ -138,7 +210,7 @@ def fused_value_grad_batched_f32(X, y, off, wt, w, kind) -> Tuple[torch.Tensor, 
         rc = lib.fused_value_grad_batched_f32(
             X.data_ptr(), y.data_ptr(), off.data_ptr(), wt.data_ptr(), w.data_ptr(),
             value.data_ptr(), grad.data_ptr(), csum.data_ptr(), E, s, d,
-            LOSS_CODES[kind], stream,
+            LOSS_CODES[kind], _MODES[plan.mode], plan.per_tile, plan.grid, stream,
         )
     if rc != 0:
         raise RuntimeError(

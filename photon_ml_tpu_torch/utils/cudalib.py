@@ -4,7 +4,8 @@ Each kernel source ``ops/csrc/<name>.cu`` exposes a plain C entry point and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/photon_ml_tpu_torch/`` at the root of the checkout, at first use,
 then loaded with ``ctypes``. The library's file name carries a digest of
-the source, so an edited source is never served by a stale build. Builds go
+the source and of the shared headers (``ops/csrc/*.cuh``), so an edited
+source is never served by a stale build. Builds go
 to a temporary file that is renamed into place, so concurrent builders
 (test workers sharing a checkout) never load a half-written library.
 
@@ -51,9 +52,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``ops/csrc/<name>.cu`` is built: its name
+    carries a digest of the source and of every shared header (``*.cuh``)
+    beside it."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

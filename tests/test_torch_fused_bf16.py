@@ -119,6 +119,29 @@ def test_partition_equals_jax_fused_layout(case):
         assert len(bounds) > 2 and sum(map(len, spills)) > 0  # the planner split and capped
 
 
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_bf16_engine_csr_holds_both_sets(case):
+    """The bf16 engine's CSR copy (its one-pass matvec) holds every entry of
+    the partition: the rounded ones with their column, the exact ones (hot
+    columns, spill) with ~column, row by row; its CSC copy and its exact
+    engine split the entries as the partition does."""
+    n, d, k, kw = LAYOUTS[case]
+    rows, cols, vals = _coo(7, n, d, k)
+    part = sparse_perm.fused_payload_partition(rows, cols, vals, (n, d), **kw)
+    f = fused_perm.from_coo(rows, cols, vals, (n, d), payload_dtype="bfloat16",
+                            device="cpu", **kw)
+    want = {(r, c if keep else ~c): v for r, c, v, keep in
+            zip(part.rows.tolist(), part.cols.tolist(), part.vals.tolist(),
+                part.payload.tolist())}
+    got_rows = fused_perm.csr_rows_of_nonzeros(f.row_ptr, f.row_blocks).tolist()
+    got = dict(zip(zip(got_rows, f.col_idx.tolist()), f.vals.tolist()))
+    assert got == want
+    assert f.exact is not None
+    assert f.vals_csc.numel() == int(part.payload.sum())
+    assert f.exact.vals_csc.numel() == int((~part.payload).sum())
+    assert f.nnz == part.rows.size
+
+
 def test_benes_planner_defaults_unchanged():
     """The fused variants are opt-in: without them the planner is the Benes
     engine's (its plans are held bitwise by test_torch_benes.py)."""
@@ -259,6 +282,9 @@ def test_bf16_wrappers_round_as_the_reference_does():
     w = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8])  # ties: to even
     z = fused_perm.csr_matvec_bf16(row_ptr, col_idx, vals, w, 2)
     assert z.tolist() == [3.0 * 1.0 + 1.0 * (1.0 + 2.0 ** -6)]
+    # an exact entry (column stored as ~1) takes w unrounded
+    z = fused_perm.csr_matvec_bf16(row_ptr, torch.tensor([0, ~1], dtype=torch.int32), vals, w, 2)
+    assert z.tolist() == [float(torch.tensor(3.0) + torch.tensor(1.0 + 3 * 2.0 ** -8))]
     # 1.5 * (1 + 2^-7) = 1.5 + 1.5 * 2^-7 is not a bf16; its factors are
     g = fused_perm.csc_rmatvec_bf16(torch.tensor([0, 1], dtype=torch.int64),
                                     torch.tensor([0], dtype=torch.int32),

@@ -62,8 +62,14 @@ def _coo(seed, case):
 CASES = ["plain", "empty_rows", "duplicates", "hot_columns", "long_column", "long_row"]
 
 
+@pytest.mark.parametrize("blocks", [1, 5])
 @pytest.mark.parametrize("case", CASES)
-def test_matvec_matches_jax_fused_engine(interpret_kernels, case):
+def test_matvec_matches_jax_fused_engine(interpret_kernels, monkeypatch, case, blocks):
+    """blocks: the CSR copy in that many column blocks (its block size cut
+    to 4·⌈600 / 5⌉ bytes, whatever the row density; a shard of 2^24 columns
+    takes 5 at the default)."""
+    monkeypatch.setattr(fused_perm, "CSR_BLOCK_BYTES", 4 * -(-600 // blocks))
+    monkeypatch.setattr(fused_perm, "CSR_BLOCK_MIN_ROW_NNZ", 0)
     rows, cols, vals, shape, kw, dense, w = _coo(11, case)
     jf = jax_fused.from_coo(
         rows, cols, vals, shape, size_floor=128 * 128, plan_cache="", **kw
@@ -75,6 +81,7 @@ def test_matvec_matches_jax_fused_engine(interpret_kernels, case):
     z_jax = np.asarray(jf.matvec(jnp.asarray(w)))
 
     feats = fused_perm.from_coo(rows, cols, vals, shape, device="cpu")
+    assert feats.row_blocks == blocks
     before = launches.counts()[fused_perm.KERNEL]
     z = feats.matvec(torch.from_numpy(w)).numpy()
     assert launches.counts()[fused_perm.KERNEL] == before  # CPU: plain version
@@ -97,6 +104,65 @@ def test_port_ell_matches_jax_ell(case):
     )
     np.testing.assert_allclose(pe.matvec(torch.from_numpy(w)).numpy(), dense @ w,
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dim,block_bytes", [(50, 1 << 24), (50, 4 * 7), (50, 4 * 13),
+                                             ((1 << 24) + 1, 16 << 20)])
+def test_csr_column_blocks_match_numpy(monkeypatch, dim, block_bytes):
+    """The CSR copy's column blocks against a numpy rule: B = ⌈4·dim /
+    block_bytes⌉ blocks of ⌈dim / B⌉ columns (5 for the full-width shard of
+    2^24 + 1 columns); block b, one after another, holds for each row in
+    turn the row's coalesced entries with columns in the block, in column
+    order. (13 nonzeros a row here; below 8 a row the copy stays one block,
+    see test_csr_keeps_one_block_below_the_row_density.)"""
+    monkeypatch.setattr(fused_perm, "CSR_BLOCK_BYTES", block_bytes)
+    rng = np.random.default_rng(dim % 1000 + block_bytes % 997)
+    n = 37
+    rows = rng.integers(0, n, 500)
+    cols = np.concatenate([rng.integers(0, dim, 499), [dim - 1]])
+    vals = rng.standard_normal(500).astype(np.float32)
+    f = fused_perm.from_coo(rows, cols, vals, (n, dim), device="cpu")
+    B = max(1, -(-4 * dim // block_bytes))
+    width = -(-dim // B)
+    assert f.row_blocks == fused_perm.csr_blocks(dim, f.vals.numel(), n) == B
+    coalesced = {}
+    for r, c, v in zip(rows, cols, vals):
+        coalesced[(r, c)] = coalesced.get((r, c), np.float32(0)) + v
+    ptr, want_cols, want_vals = [0], [], []
+    for b in range(B):
+        for r in range(n):
+            row = sorted(c for (rr, c) in coalesced if rr == r and c // width == b)
+            want_cols += row
+            want_vals += [coalesced[(r, c)] for c in row]
+            ptr.append(len(want_cols))
+    np.testing.assert_array_equal(f.row_ptr.numpy(), ptr)
+    np.testing.assert_array_equal(f.col_idx.numpy(), want_cols)
+    # duplicates coalesced: their sum may round in another order
+    np.testing.assert_allclose(f.vals.numpy(), np.array(want_vals, np.float32), rtol=1e-6)
+    np.testing.assert_array_equal(
+        fused_perm.csr_rows_of_nonzeros(f.row_ptr, B).numpy(),
+        [r for b in range(B) for r in range(n) for _ in range(ptr[b * n + r + 1]
+                                                             - ptr[b * n + r])])
+    w = rng.standard_normal(dim).astype(np.float32)
+    want = np.zeros(n)
+    for (r, c), v in coalesced.items():
+        want[r] += float(v) * float(w[c])
+    np.testing.assert_allclose(f.matvec(torch.from_numpy(w)).numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_csr_keeps_one_block_below_the_row_density(monkeypatch):
+    """A matrix of fewer than CSR_BLOCK_MIN_ROW_NNZ nonzeros a row (the
+    bf16 engine's exact set) keeps one CSR block whatever its width."""
+    monkeypatch.setattr(fused_perm, "CSR_BLOCK_BYTES", 4 * 7)
+    n, dim = 40, 50
+    rng = np.random.default_rng(3)
+    for per_row, blocks in ((7, 1), (8, 8)):
+        rows = np.repeat(np.arange(n), per_row)
+        cols = np.concatenate([rng.choice(dim, per_row, replace=False) for _ in range(n)])
+        f = fused_perm.from_coo(rows, cols, np.ones(rows.size, np.float32), (n, dim),
+                                device="cpu")
+        assert f.row_blocks == blocks and f.row_ptr.numel() == blocks * n + 1
 
 
 def test_csr_layout_coalesces_and_keeps_empty_rows():

@@ -59,6 +59,79 @@ def test_csr_matvec_f32_matches_plain(card, n, dim):
     tol = 1e-5 * torch.clamp(row_abs, min=1.0)
     assert z.shape == (n,) and bool(torch.isfinite(z).all())
     assert bool(((z.double() - plain.double()).abs() <= tol).all())
+    # no atomics: the same bits every call
+    assert torch.equal(z, fused_perm.csr_matvec_f32(row_ptr, col, vals, w, dim))
+
+
+def _skewed_csr(layout, dim, gen, dev):
+    """CSR matrices of skewed rows: 0, 1, 17 and 4096 nonzeros in a ragged
+    number of rows (4099), and one row holding every column among short
+    ones."""
+    if layout == "0_1_17_4096":
+        pattern = torch.tensor([0, 1, 17, 17, 17], dtype=torch.int64, device=dev)
+        lengths = pattern[torch.arange(4099, device=dev) % 5]
+        lengths[1000] = 4096
+        cols = torch.randint(0, dim, (int(lengths.sum()),), generator=gen, device=dev)
+    else:  # every_column
+        lengths = torch.tensor([3, 0, dim, 1, 17], dtype=torch.int64, device=dev)
+        cols = torch.cat([torch.randint(0, dim, (3,), generator=gen, device=dev),
+                          torch.arange(dim, device=dev),
+                          torch.randint(0, dim, (18,), generator=gen, device=dev)])
+    row_ptr = torch.zeros(lengths.numel() + 1, dtype=torch.int64, device=dev)
+    row_ptr[1:] = torch.cumsum(lengths, 0)
+    return row_ptr, cols.to(torch.int32), torch.randn(cols.numel(), generator=gen, device=dev)
+
+
+def _column_blocks(row_ptr, col, vals, dim, blocks):
+    """The CSR in ``blocks`` column blocks, as fused_perm.from_coo stores a
+    wide matrix (an exact entry, stored as ~col, by its column)."""
+    n = row_ptr.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(n, device=col.device), row_ptr.diff())
+    block = torch.where(col < 0, ~col, col).long() // -(-dim // blocks)
+    order = torch.argsort(block, stable=True)
+    ptr = torch.zeros(blocks * n + 1, dtype=torch.int64, device=col.device)
+    ptr[1:] = torch.cumsum(torch.bincount(block * n + rows, minlength=blocks * n), 0)
+    return ptr, col[order].contiguous(), vals[order].contiguous()
+
+
+@pytest.mark.parametrize("blocks", [1, 4])
+@pytest.mark.parametrize("kernel", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["0_1_17_4096", "every_column"])
+def test_csr_matvec_on_skewed_rows(card, layout, kernel, blocks):
+    """The merge path over rows: rows much longer than a CTA's share and
+    empty rows, stored as one CSR or in column blocks, against the plain
+    version, bitwise repeats, and col_idx / vals at an offset that is not
+    16-byte aligned (copied)."""
+    dim = 70_001
+    gen = torch.Generator(device=card).manual_seed(dim + len(layout))
+    row_ptr, col, vals = _skewed_csr(layout, dim, gen, card)
+    n = row_ptr.numel() - 1
+    w = torch.randn(dim, generator=gen, device=card)
+    rows = torch.repeat_interleave(torch.arange(n, device=card), row_ptr.diff())
+    wq = w[col.long()]
+    if kernel == "bf16":  # every 5th entry exact, stored as ~col
+        exact = torch.arange(col.numel(), device=card) % 5 == 2
+        wq = torch.where(exact, wq, w.to(torch.bfloat16).float()[col.long()])
+        col = torch.where(exact, ~col, col)
+    row_abs = torch.zeros(n, dtype=torch.float64, device=card).index_add_(
+        0, rows, (vals.double() * wq.double()).abs())
+    plain = {"f32": fused_perm.csr_matvec_plain,
+             "bf16": fused_perm.csr_matvec_bf16_plain}[kernel]
+    want = plain(row_ptr, col, vals, w)
+    row_ptr, col, vals = _column_blocks(row_ptr, col, vals, dim, blocks)
+    fn = {"f32": fused_perm.csr_matvec_f32, "bf16": fused_perm.csr_matvec_bf16}[kernel]
+    z = fn(row_ptr, col, vals, w, dim, None, blocks)
+    torch.cuda.synchronize()
+    tol = 1e-5 * torch.clamp(row_abs, min=1.0)
+    assert z.shape == (n,) and bool(torch.isfinite(z).all())
+    assert bool(((z.double() - want.double()).abs() <= tol).all())
+    assert bool((z[row_abs == 0] == 0).all())  # empty rows written as 0
+    assert torch.equal(z, fn(row_ptr, col, vals, w, dim, None, blocks))
+    col_off = torch.empty(col.numel() + 1, dtype=torch.int32, device=card)[1:]
+    vals_off = torch.empty(vals.numel() + 1, device=card)[1:]
+    col_off.copy_(col)
+    vals_off.copy_(vals)
+    assert torch.equal(fn(row_ptr, col_off, vals_off, w, dim, None, blocks), z)
 
 
 def test_csr_matvec_f32_rejects_host_and_device_mix(card):
@@ -216,9 +289,10 @@ def test_csc_rmatvec_bf16_matches_plain(card, n, transform):
 
 
 def test_bf16_engine_launches_both_sets(card):
-    """A bf16 engine with a hot column and spill runs the bf16 kernels on
-    its rounded set and the f32 kernels on its exact set, and agrees with
-    the same engine on the host."""
+    """A bf16 engine with a hot column and spill takes both entry sets in
+    one csr_matvec_bf16 pass (the exact entries flagged), and its rounded
+    and exact sets' rmatvec by csc_rmatvec_bf16 and csc_rmatvec_f32; it
+    agrees with the same engine on the host."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -234,9 +308,9 @@ def test_bf16_engine_launches_both_sets(card):
     launches.reset()
     z, g = f.matvec(w.to(card)), f.rmatvec(c.to(card))
     counts = launches.counts()
-    for k in (fused_perm.KERNEL, fused_perm.KERNEL_BF16, fused_perm.KERNEL_T,
-              fused_perm.KERNEL_T_BF16):
+    for k in (fused_perm.KERNEL_BF16, fused_perm.KERNEL_T, fused_perm.KERNEL_T_BF16):
         assert counts[k] == 1, counts
+    assert counts[fused_perm.KERNEL] == 0, counts
     np.testing.assert_allclose(z.cpu().numpy(), host.matvec(w).numpy(), atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(g.cpu().numpy(), host.rmatvec(c).numpy(), atol=1e-4, rtol=1e-5)
 
@@ -245,19 +319,30 @@ LOSSES = [pointwise.LogisticLoss, pointwise.SquaredLoss, pointwise.PoissonLoss,
           pointwise.SmoothedHingeLoss]
 
 
+def _value_grad_inputs(E, s, d, gen, dev):
+    X = torch.randn(E, s, d, generator=gen, device=dev) / d ** 0.5
+    y = (torch.rand(E, s, generator=gen, device=dev) < 0.5).float()
+    off = torch.randn(E, s, generator=gen, device=dev) * 0.5
+    wt = torch.rand(E, s, generator=gen, device=dev) + 0.5
+    zero = torch.rand(E, s, generator=gen, device=dev) < 0.2
+    wt[zero] = 0.0
+    off[zero] = 1e20  # weight-0 rows whose squared / Poisson loss overflows
+    w = torch.randn(E, d, generator=gen, device=dev)
+    return X, y, off, wt, w
+
+
+# tiles of whole entities (s d odd: (7, 33, 5)), entities larger than a
+# ring slot ((3, 512, 100); (2, 1000, 33) with s d odd), rows wider than
+# 2048 columns (the warp kernel), and the two random-effect buckets of the
+# full-width fit
 @pytest.mark.parametrize("kind", LOSSES, ids=lambda k: k.__name__)
-@pytest.mark.parametrize("shape", [(1, 1, 1), (7, 33, 16), (3, 512, 100), (4096, 16, 16)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (7, 33, 16), (3, 512, 100), (4096, 16, 16),
+                                   (7, 33, 5), (2, 1000, 33), (2, 5, 2100), (65_536, 38, 16),
+                                   (16_384, 96, 16)])
 def test_fused_value_grad_batched_f32_matches_plain(card, kind, shape):
     E, s, d = shape
     gen = torch.Generator(device=card).manual_seed(E + s + d)
-    X = torch.randn(E, s, d, generator=gen, device=card) / d ** 0.5
-    y = (torch.rand(E, s, generator=gen, device=card) < 0.5).float()
-    off = torch.randn(E, s, generator=gen, device=card) * 0.5
-    wt = torch.rand(E, s, generator=gen, device=card) + 0.5
-    zero = torch.rand(E, s, generator=gen, device=card) < 0.2
-    wt[zero] = 0.0
-    off[zero] = 1e20  # weight-0 rows whose squared / Poisson loss overflows
-    w = torch.randn(E, d, generator=gen, device=card)
+    X, y, off, wt, w = _value_grad_inputs(E, s, d, gen, card)
     before = launches.counts()[pallas_kernels.KERNEL]
     out = pallas_kernels.fused_value_grad_batched_f32(X, y, off, wt, w, kind)
     torch.cuda.synchronize()
@@ -272,6 +357,33 @@ def test_fused_value_grad_batched_f32_matches_plain(card, kind, shape):
     for o, p, scale in zip(out, plain, scales):
         assert bool(torch.isfinite(o).all())
         assert bool(((o - p).abs() <= 2e-5 * torch.clamp(scale, min=1.0)).all())
+    # no atomics: the same bits every call
+    again = pallas_kernels.fused_value_grad_batched_f32(X, y, off, wt, w, kind)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("shape", [(701, 33, 5), (64, 38, 16), (9, 600, 17), (3, 4, 2100)])
+def test_fused_value_grad_batched_f32_is_invariant_to_its_batch(card, shape):
+    """An entity's outputs have the same bits alone (a batch of 1, X a view
+    that may start off a 16-byte boundary), at another position (the batch
+    rolled), in a batch of 7 and in the whole batch: the random-effect
+    solver compacts unconverged entities into smaller batches."""
+    E, s, d = shape
+    gen = torch.Generator(device=card).manual_seed(E * s + d)
+    inputs = _value_grad_inputs(E, s, d, gen, card)
+
+    def run(args):
+        return pallas_kernels.fused_value_grad_batched_f32(*args, pointwise.LogisticLoss)
+
+    full = run(inputs)
+    rolled = run(tuple(t.roll(5, 0).contiguous() for t in inputs))
+    assert all(torch.equal(a.roll(5, 0), b) for a, b in zip(full, rolled))
+    for e in sorted({0, E // 2 + 1, E - 1}):
+        alone = run(tuple(t[e:e + 1] for t in inputs))
+        assert all(torch.equal(a[e:e + 1], b) for a, b in zip(full, alone)), e
+        idx = torch.tensor([(e + i) % E for i in range(-3, 4)], device=card)
+        seven = run(tuple(t[idx].contiguous() for t in inputs))
+        assert all(torch.equal(a[e], b[3]) for a, b in zip(full, seven)), e
 
 
 def test_fused_value_grad_rejects_host_and_device_mix(card):

@@ -246,6 +246,7 @@ def _merge_path_numpy(col_ptr, items):
 @pytest.mark.parametrize("items", [4, 7, 2048])
 @pytest.mark.parametrize("lengths", [
     "empty", "one_long_column", "long_last_column", "skewed", "many_empty",
+    "rows_with_a_hot_row",
 ])
 def test_merge_path_split_matches_numpy(monkeypatch, items, lengths):
     """The CSC kernel's work split against a numpy merge path: every column
@@ -262,6 +263,8 @@ def test_merge_path_split_matches_numpy(monkeypatch, items, lengths):
         "long_last_column": np.where(np.arange(d) == d - 1, 400, 0),
         "skewed": rng.integers(0, 3, d) + np.where(np.arange(d) % 17 == 0, 60, 0),
         "many_empty": np.where(rng.random(d) < 0.8, 0, rng.integers(1, 9, d)),
+        # the CSR side's segments: rows of 14-17 nonzeros, one hot row
+        "rows_with_a_hot_row": np.where(np.arange(d) == 9, 4096, rng.integers(14, 18, d)),
     }[lengths]
     col_ptr = np.concatenate([[0], np.cumsum(col_len)]).astype(np.int64)
     nnz = int(col_ptr[-1])
@@ -306,8 +309,11 @@ def test_csc_wrapper_rejects_bad_operands():
 
 
 @pytest.mark.parametrize("loss", LOSSES)
-@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 17, 5), (4, 8, 130)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 17, 5), (4, 8, 130), (3, 7, 5), (2, 33, 3),
+                                   (64, 38, 16)])
 def test_fused_value_grad_plain_matches_jax_kernel(loss, shape):
+    """Odd s·d ((3, 17, 5), (3, 7, 5), (2, 33, 3)) and the per-user bucket
+    of the full-width fit cut to 64 entities ((64, 38, 16))."""
     E, s, d = shape
     rng = np.random.default_rng(E * 100 + s + d)
     X = (rng.standard_normal((E, s, d)) / np.sqrt(d)).astype(np.float32)
@@ -335,8 +341,9 @@ def test_fused_value_grad_plain_matches_jax_kernel(loss, shape):
 def test_fused_value_grad_routing():
     """The reference's routing rule: batched dense problems of at most
     SINGLE_BLOCK_MAX_ELEMENTS elements each take the single-block fused
-    pass, a lone one up to LONE_PROBLEM_MAX_ELEMENTS; a larger one returns
-    None."""
+    pass, a lone one up to LONE_PROBLEM_MAX_ELEMENTS (2^18, the measured
+    crossover); a larger one returns None."""
+    assert pallas_kernels.LONE_PROBLEM_MAX_ELEMENTS == 1 << 18
     X = torch.zeros(2, 3, 4)
     args = (torch.zeros(2, 3), torch.zeros(2, 3), torch.ones(2, 3), torch.zeros(2, 4))
     assert pallas_kernels.fused_value_grad_auto(X, *args, pointwise.LogisticLoss) is not None
@@ -365,3 +372,65 @@ def test_fused_value_grad_routing():
         pallas_kernels.fused_value_grad_batched_f32(
             X, args[0], args[1], args[2], torch.zeros(2, 5), pointwise.LogisticLoss
         )
+
+
+def _entity_tiling_numpy(E, s, d):
+    """The batched kernel's plan by brute force: "warp" for rows wider than
+    2048 columns; else the most entities k whose five spans (X, y, off, wt,
+    w), each started at the worst offset within a 16-byte line (3 floats)
+    and padded to the next line, fit an 8192-float slot in at most 1024
+    rows, then the largest multiple of the 8 warps k' <= k (if any), else
+    the largest k' <= k that puts every tile start on a 16-byte boundary in
+    all five arrays (if any); with no k, chunks of the most rows R (a
+    multiple of 4, at most 256) with R d <= 8192."""
+    if s < 1 or d < 1 or d > 2048:
+        return "warp", 0
+
+    def fits(k):
+        used = 0
+        for count in (k * s * d, k * s, k * s, k * s, k * d):
+            used += -(-(count + 3 + 1) // 4) * 4  # start offset, pad to a line
+        return used <= 8192 and k * s <= 1024
+
+    k = 0
+    while fits(k + 1):
+        k += 1
+    if k:
+        aligned = [c for c in range(1, k + 1)
+                   if all(t * c * n % 4 == 0 for t in range(1, 5) for n in (s, d, s * d))]
+        warps = [c for c in aligned if c % 8 == 0]
+        return "tiles", max(warps or aligned or [k])
+    return "rows", max(r for r in range(4, 257, 4) if r * d <= 8192)
+
+
+@pytest.mark.parametrize("shape", [
+    (65_536, 38, 16), (16_384, 96, 16), (1, 1, 1), (7, 33, 5), (5, 7, 5), (1, 512, 100),
+    (3, 1000, 33), (1, 8192, 244), (9, 600, 17), (2, 5, 2100), (4, 3, 2048), (100, 64, 128),
+    (3, 0, 4),
+])
+def test_entity_tiling_matches_numpy(shape):
+    """The batched kernel's plan against the brute-force rule, tiles that
+    start 16-byte aligned in every array whenever the rule says they can,
+    and the CTAs' contiguous runs of tiles (or entities) taking every
+    entity exactly once."""
+    E, s, d = shape
+    plan = pallas_kernels.entity_tiling(E, s, d)
+    mode, per_tile = _entity_tiling_numpy(E, s, d)
+    assert (plan.mode, plan.per_tile) == (mode, per_tile)
+    if mode == "warp":
+        return
+    assert 1 <= plan.grid <= (pallas_kernels.TILE_GRID if mode == "tiles"
+                              else pallas_kernels.RING_GRID)
+    if mode == "tiles":
+        assert pallas_kernels.tile_floats(per_tile, s, d) <= pallas_kernels.TILE_FLOATS
+        units, size = -(-E // per_tile), per_tile  # tiles of per_tile entities
+    else:
+        units, size = E, 1  # whole entities, each in chunks of per_tile rows
+    taken = np.zeros(E, np.int64)
+    for b in range(plan.grid):
+        first, last = units * b // plan.grid, units * (b + 1) // plan.grid
+        taken[first * size:min(E, last * size)] += 1
+    assert np.all(taken == 1)
+    # the mode, and so every entity's sequence of operations, depends on
+    # (s, d) alone
+    assert pallas_kernels.entity_tiling(1, s, d).mode == mode
