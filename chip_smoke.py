@@ -66,7 +66,35 @@ exit code is not 0):
                       L2-flushed time of each redesigned kernel, each kernel
                       against its plain version at those shapes, and the
                       device idle share of one random-effect solve.
-7. fe_bf16_full_width
+7. train_glm_full_width
+                    — estimators.model_training.train_glm on that fit's FE
+                      shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
+                      + an intercept; fused engine), labels of each task from
+                      one seeded coefficient vector, the three reference
+                      configurations of examples/BASELINE_CONFIGS.md: (a)
+                      logistic, L-BFGS 10 iterations, L2 lambda in {100, 10,
+                      1, 0.1} warm-started, held-out AUC per lambda and the
+                      best lambda; (b) linear, TRON (15 iterations, <= 20 CG
+                      steps), L2 lambda 1, STANDARDIZATION, variances (the
+                      "sq" transform); (c) Poisson, OWL-QN 30 iterations,
+                      elastic net alpha 0.5 lambda 1, box [-2, 2]. Each
+                      through the kernels, through the plain versions
+                      (objective rtol 1e-4 per lambda, same best lambda, AUC
+                      1e-4, variances rtol 1e-2, |w| <= 2, nonzero counts
+                      within 0.1 %) and again (bitwise), with each solve's
+                      seconds, iterations, reason, value+gradient and Hv
+                      evaluations, launches, and device busy ms and idle
+                      share (the run without tracking: tracked coefficients
+                      would take 16-101 copies of w).
+8. train_tron_full_width
+                    — one outer iteration of the train_full_width GLMix fit
+                      with the fixed effect and per_user on TRON (L2 lambda
+                      1) and per_item on OWL-QN (elastic net alpha 0.5,
+                      lambda 1): through the kernels and the plain versions
+                      (objective rtol 1e-4, AUC 1e-4), with the batched
+                      value+gradient's launches, each coordinate's seconds
+                      and idle share, the solver trackers and stats.
+9. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -83,7 +111,7 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-8. train_benes_full_width
+10. train_benes_full_width
                     — the same training data with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
@@ -99,7 +127,7 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-9. train_game_cli   — photon_ml_tpu_torch.cli.train_game on the committed
+11. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -108,7 +136,16 @@ exit code is not 0):
                       --normalization-type STANDARDIZATION with a Benes FE,
                       on cuda and cpu: RMSE < 0.45, equal to 1e-4, and
                       score_game on the saved model (which scores through the
-                      Benes engine again) reproduces it.
+                      Benes engine again) reproduces it. Then the
+                      reference's golden FE-only fit (TRON, L2 lambda 10) on
+                      cuda and cpu: RMSE < 0.95, equal to 1e-4.
+12. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+                      invocations of examples/BASELINE_CONFIGS.md on small
+                      fixtures the phase writes (Avro by write_cli_fixture,
+                      LibSVM from the seed), on cuda and on cpu: the same
+                      selection, metrics and model-file coefficients to
+                      1e-4; and configuration (a) once more through
+                      ``python -m`` in a process of its own.
 
 Every kernel, plain version and library call that a phase times gets two
 figures (cuda_ms): "ms", one call between two CUDA events, and
@@ -129,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import resource
@@ -147,8 +185,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
-              "train_full_width", "fe_bf16_full_width", "train_benes_full_width",
-              "train_game_cli")
+              "train_full_width", "train_glm_full_width", "train_tron_full_width",
+              "fe_bf16_full_width", "train_benes_full_width", "train_game_cli",
+              "train_glm_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
 SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
 BF16_KERNELS = ("csr_matvec_bf16", "csc_rmatvec_bf16")
@@ -1063,9 +1102,11 @@ def phase_score_full_width(seed: int) -> dict:
 
 def write_cli_fixture(root: str, seed: int, n: int = 65_536, fe_dim: int = 1 << 16,
                       fe_k: int = 16, n_users: int = 4096, n_items: int = 1024,
-                      re_dim: int = 256, re_k: int = 4) -> None:
+                      re_dim: int = 256, re_k: int = 4, model_seed=None) -> None:
     """An Avro dataset and an Avro GAME model, written by the port's own
-    writers, under ``root``/data and ``root``/model."""
+    writers, under ``root``/data and ``root``/model; ``model_seed`` draws the
+    fixed effect's coefficients from a generator of its own (two datasets,
+    one model)."""
     from photon_ml_tpu_torch.convert import game_model_from_numpy
     from photon_ml_tpu_torch.indexmap import INTERCEPT_KEY, DefaultIndexMap, feature_key
     from photon_ml_tpu_torch.io.data_reader import write_training_examples
@@ -1075,7 +1116,8 @@ def write_cli_fixture(root: str, seed: int, n: int = 65_536, fe_dim: int = 1 << 
     rng = np.random.default_rng(seed)
     fe_cols = _distinct_cols(rng, n, fe_k, fe_dim)
     fe_vals = rng.standard_normal((n, fe_k))
-    w_fe = rng.standard_normal(fe_dim + 1).astype(np.float32) * 0.2  # + intercept
+    w_rng = rng if model_seed is None else np.random.default_rng(model_seed)
+    w_fe = w_rng.standard_normal(fe_dim + 1).astype(np.float32) * 0.2  # + intercept
     margin = (fe_vals * w_fe[fe_cols]).sum(axis=1) + w_fe[fe_dim]
     labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float64)
     users = rng.integers(0, n_users, n)
@@ -1170,6 +1212,7 @@ def phase_score_game_cli(seed: int) -> dict:
     return result
 
 
+@functools.lru_cache(maxsize=1)
 def make_glmix_training(seed: int, n: int, n_val: int, fe_dim: int, fe_k: int,
                         n_users: int, n_items: int, re_dim: int = 4096,
                         re_local: int = 16, re_k: int = 8, unseen: float = 0.03):
@@ -1178,7 +1221,8 @@ def make_glmix_training(seed: int, n: int, n_val: int, fe_dim: int, fe_k: int,
     ``fe_dim`` plus an intercept (column ``fe_dim``); each user and item an
     entity with ``re_local`` features of its own out of ``re_dim``, each row
     ``re_k`` of them. Validation rows name an unseen entity with
-    probability ``unseen``."""
+    probability ``unseen``. Kept for the next phase that asks for the same
+    data (the GameData caches its device layouts too)."""
     from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
 
     rng = np.random.default_rng(seed)
@@ -1940,9 +1984,11 @@ def phase_train_benes_full_width(seed: int) -> dict:
     return result
 
 
-def ratings_config(root: str, fe_engine: str = "auto") -> str:
+def ratings_config(root: str, fe_engine: str = "auto", fe_only_tron: bool = False) -> str:
     """The ratings fixture's GLMix config (FE with L-BFGS on ``fe_engine`` +
-    per_user + per_movie), written under ``root``."""
+    per_user + per_movie), written under ``root``; ``fe_only_tron``: the
+    reference's golden FE-only config instead (the FE alone, on TRON,
+    tests/test_golden_fixture.py)."""
     optimizer = {"optimizer": "LBFGS", "regularization": "L2"}
     cfg = {
         "feature_shards": {
@@ -1962,7 +2008,11 @@ def ratings_config(root: str, fe_engine: str = "auto") -> str:
         },
         "update_order": ["fixed", "per_user", "per_movie"],
     }
-    path = os.path.join(root, f"game_{fe_engine}.json")
+    if fe_only_tron:
+        cfg["coordinates"] = {"fixed": cfg["coordinates"]["fixed"]}
+        cfg["coordinates"]["fixed"]["optimizer"]["optimizer"] = "TRON"
+        cfg["update_order"] = ["fixed"]
+    path = os.path.join(root, f"game_{fe_engine}{'_fe_tron' if fe_only_tron else ''}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -1977,12 +2027,15 @@ def phase_train_game_cli(seed: int) -> dict:
         std = ("--normalization-type", "STANDARDIZATION")
         runs = (("cuda", "cuda", "auto", ()), ("cuda_again", "cuda", "auto", ()),
                 ("cpu", "cpu", "auto", ()), ("cuda_std_benes", "cuda", "benes", std),
-                ("cpu_std_benes", "cpu", "benes", std))
+                ("cpu_std_benes", "cpu", "benes", std), ("cuda_fe_tron", "cuda", "tron", ()),
+                ("cpu_fe_tron", "cpu", "tron", ()))
         for run, device, engine, extra in runs:
+            config = (ratings_config(root, fe_only_tron=True) if engine == "tron"
+                      else ratings_config(root, engine))
             argv = [
                 "--train-data-dirs", os.path.join(RATINGS, "train"),
                 "--validation-data-dirs", os.path.join(RATINGS, "test"),
-                "--coordinate-config", ratings_config(root, engine),
+                "--coordinate-config", config,
                 "--task", "LINEAR_REGRESSION",
                 "--output-dir", os.path.join(root, run), "--evaluator", "RMSE",
                 "--num-outer-iterations", "2", "--device", device, *extra,
@@ -2012,7 +2065,12 @@ def phase_train_game_cli(seed: int) -> dict:
     for run in ("cuda", "cpu", "cuda_std_benes", "cpu_std_benes"):
         if not result[f"{run}_rmse"] < 0.45:
             raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.45")
-    for a, b in (("cuda", "cpu"), ("cuda_std_benes", "cpu_std_benes")):
+    for run in ("cuda_fe_tron", "cpu_fe_tron"):
+        # the reference's golden FE-only gate (captured 0.8274)
+        if not result[f"{run}_rmse"] < 0.95:
+            raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.95")
+    for a, b in (("cuda", "cpu"), ("cuda_std_benes", "cpu_std_benes"),
+                 ("cuda_fe_tron", "cpu_fe_tron")):
         if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
             raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
     if abs(result["score_game_rmse_cuda_std_benes"] - result["cuda_std_benes_rmse"]) > 1e-5:
@@ -2024,6 +2082,495 @@ def phase_train_game_cli(seed: int) -> dict:
     if abs(rescored - result["cuda_rmse"]) > 1e-5:
         raise AssertionError(f"score_game does not reproduce the RMSE: {result}")
     emit("train_game_cli", **result)
+    return result
+
+
+class solve_log:
+    """Within the block, every solve of ``estimators.model_training`` (the
+    single-GLM and fixed-effect solves) records its wall seconds,
+    iterations, convergence reason, kernel launches and the objective's
+    value+gradient and Hessian-vector evaluations (``self.solves``); the
+    lane objectives of every solve, random-effect buckets included, count
+    their evaluations (``self.evaluations``) and csc_rmatvec_f32 counts its
+    calls by value transform (``self.transforms``; each a launch on the
+    card). ``profile`` runs each solve under ``profile_device_idle``."""
+
+    def __init__(self, profile: bool = False):
+        self.profile = profile
+        self.solves = []
+        self.evaluations = {"value_and_grad": 0, "hessian_vec": 0}
+        self.transforms = {}
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.estimators import model_training
+        from photon_ml_tpu_torch.ops import fused_perm, launches
+        from photon_ml_tpu_torch.opt import solve as solve_module
+        from photon_ml_tpu_torch.types import ConvergenceReason
+
+        real_lanes, real_solve = solve_module.lane_objective, model_training.solve
+        real_csc = fused_perm.csc_rmatvec_f32
+        ev = self.evaluations
+
+        def lane_objective(objective, data, l2):
+            lanes = real_lanes(objective, data, l2)
+
+            def value_and_grad(w):
+                ev["value_and_grad"] += 1
+                return lanes.value_and_grad(w)
+
+            def hessian_vec(w, v):
+                ev["hessian_vec"] += 1
+                return lanes.hessian_vec(w, v)
+
+            return lanes._replace(value_and_grad=value_and_grad, hessian_vec=hessian_vec)
+
+        def csc_rmatvec_f32(col_ptr, row_idx, vals, c, n, transform="id", split=None):
+            self.transforms[transform] = self.transforms.get(transform, 0) + 1
+            return real_csc(col_ptr, row_idx, vals, c, n, transform, split)
+
+        def solve(*args, **kwargs):
+            ev0, l0 = dict(ev), launches.counts()
+            t0 = time.perf_counter()
+            out = []
+            prof = None
+            if self.profile:
+                prof = profile_device_idle(lambda: out.append(real_solve(*args, **kwargs)))
+            else:
+                out.append(real_solve(*args, **kwargs))
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            res = out[0]
+            l1 = launches.counts()
+            self.solves.append({
+                "l2": kwargs.get("l2_weight"), "l1": kwargs.get("l1_weight"),
+                "seconds": seconds,
+                "iterations": int(res.iterations[0]),
+                "reason": ConvergenceReason(int(res.reason[0])).name,
+                "objective": float(res.value[0]),
+                "value_and_grad_evaluations": ev["value_and_grad"] - ev0["value_and_grad"],
+                "hessian_vec_evaluations": ev["hessian_vec"] - ev0["hessian_vec"],
+                "launches": {k: l1[k] - l0.get(k, 0) for k in l1 if l1[k] != l0.get(k, 0)},
+                **({"profile": prof} if prof is not None else {}),
+            })
+            return res
+
+        self._saved = [(solve_module, "lane_objective", real_lanes),
+                       (model_training, "solve", real_solve),
+                       (fused_perm, "csc_rmatvec_f32", real_csc)]
+        solve_module.lane_objective = lane_objective
+        model_training.solve = solve
+        fused_perm.csc_rmatvec_f32 = csc_rmatvec_f32
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+FULL_WIDTH = (1 << 20, 1 << 18, 1 << 24, 16, 65_536, 16_384)  # rows, held-out, dims, nnz, E
+
+
+def glm_task_labels(data, w_true: np.ndarray, rng) -> dict:
+    """Labels of the three reference configurations' tasks for the rows of
+    ``data``'s FE shard, from one coefficient vector: logistic
+    Bernoulli(sigmoid(z)), linear z + N(0, 0.5²), Poisson(exp(z / 2)) (the
+    margin halved so exp stays small: z ~ N(0, 2) here)."""
+    shard = data.feature_shards["global"]
+    z = np.bincount(shard.rows, weights=shard.vals * w_true[shard.cols], minlength=data.num_rows)
+    return {
+        "LOGISTIC_REGRESSION": (rng.random(z.size) < 1 / (1 + np.exp(-z))).astype(np.float32),
+        "LINEAR_REGRESSION": (z + 0.5 * rng.standard_normal(z.size)).astype(np.float32),
+        "POISSON_REGRESSION": rng.poisson(np.exp(0.5 * z)).astype(np.float32),
+    }
+
+
+def glm_configurations():
+    """The three reference configurations of examples/BASELINE_CONFIGS.md at
+    the solver settings of the train_glm_full_width phase."""
+    from photon_ml_tpu_torch.opt.config import (
+        GlmOptimizationConfiguration, OptimizerConfig, RegularizationContext,
+    )
+    from photon_ml_tpu_torch.types import NormalizationType, RegularizationType
+
+    def cfg(opt, reg, alpha=None):
+        return GlmOptimizationConfiguration(
+            optimizer_config=opt, regularization=RegularizationContext(reg, alpha=alpha),
+            regularization_weight=1.0)
+
+    return {
+        "a_logistic_lbfgs_sweep": {
+            "task": "LOGISTIC_REGRESSION", "weights": [100.0, 10.0, 1.0, 0.1],
+            "configuration": cfg(OptimizerConfig.lbfgs(max_iterations=10), RegularizationType.L2),
+            "norm": NormalizationType.NONE, "compute_variances": False},
+        "b_linear_tron_standardized": {
+            "task": "LINEAR_REGRESSION", "weights": [1.0],
+            "configuration": cfg(OptimizerConfig.tron(max_iterations=15, max_cg_iterations=20),
+                                 RegularizationType.L2),
+            "norm": NormalizationType.STANDARDIZATION, "compute_variances": True},
+        "c_poisson_owlqn_box": {
+            "task": "POISSON_REGRESSION", "weights": [1.0],
+            "configuration": cfg(OptimizerConfig.lbfgs(max_iterations=30, constraint_lower=-2.0,
+                                                       constraint_upper=2.0),
+                                 RegularizationType.ELASTIC_NET, 0.5),
+            "norm": NormalizationType.NONE, "compute_variances": False},
+    }
+
+
+def phase_train_glm_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.estimators.model_training import train_glm
+    from photon_ml_tpu_torch.evaluation.evaluators import default_evaluator
+    from photon_ml_tpu_torch.losses.objective import make_glm_objective
+    from photon_ml_tpu_torch.losses.pointwise import loss_for_task
+    from photon_ml_tpu_torch.normalization import build_normalization_context
+    from photon_ml_tpu_torch.ops import fused_perm, launches
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.stat.summary import summarize
+    from photon_ml_tpu_torch.types import NormalizationType, TaskType
+
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+    t0 = time.perf_counter()
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    feats = train.sparse_features("global", engine="auto", device="cuda")
+    vfeats = val.sparse_features("global", engine="auto", device="cuda")
+    if not isinstance(feats, fused_perm.FusedSparseFeatures):
+        raise AssertionError(f"auto engine picked {type(feats).__name__}, not fused")
+    rng = np.random.default_rng(seed + 1)
+    w_true = rng.standard_normal(fe_dim + 1)
+    labels = {"train": glm_task_labels(train, w_true, rng),
+              "val": glm_task_labels(val, w_true, rng)}
+    intercept = fe_dim
+    # the engine's first maps make its merge-path splits: not solve time
+    feats.matvec(torch.zeros(feats.dim, device="cuda"))
+    feats.rmatvec(torch.zeros(n, device="cuda"))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+
+    result = {"rows": n, "validation_rows": n_val, "fe_dim": feats.dim, "fe_nnz": feats.nnz,
+              "data_s": data_s, "configurations": {}}
+    for name, c in glm_configurations().items():
+        task = TaskType[c["task"]]
+        y = torch.from_numpy(labels["train"][c["task"]]).cuda()
+        data = LabeledData.create(feats, y)
+        if c["norm"] is not NormalizationType.NONE:
+            stats = summarize(data)
+            data = LabeledData.create(feats, y, norm=build_normalization_context(
+                c["norm"], stats.mean, stats.variance, stats.max_abs, intercept))
+
+        def run():
+            return train_glm(data, task, c["configuration"], regularization_weights=c["weights"],
+                             compute_variances=c["compute_variances"], intercept_index=intercept)
+
+        # the main path: counts set to 0 just before, read just after
+        launches.reset()
+        with solve_log() as log:
+            t0 = time.perf_counter()
+            fits = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        counts = launches.counts()
+        path = ["csr_matvec_f32", "csc_rmatvec_f32"]
+        missing = [k for k in path if counts[k] < 1]
+        if c["compute_variances"] and log.transforms.get("sq", 0) < 1:
+            missing.append("csc_rmatvec_f32 (sq)")
+        if missing:
+            raise AssertionError(f"{name} did not launch {missing}: {counts}")
+        launches.reset()
+        with plain_versions(), solve_log() as plain_log:
+            t0 = time.perf_counter()
+            plain = run()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        if any(launches.counts()[k] for k in path):
+            raise AssertionError(f"the plain run launched kernels: {launches.counts()}")
+        with solve_log(profile=True) as again_log:
+            again = run()
+
+        objective = [float(f.result.value[0]) for f in fits]
+        plain_objective = [float(f.result.value[0]) for f in plain]
+        rel = [abs(a - b) / abs(a) for a, b in zip(objective, plain_objective)]
+        checks = {"objective_rel_vs_plain": rel,
+                  "repeat_bitwise": all(_bits_equal(a.result.value_history,
+                                                    b.result.value_history)
+                                        and _bits_equal(a.result.w, b.result.w)
+                                        for a, b in zip(fits, again))}
+        ok = max(rel) <= 1e-4 and checks["repeat_bitwise"] and all(np.isfinite(objective))
+        if task is TaskType.LOGISTIC_REGRESSION:
+            evaluator = default_evaluator(task)
+            vy = labels["val"][c["task"]]
+
+            def aucs(fs):
+                return {f.regularization_weight: evaluator.evaluate(
+                    f.model.compute_score(vfeats), vy) for f in fs}
+
+            auc, plain_auc = aucs(fits), aucs(plain)
+            best = max(auc, key=lambda k: (auc[k], -k))
+            plain_best = max(plain_auc, key=lambda k: (plain_auc[k], -k))
+            checks.update(auc=auc, plain_auc=plain_auc, best_lambda=best,
+                          plain_best_lambda=plain_best,
+                          auc_diff=max(abs(auc[k] - plain_auc[k]) for k in auc))
+            ok = ok and best == plain_best and checks["auc_diff"] <= 1e-4
+        if c["compute_variances"]:
+            v, pv = fits[0].model.coefficients.variances, plain[0].model.coefficients.variances
+            checks["variance_max_rel_vs_plain"] = float(((v - pv).abs() / pv.abs()).max())
+            checks["variances_finite"] = bool(torch.isfinite(v).all())
+            ok = ok and checks["variance_max_rel_vs_plain"] <= 1e-2 and checks["variances_finite"]
+        if name == "c_poisson_owlqn_box":
+            w, pw = fits[0].model.coefficients.means, plain[0].model.coefficients.means
+            nz, pnz = int((w != 0).sum()), int((pw != 0).sum())
+            checks.update(max_abs_w=float(w.abs().max()), nonzeros=nz, plain_nonzeros=pnz,
+                          at_bound=int((w.abs() == 2.0).sum()))
+            ok = ok and checks["max_abs_w"] <= 2.0 and abs(nz - pnz) <= 1e-3 * max(nz, pnz)
+        if task is TaskType.LINEAR_REGRESSION:
+            # what an Hv costs, and the share of it that recomputes the
+            # margins at w (a csr_matvec_f32 the CG loop could hoist)
+            obj = make_glm_objective(loss_for_task(task))
+            w = fits[0].result.w[0]
+            v = torch.randn_like(w)
+            checks["hessian_vec_ms"] = cuda_ms({
+                "hessian_vec": lambda: obj.hessian_vec(w, v, data, 1.0),
+                "margins": lambda: feats.matvec(data.norm.effective_coefficients(w)),
+            }, reps=10)
+        histories = [(f.result.value_history[0], p.result.value_history[0])
+                     for f, p in zip(fits, plain)]
+        checks["first_iteration_off_plain"] = [
+            int(torch.nonzero(~torch.isclose(a, b, rtol=1e-6, equal_nan=True))[0])
+            if not torch.allclose(a, b, rtol=1e-6, equal_nan=True) else None
+            for a, b in histories]
+        entry = {"task": c["task"], "lambdas": c["weights"], "wall_s": wall_s,
+                 "plain_wall_s": plain_s, "objective": objective,
+                 "plain_objective": plain_objective, "solves": log.solves,
+                 "plain_solves": plain_log.solves, "profiled_solves": again_log.solves,
+                 "evaluations": log.evaluations, "csc_transforms": log.transforms,
+                 "launches": counts, **checks}
+        result["configurations"][name] = entry
+        emit("train_glm_full_width", configuration=name, **entry)  # before the verdict
+        if not ok:
+            raise AssertionError(f"{name} fails its checks: {entry}")
+        del fits, plain, again
+        torch.cuda.empty_cache()
+    result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # each configuration's line is above
+    emit("train_glm_full_width", **{k: v for k, v in result.items() if k != "configurations"})
+    return result
+
+
+def phase_train_tron_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration as FE,
+        GameEstimator,
+        RandomEffectCoordinateConfiguration as RE,
+    )
+    from photon_ml_tpu_torch.losses.objective import make_glm_objective
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+    from photon_ml_tpu_torch.opt.config import (
+        GlmOptimizationConfiguration, OptimizerConfig, RegularizationContext,
+    )
+    from photon_ml_tpu_torch.types import RegularizationType, TaskType
+
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    tron = GlmOptimizationConfiguration(
+        optimizer_config=OptimizerConfig.tron(),
+        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    owlqn = GlmOptimizationConfiguration(
+        optimizer_config=OptimizerConfig.lbfgs(max_iterations=10),
+        regularization=RegularizationContext(RegularizationType.ELASTIC_NET, alpha=0.5),
+        regularization_weight=1.0)
+    estimator = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FE("global", tron),
+         "per_user": RE("per_user", RandomEffectDataConfiguration("userId"), tron),
+         "per_item": RE("per_item", RandomEffectDataConfiguration("itemId"), owlqn)},
+        update_order=["fixed", "per_user", "per_item"], num_outer_iterations=1, device="cuda")
+    t0 = time.perf_counter()
+    coords = estimator.build_coordinates(train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    buckets = {cid: [tuple(b.X.shape) for b in coords[cid].dataset.buckets]
+               for cid in ("per_user", "per_item")}
+
+    # the main path: counts set to 0 just before, read just after
+    launches.reset()
+    with solve_log() as log:
+        t0 = time.perf_counter()
+        fit = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    counts = launches.counts()
+    missing = [k for k in KERNELS if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the TRON / OWL-QN fit did not launch {missing}: {counts}")
+    trackers = {cid: coords[cid].last_tracker.to_summary_string() for cid in coords}
+    solver_stats = {cid: [s.to_summary_string() for s in coords[cid].last_solver_stats]
+                    for cid in ("per_user", "per_item")}
+    launches.reset()
+    with plain_versions():
+        t0 = time.perf_counter()
+        plain = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if any(launches.counts()[k] for k in KERNELS):
+        raise AssertionError(f"the plain run launched kernels: {launches.counts()}")
+    after, plain_after = fit.objective_history[-1][1], plain.objective_history[-1][1]
+    obj_rel = abs(after - plain_after) / abs(after)
+    auc_diff = abs(fit.validation_metric - plain.validation_metric)
+    residual = torch.zeros(n, device="cuda")
+    profiles = {
+        cid: profile_device_idle(
+            lambda cid=cid: coords[cid].update_model_device(fit.model.models[cid], residual))
+        for cid in ("fixed", "per_user", "per_item")
+    }
+    # one batched Hv of the per_user bucket, and its margins at w
+    bucket = coords["per_user"].dataset.buckets[0]
+    bdata = LabeledData(DenseFeatures(bucket.X), bucket.labels, bucket.offsets, bucket.weights)
+    w_re = fit.model.models["per_user"].coefficients[0]
+    v_re = torch.randn_like(w_re)
+    obj = make_glm_objective(LogisticLoss)
+    hv_ms = cuda_ms({"hessian_vec": lambda: obj.hessian_vec(w_re, v_re, bdata, 1.0),
+                     "margins": lambda: bdata.features.matvec(w_re)}, reps=10)
+    result = {
+        "optimizers": {"fixed": "TRON", "per_user": "TRON", "per_item": "OWL-QN"},
+        "buckets": buckets, "build_coordinates_s": build_s, "fit_s": fit_s,
+        "plain_fit_s": plain_s, "seconds_per_coordinate": fit.update_seconds,
+        "plain_seconds_per_coordinate": plain.update_seconds,
+        "objective_history": fit.objective_history,
+        "plain_objective_history": plain.objective_history,
+        "objective_rel_diff_vs_plain": obj_rel, "validation_auc": fit.validation_metric,
+        "plain_validation_auc": plain.validation_metric, "auc_diff_vs_plain": auc_diff,
+        "launches": counts, "fused_value_grad_batched_f32_launches":
+            counts["fused_value_grad_batched_f32"],
+        "fe_solve": log.solves, "evaluations": log.evaluations, "trackers": trackers,
+        "solver_stats": solver_stats, "coordinate_profiles": profiles,
+        "per_user_hessian_vec_ms": hv_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if not (np.isfinite(fit.validation_metric) and obj_rel <= 1e-4 and auc_diff <= 1e-4):
+        raise AssertionError(f"kernel and plain TRON / OWL-QN fits differ: {result}")
+    emit("train_tron_full_width", **result)
+    return result
+
+
+def write_libsvm_fixture(path: str, seed: int, n: int, dim: int, task: str, k: int = 16) -> None:
+    """LibSVM text rows of ``k`` distinct 1-based features out of ``dim``,
+    labels of ``task`` from one coefficient vector drawn from ``seed``
+    (features and noise from ``seed`` + the file's own offset)."""
+    w = np.random.default_rng(seed).standard_normal(dim) * 0.5
+    rng = np.random.default_rng([seed, n])
+    cols = _distinct_cols(rng, n, k, dim)
+    vals = rng.standard_normal((n, k)) / np.sqrt(k)
+    z = (vals * w[cols]).sum(axis=1)
+    if task == "POISSON_REGRESSION":
+        y = rng.poisson(np.exp(z)).astype(str)
+    else:
+        y = np.char.mod("%.6f", z + 0.3 * rng.standard_normal(n))
+    with open(path, "w") as f:
+        for r in range(n):
+            order = np.argsort(cols[r])
+            f.write(y[r] + " " + " ".join(
+                f"{cols[r, j] + 1}:{vals[r, j]:.6f}" for j in order) + "\n")
+
+
+def _model_text(path: str) -> dict:
+    out = {}
+    with open(path) as f:
+        for line in f:
+            name, term, value = line.rstrip("\n").split("\t")[:3]
+            out[(name, term)] = float(value)
+    return out
+
+
+def phase_train_glm_cli(seed: int) -> dict:
+    from photon_ml_tpu_torch.cli import train_glm
+    from photon_ml_tpu_torch.ops import launches
+
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_glm_") as root:
+        write_cli_fixture(os.path.join(root, "avro_train"), seed, n=8192, fe_dim=256,
+                          model_seed=seed)
+        write_cli_fixture(os.path.join(root, "avro_val"), seed + 1, n=4096, fe_dim=256,
+                          model_seed=seed)
+        for task, stem in (("LINEAR_REGRESSION", "linear"), ("POISSON_REGRESSION", "poisson")):
+            for part, rows in (("train", 8192), ("val", 4096)):
+                write_libsvm_fixture(os.path.join(root, f"{stem}_{part}.txt"), seed, rows,
+                                     256, task)
+        # the invocations of examples/BASELINE_CONFIGS.md
+        invocations = {
+            "a_logistic_lbfgs_sweep": [
+                "--training-data-dirs", os.path.join(root, "avro_train", "data"),
+                "--validation-data-dirs", os.path.join(root, "avro_val", "data"),
+                "--task", "LOGISTIC_REGRESSION", "--regularization-weights", "0.1", "1", "10",
+                "100", "--optimizer", "LBFGS", "--regularization", "L2"],
+            "b_linear_tron_standardized": [
+                "--training-data-dirs", os.path.join(root, "linear_train.txt"),
+                "--validation-data-dirs", os.path.join(root, "linear_val.txt"),
+                "--input-format", "LIBSVM", "--task", "LINEAR_REGRESSION",
+                "--optimizer", "TRON", "--regularization", "L2", "--regularization-weights",
+                "1", "--normalization-type", "STANDARDIZATION", "--compute-variances"],
+            "c_poisson_owlqn_box": [
+                "--training-data-dirs", os.path.join(root, "poisson_train.txt"),
+                "--input-format", "LIBSVM", "--task", "POISSON_REGRESSION",
+                "--regularization", "ELASTIC_NET", "--elastic-net-alpha", "0.5",
+                "--regularization-weights", "1",
+                "--coefficient-box-constraints", '{"lower": -2.0, "upper": 2.0}'],
+        }
+        for name, argv in invocations.items():
+            runs = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(root, f"{name}_{device}")
+                launches.reset()
+                t0 = time.perf_counter()
+                res = train_glm.run(train_glm.parse_args(
+                    argv + ["--output-dir", out, "--device", device]))
+                runs[device] = {
+                    "seconds": time.perf_counter() - t0, "launches": launches.counts(),
+                    "best_lambda": res["best_lambda"], "metrics": res["metrics"],
+                    "selection": json.load(open(os.path.join(out, "selection.json"))),
+                    "models": {f.regularization_weight: _model_text(os.path.join(
+                        out, f"model-lambda-{f.regularization_weight:g}.txt"))
+                        for f in res["fits"]},
+                }
+            cu, cpu = runs["cuda"], runs["cpu"]
+            coef_diff = max(
+                abs(cu["models"][lam].get(key, 0.0) - cpu["models"][lam].get(key, 0.0))
+                for lam in cu["models"] for key in set(cu["models"][lam]) | set(cpu["models"][lam]))
+            metric_diff = max([abs(cu["metrics"][lam] - cpu["metrics"][lam])
+                               for lam in cu["metrics"]] or [0.0])
+            entry = {
+                "cuda_s": cu["seconds"], "cpu_s": cpu["seconds"], "best_lambda": cu["best_lambda"],
+                "cpu_best_lambda": cpu["best_lambda"], "metrics": cu["metrics"],
+                "cpu_metrics": cpu["metrics"], "max_coefficient_diff": coef_diff,
+                "max_metric_diff": metric_diff, "cuda_launches": cu["launches"],
+                "coefficients": {str(k): len(v) for k, v in cu["models"].items()},
+            }
+            result[name] = entry
+            if not (cu["selection"]["best_lambda"] == cpu["selection"]["best_lambda"]
+                    and metric_diff <= 1e-4 and coef_diff <= 1e-4
+                    and all(np.isfinite(v) for m in cu["models"].values() for v in m.values())):
+                raise AssertionError(f"train_glm on cuda and cpu differ for {name}: {entry}")
+            if name == "c_poisson_owlqn_box" and max(
+                    abs(v) for v in cu["models"][1.0].values()) > 2.0:
+                raise AssertionError(f"a coefficient left the box [-2, 2]: {entry}")
+        # the module's own entry point, in a process of its own
+        out = os.path.join(root, "a_logistic_lbfgs_sweep_module")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.train_glm",
+                        *invocations["a_logistic_lbfgs_sweep"], "--output-dir", out],
+                       check=True, timeout=600, capture_output=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        module_sel = json.load(open(os.path.join(out, "selection.json")))
+        in_process = json.load(open(os.path.join(root, "a_logistic_lbfgs_sweep_cuda",
+                                                 "selection.json")))
+        result["python_m_s"] = time.perf_counter() - t0
+        result["python_m_selection"] = module_sel
+        if not (module_sel["best_lambda"] == in_process["best_lambda"] and all(
+                abs(module_sel["metrics"][k] - v) <= 1e-4
+                for k, v in in_process["metrics"].items())):
+            raise AssertionError(f"python -m train_glm differs: {module_sel} vs {in_process}")
+    emit("train_glm_cli", **result)
     return result
 
 
@@ -2057,6 +2604,12 @@ def main(argv=None) -> int:
     if "train_full_width" in phases:
         results["train_full_width"] = phase_train_full_width(args.seed)
     torch.cuda.empty_cache()
+    if "train_glm_full_width" in phases:
+        results["train_glm_full_width"] = phase_train_glm_full_width(args.seed)
+    torch.cuda.empty_cache()
+    if "train_tron_full_width" in phases:
+        results["train_tron_full_width"] = phase_train_tron_full_width(args.seed)
+    torch.cuda.empty_cache()
     if "fe_bf16_full_width" in phases:
         results["fe_bf16_full_width"] = phase_fe_bf16_full_width(args.seed)
     torch.cuda.empty_cache()
@@ -2065,6 +2618,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "train_game_cli" in phases:
         results["train_game_cli"] = phase_train_game_cli(args.seed)
+    if "train_glm_cli" in phases:
+        results["train_glm_cli"] = phase_train_glm_cli(args.seed)
 
     # launches and times from the phase that runs each kernel: the training
     # path runs the first three, the Benes training path the shuffles, the

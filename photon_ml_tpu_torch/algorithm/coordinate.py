@@ -8,9 +8,13 @@ against residual offsets from all other coordinates, (b) scores every row
 in the global row order. Both stay on the device: the residual arrives as
 a device tensor and the scores leave as one.
 
+Each coordinate solves with L-BFGS, TRON or OWL-QN (``opt.solve``), as its
+configuration selects; after an update, ``last_tracker`` (and, for random
+effects, ``last_solver_stats``) describe the solves (``opt.tracking``).
+
 Not ported: the multi-device grid padding of the fixed effect, the mesh
 placement of random-effect buckets, and down-sampling (``sampler.py``,
-ROADMAP.md Queue A).
+ROADMAP.md Queue A, "The rest of training").
 """
 
 from __future__ import annotations
@@ -21,18 +25,20 @@ from typing import Optional
 import torch
 
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset
+from photon_ml_tpu_torch.estimators.model_training import train_glm
 from photon_ml_tpu_torch.estimators.random_effect import (
     score_random_effects_device,
     train_random_effects,
 )
-from photon_ml_tpu_torch.losses.objective import make_glm_objective
-from photon_ml_tpu_torch.losses.pointwise import loss_for_task
-from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
-from photon_ml_tpu_torch.opt.solve import solve
+from photon_ml_tpu_torch.opt.tracking import (
+    FixedEffectOptimizationTracker,
+    OptimizationStatesTracker,
+    RandomEffectOptimizationTracker,
+)
 from photon_ml_tpu_torch.types import TaskType
 
 
@@ -40,15 +46,15 @@ def _check_down_sampling(configuration: GlmOptimizationConfiguration) -> None:
     if configuration.down_sampling_rate < 1.0:
         raise NotImplementedError(
             "down_sampling_rate < 1 needs sampler.py, which is not ported yet "
-            "(ROADMAP.md, Queue A)"
+            "(ROADMAP.md, Queue A: The rest of training, sampler.py)"
         )
 
 
 @dataclasses.dataclass
 class FixedEffectCoordinate:
     """Global GLM over one feature shard (reference
-    FixedEffectCoordinate.scala:34), solved by the batched L-BFGS with one
-    lane. ``data`` carries the GAME-level base offsets; the residual scores
+    FixedEffectCoordinate.scala:34), solved by ``train_glm`` (one solver
+    lane). ``data`` carries the GAME-level base offsets; the residual scores
     are added on top per update. With ``data.norm`` the solve runs in the
     normalized space."""
 
@@ -62,38 +68,27 @@ class FixedEffectCoordinate:
     # (reference COMPUTE_VARIANCE -> DistributedOptimizationProblem.scala:80-94)
     compute_variances: bool = False
 
+    last_tracker: Optional[FixedEffectOptimizationTracker] = dataclasses.field(
+        default=None, repr=False
+    )
+
     def __post_init__(self) -> None:
         _check_down_sampling(self.configuration)
 
     def update_model_device(
         self, model: Optional[GeneralizedLinearModel], residual_scores: torch.Tensor
     ) -> GeneralizedLinearModel:
-        """Solve against the residual offsets. Models carry original-space
-        coefficients: with ``data.norm`` the warm start is mapped into the
-        normalized space and the optimum and its variances back (reference
-        train_glm, model_training.py:96-97, 162-166)."""
-        data = self.data.with_offsets(self.data.offsets + residual_scores)
-        norm = data.norm if data.norm is not None and not data.norm.is_identity else None
-        objective = make_glm_objective(loss_for_task(self.task))
-        if model is not None:
-            w0 = model.coefficients.means
-            if norm is not None:
-                w0 = norm.inverse_transform_model_coefficients(w0, self.intercept_index)
-            w0 = w0.reshape(1, -1)
-        else:
-            w0 = torch.zeros((1, data.dim), dtype=torch.float32, device=data.labels.device)
-        w = solve(objective, w0, data, self.configuration).w[0]
-        variances = None
-        if self.compute_variances:
-            diag = objective.hessian_diag(w, data, self.configuration.l2_weight)
-            variances = 1.0 / (diag + 1e-12)
-        if norm is not None:
-            w = norm.transform_model_coefficients(w, self.intercept_index)
-            if variances is not None:
-                variances = norm.transform_model_variances(variances, self.intercept_index)
-        return GeneralizedLinearModel(
-            coefficients=Coefficients(means=w, variances=variances), task=self.task
+        """Solve against the residual offsets; models carry original-space
+        coefficients (``train_glm``)."""
+        fit = train_glm(
+            self.data.with_offsets(self.data.offsets + residual_scores),
+            self.task, self.configuration, initial_model=model,
+            compute_variances=self.compute_variances, intercept_index=self.intercept_index,
+        )[0]
+        self.last_tracker = FixedEffectOptimizationTracker(
+            states=OptimizationStatesTracker.from_result(fit.result)
         )
+        return fit.model
 
     def score_device(self, model: GeneralizedLinearModel) -> torch.Tensor:
         return self.data.features.matvec(model.coefficients.means)
@@ -110,6 +105,10 @@ class RandomEffectCoordinate:
     configuration: GlmOptimizationConfiguration
     base_offsets: torch.Tensor  # [n] GAME-level offsets, original row order
     compute_variances: bool = False
+    last_tracker: Optional[RandomEffectOptimizationTracker] = dataclasses.field(
+        default=None, repr=False
+    )
+    last_solver_stats: list = dataclasses.field(default_factory=list, repr=False)
 
     def __post_init__(self) -> None:
         _check_down_sampling(self.configuration)
@@ -118,10 +117,14 @@ class RandomEffectCoordinate:
         self, model: Optional[RandomEffectModel], residual_scores: torch.Tensor
     ) -> RandomEffectModel:
         ds = self.dataset.update_offsets_device(self.base_offsets + residual_scores)
-        return train_random_effects(
+        stats: list = []
+        new_model, results = train_random_effects(
             ds, self.task, self.configuration, initial_model=model,
-            compute_variances=self.compute_variances,
-        )[0]
+            compute_variances=self.compute_variances, stats_out=stats,
+        )
+        self.last_solver_stats = stats
+        self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
+        return new_model
 
     def score_device(self, model: RandomEffectModel) -> torch.Tensor:
         return score_random_effects_device(model, self.dataset)

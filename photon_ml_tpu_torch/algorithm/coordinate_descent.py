@@ -13,8 +13,12 @@ and no row-length array crosses to the host; the training objective reads
 the running total, one scalar to the host per update. The sequence of f32
 adds is fixed, so a run is repeatable bitwise on one device.
 
-Not ported: the async schedule, the host score plane, checkpoint resume,
-event emitters and progress tracking (ROADMAP.md, Queue A).
+After each update the coordinate's solver trackers are logged, and an
+``event.EventEmitter`` receives one ``SolverStatsEvent`` per random-effect
+bucket.
+
+Not ported: the async schedule, the host score plane, checkpoint resume
+and progress tracking (ROADMAP.md, Queue A: The rest of training).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from photon_ml_tpu_torch.evaluation.evaluators import nan_aware_better_than
+from photon_ml_tpu_torch.event import SolverStatsEvent
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -54,6 +59,7 @@ class CoordinateDescent:
         regularization_term: Optional[Callable[[Dict[str, object]], float]] = None,
         validate: Optional[Callable[[Dict[str, object]], float]] = None,
         validation_better_than: Optional[Callable[[float, float], bool]] = None,
+        emitter=None,
     ) -> None:
         if not coordinates:
             raise ValueError("need at least one coordinate")
@@ -68,9 +74,19 @@ class CoordinateDescent:
         self.regularization_term = regularization_term
         self.validate = validate
         self.validation_better_than = validation_better_than or nan_aware_better_than
+        self.emitter = emitter
         # seconds of each coordinate update (train + rescore, synchronised)
         # of the most recent run, in update order
         self.update_seconds: List[Tuple[str, float]] = []
+
+    def _log_solver_stats(self, cid: str, coord) -> None:
+        tracker = getattr(coord, "last_tracker", None)
+        if tracker is not None:
+            logger.info("CD coordinate %s: %s", cid, tracker.to_summary_string())
+        for s in getattr(coord, "last_solver_stats", ()):
+            logger.info("CD coordinate %s: %s", cid, s.to_summary_string())
+            if self.emitter is not None:
+                self.emitter.send_event(SolverStatsEvent.from_stats(cid, s))
 
     def run(
         self, num_iterations: int, initial_models: Optional[Dict[str, object]] = None
@@ -105,6 +121,7 @@ class CoordinateDescent:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.update_seconds.append((cid, time.perf_counter() - t0))
+                self._log_solver_stats(cid, coord)
 
                 if self.training_objective is not None:
                     loss_val = float(self.training_objective(total))

@@ -1,10 +1,13 @@
 """Shared CLI plumbing: logger setup, output removal, input column names,
-and the JSON coordinate config → typed configs.
+the JSON coordinate config → typed configs, and coefficient box
+constraints.
 
-Port of the parts of ``photon_ml_tpu/cli/common.py`` that ``score_game``
-and ``train_game`` use (reference GameTrainingParams.scala:269-610; the
-config mini-languages replaced by JSON, GLMOptimizationConfiguration
-.scala:64-67, RandomEffectDataConfiguration.scala:78-143).
+Port of the parts of ``photon_ml_tpu/cli/common.py`` that ``score_game``,
+``train_game`` and ``train_glm`` use (reference
+GameTrainingParams.scala:269-610; the config mini-languages replaced by
+JSON, GLMOptimizationConfiguration.scala:64-67,
+RandomEffectDataConfiguration.scala:78-143; the per-feature constraint map
+of GLMSuite.createConstraintFeatureMap:206-282).
 """
 
 from __future__ import annotations
@@ -16,12 +19,15 @@ import shutil
 import sys
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
 from photon_ml_tpu_torch.estimators.game import (
     CoordinateConfiguration,
     FixedEffectCoordinateConfiguration,
     RandomEffectCoordinateConfiguration,
 )
+from photon_ml_tpu_torch.indexmap import NAME_TERM_DELIMITER, feature_key
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration
 from photon_ml_tpu_torch.opt.config import (
     AdaptiveSolveConfig,
@@ -36,9 +42,11 @@ from photon_ml_tpu_torch.types import RegularizationType
 LOGGER_NAME = "photon_ml_tpu_torch"
 
 
-def setup_logger(level: str = "INFO") -> logging.Logger:
-    """Driver logging to stderr; ``PHOTON_LOG_LEVEL`` overrides ``level``.
-    Idempotent: a second run in one process does not stack handlers."""
+def setup_logger(log_file: Optional[str] = None, level: str = "INFO") -> logging.Logger:
+    """Driver logging to stderr, and to ``log_file`` when given (reference
+    util/PhotonLogger.scala:36: a per-job log file); ``PHOTON_LOG_LEVEL``
+    overrides ``level``. Idempotent: a second run in one process closes the
+    first run's handlers instead of stacking them."""
     logger = logging.getLogger(LOGGER_NAME)
     level = os.environ.get("PHOTON_LOG_LEVEL", level)
     resolved = getattr(logging, str(level).upper(), None)
@@ -49,9 +57,16 @@ def setup_logger(level: str = "INFO") -> logging.Logger:
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
-    handler = logging.StreamHandler(sys.stderr)
-    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s %(message)s"))
-    logger.addHandler(handler)
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s %(message)s")
+    handlers: List[logging.Handler] = [logging.StreamHandler(sys.stderr)]
+    if log_file:
+        parent = os.path.dirname(log_file)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        handlers.append(logging.FileHandler(log_file))
+    for h in handlers:
+        h.setFormatter(fmt)
+        logger.addHandler(h)
     return logger
 
 
@@ -85,11 +100,11 @@ def parse_optimizer_config(cfg: dict) -> GlmOptimizationConfiguration:
     regularization, alpha, regularization_weight, down_sampling_rate, plus
     box constraints and the adaptive random-effect driver's knobs. The
     sweep list ``regularization_weights`` is not ported (ROADMAP.md,
-    Queue A: fit_multiple/tuning)."""
+    Queue A: The rest of training, fit_multiple and tuning)."""
     if cfg.get("regularization_weights"):
         raise NotImplementedError(
             "regularization_weights sweeps need fit_multiple, which is not "
-            "ported yet (ROADMAP.md, Queue A); give one regularization_weight"
+            "ported yet (ROADMAP.md, Queue A: The rest of training); give one regularization_weight"
         )
     opt_type = OptimizerType[cfg.get("optimizer", "LBFGS").upper()]
     kw = {}
@@ -166,7 +181,7 @@ def parse_coordinate_config(cfg: dict) -> CoordinateConfiguration:
         )
     if ctype == "factored_random":
         raise NotImplementedError(
-            "factored random effects are not ported yet (ROADMAP.md, Queue A item 2)"
+            "factored random effects are not ported yet (ROADMAP.md, Queue A: Factored random effects)"
         )
     raise ValueError(f"unknown coordinate type: {ctype}")
 
@@ -193,3 +208,116 @@ def load_game_config(path: str) -> Tuple[
     }
     update_order = raw.get("update_order", list(coordinates))
     return shards, coordinates, update_order, raw
+
+
+def parse_box_constraints(
+    spec: Optional[str], index_map, dim: int, intercept_index: Optional[int] = None,
+):
+    """``--coefficient-box-constraints`` → (scalar_lower, scalar_upper,
+    per_feature_box_or_None).
+
+    Two payloads are accepted:
+    - ``{"lower": s, "upper": s}``: global scalar bounds;
+    - the reference's JSON array of ``{"name", "term", "lowerBound",
+      "upperBound"}`` maps (GLMSuite.createConstraintFeatureMap:206-282):
+      every map names both name and term; at least one bound is finite and
+      lower < upper; ``name='*', term='*'`` bounds every feature but the
+      intercept and combines with no other entry; ``term='*'`` alone bounds
+      every feature whose name part equals ``name`` and combines with
+      entries that do not overlap it; a wildcard name needs a wildcard
+      term; a feature bounded twice is refused.
+    """
+    if not spec:
+        return None, None, None
+    payload = json.loads(spec)
+    if isinstance(payload, dict):
+        return payload.get("lower"), payload.get("upper"), None
+    if not isinstance(payload, list):
+        raise ValueError(
+            "--coefficient-box-constraints expects a JSON object with "
+            "lower/upper or the reference's JSON array of per-feature maps"
+        )
+    WILD = "*"
+    lower = np.full(dim, -np.inf, dtype=np.float32)
+    upper = np.full(dim, np.inf, dtype=np.float32)
+    assigned = np.zeros(dim, dtype=bool)
+
+    # one pass over the index map finds the features of every term-wildcard
+    # entry at once
+    wild_names = {
+        str(e["name"]) for e in payload
+        if isinstance(e, dict) and e.get("term") == WILD and e.get("name") not in (None, WILD)
+    }
+    by_name: Dict[str, List[int]] = {nm: [] for nm in wild_names}
+    if wild_names:
+        for key, idx in index_map.items():
+            # empty-term features carry the bare name as their key
+            name_part = key.split(NAME_TERM_DELIMITER, 1)[0]
+            if name_part in by_name:
+                by_name[name_part].append(idx)
+
+    def _set(idx: int, lo: float, hi: float, what: str) -> None:
+        if assigned[idx]:
+            raise ValueError(
+                f"overlapping constraints for {what} (reference GLMSuite "
+                "conflict rule: a feature may be bounded at most once)"
+            )
+        lower[idx] = lo
+        upper[idx] = hi
+        assigned[idx] = True
+
+    for entry in payload:
+        if "name" not in entry or "term" not in entry:
+            raise ValueError(f"constraint map {entry!r} must name both 'name' and 'term'")
+        # JSON null == missing: unbounded on that side
+        lo_raw, hi_raw = entry.get("lowerBound"), entry.get("upperBound")
+        lo = float(lo_raw) if lo_raw is not None else -np.inf
+        hi = float(hi_raw) if hi_raw is not None else np.inf
+        name, term = str(entry["name"]), str(entry["term"])
+        if np.isnan(lo) or np.isnan(hi):
+            raise ValueError(f"constraint for {name!r}/{term!r} has a NaN bound")
+        if not np.isfinite(lo) and not np.isfinite(hi):
+            raise ValueError(
+                f"constraint for {name!r}/{term!r} has -Inf and +Inf "
+                "bounds: a no-op entry is an invalid specification "
+                "(reference GLMSuite.scala:224)"
+            )
+        if lo >= hi:
+            raise ValueError(
+                f"constraint lower bound {lo} must be strictly below the "
+                f"upper bound {hi} for {name!r}/{term!r} (reference "
+                "GLMSuite.scala:228)"
+            )
+        if name == WILD and term != WILD:
+            raise ValueError(
+                "a wildcard name requires a wildcard term (reference GLMSuite.scala:245)"
+            )
+        if name == WILD:  # '*'/'*': every feature except the intercept
+            if assigned.any():
+                raise ValueError(
+                    "potentially conflicting constraints: the all-wildcard "
+                    "entry may not combine with any other constraint "
+                    "(reference GLMSuite.scala:234)"
+                )
+            lower[:] = lo
+            upper[:] = hi
+            assigned[:] = True
+            if intercept_index is not None:
+                # wildcard bounds never pin the intercept; a later explicit
+                # intercept entry may still bound it (the reference's
+                # containsKey-then-put order)
+                lower[intercept_index] = -np.inf
+                upper[intercept_index] = np.inf
+                assigned[intercept_index] = False
+            continue
+        if term == WILD:
+            for idx in by_name.get(name, ()):
+                _set(idx, lo, hi, f"{name!r} (term wildcard)")
+            continue
+        idx = index_map.get_index(feature_key(name, term))
+        if idx < 0:
+            continue  # feature absent from the training index
+        _set(idx, lo, hi, f"{name!r}/{term!r}")
+    if not assigned.any():
+        return None, None, None
+    return None, None, (lower, upper)

@@ -6,8 +6,11 @@ cli/game/training/Driver.scala:50, run() :64-119): read Avro training data
 the fixed-effect shards when ``--normalization-type`` asks for them →
 GameEstimator.fit by block coordinate descent → best model by the first
 evaluator → save the model, in original-space coefficients
-(Driver.scala:389-433). Training runs on ``--device`` (default ``cuda``;
-``cpu`` only when asked).
+(Driver.scala:389-433). ``--summarization-output-dir`` or
+``--save-feature-stats`` also write every shard's feature statistics as
+``FeatureSummarizationResultAvro`` (ModelProcessingUtils.scala:560);
+``--event-listeners`` registers listener classes (``event.py``). Training
+runs on ``--device`` (default ``cuda``; ``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_game \\
@@ -16,7 +19,8 @@ Usage:
         --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \
         [--device cpu]
 
-The reference's other flags are not ported yet (ROADMAP.md, Queue A).
+The reference's other flags are not ported yet (ROADMAP.md, Queue A: The
+rest of training).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import sys
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.common import (
@@ -43,7 +48,16 @@ from photon_ml_tpu_torch.estimators.game import (
     RandomEffectCoordinateConfiguration,
 )
 from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
-from photon_ml_tpu_torch.indexmap import INTERCEPT_KEY
+from photon_ml_tpu_torch.event import (
+    EventEmitter,
+    PhotonOptimizationLogEvent,
+    PhotonSetupEvent,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
+from photon_ml_tpu_torch.indexmap import INTERCEPT_KEY, NAME_TERM_DELIMITER
+from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.io.avro import write_avro_file
 from photon_ml_tpu_torch.io.data_reader import read_game_data
 from photon_ml_tpu_torch.io.model_io import save_game_model
 from photon_ml_tpu_torch.normalization import build_normalization_context
@@ -75,9 +89,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "their summary statistics (STANDARDIZATION needs an "
                         "intercept)")
     p.add_argument("--summarization-output-dir", default=None,
-                   help="not ported yet (ROADMAP.md, Queue A item 1)")
+                   help="write per-shard feature stats here instead of "
+                        "<output-dir>/feature-stats (implies stats are "
+                        "computed for every shard)")
     p.add_argument("--save-feature-stats", action="store_true",
-                   help="not ported yet (ROADMAP.md, Queue A item 1)")
+                   help="write per-shard FeatureSummarizationResultAvro")
+    p.add_argument("--event-listeners", nargs="*", default=[], metavar="module.Class",
+                   help="EventListener classes to register (reference "
+                        "--event-listeners, Params.scala:186)")
+    p.add_argument("--log-file", default=None)
     p.add_argument("--compute-variance", action="store_true",
                    help="attach per-coefficient variances ~ 1/(H_jj+eps) to "
                         "FE and RE models (reference --compute-variance)")
@@ -92,14 +112,61 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _save_feature_stats(stats_base, shard, summary, index_map) -> None:
+    """Per-shard stats under <stats_base>/<shard>."""
+    write_feature_stats(os.path.join(stats_base, shard), summary, index_map)
+
+
+def write_feature_stats(stats_dir, summary, index_map) -> None:
+    """writeBasicStatistics parity (ModelProcessingUtils.scala:560):
+    FeatureSummarizationResultAvro part files into ``stats_dir``."""
+    os.makedirs(stats_dir, exist_ok=True)
+    mean, var, mx, mn, nnz = (
+        getattr(summary, f).cpu().numpy().astype(np.float64)
+        for f in ("mean", "variance", "max_val", "min_val", "num_nonzeros")
+    )
+
+    def records():
+        for i in range(len(mean)):
+            key = index_map.get_feature_name(i)
+            if key is None:
+                continue
+            name, _, term = key.partition(NAME_TERM_DELIMITER)
+            yield {
+                "featureName": name,
+                "featureTerm": term,
+                "metrics": {
+                    "mean": float(mean[i]),
+                    "variance": float(var[i]),
+                    "min": float(mn[i]),
+                    "max": float(mx[i]),
+                    "numNonzeros": float(nnz[i]),
+                },
+            }
+
+    write_avro_file(
+        os.path.join(stats_dir, "part-00000.avro"),
+        schemas.feature_summarization_schema(),
+        records(),
+    )
+
+
 def run(args: argparse.Namespace) -> GameFit:
-    logger = setup_logger()
+    logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
-    if args.summarization_output_dir or args.save_feature_stats:
-        raise NotImplementedError(
-            "--summarization-output-dir / --save-feature-stats write the feature "
-            "statistics, which is not ported yet (ROADMAP.md, Queue A item 1)"
-        )
+    emitter = EventEmitter()
+    for name in args.event_listeners:
+        emitter.register_listener_class(name)
+    try:
+        return _run(args, logger, device, emitter)
+    finally:
+        # listeners flush and close even when the run fails
+        emitter.clear_listeners()
+
+
+def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> GameFit:
+    t_start = time.perf_counter()
+    emitter.send_event(PhotonSetupEvent(params=vars(args)))
     durations = {}
 
     def timed(name, fn, *a, **kw):
@@ -141,12 +208,18 @@ def run(args: argparse.Namespace) -> GameFit:
 
     norm_type = NormalizationType[args.normalization_type]
     normalization, intercept_indices = {}, {}
-    if norm_type is not NormalizationType.NONE:
-        fe_shards = sorted({
-            c.feature_shard for c in coordinates.values()
-            if isinstance(c, FixedEffectCoordinateConfiguration)
-        })
-        for sid in fe_shards:
+    fe_shards = {
+        c.feature_shard for c in coordinates.values()
+        if isinstance(c, FixedEffectCoordinateConfiguration)
+    }
+    # stats of the fixed-effect shards for normalization; of every shard
+    # when they are written out
+    stats_base = args.summarization_output_dir or (
+        os.path.join(args.output_dir, "feature-stats") if args.save_feature_stats else None
+    )
+    stat_shards = list(shard_configs) if stats_base else sorted(fe_shards)
+    if norm_type is not NormalizationType.NONE or stats_base:
+        for sid in stat_shards:
             t0 = time.perf_counter()
             labeled = LabeledData.create(
                 data.sparse_features(sid, engine="auto", device=device),
@@ -154,13 +227,16 @@ def run(args: argparse.Namespace) -> GameFit:
                 weights=torch.from_numpy(data.weights).to(device),
             )
             summary = summarize(labeled)
+            durations[f"feature stats [{sid}]"] = time.perf_counter() - t0
+            if stats_base:
+                _save_feature_stats(stats_base, sid, summary, index_maps[sid])
             icpt = index_maps[sid].get_index(INTERCEPT_KEY)
             intercept_indices[sid] = icpt if icpt >= 0 else None
-            normalization[sid] = build_normalization_context(
-                norm_type, mean=summary.mean, variance=summary.variance,
-                max_magnitude=summary.max_abs, intercept_index=intercept_indices[sid],
-            )
-            durations[f"feature stats [{sid}]"] = time.perf_counter() - t0
+            if norm_type is not NormalizationType.NONE and sid in fe_shards:
+                normalization[sid] = build_normalization_context(
+                    norm_type, mean=summary.mean, variance=summary.variance,
+                    max_magnitude=summary.max_abs, intercept_index=intercept_indices[sid],
+                )
 
     evaluator, extra = None, []
     if validation_data is not None and args.evaluator:
@@ -182,9 +258,18 @@ def run(args: argparse.Namespace) -> GameFit:
         normalization=normalization,
         intercept_indices=intercept_indices,
         device=device,
+        emitter=emitter,
     )
+    emitter.send_event(TrainingStartEvent(task=args.task))
     fit = timed("fit", estimator.fit, data, validation_data=validation_data)
     for cid, value in fit.objective_history:
+        emitter.send_event(PhotonOptimizationLogEvent(
+            coordinate_id=cid,
+            regularization_weight=coordinates[cid].optimizer.regularization_weight,
+            objective_value=value,
+            iterations=-1,  # per-coordinate iteration counts live in the trackers
+            convergence_reason="",
+        ))
         logger.info("objective [%s]: %.6f", cid, value)
     if fit.validation_metric is not None:
         logger.info("validation metric: %.6f", fit.validation_metric)
@@ -194,6 +279,9 @@ def run(args: argparse.Namespace) -> GameFit:
         index_maps=index_maps, model_name=args.model_name, configurations=raw_config,
     )
     logger.info("model saved to %s", os.path.join(args.output_dir, "best"))
+    emitter.send_event(TrainingFinishEvent(
+        task=args.task, wall_seconds=time.perf_counter() - t_start
+    ))
     for name, seconds in durations.items():
         logger.info("timing %-20s %.3fs", name, seconds)
     return fit

@@ -12,9 +12,10 @@ Fixed effects may train normalized (``normalization`` per feature shard,
 reference prepareNormalizationContexts); random effects train unnormalized,
 as in the reference.
 
-Not ported (ROADMAP.md, Queue A): ``fit_streaming``, ``fit_multiple`` and
-tuning, checkpoints, the async schedule, the device mesh, factored random
-effects and ``resolve_coordinate``.
+Not ported (ROADMAP.md, Queue A: The rest of training, factored random
+effects, streaming): ``fit_streaming``, ``fit_multiple`` and tuning,
+checkpoints, the async schedule, the device mesh, factored random effects
+and ``resolve_coordinate``.
 """
 
 from __future__ import annotations
@@ -111,13 +112,16 @@ class GameEstimator:
         normalization: Optional[Dict[str, NormalizationContext]] = None,
         intercept_indices: Optional[Dict[str, Optional[int]]] = None,
         device: DeviceLike = DEFAULT_DEVICE,
+        emitter=None,
     ) -> None:
         """``evaluator`` selects the best model (default by task);
         ``extra_evaluators`` are computed and logged per coordinate update
         (reference CoordinateDescent.scala:283-293) without affecting the
         choice. ``normalization`` and ``intercept_indices`` are per feature
         shard and apply to fixed-effect coordinates: their solves run in the
-        normalized space and the models hold original-space coefficients."""
+        normalized space and the models hold original-space coefficients.
+        ``emitter`` (an ``event.EventEmitter``) receives the random-effect
+        solver stats of every update."""
         if not coordinates:
             raise ValueError("need at least one coordinate configuration")
         for cid, cfg in coordinates.items():
@@ -126,7 +130,7 @@ class GameEstimator:
             ):
                 raise NotImplementedError(
                     f"coordinate {cid!r}: {type(cfg).__name__} is not ported yet "
-                    "(ROADMAP.md, Queue A item 2: factored random effects)"
+                    "(ROADMAP.md, Queue A: Factored random effects)"
                 )
         self.task = task
         self.coordinate_configs = dict(coordinates)
@@ -138,6 +142,7 @@ class GameEstimator:
         self.normalization = dict(normalization or {})
         self.intercept_indices = dict(intercept_indices or {})
         self.device = resolve_device(device)
+        self.emitter = emitter
 
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         dev = self.device
@@ -259,6 +264,7 @@ class GameEstimator:
             regularization_term=regularization_term,
             validate=validate,
             validation_better_than=self.evaluator.better_than,
+            emitter=self.emitter,
         )
         result = cd.run(self.num_outer_iterations, initial_models=initial_models)
         return GameFit(

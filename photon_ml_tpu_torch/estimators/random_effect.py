@@ -3,7 +3,8 @@
 Port of ``photon_ml_tpu/estimators/random_effect.py`` (reference
 algorithm/RandomEffectCoordinate.scala:39 — updateModel :103-143 runs one
 local solve per entity; score :157-187 covers active + passive data). Each
-bucket is one batched L-BFGS over its entity lanes, whose value and
+bucket is one batched solve over its entity lanes — L-BFGS, TRON or
+OWL-QN, as the configuration selects (``opt.solve``) — whose value and
 gradient go through the fused kernel ``fused_value_grad_batched_f32`` on
 the card.
 
@@ -16,7 +17,8 @@ compacts the unconverged entities into a dense prefix of the next smaller
 power-of-two lane count.
 
 Not ported: ``overlap_buckets`` (the async schedule's bucket overlap) and
-entity axes sharded over several devices (ROADMAP.md, Queue A).
+entity axes sharded over several devices (ROADMAP.md, Queue A: The rest of
+training, the async schedule).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket
@@ -41,6 +44,7 @@ from photon_ml_tpu_torch.opt.solve import (
     solver_kind,
 )
 from photon_ml_tpu_torch.opt.state import SolveResult
+from photon_ml_tpu_torch.opt.tracking import SolverStats
 from photon_ml_tpu_torch.types import ConvergenceReason, TaskType
 
 _NOT_CONVERGED = ConvergenceReason.NOT_CONVERGED.value
@@ -61,11 +65,14 @@ def _next_pow2(n: int) -> int:
 
 @dataclasses.dataclass
 class _BucketSolver:
-    """One (task, configuration, compute_variances) combination."""
+    """One (task, configuration, compute_variances) combination; the
+    configuration's own L1 weight selects OWL-QN (an L1 weight of 0 pins
+    L-BFGS or TRON)."""
 
     objective: GlmObjective
     configuration: GlmOptimizationConfiguration
     compute_variances: bool
+    kind: str  # opt.solve.solver_kind
 
     @property
     def l2(self) -> float:
@@ -82,14 +89,18 @@ class _BucketSolver:
             var = torch.where(pv, 1.0 / (diag + 1e-12), torch.zeros_like(diag))
         return w, var
 
-    def oneshot(self, bucket: ReBucket, w0: torch.Tensor):
+    def oneshot(self, bucket: ReBucket, w0: torch.Tensor, index: int):
         """Lockstep dispatch: every lane until the slowest is done."""
         data = _bucket_data(bucket)
-        res = solve(self.objective, w0, data, self.configuration, l1_weight=0.0)
+        res = solve(self.objective, w0, data, self.configuration)
         w, var = self.mask_and_var(res, data, bucket.proj_valid)
-        return res, w, var
+        stats = SolverStats.of_bucket(
+            index, self.kind, self.configuration.adaptive.chunk_iters, (bucket.num_entities,),
+            None, res.iterations.cpu().numpy(), res.reason.cpu().numpy(),
+        )
+        return res, w, var, stats
 
-    def adaptive(self, bucket: ReBucket, w0: torch.Tensor):
+    def adaptive(self, bucket: ReBucket, w0: torch.Tensor, index: int):
         """Chunked rounds + power-of-two lane compaction; results in the
         bucket's entity order."""
         cfg = self.configuration
@@ -98,10 +109,12 @@ class _BucketSolver:
         max_iter = cfg.optimizer_config.max_iterations
         data = _bucket_data(bucket)
         pv = bucket.proj_valid
-        state = solve_init(self.objective, w0, data, cfg, l1_weight=0.0)
+        state = solve_init(self.objective, w0, data, cfg)
         live = torch.arange(E, device=w0.device)  # lane -> entity row
         width = E
         buffers: Dict[str, torch.Tensor] = {}
+        its_before = np.zeros(E, dtype=np.int64)
+        executed, widths = 0, []
 
         def scatter_extract():
             # done lanes never advance, so re-scattering one is idempotent
@@ -122,6 +135,10 @@ class _BucketSolver:
         # converged-at-init case where the first chunk advances nothing
         for _ in range(-(-max_iter // K) + 1):
             state = solve_chunk(self.objective, state, data, cfg, num_iters=K)
+            widths.append(width)
+            its_after = state.it.cpu().numpy()
+            executed += width * int(np.max(its_after - its_before))
+            its_before = its_after
             done = (state.reason != _NOT_CONVERGED) | (state.it >= max_iter)
             n_live = int((~done).sum())
             if n_live == 0:
@@ -135,11 +152,16 @@ class _BucketSolver:
                 state = state.take_lanes(keep)
                 data = data.take_lanes(keep)
                 pv, live, width = pv[keep], live[keep], new_width
+                its_before = its_before[keep.cpu().numpy()]
         scatter_extract()
         res = SolveResult(**{
             f.name: buffers.get(f.name) for f in dataclasses.fields(SolveResult)
         })
-        return res, buffers["__w"], buffers.get("__var")
+        stats = SolverStats.of_bucket(
+            index, self.kind, K, widths, executed,
+            res.iterations.cpu().numpy(), res.reason.cpu().numpy(),
+        )
+        return res, buffers["__w"], buffers.get("__var"), stats
 
 
 def train_random_effects(
@@ -148,18 +170,20 @@ def train_random_effects(
     configuration: GlmOptimizationConfiguration,
     initial_model: Optional[RandomEffectModel] = None,
     compute_variances: bool = False,
+    stats_out: Optional[List[SolverStats]] = None,
 ) -> Tuple[RandomEffectModel, List[SolveResult]]:
     """Solve one GLM per entity, bucket by bucket. Returns the model and the
-    per-bucket SolveResults (one lane per entity).
+    per-bucket SolveResults (one lane per entity); ``stats_out`` gets one
+    ``SolverStats`` a bucket.
 
     With ``configuration.adaptive.enabled``, buckets of more than
     ``adaptive.min_lanes`` entities run through the convergence-adaptive
     driver; its results equal the one-shot dispatch's lane for lane.
     ``initial_model`` warm-starts from a model of the same dataset.
     """
-    solver_kind(configuration)  # raises for the solvers not ported yet
     solver = _BucketSolver(
-        make_glm_objective(loss_for_task(task)), configuration, compute_variances
+        make_glm_objective(loss_for_task(task)), configuration, compute_variances,
+        solver_kind(configuration),  # raises for TRON with L1
     )
     adaptive = configuration.adaptive
     coeffs, variances, results = [], [], []
@@ -172,9 +196,11 @@ def train_random_effects(
                 device=bucket.X.device,
             )
         if adaptive.enabled and bucket.num_entities > adaptive.min_lanes:
-            res, w, var = solver.adaptive(bucket, w0)
+            res, w, var, stats = solver.adaptive(bucket, w0, b)
         else:
-            res, w, var = solver.oneshot(bucket, w0)
+            res, w, var, stats = solver.oneshot(bucket, w0, b)
+        if stats_out is not None:
+            stats_out.append(stats)
         coeffs.append(w)
         variances.append(var)
         results.append(res)

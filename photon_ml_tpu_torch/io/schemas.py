@@ -3,8 +3,8 @@
 Reference parity: photon-avro-schemas/src/main/avro/*.avsc — field-for-field
 identical (names, order, union shapes, defaults), so files are byte-level
 interoperable with the reference pipeline. Doc strings trimmed. Copy of
-``photon_ml_tpu/io/schemas.py`` without the latent-factor and
-feature-summary schemas, which no ported module writes yet.
+``photon_ml_tpu/io/schemas.py`` without the latent-factor schemas, which
+no ported module writes yet.
 """
 
 from photon_ml_tpu_torch.io.avro import AvroSchema
@@ -87,12 +87,28 @@ SCORING_RESULT = {
 }
 
 
+FEATURE_SUMMARIZATION_RESULT = {
+    "name": "FeatureSummarizationResultAvro",
+    "namespace": _NS,
+    "type": "record",
+    "fields": [
+        {"name": "featureName", "type": "string"},
+        {"name": "featureTerm", "type": "string"},
+        {"name": "metrics", "type": {"type": "map", "values": "double"}},
+    ],
+}
+
+
 def training_example_schema() -> AvroSchema:
     return AvroSchema(TRAINING_EXAMPLE)
 
 
 def bayesian_linear_model_schema() -> AvroSchema:
     return AvroSchema(BAYESIAN_LINEAR_MODEL)
+
+
+def feature_summarization_schema() -> AvroSchema:
+    return AvroSchema(FEATURE_SUMMARIZATION_RESULT)
 
 
 def scoring_result_schema() -> AvroSchema:

@@ -17,6 +17,7 @@ import torch
 from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.ops.features import scatter_add
 from photon_ml_tpu_torch.projector import ProjectorType
 from photon_ml_tpu_torch.types import TaskType
 
@@ -84,7 +85,7 @@ class GameModel:
 def _score_factored_re_rows(model, shard, entity_ids, num_rows: int) -> torch.Tensor:
     raise NotImplementedError(
         f"scoring a {type(model).__name__} sub-model: factored random effects "
-        "are not ported yet (ROADMAP.md, Queue A item 2)"
+        "are not ported yet (ROADMAP.md, Queue A: Factored random effects)"
     )
 
 
@@ -132,6 +133,4 @@ def _score_re_rows(
         hit = (keys[j] == query) & (cols < stride)
         contrib = torch.where(hit, vals * weights[j], torch.zeros_like(vals))
     contrib = torch.where(seen, contrib, torch.zeros_like(contrib))
-    # index_put_ with accumulate sorts the rows on the card, so scores
-    # repeat bitwise run to run (index_add_ adds with atomics there)
-    return out.index_put_((rows,), contrib, accumulate=True)
+    return scatter_add(out, rows, contrib)

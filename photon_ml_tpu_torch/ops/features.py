@@ -8,7 +8,7 @@ Port of ``photon_ml_tpu/ops/features.py``:
 - :class:`EllFeatures` — padded row-sparse (ELL) layout ``values/indices
   [n, k]`` with k = max nnz per row; padding slots carry value 0.0 so they
   are algebraic no-ops. ``matvec`` is ``torch.gather`` plus a sum over the
-  slot axis; ``rmatvec`` is an accumulating ``index_put_`` into the columns.
+  slot axis; ``rmatvec`` a :func:`scatter_add` into the columns.
 
 Each layout has the three maps a GLM needs: ``matvec(w)`` = X·w,
 ``rmatvec(c)`` = Xᵀ·c, ``rmatvec_sq(c)`` = (X∘X)ᵀ·c.
@@ -92,10 +92,19 @@ class EllFeatures:
         return self._scatter(self.values * self.values * c[:, None])
 
     def _scatter(self, contrib: torch.Tensor) -> torch.Tensor:
-        # index_put_ with accumulate sorts the indices on the card, so the
-        # sums repeat bitwise run to run (index_add_ adds with atomics there)
         out = torch.zeros(self.num_cols, dtype=contrib.dtype, device=contrib.device)
-        return out.index_put_((self.indices.reshape(-1),), contrib.reshape(-1), accumulate=True)
+        return scatter_add(out, self.indices.reshape(-1), contrib.reshape(-1))
+
+
+def scatter_add(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[index] += values``, repeated indices summed, in an order that is
+    the same run to run on either device: on the card the accumulating
+    ``index_put_`` sorts the indices (``index_add_`` adds with atomics
+    there); on the host ``index_add_`` adds in order (``index_put_`` adds
+    from several threads there)."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, values)
+    return out.index_put_((index,), values, accumulate=True)
 
 
 FeatureMatrix = Union[DenseFeatures, EllFeatures]

@@ -48,7 +48,7 @@ import torch
 
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from photon_ml_tpu_torch.ops import launches, sparse_perm
-from photon_ml_tpu_torch.ops.features import coalesce_coo
+from photon_ml_tpu_torch.ops.features import coalesce_coo, scatter_add
 from photon_ml_tpu_torch.utils import cudalib
 
 KERNEL = "csr_matvec_f32"
@@ -184,10 +184,10 @@ def csr_matvec_plain(
     blocks: int = 1,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: z[r] = Σ_p vals[p]·w[col_idx[p]]
-    over row r's nonzeros (in every column block), by ``index_add_``."""
+    over row r's nonzeros (in every column block), by ``scatter_add``."""
     n = (row_ptr.numel() - 1) // blocks
     z = torch.zeros(n, dtype=torch.float32, device=w.device)
-    return z.index_add_(0, csr_rows_of_nonzeros(row_ptr, blocks), vals * w[col_idx.long()])
+    return scatter_add(z, csr_rows_of_nonzeros(row_ptr, blocks), vals * w[col_idx.long()])
 
 
 def csr_matvec_f32(
@@ -218,7 +218,7 @@ def csr_matvec_bf16_plain(
     terms = vals * torch.where(exact, w[cols], _round_bf16(w)[cols])
     n = (row_ptr.numel() - 1) // blocks
     z = torch.zeros(n, dtype=torch.float32, device=w.device)
-    return z.index_add_(0, csr_rows_of_nonzeros(row_ptr, blocks), terms)
+    return scatter_add(z, csr_rows_of_nonzeros(row_ptr, blocks), terms)
 
 
 def csr_matvec_bf16(
@@ -324,7 +324,7 @@ def _transformed(vals: torch.Tensor, transform: str) -> torch.Tensor:
 
 def _column_sums64(col_ptr: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     """g[j] = Σ of column j's terms, accumulated in float64 by
-    ``index_add_``, returned in f32: added one at a time into an f32
+    ``scatter_add``, returned in f32: added one at a time into an f32
     running sum, the small terms of a long column (an intercept holds every
     row) would be lost against the sum."""
     d = col_ptr.numel() - 1
@@ -332,7 +332,7 @@ def _column_sums64(col_ptr: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
         torch.arange(d, device=col_ptr.device), col_ptr.diff()
     )
     g = torch.zeros(d, dtype=torch.float64, device=terms.device)
-    return g.index_add_(0, col_of_nnz, terms.double()).float()
+    return scatter_add(g, col_of_nnz, terms.double()).float()
 
 
 def csc_rmatvec_plain(

@@ -19,9 +19,8 @@ Layouts (S = routed network size):
 
 High-degree ("hot") columns (an intercept) go to a dense [n, H] side
 matrix computed with ``torch.matmul``; entries beyond a column's KP cap go
-to a COO spill side added with an accumulating ``index_put_`` (sorted
-indices, so a fit repeats bitwise on the card, where ``index_add_`` adds
-with atomics). A column split (:class:`ColumnSplitFeatures`) keeps each
+to a COO spill side added by ``features.scatter_add`` (in a fixed order,
+so a fit repeats bitwise). A column split (:class:`ColumnSplitFeatures`) keeps each
 network on the valid-size ladder. The layout planner, the routing and the
 plan cache are host numpy and the same code as the reference's, so one
 pattern gives the reference's layout and plans.
@@ -47,15 +46,12 @@ import torch
 
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from photon_ml_tpu_torch.ops import routing
-from photon_ml_tpu_torch.ops.features import coalesce_coo
+from photon_ml_tpu_torch.ops.features import coalesce_coo, scatter_add
 from photon_ml_tpu_torch.ops.permute_net import DevicePlan, apply_plan, device_plan
 from photon_ml_tpu_torch.utils.nativesort import lexsort_pairs
 
 
-def _index_add(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """out[index] += values, repeated indices summed; deterministic on the
-    card (``index_put_`` with accumulate sorts the indices there)."""
-    return out.index_put_((index,), values, accumulate=True)
+_index_add = scatter_add
 
 
 @dataclasses.dataclass

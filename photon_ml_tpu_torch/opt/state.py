@@ -11,7 +11,7 @@ convergence reason is an int64 code per lane (types.ConvergenceReason).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,6 +34,27 @@ class SolveResult:
 
     def converged(self) -> torch.Tensor:
         return self.reason != ConvergenceReason.NOT_CONVERGED.value
+
+
+class LaneObjective(NamedTuple):
+    """The objective over solver lanes (``opt.solve.lane_objective``):
+    ``value_and_grad(w [E, d]) -> (f [E], g [E, d])`` and
+    ``hessian_vec(w [E, d], v [E, d]) -> [E, d]``."""
+
+    value_and_grad: Callable
+    hessian_vec: Callable
+    has_hessian: bool
+
+
+class LaneState:
+    """Base of the resumable solver states: a dataclass whose every field
+    has a leading lane axis, so the adaptive random-effect driver can
+    gather the lanes it keeps."""
+
+    def take_lanes(self, idx: torch.Tensor):
+        return type(self)(**{
+            f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)
+        })
 
 
 def function_values_converged(f_prev, f, abs_tol) -> torch.Tensor:

@@ -7,7 +7,7 @@ count): one pass over a ``LabeledData`` batch on its device, through each
 feature layout's own maps:
 
 - dense: column reductions;
-- ELL: sums by an accumulating ``index_put_`` (deterministic on the card),
+- ELL: sums by ``features.scatter_add`` (in a fixed order on either device),
   min and max by ``scatter_reduce_`` (``amin``/``amax``);
 - Benes (and each block of a column split): the sums are the engine's
   transformed rmatvecs; min and max route the live-row mask to CSC slot
@@ -28,7 +28,7 @@ import dataclasses
 import torch
 
 from photon_ml_tpu_torch.ops.data import LabeledData
-from photon_ml_tpu_torch.ops.features import DenseFeatures, EllFeatures
+from photon_ml_tpu_torch.ops.features import DenseFeatures, EllFeatures, scatter_add
 from photon_ml_tpu_torch.ops.fused_perm import FusedSparseFeatures
 from photon_ml_tpu_torch.ops.sparse_perm import (
     BenesSparseFeatures,
@@ -51,8 +51,7 @@ class BasicStatisticalSummary:
     mean_abs: torch.Tensor      # [d] weighted mean of |x| (reference meanAbs)
 
 
-def _index_add(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    return out.index_put_((index,), values, accumulate=True)
+_index_add = scatter_add
 
 
 def _dense_stats(matrix: torch.Tensor, weights: torch.Tensor):

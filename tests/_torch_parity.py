@@ -156,3 +156,67 @@ def coordinates_of_jax_model(model):
             )
         out[cid] = c
     return out
+
+
+def solver_configs(optimizer: str = "LBFGS", regularization: str = "L2",
+                   weight: float = 1.0, alpha=None, **opt):
+    """The same GlmOptimizationConfiguration in both packages: ``optimizer``
+    LBFGS or TRON (each with its own defaults), ``opt`` the OptimizerConfig
+    fields."""
+    from photon_ml_tpu.opt import config as jax_config
+    from photon_ml_tpu.types import RegularizationType as JaxReg
+    from photon_ml_tpu_torch.opt import config
+    from photon_ml_tpu_torch.types import RegularizationType
+
+    def make(cfg, reg_enum):
+        factory = cfg.OptimizerConfig.tron if optimizer == "TRON" else cfg.OptimizerConfig.lbfgs
+        return cfg.GlmOptimizationConfiguration(
+            optimizer_config=factory(**opt),
+            regularization=cfg.RegularizationContext(reg_enum[regularization], alpha=alpha),
+            regularization_weight=weight,
+        )
+
+    return make(jax_config, JaxReg), make(config, RegularizationType)
+
+
+def dense_bucket(seed: int, E: int = 6, s: int = 24, d: int = 5, labels: str = "binary"):
+    """A batch of E dense problems in both packages, with padding rows and
+    an all-padding last entity: (jax data, torch data, zero w0 [E, d]).
+    ``labels`` "binary" (logistic), or "counts" (Poisson, also fit by the
+    squared loss)."""
+    import jax.numpy as jnp
+    import torch
+
+    from photon_ml_tpu.ops.data import LabeledData as JaxData
+    from photon_ml_tpu.ops.features import DenseFeatures as JaxDense
+    from photon_ml_tpu_torch.ops.data import LabeledData
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((E, s, d)).astype(np.float32)
+    if labels == "counts":
+        y = rng.poisson(1.5, (E, s)).astype(np.float32)
+    else:
+        y = (rng.random((E, s)) < 0.5).astype(np.float32)
+    off = (rng.standard_normal((E, s)) * 0.2).astype(np.float32)
+    wt = (rng.random((E, s)) + 0.5).astype(np.float32)
+    wt[:, -4:] = 0.0  # padding rows
+    wt[-1] = 0.0      # an all-padding entity
+    jd = JaxData.create(JaxDense(jnp.asarray(X)), jnp.asarray(y), jnp.asarray(off),
+                        jnp.asarray(wt))
+    td = LabeledData.create(DenseFeatures(torch.from_numpy(X)), torch.from_numpy(y),
+                            torch.from_numpy(off), torch.from_numpy(wt))
+    return jd, td, np.zeros((E, d), np.float32)
+
+
+def jax_vmapped_solve(loss: str, jd, w0, cfg, box=None):
+    """The JAX package's ``solve`` under vmap over the entity axis."""
+    import jax
+    import jax.numpy as jnp
+
+    from photon_ml_tpu.losses import pointwise as jax_pointwise
+    from photon_ml_tpu.losses.objective import make_glm_objective as jax_objective
+    from photon_ml_tpu.opt.solve import solve as jax_solve
+
+    obj = jax_objective(getattr(jax_pointwise, loss), use_pallas=False)
+    return jax.vmap(lambda w, dd: jax_solve(obj, w, dd, cfg, box=box))(jnp.asarray(w0), jd)

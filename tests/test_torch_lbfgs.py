@@ -148,14 +148,21 @@ def test_chunked_solve_follows_the_one_shot_trajectory():
 
 
 def test_unported_solvers_raise():
+    """The refusals the solvers keep (as the JAX package's): TRON with L1,
+    and TRON on the first-order smoothed hinge. TRON and L1 (OWL-QN) alone
+    now solve."""
     _, td, w0 = _bucket(1)
     obj = make_glm_objective(pointwise.LogisticLoss)
-    tron = config.GlmOptimizationConfiguration(optimizer_config=config.OptimizerConfig.tron())
-    with pytest.raises(NotImplementedError, match="TRON"):
-        solve(obj, torch.from_numpy(w0), td, tron)
-    l1 = config.GlmOptimizationConfiguration(
+    tron_l1 = config.GlmOptimizationConfiguration(
+        optimizer_config=config.OptimizerConfig.tron(),
         regularization=config.RegularizationContext(RegularizationType.L1),
         regularization_weight=0.5,
     )
-    with pytest.raises(NotImplementedError, match="OWL-QN"):
-        solve(obj, torch.from_numpy(w0), td, l1)
+    with pytest.raises(ValueError, match="TRON does not support L1"):
+        solve(obj, torch.from_numpy(w0), td, tron_l1)
+    tron = config.GlmOptimizationConfiguration(optimizer_config=config.OptimizerConfig.tron())
+    with pytest.raises(ValueError, match="twice-differentiable"):
+        solve(make_glm_objective(pointwise.SmoothedHingeLoss), torch.from_numpy(w0), td, tron)
+    l1 = dataclasses.replace(tron_l1, optimizer_config=config.OptimizerConfig())
+    for cfg in (tron, l1):
+        assert bool(solve(obj, torch.from_numpy(w0), td, cfg).converged().all())

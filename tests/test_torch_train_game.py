@@ -192,14 +192,76 @@ def test_train_game_cli_on_ratings_fixture(tmp_path):
 
 
 def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="TRON"):
-        train_game.run(train_game.parse_args(
-            _train_argv(tmp_path, _ratings_config(tmp_path, fixed_optimizer="TRON"))
-        ))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_game.run(train_game.parse_args(
-            _train_argv(tmp_path, _ratings_config(tmp_path), "--save-feature-stats")
-        ))
+    """What stays refused: TRON with L1 (as in the JAX package), factored
+    random effects and regularization-weight sweeps (not ported yet). TRON,
+    L1 and the feature-statistics outputs now train: the parity tests
+    below."""
+    path = tmp_path / "bad.json"
+    cfg = json.loads(open(_ratings_config(tmp_path)).read())
+    cfg["coordinates"]["fixed"]["optimizer"].update(
+        optimizer="TRON", regularization="L1")
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="TRON does not support L1"):
+        train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
+    for key, value, match in (
+        ("type", "factored_random", "Factored random effects"),
+        ("optimizer", {"regularization_weights": [1.0, 10.0]}, "fit_multiple"),
+    ):
+        cfg = json.loads(open(_ratings_config(tmp_path)).read())
+        cfg["coordinates"]["per_user"][key] = value
+        path.write_text(json.dumps(cfg))
+        with pytest.raises(NotImplementedError, match=match):
+            train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
+
+
+def _jax_cli(tmp_path, argv):
+    from photon_ml_tpu.cli import train_game as jax_train_game
+
+    at = argv.index("--device")
+    jargv = argv[:at] + argv[at + 2:] + ["--output-dir", str(tmp_path / "jax_out")]
+    return jax_train_game.run(jax_train_game.parse_args(jargv))
+
+
+def test_golden_fixed_effect_tron_cli_matches_jax(tmp_path):
+    """The reference's golden FE-only fit (tests/test_golden_fixture.py:
+    FIXED on TRON, L2 λ = 10, RMSE < 0.95, captured 0.8274)."""
+    cfg = json.loads(open(_ratings_config(tmp_path, fixed_optimizer="TRON")).read())
+    cfg["coordinates"] = {"fixed": cfg["coordinates"]["fixed"]}
+    cfg["update_order"] = ["fixed"]
+    path = tmp_path / "fe_only.json"
+    path.write_text(json.dumps(cfg))
+    argv = _train_argv(tmp_path, str(path))
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    assert fit.validation_metric < 0.95
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+
+
+def test_tron_and_owlqn_coordinates_cli_matches_jax(tmp_path):
+    """The fixed effect on TRON, per_user on OWL-QN (elastic net), per_movie
+    on L-BFGS, with the feature statistics written: RMSE equal to the JAX
+    CLI's to 1e-4, and the statistics files equal to its records."""
+    from photon_ml_tpu.io.avro import read_avro_dir as jax_read_dir
+    from photon_ml_tpu_torch.io.avro import read_avro_dir
+
+    cfg = json.loads(open(_ratings_config(tmp_path, fixed_optimizer="TRON")).read())
+    cfg["coordinates"]["per_user"]["optimizer"].update(regularization="ELASTIC_NET", alpha=0.5)
+    path = tmp_path / "mixed.json"
+    path.write_text(json.dumps(cfg))
+    argv = _train_argv(tmp_path, str(path), "--save-feature-stats")
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    assert fit.validation_metric < 0.45
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    for shard in ("global", "per_user", "per_movie"):
+        got = list(read_avro_dir(str(tmp_path / "out" / "feature-stats" / shard)))
+        want = list(jax_read_dir(str(tmp_path / "jax_out" / "feature-stats" / shard)))
+        assert [(r["featureName"], r["featureTerm"]) for r in got] == [
+            (r["featureName"], r["featureTerm"]) for r in want]
+        for a, b in zip(got, want):
+            assert a["metrics"].keys() == b["metrics"].keys()
+            np.testing.assert_allclose(list(a["metrics"].values()), list(b["metrics"].values()),
+                                       rtol=1e-5, atol=1e-6)
 
 
 def test_estimator_rejects_unported_coordinate_options():
