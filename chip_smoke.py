@@ -21,7 +21,9 @@ exit code is not 0):
                       fused_value_grad_batched_f32 with the four losses over
                       batches (E, s, d) of VALUE_GRAD_SHAPES (s d odd,
                       entities larger than a ring slot, rows wider than
-                      2048, the two buckets of train_full_width), weight-0
+                      2048, the two buckets of train_full_width, the
+                      latent widths d in {1, 2, 8} of a factored
+                      coordinate), weight-0
                       rows whose loss overflows, and an entity's outputs
                       bitwise the same alone, at another position and in
                       batches of 7 and E; lane_shuffle_f32 (m in {1, 31, 32,
@@ -127,7 +129,25 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-11. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+11. train_full_game_full_width
+                    — the train_full_width GLMix fit plus the user-item-mf
+                      factored coordinate of examples/game.json.example (the
+                      per_item shard's 4,096 columns over userId, k = 8, 2
+                      MF iterations, L-BFGS 10 iterations, lambda 1, one
+                      outer iteration): through the kernels, through the
+                      plain versions (objective rtol 1e-4, AUC 1e-4, B atol
+                      the larger of 2e-3 and twice B's f32 floor: its spread
+                      on the kernel path under a 1e-7 relative nudge of the
+                      MF residual) and again (bitwise); K6 launched at the latent
+                      [E, S, 8] buckets and checked there against its plain
+                      version and float64 (bitwise repeats), with
+                      kernel/plain/library/bound times; seconds per
+                      coordinate and per MF step (a) and (b); KronFeatures
+                      matvec and rmatvec times, its one sort a solve, and
+                      an accumulating index_put_ of the same terms; bucket
+                      shapes and device bytes;
+                      the device idle share of one MF update.
+12. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -138,8 +158,14 @@ exit code is not 0):
                       score_game on the saved model (which scores through the
                       Benes engine again) reproduces it. Then the
                       reference's golden FE-only fit (TRON, L2 lambda 10) on
-                      cuda and cpu: RMSE < 0.95, equal to 1e-4.
-12. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+                      cuda and cpu: RMSE < 0.95, equal to 1e-4. Then the
+                      full-GAME config (a factored coordinate over userId,
+                      k = 2) on cuda (twice: bitwise) and cpu: RMSE < 0.45,
+                      equal to 1e-4, score_game reproduces it; and that
+                      config stopped after 1 of 2 outer iterations with
+                      --checkpoint-dir and resumed: bitwise equal to the
+                      uninterrupted run.
+13. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -186,8 +212,8 @@ F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "train_full_width", "train_glm_full_width", "train_tron_full_width",
-              "fe_bf16_full_width", "train_benes_full_width", "train_game_cli",
-              "train_glm_cli")
+              "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
+              "train_game_cli", "train_glm_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
 SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
 BF16_KERNELS = ("csr_matvec_bf16", "csc_rmatvec_bf16")
@@ -542,12 +568,16 @@ def _check_csc_kernel(gen, dev) -> tuple:
 # tiles of whole entities (s d odd: (7, 33, 5), (65,536, 33, 1)), entities
 # larger than a slot ((1, 512, 100); (3, 1000, 33) with s d odd), rows
 # wider than 2048 columns (the warp kernel), the two buckets of
-# train_full_width
+# train_full_width; the latent widths of a factored coordinate, d in
+# {1, 2, 8} (many entities a tile), and a latent bucket of
+# train_full_game_full_width's size (k = 8)
 VALUE_GRAD_SHAPES = ((1, 1, 1), (1, 512, 100), (7, 33, 16), (7, 16, 100), (7, 33, 5),
                      (3, 1000, 33), (2, 5, 2100), (65_536, 16, 16), (65_536, 33, 1),
-                     (65_536, 38, 16), (16_384, 96, 16))
+                     (65_536, 38, 16), (16_384, 96, 16), (7, 33, 2), (4097, 17, 2),
+                     (7, 33, 8), (65_536, 40, 8))
 # batches in which one entity's outputs must not depend on its company
-VALUE_GRAD_INVARIANCE_SHAPES = ((65_536, 38, 16), (701, 33, 5), (9, 600, 17))
+VALUE_GRAD_INVARIANCE_SHAPES = ((65_536, 38, 16), (701, 33, 5), (9, 600, 17), (701, 33, 2),
+                                (4097, 40, 8))
 
 
 def _value_grad_f64(X, y, off, wt, w, kind):
@@ -1984,11 +2014,14 @@ def phase_train_benes_full_width(seed: int) -> dict:
     return result
 
 
-def ratings_config(root: str, fe_engine: str = "auto", fe_only_tron: bool = False) -> str:
+def ratings_config(root: str, fe_engine: str = "auto", fe_only_tron: bool = False,
+                   full_game: bool = False) -> str:
     """The ratings fixture's GLMix config (FE with L-BFGS on ``fe_engine`` +
     per_user + per_movie), written under ``root``; ``fe_only_tron``: the
     reference's golden FE-only config instead (the FE alone, on TRON,
-    tests/test_golden_fixture.py)."""
+    tests/test_golden_fixture.py); ``full_game``: also a factored
+    coordinate over userId on the per_user shard (k = 2, one MF iteration,
+    L2 lambda 5; the JAX package's tests/test_cli.py TestFullGameCli)."""
     optimizer = {"optimizer": "LBFGS", "regularization": "L2"}
     cfg = {
         "feature_shards": {
@@ -2012,7 +2045,14 @@ def ratings_config(root: str, fe_engine: str = "auto", fe_only_tron: bool = Fals
         cfg["coordinates"] = {"fixed": cfg["coordinates"]["fixed"]}
         cfg["coordinates"]["fixed"]["optimizer"]["optimizer"] = "TRON"
         cfg["update_order"] = ["fixed"]
-    path = os.path.join(root, f"game_{fe_engine}{'_fe_tron' if fe_only_tron else ''}.json")
+    if full_game:
+        cfg["coordinates"]["factored"] = {
+            "type": "factored_random", "feature_shard": "per_user",
+            "random_effect_type": "userId", "mf": {"num_latent_factors": 2, "num_iterations": 1},
+            "optimizer": {**optimizer, "regularization_weight": 5.0}}
+        cfg["update_order"].append("factored")
+    name = f"game_{fe_engine}{'_fe_tron' if fe_only_tron else ''}{'_full' if full_game else ''}"
+    path = os.path.join(root, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -2025,12 +2065,18 @@ def phase_train_game_cli(seed: int) -> dict:
     result = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         std = ("--normalization-type", "STANDARDIZATION")
+        ckpt = ("--checkpoint-dir", os.path.join(root, "checkpoint"))
         runs = (("cuda", "cuda", "auto", ()), ("cuda_again", "cuda", "auto", ()),
                 ("cpu", "cpu", "auto", ()), ("cuda_std_benes", "cuda", "benes", std),
                 ("cpu_std_benes", "cpu", "benes", std), ("cuda_fe_tron", "cuda", "tron", ()),
-                ("cpu_fe_tron", "cpu", "tron", ()))
+                ("cpu_fe_tron", "cpu", "tron", ()), ("cuda_full_game", "cuda", "full", ()),
+                ("cuda_full_game_again", "cuda", "full", ()), ("cpu_full_game", "cpu", "full", ()),
+                # stopped after the first outer iteration, then resumed
+                ("cuda_resume_first", "cuda", "full", ("--num-outer-iterations", "1", *ckpt)),
+                ("cuda_resume", "cuda", "full", ckpt))
         for run, device, engine, extra in runs:
             config = (ratings_config(root, fe_only_tron=True) if engine == "tron"
+                      else ratings_config(root, full_game=True) if engine == "full"
                       else ratings_config(root, engine))
             argv = [
                 "--train-data-dirs", os.path.join(RATINGS, "train"),
@@ -2047,7 +2093,7 @@ def phase_train_game_cli(seed: int) -> dict:
             result[f"{run}_launches"] = launches.counts()
             result[f"{run}_rmse"] = fit.validation_metric
             result[f"{run}_objectives"] = [v for _, v in fit.objective_history]
-        for run in ("cuda", "cuda_std_benes"):
+        for run in ("cuda", "cuda_std_benes", "cuda_full_game"):
             launches.reset()
             result[f"score_game_rmse_{run}"] = score_game.run(score_game.parse_args([
                 "--data-dirs", os.path.join(RATINGS, "test"),
@@ -2062,7 +2108,8 @@ def phase_train_game_cli(seed: int) -> dict:
                or result["score_game_launches_cuda_std_benes"][k] < 1]
     if missing:
         raise AssertionError(f"the standardized Benes run did not launch {missing}: {result}")
-    for run in ("cuda", "cpu", "cuda_std_benes", "cpu_std_benes"):
+    for run in ("cuda", "cpu", "cuda_std_benes", "cpu_std_benes", "cuda_full_game",
+                "cpu_full_game"):
         if not result[f"{run}_rmse"] < 0.45:
             raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.45")
     for run in ("cuda_fe_tron", "cpu_fe_tron"):
@@ -2070,7 +2117,7 @@ def phase_train_game_cli(seed: int) -> dict:
         if not result[f"{run}_rmse"] < 0.95:
             raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.95")
     for a, b in (("cuda", "cpu"), ("cuda_std_benes", "cpu_std_benes"),
-                 ("cuda_fe_tron", "cpu_fe_tron")):
+                 ("cuda_fe_tron", "cpu_fe_tron"), ("cuda_full_game", "cpu_full_game")):
         if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
             raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
     if abs(result["score_game_rmse_cuda_std_benes"] - result["cuda_std_benes_rmse"]) > 1e-5:
@@ -2081,6 +2128,12 @@ def phase_train_game_cli(seed: int) -> dict:
         raise AssertionError(f"two cuda trainings differ: {result}")
     if abs(rescored - result["cuda_rmse"]) > 1e-5:
         raise AssertionError(f"score_game does not reproduce the RMSE: {result}")
+    for a, b in (("cuda_full_game", "cuda_full_game_again"), ("cuda_full_game", "cuda_resume")):
+        if (result[f"{a}_objectives"] != result[f"{b}_objectives"]
+                or result[f"{a}_rmse"] != result[f"{b}_rmse"]):
+            raise AssertionError(f"{a} and {b} differ: {result}")
+    if abs(result["score_game_rmse_cuda_full_game"] - result["cuda_full_game_rmse"]) > 1e-5:
+        raise AssertionError(f"score_game does not reproduce the full-GAME RMSE: {result}")
     emit("train_game_cli", **result)
     return result
 
@@ -2454,6 +2507,203 @@ def phase_train_tron_full_width(seed: int) -> dict:
     return result
 
 
+class value_grad_shapes:
+    """Within the block, every call of fused_value_grad_batched_f32 is
+    counted by the width d of its X [E, s, d] (``self.widths``) and its
+    shapes kept (``self.shapes``); the wrapper's own launch count is
+    untouched."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.ops import pallas_kernels
+
+        real = self._real = pallas_kernels.fused_value_grad_batched_f32
+        self.widths, self.shapes = {}, set()
+
+        def counted(X, *args):
+            d = int(X.shape[-1])
+            self.widths[d] = self.widths.get(d, 0) + 1
+            self.shapes.add(tuple(X.shape))
+            return real(X, *args)
+
+        pallas_kernels.fused_value_grad_batched_f32 = counted
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_tpu_torch.ops import pallas_kernels
+
+        pallas_kernels.fused_value_grad_batched_f32 = self._real
+
+
+MF_ID = "user-item-mf"
+MF_LATENT = 8
+
+
+def _full_game_estimator(device: str):
+    """The GLMix fit of train_full_width (FE + per_user + per_item, L-BFGS 10
+    iterations, L2 lambda 1, one outer iteration) and the user-item-mf
+    coordinate of examples/game.json.example: the per_item shard's features
+    over userId, k = 8 latent factors, 2 MF iterations, the same solver."""
+    from photon_ml_tpu_torch.algorithm.factored_random_effect import (
+        MFOptimizationConfiguration,
+    )
+    from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
+    from photon_ml_tpu_torch.estimators.game import (
+        FactoredRandomEffectCoordinateConfiguration,
+        GameEstimator,
+    )
+
+    glmix = _glmix_estimator(device)
+    mf = FactoredRandomEffectCoordinateConfiguration(
+        "per_item", RandomEffectDataConfiguration("userId"),
+        MFOptimizationConfiguration(MF_LATENT, 2), glmix.coordinate_configs["fixed"].optimizer)
+    return GameEstimator(glmix.task, {**glmix.coordinate_configs, MF_ID: mf},
+                         update_order=glmix.update_order + [MF_ID], num_outer_iterations=1,
+                         device=device)
+
+
+def kron_times(coord, latent_model, gen) -> dict:
+    """KronFeatures' matvec and rmatvec at the MF coordinate's full shape
+    (one lane of the projection-matrix solve; the rmatvec sums its terms
+    over segments sorted once a solve), that sort alone ("segments") and
+    its share of one solve's rmatvecs, and the accumulating index_put_
+    (ops.features.scatter_add) of the same terms, which sorts them on
+    every call ("index_put", a few calls: it takes seconds)."""
+    from photon_ml_tpu_torch.ops.features import scatter_add
+
+    kron = coord.kron_data(coord.dataset, latent_model).features
+    w = torch.randn(kron.dim, generator=gen, device="cuda") * 0.1
+    c = torch.randn(kron.num_rows, generator=gen, device="cuda")
+    idx = torch.cat([p.reshape(-1) for p in kron.pidxs])
+    contrib = torch.randn(idx.numel(), kron.k, generator=gen, device="cuda")
+    out = torch.zeros(kron.d_global, kron.k, device="cuda")
+    fresh = lambda: coord.kron_data(coord.dataset, latent_model).features  # noqa: E731
+    ms = cuda_ms({
+        "matvec": lambda: kron.matvec(w),
+        "rmatvec": lambda: kron.rmatvec(c),
+        "segments": lambda: fresh().segments(),
+    }, reps=10)
+    ms.update(cuda_ms({"index_put": lambda: scatter_add(out.clone(), idx, contrib)},
+                      reps=2, warmup=1, batch=1, rounds=2))
+    return {"rows": kron.num_rows, "dim": kron.dim, "scatter_rows": idx.numel(), **ms,
+            "segments_over_rmatvec": ms["segments_device"] / ms["rmatvec_device"]}
+
+
+def phase_train_full_game_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.algorithm.factored_random_effect import _latent_dataset
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import launches, pallas_kernels
+
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    estimator = _full_game_estimator("cuda")
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    coords = estimator.build_coordinates(train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mf = coords[MF_ID]
+    mf_bytes = sum(t.numel() * t.element_size() for b in mf.dataset.buckets
+                   for t in (b.X, b.labels, b.offsets, b.weights, b.sample_pos,
+                             b.proj_indices, b.proj_valid))
+    buckets = {cid: [tuple(b.X.shape) for b in coords[cid].dataset.buckets]
+               for cid in ("per_user", "per_item", MF_ID)}
+
+    # the main path: counts set to 0 just before, read just after
+    launches.reset()
+    with value_grad_shapes() as vg:
+        t0 = time.perf_counter()
+        fit = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    counts = launches.counts()
+    mf_steps = list(mf.last_step_seconds)
+    missing = [k for k in KERNELS if counts[k] < 1]
+    if missing or vg.widths.get(MF_LATENT, 0) < 1:
+        raise AssertionError(f"the full-GAME fit did not launch {missing} or K6 at width "
+                             f"{MF_LATENT}: {counts} {vg.widths}")
+    model = fit.model.models[MF_ID]
+    latent_buckets = sorted(s for s in vg.shapes if s[-1] == MF_LATENT)
+
+    # the same fit again (bitwise), and through the plain versions
+    again = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    bitwise = (again.objective_history == fit.objective_history
+               and again.validation_metric == fit.validation_metric
+               and _bits_equal(again.model.models[MF_ID].projection_matrix,
+                               model.projection_matrix))
+    launches.reset()
+    with plain_versions():
+        t0 = time.perf_counter()
+        plain = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if any(launches.counts()[k] for k in KERNELS):
+        raise AssertionError(f"the plain run launched kernels: {launches.counts()}")
+    after, plain_after = fit.objective_history[-1][1], plain.objective_history[-1][1]
+    obj_rel = abs(after - plain_after) / abs(after)
+    auc_diff = abs(fit.validation_metric - plain.validation_metric)
+    b_diff = float((model.projection_matrix
+                    - plain.model.models[MF_ID].projection_matrix).abs().max())
+    # B's f32 floor: the spread of B on the kernel path when the MF
+    # coordinate's residual (the other coordinates' scores, summed as the
+    # fit summed them) moves by 1e-7 relative. Each latent lane stops when
+    # its objective changes by about an ulp, so B is set only to about
+    # that spread; the plain fit is held to B atol max(2e-3, twice it)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    residual = sum(coords[c].score_device(fit.model.models[c])
+                   for c in ("fixed", "per_user", "per_item"))
+    nudged = residual * (1 + 1e-7 * torch.randn(residual.shape, generator=gen, device="cuda"))
+    b_floor = float((mf.update_model_device(None, nudged).projection_matrix
+                     - model.projection_matrix).abs().max())
+    b_tol = max(2e-3, 2 * b_floor)
+
+    # K6 at the latent bucket: times, and against its plain version and
+    # float64 on these inputs, and bitwise repeats
+    latent = _latent_dataset(mf.dataset, model.projection_matrix).buckets[0]
+    vg_times = value_grad_times(latent, gen)
+    vg_in = vg_times.pop("inputs")
+    s = vg_in[0].shape[1]
+    vg_ref, vg_scale = _value_grad_f64(*vg_in, LogisticLoss)
+    out = pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss)
+    check = [_compare(o, p, r, a, s, o.shape, part=part) for part, o, p, r, a in zip(
+        ("value", "grad", "csum"), out,
+        pallas_kernels.fused_value_grad_plain(*vg_in, LogisticLoss), vg_ref, vg_scale)]
+    repeat = all(torch.equal(a, b) for a, b in zip(
+        out, pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss)))
+    kron = kron_times(mf, model.latent, gen)
+    idle = profile_device_idle(lambda: mf.update_model_device(model, residual))
+    result = {
+        "mf": {"coordinate": MF_ID, "feature_shard": "per_item", "random_effect_type": "userId",
+               "num_latent_factors": MF_LATENT, "num_iterations": 2},
+        "buckets": buckets, "latent_buckets_launched": latent_buckets,
+        "mf_dataset_device_bytes": mf_bytes,
+        "device_bytes_after_build": torch.cuda.memory_allocated() - mem0,
+        "build_coordinates_s": build_s, "fit_s": fit_s, "plain_fit_s": plain_s,
+        "seconds_per_coordinate": fit.update_seconds,
+        "plain_seconds_per_coordinate": plain.update_seconds,
+        "mf_step_seconds_a_b": mf_steps,
+        "objective_history": fit.objective_history,
+        "plain_objective_history": plain.objective_history,
+        "objective_rel_diff_vs_plain": obj_rel, "validation_auc": fit.validation_metric,
+        "plain_validation_auc": plain.validation_metric, "auc_diff_vs_plain": auc_diff,
+        "projection_matrix_max_abs_diff_vs_plain": b_diff,
+        "projection_matrix_f32_floor": b_floor, "projection_matrix_tolerance": b_tol,
+        "bitwise_repeat": bitwise,
+        "launches": counts, "value_grad_calls_by_width": vg.widths,
+        "fused_value_grad_batched_f32_latent": {**vg_times, "check": check,
+                                                "bitwise_repeat": repeat},
+        "kron_features": kron, "mf_update_profile": idle,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if not (np.isfinite(fit.validation_metric) and obj_rel <= 1e-4 and auc_diff <= 1e-4
+            and b_diff <= b_tol and bitwise and repeat and all(c["ok"] for c in check)):
+        emit("train_full_game_full_width", **result)
+        raise AssertionError("the full-GAME fit through the kernels differs from the plain "
+                             "fit or from itself, or K6 disagrees at the latent shapes")
+    emit("train_full_game_full_width", **result)
+    return result
+
+
 def write_libsvm_fixture(path: str, seed: int, n: int, dim: int, task: str, k: int = 16) -> None:
     """LibSVM text rows of ``k`` distinct 1-based features out of ``dim``,
     labels of ``task`` from one coefficient vector drawn from ``seed``
@@ -2615,6 +2865,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "train_benes_full_width" in phases:
         results["train_benes_full_width"] = phase_train_benes_full_width(args.seed)
+    torch.cuda.empty_cache()
+    if "train_full_game_full_width" in phases:
+        results["train_full_game_full_width"] = phase_train_full_game_full_width(args.seed)
     torch.cuda.empty_cache()
     if "train_game_cli" in phases:
         results["train_game_cli"] = phase_train_game_cli(args.seed)

@@ -11,10 +11,12 @@ a device tensor and the scores leave as one.
 Each coordinate solves with L-BFGS, TRON or OWL-QN (``opt.solve``), as its
 configuration selects; after an update, ``last_tracker`` (and, for random
 effects, ``last_solver_stats``) describe the solves (``opt.tracking``).
+A fixed effect with ``down_sampling_rate < 1`` solves over down-sampled
+weights (``sampler.py``, reference runWithSampling); a random effect
+ignores the rate, as the JAX package's does.
 
-Not ported: the multi-device grid padding of the fixed effect, the mesh
-placement of random-effect buckets, and down-sampling (``sampler.py``,
-ROADMAP.md Queue A, "The rest of training").
+Not ported: the multi-device grid padding of the fixed effect and the mesh
+placement of random-effect buckets.
 """
 
 from __future__ import annotations
@@ -39,15 +41,8 @@ from photon_ml_tpu_torch.opt.tracking import (
     OptimizationStatesTracker,
     RandomEffectOptimizationTracker,
 )
+from photon_ml_tpu_torch.sampler import down_sampler_for
 from photon_ml_tpu_torch.types import TaskType
-
-
-def _check_down_sampling(configuration: GlmOptimizationConfiguration) -> None:
-    if configuration.down_sampling_rate < 1.0:
-        raise NotImplementedError(
-            "down_sampling_rate < 1 needs sampler.py, which is not ported yet "
-            "(ROADMAP.md, Queue A: The rest of training, sampler.py)"
-        )
 
 
 @dataclasses.dataclass
@@ -67,22 +62,40 @@ class FixedEffectCoordinate:
     # attach per-coefficient variances ~ 1/(H_jj + eps) to trained models
     # (reference COMPUTE_VARIANCE -> DistributedOptimizationProblem.scala:80-94)
     compute_variances: bool = False
+    down_sampling_seed: int = 0
 
     last_tracker: Optional[FixedEffectOptimizationTracker] = dataclasses.field(
         default=None, repr=False
     )
+    _sampled_weights: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False
+    )
 
-    def __post_init__(self) -> None:
-        _check_down_sampling(self.configuration)
+    def _weights(self) -> torch.Tensor:
+        """The solve's row weights: with ``down_sampling_rate < 1`` the
+        sampler's (reference DistributedOptimizationProblem :143-155), drawn
+        once: labels, weights and seed are the same at every update."""
+        rate = self.configuration.down_sampling_rate
+        if rate >= 1.0:
+            return self.data.weights
+        if self._sampled_weights is None:
+            weights = down_sampler_for(self.task, rate).sample_weights(
+                self.data.labels.cpu().numpy(), self.data.weights.cpu().numpy(),
+                seed=self.down_sampling_seed,
+            )
+            self._sampled_weights = torch.from_numpy(weights).to(self.data.weights.device)
+        return self._sampled_weights
 
     def update_model_device(
         self, model: Optional[GeneralizedLinearModel], residual_scores: torch.Tensor
     ) -> GeneralizedLinearModel:
         """Solve against the residual offsets; models carry original-space
         coefficients (``train_glm``)."""
+        data = dataclasses.replace(
+            self.data, offsets=self.data.offsets + residual_scores, weights=self._weights()
+        )
         fit = train_glm(
-            self.data.with_offsets(self.data.offsets + residual_scores),
-            self.task, self.configuration, initial_model=model,
+            data, self.task, self.configuration, initial_model=model,
             compute_variances=self.compute_variances, intercept_index=self.intercept_index,
         )[0]
         self.last_tracker = FixedEffectOptimizationTracker(
@@ -109,9 +122,6 @@ class RandomEffectCoordinate:
         default=None, repr=False
     )
     last_solver_stats: list = dataclasses.field(default_factory=list, repr=False)
-
-    def __post_init__(self) -> None:
-        _check_down_sampling(self.configuration)
 
     def update_model_device(
         self, model: Optional[RandomEffectModel], residual_scores: torch.Tensor

@@ -15,10 +15,12 @@ adds is fixed, so a run is repeatable bitwise on one device.
 
 After each update the coordinate's solver trackers are logged, and an
 ``event.EventEmitter`` receives one ``SolverStatsEvent`` per random-effect
-bucket.
+bucket. ``run`` resumes from a checkpoint: it skips completed outer
+iterations, starts from the restored best model, and hands the running
+result to a callback after each outer iteration.
 
-Not ported: the async schedule, the host score plane, checkpoint resume
-and progress tracking (ROADMAP.md, Queue A: The rest of training).
+Not ported: the async schedule, the host score plane and progress tracking
+(ROADMAP.md, Queue A: The rest of training).
 """
 
 from __future__ import annotations
@@ -89,8 +91,17 @@ class CoordinateDescent:
                 self.emitter.send_event(SolverStatsEvent.from_stats(cid, s))
 
     def run(
-        self, num_iterations: int, initial_models: Optional[Dict[str, object]] = None
+        self,
+        num_iterations: int,
+        initial_models: Optional[Dict[str, object]] = None,
+        start_iteration: int = 0,
+        initial_best: Optional[Tuple[Dict[str, object], float]] = None,
+        on_iteration_end: Optional[Callable[[int, CoordinateDescentResult], None]] = None,
     ) -> CoordinateDescentResult:
+        """Outer iterations ``start_iteration`` .. ``num_iterations`` − 1
+        from ``initial_models``; ``initial_best`` is a restored (best models,
+        best metric); ``on_iteration_end(outer, running result)`` runs after
+        each outer iteration (checkpointing)."""
         models: Dict[str, object] = dict(initial_models or {})
         scores: Dict[str, torch.Tensor] = {
             cid: self.coordinates[cid].score_device(m) for cid, m in models.items()
@@ -104,9 +115,11 @@ class CoordinateDescent:
         validation_history: List[Tuple[str, float]] = []
         best_metric: Optional[float] = None
         best_models: Dict[str, object] = {}
+        if initial_best is not None:
+            best_models, best_metric = dict(initial_best[0]), initial_best[1]
         self.update_seconds = []
 
-        for outer in range(num_iterations):
+        for outer in range(start_iteration, num_iterations):
             for cid in self.update_order:
                 coord = self.coordinates[cid]
                 t0 = time.perf_counter()
@@ -152,6 +165,14 @@ class CoordinateDescent:
                     ):
                         best_metric = metric
                         best_models = dict(models)
+            if on_iteration_end is not None:
+                on_iteration_end(outer, CoordinateDescentResult(
+                    models=dict(models),
+                    best_models=dict(best_models) if best_models else dict(models),
+                    best_metric=best_metric,
+                    objective_history=list(objective_history),
+                    validation_history=list(validation_history),
+                ))
 
         if self.validate is None or not best_models:
             best_models = dict(models)

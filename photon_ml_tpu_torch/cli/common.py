@@ -21,9 +21,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from photon_ml_tpu_torch.algorithm.factored_random_effect import MFOptimizationConfiguration
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
 from photon_ml_tpu_torch.estimators.game import (
     CoordinateConfiguration,
+    FactoredRandomEffectCoordinateConfiguration,
     FixedEffectCoordinateConfiguration,
     RandomEffectCoordinateConfiguration,
 )
@@ -172,18 +174,28 @@ def parse_coordinate_config(cfg: dict) -> CoordinateConfiguration:
             optimizer=optimizer,
             sparse_engine=cfg.get("sparse_engine", "auto"),
         )
+    if ctype not in ("random", "factored_random"):
+        raise ValueError(f"unknown coordinate type: {ctype}")
+    re_type = cfg["random_effect_type"]
+    data = parse_re_data_config(cfg.get("data", {}), re_type)
     if ctype == "random":
-        re_type = cfg["random_effect_type"]
         return RandomEffectCoordinateConfiguration(
-            feature_shard=shard,
-            data=parse_re_data_config(cfg.get("data", {}), re_type),
-            optimizer=optimizer,
+            feature_shard=shard, data=data, optimizer=optimizer
         )
-    if ctype == "factored_random":
-        raise NotImplementedError(
-            "factored random effects are not ported yet (ROADMAP.md, Queue A: Factored random effects)"
-        )
-    raise ValueError(f"unknown coordinate type: {ctype}")
+    mf = cfg.get("mf", {})
+    return FactoredRandomEffectCoordinateConfiguration(
+        feature_shard=shard,
+        data=data,
+        mf=MFOptimizationConfiguration(
+            num_latent_factors=int(mf.get("num_latent_factors", 8)),
+            num_iterations=int(mf.get("num_iterations", 2)),
+        ),
+        optimizer=optimizer,
+        matrix_optimizer=(
+            parse_optimizer_config(cfg["matrix_optimizer"])
+            if "matrix_optimizer" in cfg else None
+        ),
+    )
 
 
 def load_game_config(path: str) -> Tuple[

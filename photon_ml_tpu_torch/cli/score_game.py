@@ -85,7 +85,9 @@ def _check_missing_entities(model, data) -> None:
         ids = data.id_tags.get(re_type)
         if ids is None:
             continue
-        missing = sorted({str(e) for e in ids if str(e) not in sub.entity_to_loc})
+        # a factored model knows its entities by its latent factors
+        loc = getattr(sub, "latent", sub).entity_to_loc
+        missing = sorted({str(e) for e in ids if str(e) not in loc})
         if missing:
             problems.append(
                 f"[{cid}] {len(missing)} unknown {re_type!r} entities "

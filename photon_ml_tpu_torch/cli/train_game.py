@@ -9,15 +9,18 @@ evaluator → save the model, in original-space coefficients
 (Driver.scala:389-433). ``--summarization-output-dir`` or
 ``--save-feature-stats`` also write every shard's feature statistics as
 ``FeatureSummarizationResultAvro`` (ModelProcessingUtils.scala:560);
-``--event-listeners`` registers listener classes (``event.py``). Training
-runs on ``--device`` (default ``cuda``; ``cpu`` only when asked).
+``--event-listeners`` registers listener classes (``event.py``);
+``--checkpoint-dir`` writes the training state after every outer iteration
+and resumes a checkpoint found there. Coordinates are fixed, random or
+factored random effects. Training runs on ``--device`` (default ``cuda``;
+``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_game \\
         --train-data-dirs data/train --validation-data-dirs data/test \\
         --coordinate-config game.json --task LOGISTIC_REGRESSION \\
-        --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \
-        [--device cpu]
+        --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \\
+        [--checkpoint-dir ckpt/] [--device cpu]
 
 The reference's other flags are not ported yet (ROADMAP.md, Queue A: The
 rest of training).
@@ -45,7 +48,6 @@ from photon_ml_tpu_torch.estimators.game import (
     FixedEffectCoordinateConfiguration,
     GameEstimator,
     GameFit,
-    RandomEffectCoordinateConfiguration,
 )
 from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
 from photon_ml_tpu_torch.event import (
@@ -107,6 +109,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="JSON map overriding input field names; keys: "
                         "response, offset, weight, uid")
     p.add_argument("--model-name", default="photon-ml-tpu-game")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="atomic per-outer-iteration training checkpoints; "
+                        "an existing checkpoint there is resumed")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -184,7 +189,7 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
     id_tags = sorted({
         c.data.random_effect_type
         for c in coordinates.values()
-        if isinstance(c, RandomEffectCoordinateConfiguration)
+        if not isinstance(c, FixedEffectCoordinateConfiguration)
     })
     data, index_maps, _ = timed(
         "read training data", read_game_data, args.train_data_dirs, shard_configs,
@@ -261,7 +266,8 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         emitter=emitter,
     )
     emitter.send_event(TrainingStartEvent(task=args.task))
-    fit = timed("fit", estimator.fit, data, validation_data=validation_data)
+    fit = timed("fit", estimator.fit, data, validation_data=validation_data,
+                checkpoint_dir=args.checkpoint_dir)
     for cid, value in fit.objective_history:
         emitter.send_event(PhotonOptimizationLogEvent(
             coordinate_id=cid,

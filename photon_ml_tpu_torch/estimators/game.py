@@ -8,14 +8,18 @@ validation data after every coordinate update, keep the best model by the
 evaluator. Everything runs on ``device`` (default ``cuda``; raises without
 a card unless ``device="cpu"``).
 
-Fixed effects may train normalized (``normalization`` per feature shard,
-reference prepareNormalizationContexts); random effects train unnormalized,
-as in the reference.
+Coordinates are fixed effects, random effects and factored random effects
+(per-entity latent factors and a learned projection matrix,
+``algorithm/factored_random_effect.py``). Fixed effects may train
+normalized (``normalization`` per feature shard, reference
+prepareNormalizationContexts); random effects train unnormalized, as in the
+reference. With ``checkpoint_dir`` the training state is written after
+every outer iteration (``checkpoint.py``) and a checkpoint found there is
+resumed.
 
-Not ported (ROADMAP.md, Queue A: The rest of training, factored random
-effects, streaming): ``fit_streaming``, ``fit_multiple`` and tuning,
-checkpoints, the async schedule, the device mesh, factored random effects
-and ``resolve_coordinate``.
+Not ported (ROADMAP.md, Queue A: The rest of training, streaming):
+``fit_streaming``, ``fit_multiple`` and tuning, the async schedule, the
+device mesh and ``resolve_coordinate``.
 """
 
 from __future__ import annotations
@@ -26,11 +30,17 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from photon_ml_tpu_torch import checkpoint as ckpt
 from photon_ml_tpu_torch.algorithm.coordinate import (
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+from photon_ml_tpu_torch.algorithm.factored_random_effect import (
+    FactoredRandomEffectCoordinate,
+    FactoredRandomEffectModel,
+    MFOptimizationConfiguration,
+)
 from photon_ml_tpu_torch.data.game_data import GameData
 from photon_ml_tpu_torch.data.random_effect import (
     RandomEffectDataConfiguration,
@@ -69,8 +79,23 @@ class RandomEffectCoordinateConfiguration:
     optimizer: GlmOptimizationConfiguration = GlmOptimizationConfiguration()
 
 
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectCoordinateConfiguration:
+    """Reference FactoredRandomEffectOptimizationProblem.scala:42: a latent
+    random-effect problem and a projection-matrix problem, and the MF
+    configuration; ``matrix_optimizer`` defaults to ``optimizer``."""
+
+    feature_shard: str
+    data: RandomEffectDataConfiguration
+    mf: MFOptimizationConfiguration
+    optimizer: GlmOptimizationConfiguration = GlmOptimizationConfiguration()
+    matrix_optimizer: Optional[GlmOptimizationConfiguration] = None
+
+
 CoordinateConfiguration = Union[
-    FixedEffectCoordinateConfiguration, RandomEffectCoordinateConfiguration
+    FixedEffectCoordinateConfiguration,
+    RandomEffectCoordinateConfiguration,
+    FactoredRandomEffectCoordinateConfiguration,
 ]
 
 
@@ -86,16 +111,20 @@ class GameFit:
 
 def _coordinate_regularization(model, coord) -> float:
     """One coordinate's 0.5·l2·‖w‖² + l1·‖w‖₁ over its current model
-    (reference getRegularizationTermValue); one scalar to the host."""
-    opt = coord.configuration
+    (reference getRegularizationTermValue); a factored model adds the
+    latent factors' term and the projection matrix's, each under its own
+    configuration. One scalar to the host."""
 
-    def term(a: torch.Tensor) -> torch.Tensor:
+    def term(a: torch.Tensor, opt: GlmOptimizationConfiguration) -> torch.Tensor:
         return 0.5 * opt.l2_weight * (a * a).sum() + opt.l1_weight * a.abs().sum()
 
+    if isinstance(model, FactoredRandomEffectModel):
+        total = sum(term(c, coord.re_configuration) for c in model.latent.coefficients)
+        return float(total + term(model.projection_matrix, coord.matrix_configuration))
     if isinstance(model, GeneralizedLinearModel):
-        return float(term(model.coefficients.means))
+        return float(term(model.coefficients.means, coord.configuration))
     if isinstance(model, RandomEffectModel):
-        return float(sum(term(c) for c in model.coefficients))
+        return float(sum(term(c, coord.configuration) for c in model.coefficients))
     return 0.0
 
 
@@ -121,17 +150,11 @@ class GameEstimator:
         shard and apply to fixed-effect coordinates: their solves run in the
         normalized space and the models hold original-space coefficients.
         ``emitter`` (an ``event.EventEmitter``) receives the random-effect
-        solver stats of every update."""
+        solver stats of every update. Variances (``compute_variance``) are
+        attached to fixed- and random-effect models, not to factored ones
+        (they do not carry back through the projection)."""
         if not coordinates:
             raise ValueError("need at least one coordinate configuration")
-        for cid, cfg in coordinates.items():
-            if not isinstance(
-                cfg, (FixedEffectCoordinateConfiguration, RandomEffectCoordinateConfiguration)
-            ):
-                raise NotImplementedError(
-                    f"coordinate {cid!r}: {type(cfg).__name__} is not ported yet "
-                    "(ROADMAP.md, Queue A: Factored random effects)"
-                )
         self.task = task
         self.coordinate_configs = dict(coordinates)
         self.update_order = list(update_order) if update_order else list(coordinates)
@@ -167,6 +190,13 @@ class GameEstimator:
             offsets=data.offsets, weights=data.weights, device=dev,
         )
         logger.info("[%s] %s", cid, re_ds.to_summary_string())
+        if isinstance(cfg, FactoredRandomEffectCoordinateConfiguration):
+            return FactoredRandomEffectCoordinate(
+                dataset=re_ds, task=self.task, re_configuration=cfg.optimizer,
+                matrix_configuration=cfg.matrix_optimizer or cfg.optimizer,
+                mf_configuration=cfg.mf,
+                base_offsets=torch.from_numpy(data.offsets).to(dev),
+            )
         return RandomEffectCoordinate(
             dataset=re_ds, task=self.task, configuration=cfg.optimizer,
             base_offsets=torch.from_numpy(data.offsets).to(dev),
@@ -194,21 +224,68 @@ class GameEstimator:
                 )
         return meta
 
+    @staticmethod
+    def _check_resume_compatible(
+        models: Dict[str, object], coordinates: Dict[str, object], require_all: bool = True
+    ) -> None:
+        """Fail fast, with a clear message, when a checkpoint's (or warm
+        start's) layout does not match the datasets rebuilt from the current
+        data and configuration."""
+        problems = []
+        for cid, model in models.items():
+            coord = coordinates.get(cid)
+            if coord is None:
+                problems.append(f"{cid}: not in current configuration")
+                continue
+            if isinstance(model, GeneralizedLinearModel):
+                if not isinstance(coord, FixedEffectCoordinate):
+                    problems.append(
+                        f"{cid}: checkpoint holds a fixed-effect model but the "
+                        f"coordinate is now configured as {type(coord).__name__}"
+                    )
+                elif model.dim != coord.data.dim:
+                    problems.append(
+                        f"{cid}: checkpoint dim {model.dim} != data dim {coord.data.dim}"
+                    )
+                continue
+            latent = getattr(model, "latent", model)
+            if not isinstance(latent, RandomEffectModel):
+                continue
+            if latent.entity_ids != coord.dataset.entity_ids:
+                problems.append(
+                    f"{cid}: checkpoint entity layout differs from the dataset "
+                    "rebuilt from the current data/config"
+                )
+        if require_all and set(coordinates) - set(models):
+            missing = sorted(set(coordinates) - set(models))
+            problems.append(f"coordinates missing from checkpoint: {missing}")
+        if problems:
+            raise ValueError(
+                "checkpoint is incompatible with this run — it was written for "
+                "different data or configuration:\n  " + "\n  ".join(problems)
+            )
+
     def fit(
         self,
         data: GameData,
         validation_data: Optional[GameData] = None,
         initial_models: Optional[Dict[str, object]] = None,
         coordinates: Optional[Dict[str, object]] = None,
+        checkpoint_dir: Optional[str] = None,
     ) -> GameFit:
         """Train by block coordinate descent; ``initial_models`` warm-start
         coordinates (models of the same datasets); ``coordinates`` reuses
-        datasets from :meth:`build_coordinates`."""
+        datasets from :meth:`build_coordinates`. With ``checkpoint_dir`` the
+        training state is written atomically after every outer iteration,
+        and a checkpoint already there is resumed (its completed iterations
+        skipped; it takes precedence over ``initial_models``)."""
         if coordinates is None:
             coordinates = self.build_coordinates(data)
-        return self._run_fit(coordinates, data, validation_data, initial_models)
+        return self._run_fit(coordinates, data, validation_data, initial_models, checkpoint_dir)
 
-    def _run_fit(self, coordinates, data, validation_data, initial_models) -> GameFit:
+    def _run_fit(
+        self, coordinates, data, validation_data, initial_models, checkpoint_dir=None
+    ) -> GameFit:
         dev = self.device
         meta = self._meta()
         loss = loss_for_task(self.task)
@@ -266,11 +343,49 @@ class GameEstimator:
             validation_better_than=self.evaluator.better_than,
             emitter=self.emitter,
         )
-        result = cd.run(self.num_outer_iterations, initial_models=initial_models)
+        start_iteration, initial_best, on_iteration_end = 0, None, None
+        prior_objectives: List[Tuple[str, float]] = []
+        prior_validations: List[Tuple[str, float]] = []
+        if initial_models is not None:
+            # a warm start may cover a subset of the coordinates
+            self._check_resume_compatible(initial_models, coordinates, require_all=False)
+        if checkpoint_dir is not None:
+            if ckpt.has_checkpoint(checkpoint_dir):
+                initial_models, state, best = ckpt.load_training_checkpoint(
+                    checkpoint_dir, device=dev
+                )
+                self._check_resume_compatible(initial_models, coordinates)
+                start_iteration = int(state["completed_iterations"])
+                if best is not None and state.get("best_metric") is not None:
+                    initial_best = (best, float(state["best_metric"]))
+                prior_objectives = [tuple(x) for x in state.get("objective_history", [])]
+                prior_validations = [tuple(x) for x in state.get("validation_history", [])]
+                logger.info("resuming from checkpoint %s at outer iteration %d",
+                            checkpoint_dir, start_iteration)
+
+            def on_iteration_end(outer: int, running) -> None:
+                ckpt.save_training_checkpoint(
+                    checkpoint_dir,
+                    running.models,
+                    state={
+                        "completed_iterations": outer + 1,
+                        "best_metric": running.best_metric,
+                        # full histories, so that a second resume stays complete
+                        "objective_history": prior_objectives + running.objective_history,
+                        "validation_history": prior_validations + running.validation_history,
+                    },
+                    best_models=running.best_models if validate is not None else None,
+                )
+
+        result = cd.run(
+            self.num_outer_iterations, initial_models=initial_models,
+            start_iteration=start_iteration, initial_best=initial_best,
+            on_iteration_end=on_iteration_end,
+        )
         return GameFit(
             model=GameModel(models=result.best_models, meta=meta, task=self.task),
             validation_metric=result.best_metric,
-            objective_history=result.objective_history,
-            validation_history=result.validation_history,
+            objective_history=prior_objectives + result.objective_history,
+            validation_history=prior_validations + result.validation_history,
             update_seconds=cd.update_seconds,
         )

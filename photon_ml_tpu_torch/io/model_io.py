@@ -9,14 +9,19 @@ models, with the same layout
     <dir>/fixed-effect/<coordinate>/coefficients/part-00000.avro
     <dir>/random-effect/<coordinate>/id-info           (reType, featureShardId)
     <dir>/random-effect/<coordinate>/coefficients/part-*.avro
+    <dir>/matrix-factorization/<coordinate>/{<reType>,projection}/part-*.avro
 
-Each GLM is one BayesianLinearModelAvro record (nonzero means/variances as
-name-term-value triples). The files are the same bytes either package
-writes, so a model saved by one loads in the other. The metadata's
-``featureShards`` entry carries each shard's dense ``dim`` and whether its
-feature names are ``positional`` (original integer indices, for saves
-without an index map). Loading without index maps builds a compact index
-per shard from the scanned features, as the reference does.
+A factored random-effect model is saved as its effective random-effect
+model (w = B·latent per entity, so it scores as a plain random effect), and
+its latent factors and projection matrix B as ``LatentFactorAvro`` records
+under ``matrix-factorization/``. Each GLM is one BayesianLinearModelAvro
+record (nonzero means/variances as name-term-value triples). The files are
+the same bytes either package writes, so a model saved by one loads in the
+other. The metadata's ``featureShards`` entry carries each shard's dense
+``dim`` and whether its feature names are ``positional`` (original integer
+indices, for saves without an index map). Loading without index maps
+builds a compact index per shard from the scanned features, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from photon_ml_tpu_torch.io.avro import read_avro_dir, write_avro_file
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.game import CoordinateMeta, GameModel
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_ml_tpu_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.types import TaskType
 
@@ -43,6 +49,7 @@ FIXED_EFFECT = "fixed-effect"
 RANDOM_EFFECT = "random-effect"
 ID_INFO = "id-info"
 COEFFICIENTS = "coefficients"
+MATRIX_FACTORIZATION = "matrix-factorization"
 METADATA_FILE = "model-metadata.json"
 
 # Reference class names (BayesianLinearModelAvro.modelClass).
@@ -101,6 +108,10 @@ def save_game_model(
     num_output_files_per_random_effect: int = 1,
 ) -> None:
     """Write a GAME model directory (see module docstring for layout)."""
+    from photon_ml_tpu_torch.algorithm.factored_random_effect import (
+        FactoredRandomEffectModel,
+    )
+
     feature_shards: Dict[str, dict] = {}
     for cid, sub in model.models.items():
         shard = model.meta[cid].feature_shard
@@ -108,6 +119,8 @@ def save_game_model(
             dim = int(sub.coefficients.means.shape[0])
         elif isinstance(sub, RandomEffectModel):
             dim = int(sub.global_dim)
+        elif isinstance(sub, FactoredRandomEffectModel):
+            dim = int(sub.projection_matrix.shape[0])
         else:
             raise ValueError(f"cannot save sub-model type {type(sub)} for {cid}")
         ent = feature_shards.setdefault(
@@ -139,11 +152,62 @@ def save_game_model(
                 schemas.bayesian_linear_model_schema(),
                 [_glm_record(cid, model.task, means, variances, imap)],
             )
-        else:
+        elif isinstance(sub, RandomEffectModel):
             _save_random_effect(
                 sub, os.path.join(output_dir, RANDOM_EFFECT, cid), model.task,
                 imap, num_output_files_per_random_effect, meta,
             )
+        else:
+            # the effective per-entity coefficients, so that the saved model
+            # scores as a plain random effect; the factors themselves under
+            # matrix-factorization/ (LatentFactorAvro, reference :450-516)
+            _save_random_effect(
+                _factored_to_effective_re(sub), os.path.join(output_dir, RANDOM_EFFECT, cid),
+                model.task, imap, num_output_files_per_random_effect, meta,
+            )
+            _save_factored_latents(sub, os.path.join(output_dir, MATRIX_FACTORIZATION, cid))
+
+
+def _factored_to_effective_re(sub) -> RandomEffectModel:
+    """w_e = B·latent_e for every entity, as a single-bucket INDEX_MAP model
+    of its nonzero coefficients (on the host)."""
+    B = sub.projection_matrix.cpu().numpy()  # [d, k]
+    latent = sub.latent
+    entity_coefs: Dict[str, Dict[int, float]] = {}
+    for b, ids in enumerate(latent.entity_ids):
+        eff = latent.coefficients[b].cpu().numpy() @ B.T  # [Eb, d]
+        for e, eid in enumerate(ids):
+            (nz,) = np.nonzero(eff[e])
+            entity_coefs[eid] = {int(i): float(eff[e, i]) for i in nz}
+    return RandomEffectModel.from_entity_coefficients(
+        random_effect_type=latent.random_effect_type, task=latent.task,
+        entity_coefficients=entity_coefs, global_dim=B.shape[0], device="cpu",
+    )
+
+
+def _save_factored_latents(sub, out_dir: str) -> None:
+    """``<out_dir>/<reType>/``: one latent vector an entity;
+    ``<out_dir>/projection/``: one row of B a feature column."""
+    latent = sub.latent
+    records = []
+    for b, ids in enumerate(latent.entity_ids):
+        w_b = latent.coefficients[b].cpu().numpy()
+        records.extend(
+            {"effectId": str(eid), "latentFactor": [float(v) for v in w_b[e]]}
+            for e, eid in enumerate(ids)
+        )
+    B = sub.projection_matrix.cpu().numpy()
+    for name, recs in (
+        (latent.random_effect_type, records),
+        ("projection", (
+            {"effectId": str(i), "latentFactor": [float(v) for v in B[i]]}
+            for i in range(B.shape[0])
+        )),
+    ):
+        os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+        write_avro_file(
+            os.path.join(out_dir, name, "part-00000.avro"), schemas.latent_factor_schema(), recs
+        )
 
 
 def _save_random_effect(
@@ -373,3 +437,44 @@ def load_game_model(
             device=dev,
         )
     return GameModel(models=models, meta=meta, task=task), out_maps
+
+
+# ------------------------------------------------------- matrix factorization
+
+def save_matrix_factorization_model(model: MatrixFactorizationModel, output_dir: str) -> None:
+    """LatentFactorAvro directories, one an effect type (reference
+    :450-516)."""
+    for effect, factors, index in (
+        (model.row_effect_type, model.row_factors, model.row_index),
+        (model.col_effect_type, model.col_factors, model.col_index),
+    ):
+        edir = os.path.join(output_dir, effect)
+        os.makedirs(edir, exist_ok=True)
+        write_avro_file(
+            os.path.join(edir, "part-00000.avro"),
+            schemas.latent_factor_schema(),
+            (
+                {"effectId": str(eid), "latentFactor": [float(v) for v in factors[index[eid]]]}
+                for eid in sorted(index, key=index.get)
+            ),
+        )
+
+
+def load_matrix_factorization_model(
+    input_dir: str, row_effect_type: str, col_effect_type: str
+) -> MatrixFactorizationModel:
+    def load(effect: str):
+        recs = list(read_avro_dir(os.path.join(input_dir, effect)))
+        index = {r["effectId"]: i for i, r in enumerate(recs)}
+        return np.array([r["latentFactor"] for r in recs], dtype=np.float32), index
+
+    row_factors, row_index = load(row_effect_type)
+    col_factors, col_index = load(col_effect_type)
+    return MatrixFactorizationModel(
+        row_effect_type=row_effect_type,
+        col_effect_type=col_effect_type,
+        row_factors=row_factors,
+        col_factors=col_factors,
+        row_index=row_index,
+        col_index=col_index,
+    )

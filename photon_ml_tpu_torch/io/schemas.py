@@ -3,8 +3,7 @@
 Reference parity: photon-avro-schemas/src/main/avro/*.avsc — field-for-field
 identical (names, order, union shapes, defaults), so files are byte-level
 interoperable with the reference pipeline. Doc strings trimmed. Copy of
-``photon_ml_tpu/io/schemas.py`` without the latent-factor schemas, which
-no ported module writes yet.
+``photon_ml_tpu/io/schemas.py``.
 """
 
 from photon_ml_tpu_torch.io.avro import AvroSchema
@@ -86,6 +85,15 @@ SCORING_RESULT = {
     ],
 }
 
+LATENT_FACTOR = {
+    "name": "LatentFactorAvro",
+    "namespace": _NS,
+    "type": "record",
+    "fields": [
+        {"name": "effectId", "type": "string"},
+        {"name": "latentFactor", "type": {"type": "array", "items": "double"}},
+    ],
+}
 
 FEATURE_SUMMARIZATION_RESULT = {
     "name": "FeatureSummarizationResultAvro",
@@ -105,6 +113,10 @@ def training_example_schema() -> AvroSchema:
 
 def bayesian_linear_model_schema() -> AvroSchema:
     return AvroSchema(BAYESIAN_LINEAR_MODEL)
+
+
+def latent_factor_schema() -> AvroSchema:
+    return AvroSchema(LATENT_FACTOR)
 
 
 def feature_summarization_schema() -> AvroSchema:

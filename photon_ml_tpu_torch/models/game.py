@@ -3,8 +3,9 @@
 Port of ``photon_ml_tpu/models/game.py`` (reference model/GameModel.scala:32
 and the fixed/random-effect scoring semantics): a fixed-effect model scores
 every row; a random-effect model scores rows whose entity it has seen, and
-others contribute 0 (the reference's left join). Scoring runs as torch ops
-on the model's device.
+others contribute 0 (the reference's left join); so does a factored
+random-effect model, through its projection matrix. Scoring runs as torch
+ops on the model's device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
@@ -33,7 +35,7 @@ class CoordinateMeta:
     sparse_engine: str = "auto"
 
 
-SubModel = Union[GeneralizedLinearModel, RandomEffectModel]
+SubModel = Union[GeneralizedLinearModel, RandomEffectModel, "FactoredRandomEffectModel"]
 
 
 @dataclasses.dataclass
@@ -82,11 +84,30 @@ class GameModel:
         return total
 
 
-def _score_factored_re_rows(model, shard, entity_ids, num_rows: int) -> torch.Tensor:
-    raise NotImplementedError(
-        f"scoring a {type(model).__name__} sub-model: factored random effects "
-        "are not ported yet (ROADMAP.md, Queue A: Factored random effects)"
-    )
+def _score_factored_re_rows(model, shard: FeatureShard, entity_ids, num_rows: int) -> torch.Tensor:
+    """Score arbitrary rows against a factored random-effect model, on the
+    device: per nonzero (r, c, v), v·(B[c] · latent_{entity(r)}); rows whose
+    entity is unseen score 0 (reference FactoredRandomEffectModel scoring
+    through the projection matrix)."""
+    B = model.projection_matrix
+    dev = B.device
+    out = torch.zeros(num_rows, dtype=torch.float32, device=dev)
+    if len(shard.rows) == 0:
+        return out
+    if int(np.max(shard.cols)) >= B.shape[0]:
+        raise ValueError(
+            f"feature column {int(np.max(shard.cols))} outside the projection "
+            f"matrix's {B.shape[0]} rows"
+        )
+    pos_of_row = torch.from_numpy(model.latent.entity_positions(entity_ids)).to(dev)
+    rows = torch.from_numpy(shard.rows.astype("int64", copy=False)).to(dev)
+    cols = torch.from_numpy(shard.cols.astype("int64", copy=False)).to(dev)
+    vals = torch.from_numpy(shard.vals.astype("float32", copy=False)).to(dev)
+    pos = pos_of_row[rows]
+    latents = torch.cat(model.latent.coefficients)
+    contrib = vals * (B[cols] * latents[pos.clamp(min=0)]).sum(dim=1)
+    contrib = torch.where(pos >= 0, contrib, torch.zeros_like(contrib))
+    return scatter_add(out, rows, contrib)
 
 
 def _score_re_rows(

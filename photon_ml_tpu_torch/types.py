@@ -2,7 +2,7 @@
 
 Copy of the enums of ``photon_ml_tpu/types.py`` (reference
 TaskType.scala:20-24, NormalizationType, RegularizationType,
-util/ConvergenceReason.scala:21).
+util/ConvergenceReason.scala:21) and of its positive-label threshold.
 """
 
 from __future__ import annotations
@@ -53,3 +53,7 @@ class ConvergenceReason(enum.Enum):
     FUNCTION_VALUES_CONVERGED = 2
     GRADIENT_CONVERGED = 3
     OBJECTIVE_NOT_IMPROVING = 4
+
+
+# labels above this count as positive (reference MathConst.POSITIVE_RESPONSE_THRESHOLD)
+POSITIVE_RESPONSE_THRESHOLD = 0.5

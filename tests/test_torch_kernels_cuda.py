@@ -3,7 +3,8 @@ the card (the same checks as chip_smoke.py's kernel phase, at smaller sizes:
 several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32
 (also on skewed columns that stress its merge-path split),
 their bf16-payload twins csr_matvec_bf16 and csc_rmatvec_bf16,
-fused_value_grad_batched_f32, the blocked fused_value_grad_f32, and the two
+fused_value_grad_batched_f32 (also at the latent widths of a factored
+coordinate), the blocked fused_value_grad_f32, and the two
 shuffles of a Benes plan, lane_shuffle_f32 and sublane_shuffle_f32
 (bitwise: they move values without arithmetic).
 
@@ -333,12 +334,14 @@ def _value_grad_inputs(E, s, d, gen, dev):
 
 # tiles of whole entities (s d odd: (7, 33, 5)), entities larger than a
 # ring slot ((3, 512, 100); (2, 1000, 33) with s d odd), rows wider than
-# 2048 columns (the warp kernel), and the two random-effect buckets of the
-# full-width fit
+# 2048 columns (the warp kernel), the two random-effect buckets of the
+# full-width fit, and the latent widths of a factored coordinate (d in
+# {1, 2, 8}: many entities a tile), up to a full-width latent bucket
 @pytest.mark.parametrize("kind", LOSSES, ids=lambda k: k.__name__)
 @pytest.mark.parametrize("shape", [(1, 1, 1), (7, 33, 16), (3, 512, 100), (4096, 16, 16),
                                    (7, 33, 5), (2, 1000, 33), (2, 5, 2100), (65_536, 38, 16),
-                                   (16_384, 96, 16)])
+                                   (16_384, 96, 16), (7, 33, 1), (4097, 17, 2), (7, 33, 8),
+                                   (65_536, 40, 8)])
 def test_fused_value_grad_batched_f32_matches_plain(card, kind, shape):
     E, s, d = shape
     gen = torch.Generator(device=card).manual_seed(E + s + d)
@@ -362,7 +365,8 @@ def test_fused_value_grad_batched_f32_matches_plain(card, kind, shape):
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
-@pytest.mark.parametrize("shape", [(701, 33, 5), (64, 38, 16), (9, 600, 17), (3, 4, 2100)])
+@pytest.mark.parametrize("shape", [(701, 33, 5), (64, 38, 16), (9, 600, 17), (3, 4, 2100),
+                                   (701, 33, 1), (701, 33, 2), (4097, 40, 8)])
 def test_fused_value_grad_batched_f32_is_invariant_to_its_batch(card, shape):
     """An entity's outputs have the same bits alone (a batch of 1, X a view
     that may start off a 16-byte boundary), at another position (the batch

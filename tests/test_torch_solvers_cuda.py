@@ -2,7 +2,8 @@
 kernels (csr_matvec_f32, csc_rmatvec_f32) and over batched dense lanes
 (fused_value_grad_batched_f32), against the same solves on the CPU through
 the plain versions (converged objectives rtol 1e-4: f32 sums in another
-order), and against themselves (bitwise repeats on one card).
+order), and against themselves (bitwise repeats on one card); and one
+factored random-effect update on the card against the CPU's.
 
 Run on a machine with a card: ``python -m pytest --noconftest
 tests/test_torch_solvers_cuda.py``. Without one, every test here skips.
@@ -125,3 +126,49 @@ def test_batched_lanes_on_the_card(card, case):
     part = solve_finalize(solve_chunk(obj, state, data(card).take_lanes(keep), cfg), cfg)
     np.testing.assert_allclose(part.value.cpu().numpy(), res.value[keep].cpu().numpy(),
                                rtol=1e-5)
+
+
+def _factored_coordinate(dev):
+    """A factored coordinate (k = 3, 2 MF iterations) over a seeded
+    low-rank problem of 12 entities in 2 buckets, on ``dev``."""
+    from photon_ml_tpu_torch.algorithm import factored_random_effect as fre
+    from photon_ml_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(0)
+    n, d = 400, 15
+    X = (rng.standard_normal((n, d)) * (rng.random((n, d)) < 0.3)).astype(np.float32)
+    e_of = rng.integers(0, 12, n)
+    w = (rng.standard_normal((d, 2)) @ rng.standard_normal((2, 12))).T  # [12, d], rank 2
+    z = np.einsum("nd,nd->n", X, w[e_of])
+    y = (z > 0).astype(np.float32)
+    rows, cols = np.nonzero(X)
+    ds = build_random_effect_dataset(
+        np.array([f"e{e}" for e in e_of]), rows, cols, X[rows, cols], d, y,
+        RandomEffectDataConfiguration("e", num_buckets=2), device=dev,
+    )
+    cfg = _config("LBFGS", RegularizationType.L2, max_iterations=30)
+    return fre.FactoredRandomEffectCoordinate(
+        ds, TaskType.LOGISTIC_REGRESSION, cfg, cfg, fre.MFOptimizationConfiguration(3, 2),
+        torch.zeros(n, device=dev),
+    )
+
+
+def test_factored_update_on_the_card(card):
+    """One factored update on the card (its latent solves through
+    fused_value_grad_batched_f32 at width 3, its B solve over KronFeatures'
+    segmented sums) against the same update on the CPU (B atol 2e-3), and
+    against itself (bitwise)."""
+    host, dev = _factored_coordinate("cpu"), _factored_coordinate(card)
+    want = host.update_model_device(None, torch.zeros(host.dataset.num_rows))
+    before = launches.counts()["fused_value_grad_batched_f32"]
+    got = dev.update_model_device(None, torch.zeros(dev.dataset.num_rows, device=card))
+    again = dev.update_model_device(None, torch.zeros(dev.dataset.num_rows, device=card))
+    assert launches.counts()["fused_value_grad_batched_f32"] > before
+    np.testing.assert_allclose(got.projection_matrix.cpu().numpy(),
+                               want.projection_matrix.numpy(), rtol=0, atol=2e-3)
+    assert torch.equal(got.projection_matrix, again.projection_matrix)
+    assert torch.equal(dev.score_device(got), dev.score_device(again))

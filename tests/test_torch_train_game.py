@@ -192,10 +192,10 @@ def test_train_game_cli_on_ratings_fixture(tmp_path):
 
 
 def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
-    """What stays refused: TRON with L1 (as in the JAX package), factored
-    random effects and regularization-weight sweeps (not ported yet). TRON,
-    L1 and the feature-statistics outputs now train: the parity tests
-    below."""
+    """What stays refused: TRON with L1 (as in the JAX package) and
+    regularization-weight sweeps (not ported yet). TRON, L1, the
+    feature-statistics outputs and factored random effects now train: the
+    parity tests below and in test_torch_factored_re.py."""
     path = tmp_path / "bad.json"
     cfg = json.loads(open(_ratings_config(tmp_path)).read())
     cfg["coordinates"]["fixed"]["optimizer"].update(
@@ -203,15 +203,11 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     path.write_text(json.dumps(cfg))
     with pytest.raises(ValueError, match="TRON does not support L1"):
         train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
-    for key, value, match in (
-        ("type", "factored_random", "Factored random effects"),
-        ("optimizer", {"regularization_weights": [1.0, 10.0]}, "fit_multiple"),
-    ):
-        cfg = json.loads(open(_ratings_config(tmp_path)).read())
-        cfg["coordinates"]["per_user"][key] = value
-        path.write_text(json.dumps(cfg))
-        with pytest.raises(NotImplementedError, match=match):
-            train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
+    cfg = json.loads(open(_ratings_config(tmp_path)).read())
+    cfg["coordinates"]["per_user"]["optimizer"] = {"regularization_weights": [1.0, 10.0]}
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(NotImplementedError, match="fit_multiple"):
+        train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
 
 
 def _jax_cli(tmp_path, argv):
@@ -265,12 +261,24 @@ def test_tron_and_owlqn_coordinates_cli_matches_jax(tmp_path):
 
 
 def test_estimator_rejects_unported_coordinate_options():
+    """Down-sampling is ported (sampler.py; its parity tests are in
+    test_torch_sampler.py): a down-sampled fixed effect trains. What the
+    estimator still rejects is TRON with L1, as the JAX package does."""
+    labels, shards, id_tags = _glmix(3, 50)
     opt = config.GlmOptimizationConfiguration(down_sampling_rate=0.5)
     t = game.GameEstimator(TaskType.LOGISTIC_REGRESSION, {
         "fixed": game.FixedEffectCoordinateConfiguration("global", opt),
     }, device="cpu")
-    labels, shards, id_tags = _glmix(3, 50)
-    with pytest.raises(NotImplementedError, match="sampler"):
+    assert np.isfinite(t.fit(torch_game_data(labels, shards, id_tags)).objective_history[-1][1])
+    tron_l1 = config.GlmOptimizationConfiguration(
+        optimizer_config=config.OptimizerConfig.tron(),
+        regularization=config.RegularizationContext(RegularizationType.L1),
+        regularization_weight=1.0,
+    )
+    t = game.GameEstimator(TaskType.LOGISTIC_REGRESSION, {
+        "fixed": game.FixedEffectCoordinateConfiguration("global", tron_l1),
+    }, device="cpu")
+    with pytest.raises(ValueError, match="TRON does not support L1"):
         t.fit(torch_game_data(labels, shards, id_tags))
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
