@@ -147,7 +147,30 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-12. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+12. train_async_full_width
+                    — the train_full_width fit with per_user in 4 buckets
+                      and per_item in 2, 2 outer iterations, on the sync
+                      schedule and on schedule="async" (a CUDA stream a
+                      worker; bucket overlap two at a time): staleness 0
+                      bitwise the sync fit, two staleness-1 fits bitwise
+                      equal, staleness 1 through the plain versions
+                      (objective rtol 1e-4, AUC 1e-4), its held-out AUC
+                      within 0.02 of sync; each random effect's update with
+                      its buckets overlapped bitwise the sequential one per
+                      bucket; for sync and async the fit's wall and host CPU
+                      seconds, each update's seconds, launches, peak memory,
+                      and the card's busy ms (the union of its events on
+                      every stream) and idle share under torch.profiler.
+13. train_sweep_tuning_full_width
+                    — on the same coordinates (built once): fit_multiple
+                      over per_user lambda in {10, 1, 0.1} (1 outer
+                      iteration, warm-started), select_best_fit against the
+                      metrics and each swept fit bitwise the same fit by
+                      hand; RANDOM tuning of 2 trials, whose log10 lambda
+                      vectors equal the Sobol draws tests/test_torch_tuning.py
+                      pins; resolve_coordinate("per_user") on the held-out
+                      rows bitwise the same update by hand; seconds of each.
+14. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -164,8 +187,21 @@ exit code is not 0):
                       equal to 1e-4, score_game reproduces it; and that
                       config stopped after 1 of 2 outer iterations with
                       --checkpoint-dir and resumed: bitwise equal to the
-                      uninterrupted run.
-13. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+                      uninterrupted run. Then, on cuda and cpu: a
+                      regularization_weights sweep on per_user with
+                      --model-output-mode ALL (the same best lambda,
+                      metrics to 1e-4 and saved layout), RANDOM tuning (the
+                      same trial lambdas), BAYESIAN tuning (6 trials,
+                      1e-3..1e3: best RMSE no more than 0.005 above the sync
+                      fit's and within 1e-4 of the JAX CLI's), --schedule
+                      async --staleness 1 (within 1e-4 of the JAX CLI's
+                      RMSE at 2 outer iterations; within 0.005 of the sync
+                      fit at 3), --updating-sequence reversed with
+                      --no-warm-start, two RE part files and --check-data,
+                      and the date-range flags over a daily copy of the
+                      fixture (bitwise the plain run; score_game
+                      --date-range reproduces it).
+15. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -181,8 +217,9 @@ redesigned kernels also "flushed_ms" (flushed_ms: one call after a 256 MB
 write that evicts L2). compare_kernels.py times kernels against another
 commit's in turns.
 
-Then a line with the card's name and power limit (nvidia-smi), a JSON line
-with one entry per kernel, and last {"ok": true, "device": {...}}.
+Then a line with the seconds of each phase, a line with the card's name and
+power limit (nvidia-smi), a JSON line with one entry per kernel, and last
+{"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when torch.cuda.is_available() is False.
 Imports nothing of JAX or of the JAX package.
@@ -213,6 +250,7 @@ F32_FLOPS = 67e12
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "train_full_width", "train_glm_full_width", "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
+              "train_async_full_width", "train_sweep_tuning_full_width",
               "train_game_cli", "train_glm_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
 SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
@@ -1379,13 +1417,28 @@ class plain_versions:
             setattr(module, name, fn)
 
 
-def profile_device_idle(fn) -> dict:
-    """One call of ``fn`` under torch.profiler: the device's busy time (the
-    device-side events alone, kernels and copies: a host operator also
-    reports the device time of what it launched, so counting both would
-    count it twice), its idle share of the call's wall time, and the top
-    device consumers."""
+def _device_events(prof) -> list:
+    """(name, start ns, end ns) of every device-side event (kernels and
+    copies on every stream) of a finished torch.profiler run, read from its
+    raw results: building the profiler's own event objects costs about 70
+    us an event, minutes for a fit's million host and device events."""
     from torch.autograd import DeviceType
+
+    try:
+        return [(e.name(), e.start_ns(), e.end_ns())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+    except AttributeError:  # a torch without the raw results' accessors
+        return [(e.name, e.time_range.start * 1000, e.time_range.end * 1000)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profile_device_idle(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's busy time, the
+    union of its device events' intervals (the device-side events alone: a
+    host operator also reports the device time of what it launched; work
+    overlapped on several streams counts once), their plain sum, the idle
+    share of the call's wall time, and the top device consumers."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1393,18 +1446,32 @@ def profile_device_idle(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:6]
+    events = _device_events(prof)
+    if not events:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured",
+                "device_idle_share": "not measured"}
+    union_ns, sum_ns, by_name = 0, 0, {}
+    spans = sorted((a, b) for _, a, b in events)
+    lo, hi = spans[0]
+    for a, b in spans:
+        sum_ns += b - a
+        if a > hi:
+            union_ns += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    union_ns += hi - lo
+    for name, a, b in events:
+        by_name[name[:60]] = by_name.get(name[:60], 0) + b - a
+    busy_ms = union_ns / 1e6
     return {
         "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
-        "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top if device_us(e) > 0},
+        "device_busy_ms": busy_ms,
+        "device_event_ms_sum": sum_ns / 1e6,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "device_events": len(events),
+        "top_device_ms": {k: v / 1e6 for k, v in
+                          sorted(by_name.items(), key=lambda kv: -kv[1])[:6]},
     }
 
 
@@ -2101,6 +2168,15 @@ def phase_train_game_cli(seed: int) -> dict:
                 "--output-dir", os.path.join(root, f"scores_{run}"), "--evaluator", "RMSE",
             ]))
             result[f"score_game_launches_{run}"] = launches.counts()
+        rest = _train_game_cli_rest(root)
+    result.update(rest)
+    if rest["failures"]:
+        emit("train_game_cli", **result)
+        raise AssertionError(f"train_game CLI gates failed: {rest['failures']}")
+    # the dated run reads exactly the plain dirs' rows: bitwise the plain run
+    if (result["dated_cuda_objectives"] != result["cuda_objectives"]
+            or result["dated_cuda_rmse"] != result["cuda_rmse"]):
+        raise AssertionError(f"the date-range run differs from the plain run: {result}")
     rescored = result["score_game_rmse_cuda"]
     if result["cuda_launches"]["fused_value_grad_batched_f32"] < 1:
         raise AssertionError(f"train_game on cuda did not launch the RE kernel: {result}")
@@ -2135,6 +2211,157 @@ def phase_train_game_cli(seed: int) -> dict:
     if abs(result["score_game_rmse_cuda_full_game"] - result["cuda_full_game_rmse"]) > 1e-5:
         raise AssertionError(f"score_game does not reproduce the full-GAME RMSE: {result}")
     emit("train_game_cli", **result)
+    return result
+
+
+GLMIX_RMSE = 0.388473  # the ratings GLMix fit with L-BFGS, 2 outer iterations
+# the JAX package's train_game CLI on the same fixture and config (JAX on the
+# CPU; tests/test_torch_train_game.py holds the port to it there): with
+# --schedule async --staleness 1 and 2 outer iterations, and the best of
+# --hyperparameter-tuning BAYESIAN --hyperparameter-tuning-iter 6
+# --regularization-weight-range 1e-3,1e3
+JAX_ASYNC_RMSE = 0.4166509
+JAX_BAYESIAN_RMSE = 0.3596293
+
+
+def _ratings_daily(root: str) -> tuple:
+    """The ratings fixture as daily yyyy/MM/dd dirs: training on
+    2026-03-01, validation on 2026-03-02, and a decoy day outside each
+    range that holds the other set. Returns (train base, validation base)."""
+    days = (("train", "2026/03/01", "train"), ("train", "2026/02/20", "test"),
+            ("val", "2026/03/02", "test"), ("val", "2026/01/01", "train"))
+    for base, day, src in days:
+        dest = os.path.join(root, "daily", base, day)
+        os.makedirs(dest)
+        shutil.copy(os.path.join(RATINGS, src, "part-00000.avro"), dest)
+    return os.path.join(root, "daily", "train"), os.path.join(root, "daily", "val")
+
+
+def _saved_weights(model_dir: str) -> dict:
+    with open(os.path.join(model_dir, "model-metadata.json")) as f:
+        coords = json.load(f)["configurations"]["coordinates"]
+    return {cid: c["optimizer"]["regularization_weight"] for cid, c in coords.items()}
+
+
+def _layout(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _train_game_cli_rest(root: str) -> dict:
+    """The train_game flags of slice 9 on the ratings fixture, on cuda and
+    cpu: a regularization_weights sweep with --model-output-mode ALL,
+    RANDOM and BAYESIAN tuning, the async schedule, --updating-sequence
+    reversed with --no-warm-start, two RE part files and --check-data, and
+    the date-range flags (score_game's too) over a daily layout."""
+    from photon_ml_tpu_torch.cli import score_game, train_game
+    from photon_ml_tpu_torch.ops import launches
+
+    result = {}
+    base_cfg = ratings_config(root)
+    with open(base_cfg) as f:
+        cfg = json.load(f)
+    opt = cfg["coordinates"]["per_user"]["optimizer"]
+    del opt["regularization_weight"]
+    opt["regularization_weights"] = [0.1, 1.0, 10.0]
+    sweep_cfg = os.path.join(root, "game_sweep.json")
+    with open(sweep_cfg, "w") as f:
+        json.dump(cfg, f)
+    train_dir, val_dir = _ratings_daily(root)
+    trials = {}
+    real_tuning = train_game.run_hyperparameter_tuning
+
+    def recording_tuning(*a, **kw):
+        out = real_tuning(*a, **kw)
+        trials[current[0]] = [t.hyperparameters.tolist() for t in out]
+        result[f"{current[0]}_trial_rmse"] = [t.value for t in out]
+        return out
+
+    current = [None]
+    runs = [
+        ("sweep", sweep_cfg, ("--model-output-mode", "ALL")),
+        ("random", base_cfg, ("--hyperparameter-tuning", "RANDOM",
+                              "--hyperparameter-tuning-iter", "2")),
+        ("bayesian", base_cfg, ("--hyperparameter-tuning", "BAYESIAN",
+                                "--hyperparameter-tuning-iter", "6",
+                                "--regularization-weight-range", "1e-3,1e3")),
+        ("async", base_cfg, ("--schedule", "async", "--staleness", "1")),
+        # one outer iteration more: staleness 1 lags the plane by an update
+        ("async3", base_cfg, ("--schedule", "async", "--staleness", "1",
+                              "--num-outer-iterations", "3")),
+        ("flags", base_cfg, ("--updating-sequence", "per_movie", "per_user", "fixed",
+                             "--no-warm-start", "--num-output-files-for-random-effect-model",
+                             "2", "--check-data")),
+        ("dated", base_cfg, ("--train-date-range", "20260225-20260301",
+                             "--validation-date-range", "20260302-20260310")),
+    ]
+    train_game.run_hyperparameter_tuning = recording_tuning
+    try:
+        for name, config, extra in runs:
+            dirs = ((train_dir, val_dir) if name == "dated" else
+                    (os.path.join(RATINGS, "train"), os.path.join(RATINGS, "test")))
+            for device in ("cuda", "cpu"):
+                run = f"{name}_{device}"
+                current[0] = run
+                out = os.path.join(root, run)
+                argv = ["--train-data-dirs", dirs[0], "--validation-data-dirs", dirs[1],
+                        "--coordinate-config", config, "--task", "LINEAR_REGRESSION",
+                        "--output-dir", out, "--evaluator", "RMSE",
+                        "--num-outer-iterations", "2", "--device", device, *extra]
+                launches.reset()
+                t0 = time.perf_counter()
+                fit = train_game.run(train_game.parse_args(argv))
+                result[f"{run}_s"] = time.perf_counter() - t0
+                result[f"{run}_launches"] = launches.counts()
+                result[f"{run}_rmse"] = fit.validation_metric
+                result[f"{run}_objectives"] = [v for _, v in fit.objective_history]
+                result[f"{run}_saved_weights"] = _saved_weights(os.path.join(out, "best"))
+    finally:
+        train_game.run_hyperparameter_tuning = real_tuning
+    result["trial_log10_lambdas"] = trials
+    result["sweep_layout_cuda"] = _layout(os.path.join(root, "sweep_cuda"))
+    launches.reset()
+    result["score_game_dated_rmse"] = score_game.run(score_game.parse_args([
+        "--data-dirs", val_dir, "--date-range", "20260302-20260302",
+        "--model-dir", os.path.join(root, "dated_cuda", "best"),
+        "--output-dir", os.path.join(root, "scores_dated"), "--evaluator", "RMSE",
+    ]))
+    result["score_game_dated_launches"] = launches.counts()
+
+    fails = []
+    for name, _, _ in runs:
+        a, b = result[f"{name}_cuda_rmse"], result[f"{name}_cpu_rmse"]
+        if not abs(a - b) <= 1e-4:
+            fails.append(f"{name}: cuda {a} and cpu {b} differ")
+        if name == "flags" and not (a < 0.45 and b < 0.45):
+            fails.append(f"{name}: RMSE {a}, {b} not under 0.45")
+        if name in ("async3", "dated") and not (
+                abs(a - GLMIX_RMSE) <= 5e-3 and abs(b - GLMIX_RMSE) <= 5e-3):
+            fails.append(f"{name}: RMSE {a}, {b} not within 0.005 of {GLMIX_RMSE}")
+        # tuning starts from the GLMix fit and keeps the best: no worse
+        if name == "bayesian" and not (a <= GLMIX_RMSE + 5e-3 and b <= GLMIX_RMSE + 5e-3):
+            fails.append(f"{name}: best RMSE {a}, {b} above {GLMIX_RMSE} + 0.005")
+        reference = {"async": JAX_ASYNC_RMSE, "bayesian": JAX_BAYESIAN_RMSE}.get(name)
+        if reference is not None and not (abs(a - reference) <= 1e-4
+                                          and abs(b - reference) <= 1e-4):
+            fails.append(f"{name}: RMSE {a}, {b} not within 1e-4 of the JAX CLI's {reference}")
+        if result[f"{name}_cuda_saved_weights"] != result[f"{name}_cpu_saved_weights"]:
+            fails.append(f"{name}: the saved configurations differ")
+        if result[f"{name}_cuda_launches"]["fused_value_grad_batched_f32"] < 1:
+            fails.append(f"{name}: cuda did not launch the RE kernel")
+    if trials["random_cuda"] != trials["random_cpu"]:
+        fails.append("random: trial lambdas differ between cuda and cpu")
+    result["bayesian_trials_equal_on_cuda_and_cpu"] = (
+        trials["bayesian_cuda"] == trials["bayesian_cpu"])
+    if _layout(os.path.join(root, "sweep_cuda")) != _layout(os.path.join(root, "sweep_cpu")) \
+            or not any(p.startswith(os.path.join("all", "2")) for p in
+                       result["sweep_layout_cuda"]):
+        fails.append("the sweep's saved layouts differ or lack all/<i>")
+    if not any("part-00001" in p for p in _layout(os.path.join(root, "flags_cuda", "best"))):
+        fails.append("--num-output-files-for-random-effect-model 2 wrote one part file")
+    if abs(result["score_game_dated_rmse"] - result["dated_cuda_rmse"]) > 1e-5:
+        fails.append("score_game --date-range does not reproduce the dated RMSE")
+    result["failures"] = fails
     return result
 
 
@@ -2704,6 +2931,238 @@ def phase_train_full_game_full_width(seed: int) -> dict:
     return result
 
 
+# the log10 λ vectors of the first two RANDOM trials over three coordinates
+# in (-4, 4), seed 0 (scrambled Sobol draws): tests/test_torch_tuning.py
+# pins the same values on the CPU
+RANDOM_TRIALS_LOG10 = [[-0.720403291285038, 3.7129617482423782, 2.8612390011548996],
+                       [1.6987586095929146, 0.6855398789048195, 1.1011880710721016]]
+ASYNC_BUCKETS = {"per_user": 4, "per_item": 2}
+
+
+def _async_estimator(schedule: str = "sync", staleness: int = 1, outer: int = 2):
+    """The train_full_width GLMix fit with per_user in 4 buckets and
+    per_item in 2 (so that bucket overlap fires), ``outer`` outer
+    iterations, on ``schedule``."""
+    from photon_ml_tpu_torch.estimators.game import GameEstimator
+
+    glmix = _glmix_estimator("cuda")
+    configs = dict(glmix.coordinate_configs)
+    for cid, k in ASYNC_BUCKETS.items():
+        configs[cid] = dataclasses.replace(
+            configs[cid], data=dataclasses.replace(configs[cid].data, num_buckets=k))
+    return GameEstimator(glmix.task, configs, update_order=glmix.update_order,
+                         num_outer_iterations=outer, device="cuda", schedule=schedule,
+                         staleness=staleness)
+
+
+@functools.lru_cache(maxsize=1)
+def _async_setup(seed: int):
+    """The full-width data and its coordinates, built once for the async,
+    sweep and tuning phases: (train, validation, coordinates, build
+    seconds)."""
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    t0 = time.perf_counter()
+    coords = _async_estimator().build_coordinates(train)
+    torch.cuda.synchronize()
+    return train, val, coords, time.perf_counter() - t0
+
+
+def _timed_fit(estimator, train, val, coords):
+    """One fit: (fit, {wall seconds, host CPU seconds of every thread},
+    launches, peak bytes allocated)."""
+    from photon_ml_tpu_torch.ops import launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0, c0 = time.perf_counter(), time.process_time()
+    fit = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    seconds = {"wall_s": time.perf_counter() - t0, "host_cpu_s": time.process_time() - c0}
+    return fit, seconds, launches.counts(), torch.cuda.max_memory_allocated()
+
+
+def _model_tensors(model) -> list:
+    """A sub-model's coefficient tensors (fixed, random or factored)."""
+    if hasattr(model, "projection_matrix"):
+        return list(model.latent.coefficients) + [model.projection_matrix]
+    if hasattr(model, "entity_ids"):
+        return list(model.coefficients)
+    return [model.coefficients.means]
+
+
+def _same_fit(a, b) -> bool:
+    """Bitwise the same objective and validation histories and models."""
+    return (a.objective_history == b.objective_history
+            and a.validation_history == b.validation_history
+            and a.model.models.keys() == b.model.models.keys()
+            and all(_bits_equal(x, y) for cid in a.model.models for x, y in zip(
+                _model_tensors(a.model.models[cid]), _model_tensors(b.model.models[cid]))))
+
+
+def phase_train_async_full_width(seed: int) -> dict:
+    """The async schedule at full width against the sync loop."""
+    train, val, coords, build_s = _async_setup(seed)
+    buckets = {cid: [tuple(b.X.shape) for b in coords[cid].dataset.buckets]
+               for cid in ASYNC_BUCKETS}
+    if any(len(buckets[c]) != k for c, k in ASYNC_BUCKETS.items()):
+        raise AssertionError(f"bucket counts {buckets} are not {ASYNC_BUCKETS}")
+    sync, sync_s, sync_counts, sync_mem = _timed_fit(_async_estimator(), train, val, coords)
+    a0, a0_s, _, _ = _timed_fit(_async_estimator("async", 0), train, val, coords)
+    # the main path of this phase: counts set to 0 just before, read after
+    a1, a1_s, a1_counts, a1_mem = _timed_fit(_async_estimator("async", 1), train, val, coords)
+    missing = [k for k in KERNELS if a1_counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the async fit did not launch {missing}: {a1_counts}")
+    # the repeat runs under the profiler (its wall is the profiled one)
+    repeat = []
+    async_profile = profile_device_idle(lambda: repeat.append(
+        _async_estimator("async", 1).fit(train, val, coordinates=coords)))
+    a1b = repeat[0]
+    with plain_versions():
+        plain, plain_s, plain_counts, _ = _timed_fit(
+            _async_estimator("async", 1), train, val, coords)
+    if any(plain_counts[k] for k in KERNELS):
+        raise AssertionError(f"the plain run launched kernels: {plain_counts}")
+    after = a1.objective_history[-1][1]
+    obj_rel = abs(after - plain.objective_history[-1][1]) / abs(after)
+    auc_vs_plain = abs(a1.validation_metric - plain.validation_metric)
+    auc_gap = a1.validation_metric - sync.validation_metric
+    profiles = {
+        "sync": profile_device_idle(lambda: _async_estimator().fit(
+            train, val, coordinates=coords)),
+        "async_staleness_1": async_profile,
+    }
+
+    # each random effect's update with its buckets in turn and overlapped:
+    # bitwise the same per bucket
+    models = sync.model.models
+    re_updates = {}
+    for cid in ASYNC_BUCKETS:
+        coord = coords[cid]
+        residual = sum(coords[c].score_device(m) for c, m in models.items() if c != cid)
+        runs = {}
+        for mode, overlap in (("sequential", 0), ("overlapped", 2)):
+            coord.overlap_buckets = overlap
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0, c0 = time.perf_counter(), time.process_time()
+            m = coord.update_model_device(models[cid], residual)
+            torch.cuda.synchronize()
+            runs[mode] = {"model": m, "wall_s": time.perf_counter() - t0,
+                          "host_cpu_s": time.process_time() - c0,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "profile": profile_device_idle(
+                              lambda: coord.update_model_device(models[cid], residual))}
+        coord.overlap_buckets = 0
+        seq, ovl = runs["sequential"].pop("model"), runs["overlapped"].pop("model")
+        runs["bitwise_per_bucket"] = [_bits_equal(a, b) for a, b in
+                                      zip(seq.coefficients, ovl.coefficients)]
+        re_updates[cid] = runs
+    result = {
+        "buckets": buckets, "build_coordinates_s": build_s, "outer_iterations": 2,
+        "sync_fit": sync_s, "async_staleness_0_fit": a0_s,
+        "async_staleness_1_fit": a1_s, "async_plain_fit": plain_s,
+        "sync_update_seconds": sync.update_seconds,
+        "async_staleness_1_update_seconds": a1.update_seconds,
+        "sync_launches": sync_counts, "launches": a1_counts,
+        "sync_peak_mem_gb": sync_mem / 1e9, "async_peak_mem_gb": a1_mem / 1e9,
+        "sync_objective_history": sync.objective_history,
+        "async_objective_history": a1.objective_history,
+        "plain_objective_history": plain.objective_history,
+        "sync_auc": sync.validation_metric, "async_auc": a1.validation_metric,
+        "async_auc_gap_vs_sync": auc_gap,
+        "objective_rel_diff_vs_plain": obj_rel, "auc_diff_vs_plain": auc_vs_plain,
+        "staleness_0_bitwise_sync": _same_fit(sync, a0),
+        "staleness_1_bitwise_repeat": _same_fit(a1, a1b),
+        "fit_profiles": profiles, "re_updates": re_updates,
+    }
+    emit("train_async_full_width", **result)
+    if not (result["staleness_0_bitwise_sync"] and result["staleness_1_bitwise_repeat"]
+            and all(all(r["bitwise_per_bucket"]) for r in re_updates.values())
+            and obj_rel <= 1e-4 and auc_vs_plain <= 1e-4 and abs(auc_gap) <= 0.02
+            and np.isfinite(a1.validation_metric)):
+        raise AssertionError("an async gate failed (see the train_async_full_width line)")
+    return result
+
+
+def phase_train_sweep_tuning_full_width(seed: int) -> dict:
+    """fit_multiple over per_user λ, RANDOM tuning and resolve_coordinate at
+    full width, each against the same work done by hand."""
+    from photon_ml_tpu_torch.estimators.random_effect import align_warm_start
+    from photon_ml_tpu_torch.estimators.tuning import run_hyperparameter_tuning
+    from photon_ml_tpu_torch.models.game import GameModel
+    from photon_ml_tpu_torch.ops import launches
+
+    train, val, coords, build_s = _async_setup(seed)
+    est = _async_estimator(outer=1)
+    base = est.coordinate_configs["per_user"].optimizer
+    lambdas = (10.0, 1.0, 0.1)
+    configs = [{"per_user": dataclasses.replace(base, regularization_weight=lam)}
+               for lam in lambdas]
+    seconds = {}
+    launches.reset()
+    t0 = time.perf_counter()
+    fits = est.fit_multiple(train, val, configs=configs, coordinates=coords)
+    torch.cuda.synchronize()
+    seconds["fit_multiple"] = time.perf_counter() - t0
+    counts = launches.counts()
+    missing = [k for k in KERNELS if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the sweep did not launch {missing}: {counts}")
+    metrics = [f.validation_metric for f in fits]
+    best = est.select_best_fit(fits)
+    by_hand, prev = [], None
+    t0 = time.perf_counter()
+    for cfg in configs:
+        f = est.fit(train, val, initial_models=prev, coordinates={
+            **coords, "per_user": est._replace_optimizer(coords["per_user"], cfg["per_user"])})
+        by_hand.append(f)
+        prev = f.model.models
+    torch.cuda.synchronize()
+    seconds["by_hand_fits"] = time.perf_counter() - t0
+    sweep_bitwise = [_same_fit(a, b) for a, b in zip(fits, by_hand)]
+
+    t0 = time.perf_counter()
+    trials = run_hyperparameter_tuning(est, train, val, mode="RANDOM", num_iterations=2,
+                                       prior_fits=[fits[best]], coordinates=coords)
+    torch.cuda.synchronize()
+    seconds["random_tuning_2_trials"] = time.perf_counter() - t0
+    trial_vectors = [t.hyperparameters.tolist() for t in trials]
+
+    # resolve_coordinate on the held-out rows (~3 % unseen users) against
+    # the best fit's models, and the same update by hand
+    models = fits[best].model.models
+    t0 = time.perf_counter()
+    resolved = est.resolve_coordinate("per_user", val, models)
+    torch.cuda.synchronize()
+    seconds["resolve_coordinate"] = time.perf_counter() - t0
+    meta = est._meta()
+    coord = est._build_coordinate("per_user", est.coordinate_configs["per_user"], val)
+    others = {c: m for c, m in models.items() if c != "per_user"}
+    residual = GameModel(models=others, meta={c: meta[c] for c in others},
+                         task=est.task).score(val)
+    hand = coord.update_model_device(align_warm_start(models["per_user"], coord.dataset),
+                                     residual)
+    resolve_bitwise = (resolved.entity_ids == hand.entity_ids and all(
+        _bits_equal(a, b) for a, b in zip(resolved.coefficients, hand.coefficients)))
+    result = {
+        "build_coordinates_s": build_s, "lambdas": lambdas, "validation_aucs": metrics,
+        "select_best_fit": best, "best_by_metrics": int(np.argmax(metrics)),
+        "sweep_objective_histories": [f.objective_history for f in fits],
+        "sweep_bitwise_by_hand": sweep_bitwise, "launches": counts,
+        "trial_log10_lambdas": trial_vectors, "trial_aucs": [t.value for t in trials],
+        "resolve_entities": resolved.num_entities, "resolve_bitwise_by_hand": resolve_bitwise,
+        "seconds": seconds,
+    }
+    emit("train_sweep_tuning_full_width", **result)
+    if not (best == int(np.argmax(metrics)) and all(sweep_bitwise) and resolve_bitwise
+            and trial_vectors == RANDOM_TRIALS_LOG10):
+        raise AssertionError("a sweep, tuning or resolve gate failed (see its line)")
+    return result
+
+
 def write_libsvm_fixture(path: str, seed: int, n: int, dim: int, task: str, k: int = 16) -> None:
     """LibSVM text rows of ``k`` distinct 1-based features out of ``dim``,
     labels of ``task`` from one coefficient vector drawn from ``seed``
@@ -2824,6 +3283,25 @@ def phase_train_glm_cli(seed: int) -> dict:
     return result
 
 
+PHASES = {
+    "env": lambda seed: phase_env(),
+    "build": lambda seed: phase_build(),
+    "kernel": phase_kernel,
+    "score_full_width": phase_score_full_width,
+    "score_game_cli": phase_score_game_cli,
+    "train_full_width": phase_train_full_width,
+    "train_glm_full_width": phase_train_glm_full_width,
+    "train_tron_full_width": phase_train_tron_full_width,
+    "fe_bf16_full_width": phase_fe_bf16_full_width,
+    "train_benes_full_width": phase_train_benes_full_width,
+    "train_full_game_full_width": phase_train_full_game_full_width,
+    "train_async_full_width": phase_train_async_full_width,
+    "train_sweep_tuning_full_width": phase_train_sweep_tuning_full_width,
+    "train_game_cli": phase_train_game_cli,
+    "train_glm_cli": phase_train_glm_cli,
+}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2839,40 +3317,16 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
-    results = {}
-    if "env" in phases:
-        results["env"] = phase_env()
-    if "build" in phases:
-        results["build"] = phase_build()
-    if "kernel" in phases:
-        results["kernel"] = phase_kernel(args.seed)
-    if "score_full_width" in phases:
-        results["score_full_width"] = phase_score_full_width(args.seed)
-    if "score_game_cli" in phases:
-        results["score_game_cli"] = phase_score_game_cli(args.seed)
-    torch.cuda.empty_cache()
-    if "train_full_width" in phases:
-        results["train_full_width"] = phase_train_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "train_glm_full_width" in phases:
-        results["train_glm_full_width"] = phase_train_glm_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "train_tron_full_width" in phases:
-        results["train_tron_full_width"] = phase_train_tron_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "fe_bf16_full_width" in phases:
-        results["fe_bf16_full_width"] = phase_fe_bf16_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "train_benes_full_width" in phases:
-        results["train_benes_full_width"] = phase_train_benes_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "train_full_game_full_width" in phases:
-        results["train_full_game_full_width"] = phase_train_full_game_full_width(args.seed)
-    torch.cuda.empty_cache()
-    if "train_game_cli" in phases:
-        results["train_game_cli"] = phase_train_game_cli(args.seed)
-    if "train_glm_cli" in phases:
-        results["train_glm_cli"] = phase_train_glm_cli(args.seed)
+    results, phase_seconds = {}, {}
+    for name in ALL_PHASES:
+        if name in phases:
+            t0 = time.perf_counter()
+            results[name] = PHASES[name](args.seed)
+            phase_seconds[name] = time.perf_counter() - t0
+        if name == "train_sweep_tuning_full_width":
+            _async_setup.cache_clear()  # the coordinates both phases share
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
 
     # launches and times from the phase that runs each kernel: the training
     # path runs the first three, the Benes training path the shuffles, the

@@ -15,6 +15,9 @@ A fixed effect with ``down_sampling_rate < 1`` solves over down-sampled
 weights (``sampler.py``, reference runWithSampling); a random effect
 ignores the rate, as the JAX package's does.
 
+A random effect with ``overlap_buckets >= 2`` (set under the async
+schedule) solves its buckets at once on worker streams.
+
 Not ported: the multi-device grid padding of the fixed effect and the mesh
 placement of random-effect buckets.
 """
@@ -118,6 +121,9 @@ class RandomEffectCoordinate:
     configuration: GlmOptimizationConfiguration
     base_offsets: torch.Tensor  # [n] GAME-level offsets, original row order
     compute_variances: bool = False
+    # the async schedule's RE leg: buckets solved at once (0 or 1: in turn);
+    # set by GameEstimator for every fit
+    overlap_buckets: int = 0
     last_tracker: Optional[RandomEffectOptimizationTracker] = dataclasses.field(
         default=None, repr=False
     )
@@ -131,6 +137,7 @@ class RandomEffectCoordinate:
         new_model, results = train_random_effects(
             ds, self.task, self.configuration, initial_model=model,
             compute_variances=self.compute_variances, stats_out=stats,
+            overlap_buckets=self.overlap_buckets,
         )
         self.last_solver_stats = stats
         self.last_tracker = RandomEffectOptimizationTracker.from_results(results)

@@ -1,11 +1,11 @@
 """Block coordinate descent: the outer GAME training loop.
 
-Port of the sync schedule of ``photon_ml_tpu/algorithm/coordinate_descent.py``
-(reference algorithm/CoordinateDescent.scala:40, optimize :97-321): per
-outer iteration, per coordinate — residual = total score minus the
-coordinate's own score (:183), retrain the coordinate against it, rescore,
-log the objective (:247-258), evaluate validation after each update
-(:265-294), and keep the best full model by the first evaluator (:299-307).
+Port of ``photon_ml_tpu/algorithm/coordinate_descent.py`` (reference
+algorithm/CoordinateDescent.scala:40, optimize :97-321): per outer
+iteration, per coordinate — residual = total score minus the coordinate's
+own score (:183), retrain the coordinate against it, rescore, log the
+objective (:247-258), evaluate validation after each update (:265-294),
+and keep the best full model by the first evaluator (:299-307).
 
 The score plane lives on the device: a running total updated incrementally
 (``total += new_own − old_own``), so each update costs O(rows) device work
@@ -13,25 +13,40 @@ and no row-length array crosses to the host; the training objective reads
 the running total, one scalar to the host per update. The sequence of f32
 adds is fixed, so a run is repeatable bitwise on one device.
 
+Schedule: ``schedule="sync"`` (default) runs the strictly sequential loop
+above. ``schedule="async"`` pipelines the coordinate solves: each solve is
+dispatched onto a worker (``algorithm/schedule.py``; on the card, a CUDA
+stream per worker) against the residual computed from the *current*
+running total — which may still miss up to ``staleness`` in-flight updates
+— and finished solves are folded back into the total in dispatch order.
+Residuals are computed on the dispatching thread and reconciliation is
+FIFO, so the trajectory is deterministic for a given ``staleness``;
+``staleness=0`` reconciles everything before each dispatch and is bitwise
+the sync trajectory (the solve merely runs on a worker). A full drain ends
+every outer iteration. No device-wide sync runs on a worker's path: a
+worker's update is timed by a sync of its own stream.
+
 After each update the coordinate's solver trackers are logged, and an
 ``event.EventEmitter`` receives one ``SolverStatsEvent`` per random-effect
 bucket. ``run`` resumes from a checkpoint: it skips completed outer
 iterations, starts from the restored best model, and hands the running
 result to a callback after each outer iteration.
 
-Not ported: the async schedule, the host score plane and progress tracking
-(ROADMAP.md, Queue A: The rest of training).
+Not ported: the host score plane, which serves multi-controller runs
+(ROADMAP.md, Queue A item 8), and progress tracking (item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES, ScheduleExecutor
 from photon_ml_tpu_torch.evaluation.evaluators import nan_aware_better_than
 from photon_ml_tpu_torch.event import SolverStatsEvent
 
@@ -48,8 +63,8 @@ class CoordinateDescentResult:
 
 
 class CoordinateDescent:
-    """Sequential coordinate updates: host control flow; the coordinates do
-    their work on the device."""
+    """Coordinate updates in turn (sync) or pipelined (async): host control
+    flow; the coordinates do their work on the device."""
 
     def __init__(
         self,
@@ -62,9 +77,15 @@ class CoordinateDescent:
         validate: Optional[Callable[[Dict[str, object]], float]] = None,
         validation_better_than: Optional[Callable[[float, float], bool]] = None,
         emitter=None,
+        schedule: str = "sync",
+        staleness: int = 1,
     ) -> None:
         if not coordinates:
             raise ValueError("need at least one coordinate")
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        if int(staleness) < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
         self.coordinates = coordinates
         self.num_rows = num_rows
         self.device = device
@@ -77,8 +98,11 @@ class CoordinateDescent:
         self.validate = validate
         self.validation_better_than = validation_better_than or nan_aware_better_than
         self.emitter = emitter
-        # seconds of each coordinate update (train + rescore, synchronised)
-        # of the most recent run, in update order
+        self.schedule = schedule
+        self.staleness = int(staleness)
+        # seconds of each coordinate update of the most recent run, in
+        # update order: train + rescore, synchronised (sync), or from the
+        # worker's start to the end of its stream's work (async)
         self.update_seconds: List[Tuple[str, float]] = []
 
     def _log_solver_stats(self, cid: str, coord) -> None:
@@ -102,84 +126,168 @@ class CoordinateDescent:
         from ``initial_models``; ``initial_best`` is a restored (best models,
         best metric); ``on_iteration_end(outer, running result)`` runs after
         each outer iteration (checkpointing)."""
-        models: Dict[str, object] = dict(initial_models or {})
-        scores: Dict[str, torch.Tensor] = {
-            cid: self.coordinates[cid].score_device(m) for cid, m in models.items()
-        }
-        zeros = torch.zeros(self.num_rows, dtype=torch.float32, device=self.device)
-        total = zeros.clone()
-        for s in scores.values():
-            total = total + s
+        run = _Run(self, initial_models, initial_best)
+        self.update_seconds = run.update_seconds
+        if self.schedule == "async":
+            self._run_async(run, num_iterations, start_iteration, on_iteration_end)
+        else:
+            self._run_sync(run, num_iterations, start_iteration, on_iteration_end)
+        return run.result(final=True)
 
-        objective_history: List[Tuple[str, float]] = []
-        validation_history: List[Tuple[str, float]] = []
-        best_metric: Optional[float] = None
-        best_models: Dict[str, object] = {}
-        if initial_best is not None:
-            best_models, best_metric = dict(initial_best[0]), initial_best[1]
-        self.update_seconds = []
-
+    def _run_sync(self, run: "_Run", num_iterations, start_iteration, on_iteration_end):
         for outer in range(start_iteration, num_iterations):
             for cid in self.update_order:
                 coord = self.coordinates[cid]
                 t0 = time.perf_counter()
                 # partialScore = fullScore - ownScore (reference
                 # CoordinateDescent.scala:183)
-                old_own = scores.get(cid, zeros)
-                model = coord.update_model_device(models.get(cid), total - old_own)
-                models[cid] = model
+                old_own = run.scores.get(cid)
+                model = coord.update_model_device(run.models.get(cid), run.residual(old_own))
                 new_own = coord.score_device(model)
-                total = total + new_own - old_own
-                scores[cid] = new_own
+                run.fold(cid, model, new_own, old_own)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                self.update_seconds.append((cid, time.perf_counter() - t0))
-                self._log_solver_stats(cid, coord)
-
-                if self.training_objective is not None:
-                    loss_val = float(self.training_objective(total))
-                    if self.regularization_term is not None:
-                        reg = float(self.regularization_term(models))
-                        obj = loss_val + reg
-                        logger.info(
-                            "CD iter %d coordinate %s: loss %.6f + regularization "
-                            "%.6f = objective %.6f", outer, cid, loss_val, reg, obj,
-                        )
-                    else:
-                        obj = loss_val
-                        logger.info(
-                            "CD iter %d coordinate %s: training objective %.6f",
-                            outer, cid, loss_val,
-                        )
-                    objective_history.append((cid, obj))
-                if self.validate is not None:
-                    metric = float(self.validate(models))
-                    validation_history.append((cid, metric))
-                    logger.info("CD iter %d coordinate %s: validation %.6f", outer, cid, metric)
-                    # best-model tracking starts once every coordinate has
-                    # trained: a snapshot missing whole coordinates is not a
-                    # model (reference CoordinateDescent.scala:265-294)
-                    if all(c in models for c in self.update_order) and (
-                        best_metric is None
-                        or self.validation_better_than(metric, best_metric)
-                    ):
-                        best_metric = metric
-                        best_models = dict(models)
+                run.record(outer, cid, time.perf_counter() - t0)
             if on_iteration_end is not None:
-                on_iteration_end(outer, CoordinateDescentResult(
-                    models=dict(models),
-                    best_models=dict(best_models) if best_models else dict(models),
-                    best_metric=best_metric,
-                    objective_history=list(objective_history),
-                    validation_history=list(validation_history),
-                ))
+                on_iteration_end(outer, run.result())
 
-        if self.validate is None or not best_models:
-            best_models = dict(models)
+    # ------------------------------------------------------------- async
+    def _solve_in_flight(self, coord, model0, residual):
+        """Worker body of one dispatched coordinate solve: train against the
+        (possibly stale) residual and rescore; touches no state of the loop
+        state. Timed to the end of its own stream's work."""
+        t0 = time.perf_counter()
+        model = coord.update_model_device(model0, residual)
+        new_own = coord.score_device(model)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return model, new_own, time.perf_counter() - t0
+
+    def _run_async(self, run: "_Run", num_iterations, start_iteration, on_iteration_end):
+        """Bounded-staleness pipelined schedule (reference: the JAX module's
+        ``_run_async``). Per outer iteration, each coordinate's residual is
+        computed on the dispatching thread from the CURRENT running total
+        and the solve is dispatched to the worker pool. Before every
+        dispatch the loop reconciles down to the staleness bound (FIFO),
+        folding each finished solve into the total and recording its
+        objective and validation entry then, so the histories keep one
+        entry per update. A full drain ends each iteration."""
+        executor = ScheduleExecutor(
+            max_in_flight=min(len(self.update_order), self.staleness + 1),
+            name="cd-async", device=self.device,
+        )
+        # (cid, old_own) of the in-flight solves, in the executor's FIFO order
+        pending: List[Tuple[str, Optional[torch.Tensor]]] = []
+
+        def reconcile_one(outer: int) -> None:
+            cid, old_own = pending.pop(0)
+            model, new_own, seconds = executor.pop_oldest().result()
+            run.fold(cid, model, new_own, old_own)
+            run.record(outer, cid, seconds)
+
+        try:
+            for outer in range(start_iteration, num_iterations):
+                for cid in self.update_order:
+                    # bound the lag BEFORE dispatch: at most `staleness`
+                    # unreconciled updates may be missing from the residual
+                    # this coordinate trains against
+                    while len(pending) > self.staleness:
+                        reconcile_one(outer)
+                    old_own = run.scores.get(cid)
+                    model0 = run.models.get(cid)
+                    residual = run.residual(old_own)
+                    executor.submit(
+                        cid,
+                        functools.partial(
+                            self._solve_in_flight, self.coordinates[cid], model0, residual
+                        ),
+                        inputs=(residual, model0),
+                    )
+                    pending.append((cid, old_own))
+                # iteration barrier: the plane lags within an iteration only
+                while pending:
+                    reconcile_one(outer)
+                if on_iteration_end is not None:
+                    on_iteration_end(outer, run.result())
+        finally:
+            executor.shutdown(wait=True)
+
+
+class _Run:
+    """The running state of one ``CoordinateDescent.run``: models, the
+    device score plane, histories and the best model; shared by both
+    schedules, touched by the dispatching thread alone."""
+
+    def __init__(self, cd: CoordinateDescent, initial_models, initial_best) -> None:
+        self.cd = cd
+        self.models: Dict[str, object] = dict(initial_models or {})
+        self.scores: Dict[str, torch.Tensor] = {
+            cid: cd.coordinates[cid].score_device(m) for cid, m in self.models.items()
+        }
+        self.zeros = torch.zeros(cd.num_rows, dtype=torch.float32, device=cd.device)
+        self.total = self.zeros.clone()
+        for s in self.scores.values():
+            self.total = self.total + s
+        self.objective_history: List[Tuple[str, float]] = []
+        self.validation_history: List[Tuple[str, float]] = []
+        self.best_metric: Optional[float] = None
+        self.best_models: Dict[str, object] = {}
+        if initial_best is not None:
+            self.best_models, self.best_metric = dict(initial_best[0]), initial_best[1]
+        self.update_seconds: List[Tuple[str, float]] = []
+
+    def residual(self, old_own: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.total - (old_own if old_own is not None else self.zeros)
+
+    def fold(self, cid: str, model, new_own: torch.Tensor,
+             old_own: Optional[torch.Tensor]) -> None:
+        self.models[cid] = model
+        self.total = self.total + new_own - (old_own if old_own is not None else self.zeros)
+        self.scores[cid] = new_own
+
+    def record(self, outer: int, cid: str, seconds: float) -> None:
+        """After an update is folded in: its seconds, solver stats, training
+        objective and validation metric, and the best model."""
+        cd = self.cd
+        self.update_seconds.append((cid, seconds))
+        cd._log_solver_stats(cid, cd.coordinates[cid])
+        if cd.training_objective is not None:
+            loss_val = float(cd.training_objective(self.total))
+            if cd.regularization_term is not None:
+                reg = float(cd.regularization_term(self.models))
+                obj = loss_val + reg
+                logger.info(
+                    "CD iter %d coordinate %s: loss %.6f + regularization "
+                    "%.6f = objective %.6f", outer, cid, loss_val, reg, obj,
+                )
+            else:
+                obj = loss_val
+                logger.info(
+                    "CD iter %d coordinate %s: training objective %.6f", outer, cid, loss_val,
+                )
+            self.objective_history.append((cid, obj))
+        if cd.validate is not None:
+            metric = float(cd.validate(self.models))
+            self.validation_history.append((cid, metric))
+            logger.info("CD iter %d coordinate %s: validation %.6f", outer, cid, metric)
+            # best-model tracking starts once every coordinate has trained:
+            # a snapshot missing whole coordinates is not a model (reference
+            # CoordinateDescent.scala:265-294)
+            if all(c in self.models for c in cd.update_order) and (
+                self.best_metric is None
+                or cd.validation_better_than(metric, self.best_metric)
+            ):
+                self.best_metric = metric
+                self.best_models = dict(self.models)
+
+    def result(self, final: bool = False) -> CoordinateDescentResult:
+        best = self.best_models
+        if not best or (final and self.cd.validate is None):
+            best = self.models
         return CoordinateDescentResult(
-            models=models,
-            best_models=best_models,
-            best_metric=best_metric,
-            objective_history=objective_history,
-            validation_history=validation_history,
+            models=dict(self.models),
+            best_models=dict(best),
+            best_metric=self.best_metric,
+            objective_history=list(self.objective_history),
+            validation_history=list(self.validation_history),
         )

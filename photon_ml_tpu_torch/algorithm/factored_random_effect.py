@@ -308,8 +308,11 @@ class FactoredRandomEffectCoordinate:
         return torch.from_numpy(B.astype(np.float32)).to(self.device)
 
     def _sync(self) -> None:
+        """Wait for the current stream alone (the step timings): under the
+        async schedule the update runs on a worker's stream, and a
+        device-wide sync would wait for the other workers too."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def update_model_device(
         self, model: Optional[FactoredRandomEffectModel], residual_scores: torch.Tensor

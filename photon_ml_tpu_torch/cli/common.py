@@ -1,6 +1,6 @@
 """Shared CLI plumbing: logger setup, output removal, input column names,
-the JSON coordinate config → typed configs, and coefficient box
-constraints.
+date-range expansion of the data dirs, the JSON coordinate config → typed
+configs and its λ sweep lists, and coefficient box constraints.
 
 Port of the parts of ``photon_ml_tpu/cli/common.py`` that ``score_game``,
 ``train_game`` and ``train_glm`` use (reference
@@ -40,6 +40,7 @@ from photon_ml_tpu_torch.opt.config import (
 )
 from photon_ml_tpu_torch.projector import ProjectorType
 from photon_ml_tpu_torch.types import RegularizationType
+from photon_ml_tpu_torch.utils.date_range import paths_for_date_range
 
 LOGGER_NAME = "photon_ml_tpu_torch"
 
@@ -101,13 +102,9 @@ def parse_optimizer_config(cfg: dict) -> GlmOptimizationConfiguration:
     mini-language fields: optimizer, max_iterations, tolerance,
     regularization, alpha, regularization_weight, down_sampling_rate, plus
     box constraints and the adaptive random-effect driver's knobs. The
-    sweep list ``regularization_weights`` is not ported (ROADMAP.md,
-    Queue A: The rest of training, fit_multiple and tuning)."""
-    if cfg.get("regularization_weights"):
-        raise NotImplementedError(
-            "regularization_weights sweeps need fit_multiple, which is not "
-            "ported yet (ROADMAP.md, Queue A: The rest of training); give one regularization_weight"
-        )
+    sweep list ``regularization_weights`` (plural) may stand in for the
+    weight: its first entry is the single-configuration weight, and the
+    ``train_game`` sweeps the list (``coordinate_weight_sweeps``)."""
     opt_type = OptimizerType[cfg.get("optimizer", "LBFGS").upper()]
     kw = {}
     if "max_iterations" in cfg:
@@ -131,6 +128,15 @@ def parse_optimizer_config(cfg: dict) -> GlmOptimizationConfiguration:
         opt = OptimizerConfig.lbfgs(**kw)
     reg_type = RegularizationType[cfg.get("regularization", "NONE").upper()]
     reg = RegularizationContext(reg_type, alpha=cfg.get("alpha"))
+    weight = cfg.get("regularization_weight")
+    if weight is not None and cfg.get("regularization_weights"):
+        raise ValueError(
+            "give either regularization_weight or the sweep list "
+            "regularization_weights, not both"
+        )
+    if weight is None:
+        ws = cfg.get("regularization_weights")
+        weight = ws[0] if ws else 0.0
     adaptive = AdaptiveSolveConfig()
     adaptive_cfg = cfg.get("adaptive")
     if adaptive_cfg is not None:
@@ -145,10 +151,37 @@ def parse_optimizer_config(cfg: dict) -> GlmOptimizationConfiguration:
     return GlmOptimizationConfiguration(
         optimizer_config=opt,
         regularization=reg,
-        regularization_weight=float(cfg.get("regularization_weight", 0.0)),
+        regularization_weight=float(weight),
         down_sampling_rate=float(cfg.get("down_sampling_rate", 1.0)),
         adaptive=adaptive,
     )
+
+
+def coordinate_weight_sweeps(raw: dict) -> Dict[str, List[float]]:
+    """Per-coordinate λ sweep lists from the raw config JSON: a
+    coordinate's optimizer block may give ``"regularization_weights": [w1,
+    w2, ...]`` instead of one weight; ``train_game`` fits the cross
+    product of every sweeping coordinate's weights, one GAME model each,
+    and selects the best by the validation evaluator (reference
+    getAllModelConfigs, GameTrainingParams.scala:212-223)."""
+    out: Dict[str, List[float]] = {}
+    for cid, c in (raw.get("coordinates") or {}).items():
+        ws = (c.get("optimizer") or {}).get("regularization_weights")
+        if ws:
+            out[cid] = [float(w) for w in ws]
+    return out
+
+
+def expand_data_dirs(
+    dirs: List[str], date_range: Optional[str], days_ago: Optional[str]
+) -> List[str]:
+    """Date-range expansion shared by the CLIs (reference
+    --train-date-range / --date-range): each dir expands to its daily
+    yyyy/MM/dd subdirs; an empty result fails fast."""
+    out = paths_for_date_range(dirs, date_range, days_ago)
+    if not out:
+        raise FileNotFoundError(f"no input dirs in date range under {dirs}")
+    return out
 
 
 def parse_re_data_config(cfg: dict, re_type: str) -> RandomEffectDataConfiguration:

@@ -3,8 +3,9 @@
 Port of ``photon_ml_tpu/cli/score_game.py`` (reference
 cli/game/scoring/Driver.scala:37, run() :176-209): read data (response
 optional) → load the GAME model → score → write ScoringResultAvro → optional
-evaluation. Scoring runs on ``--device`` (default ``cuda``; ``cpu`` only
-when asked).
+evaluation. ``--date-range`` / ``--date-days-ago`` expand each data dir to
+its daily yyyy/MM/dd subdirs. Scoring runs on ``--device`` (default
+``cuda``; ``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.score_game \
@@ -24,6 +25,7 @@ import torch
 
 from photon_ml_tpu_torch.cli.common import (
     delete_dirs_if_exist,
+    expand_data_dirs,
     parse_input_columns,
     setup_logger,
 )
@@ -47,6 +49,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("--data-dirs", nargs="+", required=True)
+    p.add_argument("--date-range", default=None,
+                   help="yyyyMMdd-yyyyMMdd; expands each data dir to its "
+                        "daily yyyy/MM/dd subdirs (reference --date-range)")
+    p.add_argument("--date-days-ago", default=None,
+                   help="start-end days ago, e.g. 90-1 (reference "
+                        "--date-range-days-ago)")
     p.add_argument("--model-dir", required=True)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--num-output-files", type=_positive_int, default=None,
@@ -112,6 +120,8 @@ def run(args: argparse.Namespace) -> Optional[float]:
         durations[name] = time.perf_counter() - t0
         return out
 
+    # a bad date spec must fail before the (possibly huge) model load
+    data_dirs = expand_data_dirs(args.data_dirs, args.date_range, args.date_days_ago)
     metadata = load_game_model_metadata(args.model_dir)
     model_id = metadata.get("modelName", "game-model")
 
@@ -144,7 +154,7 @@ def run(args: argparse.Namespace) -> Optional[float]:
             id_tags.append(tag)
 
     data, _, uids = timed(
-        "read data", read_game_data, args.data_dirs, shard_bags, index_maps,
+        "read data", read_game_data, data_dirs, shard_bags, index_maps,
         id_tags=id_tags, is_response_required=False,
         **parse_input_columns(args.input_columns_names),
     )

@@ -2,52 +2,73 @@
 
 Port of ``photon_ml_tpu/cli/train_game.py`` (reference
 cli/game/training/Driver.scala:50, run() :64-119): read Avro training data
-(building the feature index maps) → read validation data → feature statistics and normalization contexts of
+(building the feature index maps; ``--train-date-range`` and the other date
+flags expand each dir to its daily yyyy/MM/dd subdirs) → read validation
+data → ``--check-data`` → feature statistics and normalization contexts of
 the fixed-effect shards when ``--normalization-type`` asks for them →
-GameEstimator.fit by block coordinate descent → best model by the first
-evaluator → save the model, in original-space coefficients
-(Driver.scala:389-433). ``--summarization-output-dir`` or
-``--save-feature-stats`` also write every shard's feature statistics as
-``FeatureSummarizationResultAvro`` (ModelProcessingUtils.scala:560);
-``--event-listeners`` registers listener classes (``event.py``);
-``--checkpoint-dir`` writes the training state after every outer iteration
-and resumes a checkpoint found there. Coordinates are fixed, random or
-factored random effects. Training runs on ``--device`` (default ``cuda``;
-``cpu`` only when asked).
+GameEstimator.fit by block coordinate descent (``--schedule async`` with
+``--staleness``: pipelined solves on CUDA streams; ``--updating-sequence``:
+the order), or ``fit_multiple`` over the cross product of the config's
+``regularization_weights`` sweep lists → ``--hyperparameter-tuning RANDOM``
+or ``BAYESIAN`` trials warm-started from it (``--use-warm-start``) → the
+best model by the first evaluator → save it (``--model-output-mode``: the
+best under ``best/``, with ALL every swept configuration under
+``all/<i>``), in original-space coefficients (Driver.scala:389-433).
+``--summarization-output-dir`` or ``--save-feature-stats`` also write every
+shard's feature statistics as ``FeatureSummarizationResultAvro``
+(ModelProcessingUtils.scala:560); ``--event-listeners`` registers listener
+classes (``event.py``); ``--checkpoint-dir`` writes the training state
+after every outer iteration and resumes a checkpoint found there;
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the fit.
+Coordinates are fixed, random or factored random effects. Training runs on
+``--device`` (default ``cuda``; ``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_game \\
         --train-data-dirs data/train --validation-data-dirs data/test \\
         --coordinate-config game.json --task LOGISTIC_REGRESSION \\
         --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \\
-        [--checkpoint-dir ckpt/] [--device cpu]
+        [--checkpoint-dir ckpt/] [--schedule async] [--device cpu]
 
-The reference's other flags are not ported yet (ROADMAP.md, Queue A: The
-rest of training).
+Refused, naming their ROADMAP.md Queue A item: the telemetry, auto-tune and
+introspection flags (item 4), ``--offheap-indexmap-dir`` (item 6),
+``--streaming`` and its flags (item 7), and the device-grid, cluster and
+multi-host flags (item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import itertools
+import json
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.common import (
+    coordinate_weight_sweeps,
     delete_dirs_if_exist,
+    expand_data_dirs,
     load_game_config,
     parse_input_columns,
     setup_logger,
 )
+from photon_ml_tpu_torch.data.validators import validate_labeled_data
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.estimators.game import (
     FixedEffectCoordinateConfiguration,
     GameEstimator,
     GameFit,
+)
+from photon_ml_tpu_torch.estimators.tuning import (
+    GameEstimatorEvaluationFunction,
+    run_hyperparameter_tuning,
 )
 from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
 from photon_ml_tpu_torch.event import (
@@ -67,6 +88,27 @@ from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
 
+# flags of the JAX package's train_game that need modules not ported yet,
+# with the ROADMAP.md Queue A item that ports them
+_TELEMETRY = "item 4, Telemetry and resilience"
+_STREAMING = "item 7, Streaming out-of-core"
+_CLUSTER = "item 8, The cluster plane"
+_UNPORTED = {
+    "telemetry_out": _TELEMETRY, "trace_out": _TELEMETRY, "progress_out": _TELEMETRY,
+    "introspect_port": _TELEMETRY, "introspect_port_file": _TELEMETRY,
+    "introspect_hold": _TELEMETRY, "auto_tune": _TELEMETRY, "auto_tune_trials": _TELEMETRY,
+    "auto_tune_judge": _TELEMETRY, "auto_tune_report": _TELEMETRY,
+    "offheap_indexmap_dir": "item 6, Off-heap index maps",
+    "streaming": _STREAMING, "block_rows": _STREAMING, "prefetch_depth": _STREAMING,
+    "block_cache_dir": _STREAMING, "no_block_cache": _STREAMING,
+    "on_block_error": _STREAMING, "decode_workers": _STREAMING, "stream_mode": _STREAMING,
+    "gap_schedule": _STREAMING, "resident_blocks": _STREAMING,
+    "resident_bytes": _STREAMING,
+    "parallel_data": _CLUSTER, "parallel_feat": _CLUSTER, "parallel_engine": _CLUSTER,
+    "hosts": _CLUSTER, "cluster_block_latency_ms": _CLUSTER, "cluster_kill_host": _CLUSTER,
+    "coordinator_address": _CLUSTER, "num_processes": _CLUSTER, "process_id": _CLUSTER,
+}
+
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -75,8 +117,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     p.add_argument("--train-data-dirs", nargs="+", required=True)
     p.add_argument("--validation-data-dirs", nargs="*", default=[])
+    p.add_argument("--train-date-range", default=None,
+                   help="yyyyMMdd-yyyyMMdd; expands each data dir to its "
+                        "daily yyyy/MM/dd subdirs (reference --train-date-range)")
+    p.add_argument("--train-date-days-ago", default=None,
+                   help="start-end days ago, e.g. 90-1")
+    p.add_argument("--validation-date-range", default=None,
+                   help="yyyyMMdd-yyyyMMdd for the validation dirs")
+    p.add_argument("--validation-date-days-ago", default=None,
+                   help="start-end days ago for the validation dirs")
     p.add_argument("--coordinate-config", required=True,
                    help="typed JSON config: feature shards + coordinates")
+    p.add_argument("--updating-sequence", nargs="+", default=None,
+                   help="coordinate update order; overrides the config "
+                        "file's order (reference --updating-sequence)")
     p.add_argument("--task", required=True, choices=[t.name for t in TaskType])
     p.add_argument("--output-dir", required=True)
     p.add_argument("--num-outer-iterations", type=int, default=None,
@@ -103,18 +157,136 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--compute-variance", action="store_true",
                    help="attach per-coefficient variances ~ 1/(H_jj+eps) to "
                         "FE and RE models (reference --compute-variance)")
+    p.add_argument("--num-output-files-for-random-effect-model", type=int, default=1,
+                   metavar="N",
+                   help="partition each random-effect coordinate's "
+                        "coefficients across N part files (reference "
+                        "NUM_OUTPUT_FILES_FOR_RANDOM_EFFECT_MODEL)")
+    p.add_argument("--model-output-mode", default="BEST", choices=["ALL", "BEST", "NONE"],
+                   help="BEST saves the selected model under <output>/best; "
+                        "ALL also every swept configuration under "
+                        "<output>/all/<i>; NONE saves nothing (reference "
+                        "ModelOutputMode)")
     p.add_argument("--delete-output-dir-if-exists", action="store_true",
                    help="remove an existing --output-dir before writing")
+    p.add_argument("--check-data", action="store_true",
+                   help="run per-task input validation over every feature "
+                        "shard of the training and validation data before "
+                        "training (reference CHECK_DATA)")
     p.add_argument("--input-columns-names", default=None,
                    help="JSON map overriding input field names; keys: "
                         "response, offset, weight, uid")
+    p.add_argument("--hyperparameter-tuning", default="NONE",
+                   choices=["NONE", "RANDOM", "BAYESIAN"])
+    p.add_argument("--hyperparameter-tuning-iter", type=int, default=10)
+    p.add_argument("--regularization-weight-range", default=None,
+                   help="lower,upper bounds for tuned regularization "
+                        "weights, e.g. 1e-4,1e4 (reference "
+                        "--regularization-weight-range)")
+    p.add_argument("--use-warm-start", dest="use_warm_start", action="store_true",
+                   default=True,
+                   help="warm-start tuning trials from the previous trial's "
+                        "models (default on, reference USE_WARM_START)")
+    p.add_argument("--no-warm-start", dest="use_warm_start", action="store_false")
     p.add_argument("--model-name", default="photon-ml-tpu-game")
     p.add_argument("--checkpoint-dir", default=None,
                    help="atomic per-outer-iteration training checkpoints; "
                         "an existing checkpoint there is resumed")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the fit "
+                        "phase here (trace.json; view in Perfetto)")
+    p.add_argument("--schedule", default="sync", choices=("sync", "async"),
+                   help="coordinate-descent schedule: 'sync' (sequential, "
+                        "bitwise-reproducible default) or 'async' "
+                        "(bounded-staleness pipelined solves and random-effect "
+                        "bucket overlap, each on its own CUDA stream)")
+    p.add_argument("--staleness", type=int, default=1,
+                   help="async schedule only: max unreconciled coordinate "
+                        "updates a dispatch may ignore (0 = serialize, "
+                        "bitwise equal to sync)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
-    return p.parse_args(argv)
+    for flag, item in _UNPORTED.items():
+        p.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True, default=None,
+                       help=f"not ported yet (ROADMAP.md, Queue A {item})")
+    args = p.parse_args(argv)
+    if args.staleness < 0:
+        p.error("--staleness must be >= 0")
+    return args
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    for flag, item in _UNPORTED.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md, Queue A {item})"
+            )
+
+
+def _sweep_model_configs(sweeps, coordinates) -> List[dict]:
+    """Cross product of the per-coordinate λ lists → ``fit_multiple``
+    config maps (reference getAllModelConfigs)."""
+    if not sweeps:
+        return [{}]
+    ids = sorted(sweeps)
+    return [
+        {cid: dataclasses.replace(coordinates[cid].optimizer, regularization_weight=w)
+         for cid, w in zip(ids, combo)}
+        for combo in itertools.product(*(sweeps[cid] for cid in ids))
+    ]
+
+
+def _weight_range(spec: str):
+    parts = spec.split(",")
+    if len(parts) != 2:
+        raise ValueError(
+            f"--regularization-weight-range expects lower,upper (e.g. 1e-4,1e4), got {spec!r}"
+        )
+    lo, hi = float(parts[0]), float(parts[1])
+    if not (0 < lo < hi):
+        raise ValueError(f"need 0 < lower < upper, got {lo}, {hi}")
+    return (np.log10(lo), np.log10(hi))
+
+
+def _config_with_overrides(raw_config: dict, overrides) -> dict:
+    """The raw config with one sweep point's (or tuning trial's) λ folded
+    in, so that each saved model's metadata names the configuration that
+    trained it (reference Driver.scala:419-427). ``overrides`` values are
+    optimizer configurations (a sweep) or coordinate configurations (a
+    trial, with a factored coordinate's matrix λ)."""
+    if not overrides:
+        return raw_config
+    cfg = json.loads(json.dumps(raw_config))
+    for cid, o in overrides.items():
+        opt = getattr(o, "optimizer", o)
+        opt_cfg = cfg["coordinates"][cid].setdefault("optimizer", {})
+        opt_cfg.pop("regularization_weights", None)
+        opt_cfg["regularization_weight"] = opt.regularization_weight
+        matrix = getattr(o, "matrix_optimizer", None)
+        if matrix is not None:
+            m_cfg = cfg["coordinates"][cid].setdefault("matrix_optimizer", {})
+            m_cfg.pop("regularization_weights", None)
+            m_cfg["regularization_weight"] = matrix.regularization_weight
+    return cfg
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: torch.device):
+    """A torch.profiler trace of the block, written to
+    ``<profile_dir>/trace.json``, where the JAX CLI writes its
+    jax.profiler trace."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 def _save_feature_stats(stats_base, shard, summary, index_map) -> None:
@@ -157,6 +329,9 @@ def write_feature_stats(stats_dir, summary, index_map) -> None:
 
 
 def run(args: argparse.Namespace) -> GameFit:
+    """Train; returns the selected fit (of the sweep and the tuning trials,
+    the best by the first evaluator)."""
+    _refuse_unported(args)
     logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
     emitter = EventEmitter()
@@ -180,9 +355,18 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         durations[name] = time.perf_counter() - t0
         return out
 
+    task = TaskType[args.task]
     shard_configs, coordinates, update_order, raw_config = load_game_config(
         args.coordinate_config
     )
+    if args.updating_sequence:
+        unknown = [c for c in args.updating_sequence if c not in coordinates]
+        if unknown:
+            raise ValueError(
+                f"--updating-sequence names unknown coordinates {unknown}; "
+                f"config has {sorted(coordinates)}"
+            )
+        update_order = list(args.updating_sequence)
     col_names = parse_input_columns(args.input_columns_names)
     if args.delete_output_dir_if_exists:
         delete_dirs_if_exist(args.output_dir)
@@ -191,11 +375,30 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         for c in coordinates.values()
         if not isinstance(c, FixedEffectCoordinateConfiguration)
     })
+    train_dirs = expand_data_dirs(
+        args.train_data_dirs, args.train_date_range, args.train_date_days_ago
+    )
     data, index_maps, _ = timed(
-        "read training data", read_game_data, args.train_data_dirs, shard_configs,
+        "read training data", read_game_data, train_dirs, shard_configs,
         None, id_tags=id_tags, **col_names,
     )
     logger.info("training rows: %d on %s", data.num_rows, device)
+
+    def check_shards(game_data, phase: str) -> None:
+        """--check-data over every feature shard (reference CHECK_DATA wraps
+        both the training and the validation read, Driver.scala:74-75)."""
+        t0 = time.perf_counter()
+        for sid in shard_configs:
+            validate_labeled_data(LabeledData.create(
+                game_data.sparse_features(sid, engine="auto", device=device),
+                torch.from_numpy(game_data.labels).to(device),
+                offsets=torch.from_numpy(game_data.offsets).to(device),
+                weights=torch.from_numpy(game_data.weights).to(device),
+            ), task)
+        durations[f"check data [{phase}]"] = time.perf_counter() - t0
+
+    if args.check_data:
+        check_shards(data, "train")
 
     # a grouped evaluator's tag must be read even when no coordinate uses it
     val_tags = list(id_tags)
@@ -205,11 +408,17 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
             val_tags.append(tag)
     validation_data = None
     if args.validation_data_dirs:
+        validation_dirs = expand_data_dirs(
+            args.validation_data_dirs, args.validation_date_range,
+            args.validation_date_days_ago,
+        )
         validation_data, _, _ = timed(
-            "read validation data", read_game_data, args.validation_data_dirs,
+            "read validation data", read_game_data, validation_dirs,
             shard_configs, index_maps, id_tags=val_tags, **col_names,
         )
         logger.info("validation rows: %d", validation_data.num_rows)
+        if args.check_data:
+            check_shards(validation_data, "validation")
 
     norm_type = NormalizationType[args.normalization_type]
     normalization, intercept_indices = {}, {}
@@ -249,7 +458,7 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         extra = [make_evaluator(s, validation_data) for s in args.evaluator[1:]]
 
     estimator = GameEstimator(
-        task=TaskType[args.task],
+        task=task,
         coordinates=coordinates,
         update_order=update_order,
         num_outer_iterations=(
@@ -264,14 +473,51 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         intercept_indices=intercept_indices,
         device=device,
         emitter=emitter,
+        schedule=args.schedule,
+        staleness=args.staleness,
     )
+    sweep_configs = _sweep_model_configs(coordinate_weight_sweeps(raw_config), coordinates)
+    if len(sweep_configs) > 1 and validation_data is None:
+        raise ValueError(
+            "regularization_weights sweeps need --validation-data-dirs: "
+            "without a validation evaluator there is no way to select "
+            "the best of the swept models"
+        )
     emitter.send_event(TrainingStartEvent(task=args.task))
-    fit = timed("fit", estimator.fit, data, validation_data=validation_data,
-                checkpoint_dir=args.checkpoint_dir)
+    fit_overrides: Dict[str, object] = {}
+    with _profiled(args.profile_dir, device):
+        t0 = time.perf_counter()
+        if len(sweep_configs) > 1:
+            # one fit per swept configuration over coordinates built once,
+            # the best by the validation evaluator (reference
+            # Driver.scala:112 selectBestModel over getAllModelConfigs)
+            all_fits = estimator.fit_multiple(
+                data, validation_data=validation_data, configs=sweep_configs,
+                checkpoint_dir=args.checkpoint_dir,
+            )
+            for cfg_map, f in zip(sweep_configs, all_fits):
+                logger.info(
+                    "config %s -> metric %s",
+                    {c: v.regularization_weight for c, v in cfg_map.items()},
+                    "n/a" if f.validation_metric is None else "%.6f" % f.validation_metric,
+                )
+            best_i = estimator.select_best_fit(all_fits)
+            if best_i is None:
+                raise ValueError(
+                    "no swept fit produced a validation metric; cannot select a best model"
+                )
+            fit, fit_overrides = all_fits[best_i], sweep_configs[best_i]
+            all_overrides = list(sweep_configs)
+        else:
+            fit = estimator.fit(data, validation_data=validation_data,
+                                checkpoint_dir=args.checkpoint_dir)
+            all_fits, all_overrides = [fit], [{}]
+        durations["fit"] = time.perf_counter() - t0
     for cid, value in fit.objective_history:
+        opt_cfg = fit_overrides.get(cid) or coordinates[cid].optimizer
         emitter.send_event(PhotonOptimizationLogEvent(
             coordinate_id=cid,
-            regularization_weight=coordinates[cid].optimizer.regularization_weight,
+            regularization_weight=opt_cfg.regularization_weight,
             objective_value=value,
             iterations=-1,  # per-coordinate iteration counts live in the trackers
             convergence_reason="",
@@ -280,17 +526,55 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
     if fit.validation_metric is not None:
         logger.info("validation metric: %.6f", fit.validation_metric)
 
-    timed(
-        "save model", save_game_model, fit.model, os.path.join(args.output_dir, "best"),
-        index_maps=index_maps, model_name=args.model_name, configurations=raw_config,
-    )
-    logger.info("model saved to %s", os.path.join(args.output_dir, "best"))
+    best, best_overrides = fit, fit_overrides
+    if (args.hyperparameter_tuning != "NONE" and validation_data is not None
+            and args.hyperparameter_tuning_iter > 0):
+        tuning_kwargs = {}
+        if args.regularization_weight_range:
+            tuning_kwargs["log10_range"] = _weight_range(args.regularization_weight_range)
+        trials = timed(
+            "hyperparameter tuning", run_hyperparameter_tuning,
+            estimator, data, validation_data,
+            mode=args.hyperparameter_tuning,
+            num_iterations=args.hyperparameter_tuning_iter,
+            prior_fits=[fit], warm_start=args.use_warm_start, **tuning_kwargs,
+        )
+        for t in trials:
+            logger.info("trial lambda=%s metric=%.6f",
+                        ["%.4g" % (10.0 ** v) for v in t.hyperparameters], t.value)
+        # the winning trial's λ goes into the saved metadata too
+        to_configs = GameEstimatorEvaluationFunction(estimator, None, None).vector_to_configuration
+        better = estimator.evaluator.better_than
+        for c, ovr in [(t.fit, to_configs(t.hyperparameters)) for t in trials]:
+            if c.validation_metric is not None and (
+                best.validation_metric is None
+                or better(c.validation_metric, best.validation_metric)
+            ):
+                best, best_overrides = c, ovr
+
+    if args.model_output_mode != "NONE":
+        t0 = time.perf_counter()
+        save = dict(index_maps=index_maps, model_name=args.model_name,
+                    num_output_files_per_random_effect=(
+                        args.num_output_files_for_random_effect_model))
+        save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                        configurations=_config_with_overrides(raw_config, best_overrides),
+                        **save)
+        if args.model_output_mode == "ALL":
+            # reference Driver.scala:416-433: every swept configuration's
+            # model under <output>/all/<i>, each with its own configuration
+            for i, (f, ovr) in enumerate(zip(all_fits, all_overrides)):
+                save_game_model(f.model, os.path.join(args.output_dir, "all", str(i)),
+                                configurations=_config_with_overrides(raw_config, ovr),
+                                **save)
+        durations["save model"] = time.perf_counter() - t0
+        logger.info("model saved to %s", os.path.join(args.output_dir, "best"))
     emitter.send_event(TrainingFinishEvent(
         task=args.task, wall_seconds=time.perf_counter() - t_start
     ))
     for name, seconds in durations.items():
         logger.info("timing %-20s %.3fs", name, seconds)
-    return fit
+    return best
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,14 +17,23 @@ reference. With ``checkpoint_dir`` the training state is written after
 every outer iteration (``checkpoint.py``) and a checkpoint found there is
 resumed.
 
-Not ported (ROADMAP.md, Queue A: The rest of training, streaming):
-``fit_streaming``, ``fit_multiple`` and tuning, the async schedule, the
-device mesh and ``resolve_coordinate``.
+``fit_multiple`` trains one model per optimizer configuration over
+coordinates built once (a λ sweep; ``select_best_fit`` picks by the
+evaluator), ``resolve_coordinate`` re-solves one coordinate against new
+data (the nearline loop's step), and ``schedule="async"`` pipelines the
+coordinate solves and overlaps random-effect buckets on CUDA streams
+(``algorithm/schedule.py``). Hyperparameter tuning is
+``estimators/tuning.py``.
+
+Not ported (ROADMAP.md, Queue A): ``fit_streaming`` (item 7), the device
+mesh and the host score plane (item 8), progress tracking and spans (item
+4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -36,6 +45,7 @@ from photon_ml_tpu_torch.algorithm.coordinate import (
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES
 from photon_ml_tpu_torch.algorithm.factored_random_effect import (
     FactoredRandomEffectCoordinate,
     FactoredRandomEffectModel,
@@ -47,7 +57,9 @@ from photon_ml_tpu_torch.data.random_effect import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from photon_ml_tpu_torch.estimators.random_effect import align_warm_start
 from photon_ml_tpu_torch.evaluation.evaluators import default_evaluator
+from photon_ml_tpu_torch.event import SolverStatsEvent
 from photon_ml_tpu_torch.losses.pointwise import loss_for_task
 from photon_ml_tpu_torch.models.game import CoordinateMeta, GameModel
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
@@ -58,6 +70,24 @@ from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger("photon_ml_tpu_torch")
+
+
+def _describe_config(cfg: GlmOptimizationConfiguration) -> str:
+    return (
+        f"{cfg.optimizer_config.optimizer.name}"
+        f"(λ={cfg.regularization_weight}, {cfg.regularization.reg_type.name})"
+    )
+
+
+def _config_digest(overrides: Dict[str, GlmOptimizationConfiguration]) -> str:
+    """Stable 8-hex fingerprint of a per-coordinate override map, part of
+    the per-configuration checkpoint path, so that an edited sweep list
+    cannot resume from a checkpoint trained under other settings. Computed
+    from the port's own configuration objects (their reprs): stable from
+    run to run and changed by any override, but it need not equal the JAX
+    package's digest of the same map."""
+    key = repr(sorted((cid, cfg) for cid, cfg in overrides.items()))
+    return hashlib.sha1(key.encode()).hexdigest()[:8]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +172,8 @@ class GameEstimator:
         intercept_indices: Optional[Dict[str, Optional[int]]] = None,
         device: DeviceLike = DEFAULT_DEVICE,
         emitter=None,
+        schedule: str = "sync",
+        staleness: int = 1,
     ) -> None:
         """``evaluator`` selects the best model (default by task);
         ``extra_evaluators`` are computed and logged per coordinate update
@@ -152,7 +184,16 @@ class GameEstimator:
         ``emitter`` (an ``event.EventEmitter``) receives the random-effect
         solver stats of every update. Variances (``compute_variance``) are
         attached to fixed- and random-effect models, not to factored ones
-        (they do not carry back through the projection)."""
+        (they do not carry back through the projection).
+
+        ``schedule``: "sync" (default, bitwise-repeatable trajectories) or
+        "async" (bounded-staleness pipelined solves, at most ``staleness``
+        unreconciled updates behind, and random-effect bucket overlap; each
+        worker on its own CUDA stream on the card)."""
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        if int(staleness) < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
         if not coordinates:
             raise ValueError("need at least one coordinate configuration")
         self.task = task
@@ -166,6 +207,10 @@ class GameEstimator:
         self.intercept_indices = dict(intercept_indices or {})
         self.device = resolve_device(device)
         self.emitter = emitter
+        self.schedule = schedule
+        self.staleness = int(staleness)
+        # per-bucket SolverStats of the most recent resolve_coordinate
+        self.last_resolve_stats: list = []
 
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         dev = self.device
@@ -265,6 +310,54 @@ class GameEstimator:
                 "different data or configuration:\n  " + "\n  ".join(problems)
             )
 
+    def resolve_coordinate(
+        self,
+        cid: str,
+        data: GameData,
+        models: Dict[str, object],
+        initial_model: object = "auto",
+    ):
+        """Warm-started re-solve of ONE coordinate against ``data``: the
+        single-coordinate slice of a CD outer iteration, for the nearline
+        incremental trainer (reference: the JAX module's
+        ``resolve_coordinate``).
+
+        Builds only this coordinate's dataset over ``data``, scores every
+        OTHER coordinate's model as the residual, and runs one
+        ``update_model_device``. A random-effect warm start
+        (``initial_model``, by default ``models[cid]``) is re-laid out onto
+        the fresh dataset's entities by id (``align_warm_start``): entities
+        the old model never saw start at 0. Returns the re-solved model in
+        the new dataset's layout."""
+        cfg = self.coordinate_configs.get(cid)
+        if cfg is None:
+            raise ValueError(
+                f"unknown coordinate {cid!r}; have {sorted(self.coordinate_configs)}"
+            )
+        if isinstance(cfg, FactoredRandomEffectCoordinateConfiguration):
+            raise ValueError(
+                f"coordinate {cid!r} is factored — single-coordinate re-solve "
+                "supports fixed-effect and plain random-effect coordinates"
+            )
+        coord = self._build_coordinate(cid, cfg, data)
+        meta = self._meta()
+        others = {c: m for c, m in models.items() if c != cid and m is not None}
+        if others:
+            residual = GameModel(
+                models=others, meta={c: meta[c] for c in others}, task=self.task
+            ).score(data)
+        else:
+            residual = torch.zeros(data.num_rows, dtype=torch.float32, device=self.device)
+        model0 = models.get(cid) if initial_model == "auto" else initial_model
+        if isinstance(coord, RandomEffectCoordinate) and model0 is not None:
+            model0 = align_warm_start(model0, coord.dataset)
+        updated = coord.update_model_device(model0, residual)
+        self.last_resolve_stats = list(getattr(coord, "last_solver_stats", []))
+        if self.emitter is not None:
+            for s in self.last_resolve_stats:
+                self.emitter.send_event(SolverStatsEvent.from_stats(cid, s))
+        return updated
+
     def fit(
         self,
         data: GameData,
@@ -282,6 +375,98 @@ class GameEstimator:
         if coordinates is None:
             coordinates = self.build_coordinates(data)
         return self._run_fit(coordinates, data, validation_data, initial_models, checkpoint_dir)
+
+    def fit_multiple(
+        self,
+        data: GameData,
+        validation_data: Optional[GameData] = None,
+        configs: Sequence[Dict[str, GlmOptimizationConfiguration]] = (),
+        warm_start: bool = True,
+        checkpoint_dir: Optional[str] = None,
+        coordinates: Optional[Dict[str, object]] = None,
+    ) -> List[GameFit]:
+        """One fit per model configuration (reference
+        GameEstimator.scala:175-217); best-model selection is the caller's
+        (``select_best_fit``).
+
+        Each entry of ``configs`` maps coordinate id → optimizer
+        configuration; coordinates absent from an entry keep the
+        estimator's. The datasets are built once (or taken from
+        ``coordinates``, as ``fit`` takes them) and shared by every fit:
+        only the solver configuration changes per fit. ``warm_start`` seeds
+        each fit with the previous fit's models. ``checkpoint_dir`` gets one
+        subdirectory per configuration, ``config-{i:03d}-{digest}``
+        (``_config_digest``), so a resume after the sweep list was edited
+        retrains."""
+        base = coordinates if coordinates is not None else self.build_coordinates(data)
+        if not configs:
+            configs = [{}]
+        fits: List[GameFit] = []
+        prev_models: Optional[Dict[str, object]] = None
+        for i, overrides in enumerate(configs):
+            unknown = set(overrides) - set(base)
+            if unknown:
+                raise ValueError(f"config {i} names unknown coordinates: {sorted(unknown)}")
+            coords = {
+                cid: (self._replace_optimizer(coord, overrides[cid])
+                      if cid in overrides else coord)
+                for cid, coord in base.items()
+            }
+            logger.info(
+                "fit %d/%d with config overrides: %s", i + 1, len(configs),
+                {c: _describe_config(v) for c, v in overrides.items()} or "(defaults)",
+            )
+            fit = self._run_fit(
+                coords, data, validation_data,
+                prev_models if warm_start else None,
+                None if checkpoint_dir is None
+                else f"{checkpoint_dir}/config-{i:03d}-{_config_digest(overrides)}",
+            )
+            fits.append(fit)
+            if warm_start:
+                prev_models = fit.model.models
+        return fits
+
+    def select_best_fit(self, fits: Sequence[GameFit]) -> Optional[int]:
+        """Index of the fit the validation evaluator ranks best (reference
+        Driver.scala:356 selectBestModel); None when no fit carries a
+        validation metric."""
+        best: Optional[int] = None
+        for i, fit in enumerate(fits):
+            if fit.validation_metric is None:
+                continue
+            if best is None or self.evaluator.better_than(
+                fit.validation_metric, fits[best].validation_metric
+            ):
+                best = i
+        return best
+
+    @staticmethod
+    def _replace_optimizer(coord, opt: GlmOptimizationConfiguration):
+        """A coordinate with the same device-resident dataset and a new
+        optimizer configuration. A factored coordinate's projection-matrix
+        solve follows only when it shared the latent solve's configuration;
+        a separately configured ``matrix_optimizer`` is kept."""
+        if isinstance(coord, FactoredRandomEffectCoordinate):
+            shared = coord.matrix_configuration == coord.re_configuration
+            return dataclasses.replace(
+                coord, re_configuration=opt,
+                matrix_configuration=opt if shared else coord.matrix_configuration,
+            )
+        return dataclasses.replace(coord, configuration=opt)
+
+    @staticmethod
+    def with_configuration(coord, cfg: CoordinateConfiguration):
+        """A built coordinate under the optimizer(s) of a coordinate
+        configuration of the same kind (a tuning trial's): its
+        ``optimizer``, and a factored coordinate's ``matrix_optimizer`` (or
+        ``optimizer``) for the projection matrix."""
+        if isinstance(coord, FactoredRandomEffectCoordinate):
+            return dataclasses.replace(
+                coord, re_configuration=cfg.optimizer,
+                matrix_configuration=cfg.matrix_optimizer or cfg.optimizer,
+            )
+        return dataclasses.replace(coord, configuration=cfg.optimizer)
 
     def _run_fit(
         self, coordinates, data, validation_data, initial_models, checkpoint_dir=None
@@ -332,6 +517,13 @@ class GameEstimator:
                     )
                 return primary
 
+        # the async schedule's RE leg: overlap bucket solves inside each
+        # random-effect coordinate; set on every fit, so that built
+        # coordinates shared between fits follow this fit's schedule
+        for coord in coordinates.values():
+            if hasattr(coord, "overlap_buckets"):
+                coord.overlap_buckets = 2 if self.schedule == "async" else 0
+
         cd = CoordinateDescent(
             coordinates,
             num_rows=data.num_rows,
@@ -342,6 +534,8 @@ class GameEstimator:
             validate=validate,
             validation_better_than=self.evaluator.better_than,
             emitter=self.emitter,
+            schedule=self.schedule,
+            staleness=self.staleness,
         )
         start_iteration, initial_best, on_iteration_end = 0, None, None
         prior_objectives: List[Tuple[str, float]] = []

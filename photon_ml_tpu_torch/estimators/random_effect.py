@@ -16,19 +16,26 @@ dispatch's), pulls the per-lane converged mask after each chunk, and
 compacts the unconverged entities into a dense prefix of the next smaller
 power-of-two lane count.
 
-Not ported: ``overlap_buckets`` (the async schedule's bucket overlap) and
-entity axes sharded over several devices (ROADMAP.md, Queue A: The rest of
-training, the async schedule).
+``overlap_buckets`` (the async schedule's RE leg) solves buckets on worker
+threads, each on a CUDA stream of its own (``algorithm/schedule.py``):
+while one bucket's solve waits on its host pulls, another bucket's
+launches keep the card busy. ``align_warm_start`` re-lays a model out onto
+another dataset's entities by id (``GameEstimator.resolve_coordinate``).
+
+Not ported: entity axes sharded over several devices (ROADMAP.md, Queue A
+item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.algorithm.schedule import ScheduleExecutor
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket
 from photon_ml_tpu_torch.losses.objective import GlmObjective, make_glm_objective
 from photon_ml_tpu_torch.losses.pointwise import loss_for_task
@@ -45,6 +52,7 @@ from photon_ml_tpu_torch.opt.solve import (
 )
 from photon_ml_tpu_torch.opt.state import SolveResult
 from photon_ml_tpu_torch.opt.tracking import SolverStats
+from photon_ml_tpu_torch.projector import ProjectorType
 from photon_ml_tpu_torch.types import ConvergenceReason, TaskType
 
 _NOT_CONVERGED = ConvergenceReason.NOT_CONVERGED.value
@@ -171,6 +179,7 @@ def train_random_effects(
     initial_model: Optional[RandomEffectModel] = None,
     compute_variances: bool = False,
     stats_out: Optional[List[SolverStats]] = None,
+    overlap_buckets: int = 0,
 ) -> Tuple[RandomEffectModel, List[SolveResult]]:
     """Solve one GLM per entity, bucket by bucket. Returns the model and the
     per-bucket SolveResults (one lane per entity); ``stats_out`` gets one
@@ -180,25 +189,48 @@ def train_random_effects(
     ``adaptive.min_lanes`` entities run through the convergence-adaptive
     driver; its results equal the one-shot dispatch's lane for lane.
     ``initial_model`` warm-starts from a model of the same dataset.
+
+    ``overlap_buckets >= 2`` solves that many buckets at once on worker
+    threads, each on its own CUDA stream; the warm starts are laid out on
+    the calling thread. The bucket solves are independent and no kernel on
+    the path adds with atomics, so the results equal the sequential path's
+    bitwise.
     """
     solver = _BucketSolver(
         make_glm_objective(loss_for_task(task)), configuration, compute_variances,
         solver_kind(configuration),  # raises for TRON with L1
     )
     adaptive = configuration.adaptive
-    coeffs, variances, results = [], [], []
-    for b, bucket in enumerate(dataset.buckets):
+
+    def warm_start(b: int, bucket: ReBucket) -> torch.Tensor:
         if initial_model is not None:
-            w0 = initial_model.coefficients[b].to(bucket.X.device, torch.float32)
-        else:
-            w0 = torch.zeros(
-                (bucket.num_entities, bucket.local_dim), dtype=torch.float32,
-                device=bucket.X.device,
-            )
+            return initial_model.coefficients[b].to(bucket.X.device, torch.float32)
+        return torch.zeros(
+            (bucket.num_entities, bucket.local_dim), dtype=torch.float32,
+            device=bucket.X.device,
+        )
+
+    def solve_bucket(b: int, bucket: ReBucket, w0: torch.Tensor):
         if adaptive.enabled and bucket.num_entities > adaptive.min_lanes:
-            res, w, var, stats = solver.adaptive(bucket, w0, b)
-        else:
-            res, w, var, stats = solver.oneshot(bucket, w0, b)
+            return solver.adaptive(bucket, w0, b)
+        return solver.oneshot(bucket, w0, b)
+
+    buckets = dataset.buckets
+    if int(overlap_buckets) >= 2 and len(buckets) > 1:
+        with ScheduleExecutor(
+            max_in_flight=min(int(overlap_buckets), len(buckets)), name="re-buckets",
+            device=buckets[0].X.device,
+        ) as executor:
+            for b, bucket in enumerate(buckets):
+                w0 = warm_start(b, bucket)
+                executor.submit(b, functools.partial(solve_bucket, b, bucket, w0), inputs=w0)
+            outs = executor.drain()
+    else:
+        outs = [solve_bucket(b, bucket, warm_start(b, bucket))
+                for b, bucket in enumerate(buckets)]
+
+    coeffs, variances, results = [], [], []
+    for res, w, var, stats in outs:
         if stats_out is not None:
             stats_out.append(stats)
         coeffs.append(w)
@@ -218,6 +250,68 @@ def train_random_effects(
         projection_seed=dataset.config.seed,
     )
     return model, results
+
+
+def align_warm_start(
+    model: RandomEffectModel, dataset: RandomEffectDataset
+) -> RandomEffectModel:
+    """Re-lay a trained RE model out onto a DIFFERENT dataset's entity and
+    bucket layout, so that it can warm-start ``train_random_effects`` there
+    (reference :482 of the JAX module).
+
+    ``train_random_effects`` takes ``initial_model.coefficients[b]`` by
+    position, which is right only for a model of the same dataset. The old
+    coefficients are joined by entity id and global feature and scattered
+    through the new dataset's projection indices; an entity or a feature the
+    old model never saw starts at 0. On the device: one ``searchsorted`` a
+    bucket into the old model's sorted (entity, feature) keys
+    (``RandomEffectModel.score_table``)."""
+    if dataset.config.projector is ProjectorType.RANDOM:
+        raise ValueError(
+            "align_warm_start cannot re-scatter into a RANDOM-projected "
+            "dataset: projected local spaces are seed/dim-dependent and "
+            "global-space coefficients do not map back exactly"
+        )
+    dev = dataset.buckets[0].X.device
+    if model.projector_type is ProjectorType.RANDOM or model.score_table()[0].numel() == 0:
+        # back-projected dense coefficients, through the host
+        dense = dict(model.items())
+        coeffs = []
+        for b, bucket in enumerate(dataset.buckets):
+            idx_b = bucket.proj_indices.cpu().numpy()
+            ok_b = bucket.proj_valid.cpu().numpy()
+            w = np.zeros(idx_b.shape, dtype=np.float32)
+            for e, eid in enumerate(dataset.entity_ids[b]):
+                old = dense.get(eid)
+                if old:
+                    w[e] = [old.get(int(i), 0.0) if ok else 0.0
+                            for i, ok in zip(idx_b[e], ok_b[e])]
+            coeffs.append(torch.from_numpy(w).to(dev))
+    else:
+        keys, table = (t.to(dev) for t in model.score_table())
+        stride = model.global_dim + 1
+        coeffs = []
+        for b, bucket in enumerate(dataset.buckets):
+            pos = torch.from_numpy(model.entity_positions(dataset.entity_ids[b])).to(dev)
+            pidx = bucket.proj_indices.long()
+            want = pos.unsqueeze(1) * stride + pidx
+            at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+            hit = ((keys[at] == want) & (pos.unsqueeze(1) >= 0) & bucket.proj_valid
+                   & (pidx < model.global_dim))
+            coeffs.append(torch.where(hit, table[at], torch.zeros((), device=dev)))
+    return RandomEffectModel(
+        random_effect_type=dataset.config.random_effect_type,
+        task=model.task,
+        coefficients=coeffs,
+        variances=[None] * len(coeffs),
+        proj_indices=[b.proj_indices for b in dataset.buckets],
+        proj_valid=[b.proj_valid for b in dataset.buckets],
+        entity_ids=dataset.entity_ids,
+        entity_to_loc=dataset.entity_to_loc,
+        global_dim=dataset.global_dim,
+        projector_type=dataset.config.projector,
+        projection_seed=dataset.config.seed,
+    )
 
 
 def score_random_effects_device(

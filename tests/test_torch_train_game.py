@@ -13,7 +13,13 @@
   against the JAX fit under the same normalization context: coefficients
   atol 2e-3, objectives rtol 1e-4; and the ratings CLI under
   ``--normalization-type STANDARDIZATION`` with a Benes fixed effect against
-  the JAX CLI: RMSE under 0.45 and equal to 1e-4.
+  the JAX CLI: RMSE under 0.45 and equal to 1e-4;
+- the flags of slice 9 against the JAX CLI on the ratings fixture: a
+  regularization_weights sweep (the same best configuration and saved
+  layout under --model-output-mode ALL), RANDOM tuning (the same best and
+  saved λ), --schedule async with --updating-sequence and --check-data
+  (RMSE to 1e-4), and the date-range flags over a daily layout (bitwise
+  the plain-dirs fit; score_game --date-range reproduces it).
 """
 
 import json
@@ -192,10 +198,10 @@ def test_train_game_cli_on_ratings_fixture(tmp_path):
 
 
 def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
-    """What stays refused: TRON with L1 (as in the JAX package) and
-    regularization-weight sweeps (not ported yet). TRON, L1, the
-    feature-statistics outputs and factored random effects now train: the
-    parity tests below and in test_torch_factored_re.py."""
+    """What stays refused: TRON with L1 (as in the JAX package) and the
+    flags whose modules are not ported, each naming its ROADMAP item.
+    Regularization-weight sweeps, once refused here, now train:
+    test_sweep_cli_picks_the_jax_best below."""
     path = tmp_path / "bad.json"
     cfg = json.loads(open(_ratings_config(tmp_path)).read())
     cfg["coordinates"]["fixed"]["optimizer"].update(
@@ -203,11 +209,18 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     path.write_text(json.dumps(cfg))
     with pytest.raises(ValueError, match="TRON does not support L1"):
         train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
-    cfg = json.loads(open(_ratings_config(tmp_path)).read())
-    cfg["coordinates"]["per_user"]["optimizer"] = {"regularization_weights": [1.0, 10.0]}
-    path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="fit_multiple"):
-        train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
+    config_path = _ratings_config(tmp_path)
+    for flags, item in ((("--streaming",), "item 7"), (("--telemetry-out", "t.jsonl"), "item 4"),
+                        (("--parallel-data", "2"), "item 8"), (("--hosts", "2"), "item 8"),
+                        (("--offheap-indexmap-dir", "x"), "item 6"),
+                        (("--auto-tune",), "item 4")):
+        with pytest.raises(NotImplementedError, match=f"{flags[0]} is not ported.*{item}"):
+            train_game.run(train_game.parse_args(_train_argv(tmp_path, config_path, *flags)))
+    # a sweep needs validation data to pick its best, as in the JAX CLI
+    argv = _train_argv(tmp_path, _sweep_config(tmp_path))
+    argv.remove(os.path.join(RATINGS, "test"))
+    with pytest.raises(ValueError, match="sweeps need --validation-data-dirs"):
+        train_game.run(train_game.parse_args(argv))
 
 
 def _jax_cli(tmp_path, argv):
@@ -227,7 +240,9 @@ def test_golden_fixed_effect_tron_cli_matches_jax(tmp_path):
     path = tmp_path / "fe_only.json"
     path.write_text(json.dumps(cfg))
     argv = _train_argv(tmp_path, str(path))
-    fit = train_game.run(train_game.parse_args(argv))
+    fit = train_game.run(train_game.parse_args(
+        argv + ["--profile-dir", str(tmp_path / "profile")]))
+    assert os.path.getsize(tmp_path / "profile" / "trace.json") > 0
     jfit = _jax_cli(tmp_path, argv)
     assert fit.validation_metric < 0.95
     assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
@@ -341,3 +356,133 @@ def test_standardized_benes_cli_matches_jax(tmp_path):
         "--output-dir", str(tmp_path / "scores"), "--evaluator", "RMSE", "--device", "cpu",
     ]))
     assert abs(rmse - fit.validation_metric) <= 1e-6
+
+
+def _sweep_config(tmp_path):
+    """The ratings GLMix config with per_user swept over λ ∈ {0.1, 1, 10}."""
+    cfg = json.loads(open(_ratings_config(tmp_path)).read())
+    opt = cfg["coordinates"]["per_user"]["optimizer"]
+    del opt["regularization_weight"]
+    opt["regularization_weights"] = [0.1, 1.0, 10.0]
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def _layout(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _saved_weights(model_dir):
+    with open(os.path.join(model_dir, "model-metadata.json")) as f:
+        coords = json.load(f)["configurations"]["coordinates"]
+    return {cid: c["optimizer"]["regularization_weight"] for cid, c in coords.items()}
+
+
+def test_sweep_cli_picks_the_jax_best(tmp_path):
+    """A regularization_weights sweep (refused before fit_multiple was
+    ported) trains one model per λ and picks the JAX CLI's best
+    configuration; --model-output-mode ALL saves every swept model under
+    all/<i> with its own λ, the same files as the JAX CLI's, RE models in
+    --num-output-files-for-random-effect-model 2 part files."""
+    argv = _train_argv(tmp_path, _sweep_config(tmp_path), "--model-output-mode", "ALL",
+                       "--num-output-files-for-random-effect-model", "2")
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    out, jout = tmp_path / "out", tmp_path / "jax_out"
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    assert fit.validation_metric < 0.45
+    assert _saved_weights(out / "best") == _saved_weights(jout / "best")
+    assert _layout(out) == _layout(jout)
+    assert "random-effect/per_user/coefficients/part-00001.avro" in _layout(out / "best")
+    assert [_saved_weights(out / "all" / str(i))["per_user"] for i in range(3)] == [
+        0.1, 1.0, 10.0]
+
+
+def test_tuning_cli_matches_jax(tmp_path):
+    """--hyperparameter-tuning RANDOM (2 trials, warm-started): the best of
+    the base fit and the trials, and the λ saved with it, equal the JAX
+    CLI's; BAYESIAN runs its GP (3 coordinates: the GP takes over at the
+    fourth observation) under --regularization-weight-range."""
+    argv = _train_argv(tmp_path, _ratings_config(tmp_path), "--hyperparameter-tuning",
+                       "RANDOM", "--hyperparameter-tuning-iter", "2",
+                       "--regularization-weight-range", "1e-2,1e2")
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    assert _saved_weights(tmp_path / "out" / "best") == _saved_weights(
+        tmp_path / "jax_out" / "best")
+    bayes = _train_argv(tmp_path, _ratings_config(tmp_path), "--hyperparameter-tuning",
+                        "BAYESIAN", "--hyperparameter-tuning-iter", "4",
+                        "--regularization-weight-range", "1e-3,1e3", "--no-warm-start",
+                        "--model-output-mode", "NONE", "--output-dir", str(tmp_path / "bayes"))
+    best = train_game.run(train_game.parse_args(bayes))
+    assert best.validation_metric < 0.45
+    assert not os.path.exists(tmp_path / "bayes")  # NONE saves nothing
+
+
+def test_async_schedule_and_order_flags_cli_match_jax(tmp_path):
+    """--schedule async --staleness 1 with --updating-sequence reversed and
+    --check-data: RMSE equal to the JAX CLI's to 1e-4."""
+    argv = _train_argv(tmp_path, _ratings_config(tmp_path), "--schedule", "async",
+                       "--staleness", "1", "--updating-sequence", "per_movie", "per_user",
+                       "fixed", "--check-data")
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    assert [c for c, _ in fit.objective_history][:3] == ["per_movie", "per_user", "fixed"]
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    assert fit.validation_metric < 0.45
+    with pytest.raises(ValueError, match="unknown coordinates"):
+        train_game.run(train_game.parse_args(_train_argv(
+            tmp_path, _ratings_config(tmp_path), "--updating-sequence", "nope")))
+
+
+def _daily_copy(root):
+    """The ratings fixture laid out as daily yyyy/MM/dd dirs: training on
+    2026-03-01, validation on 2026-03-02, and a decoy day outside each
+    range holding the other set."""
+    import shutil
+
+    days = {"train": (("2026", "03", "01"), "train"), "train_decoy": (("2026", "02", "20"), "test"),
+            "val": (("2026", "03", "02"), "test"), "val_decoy": (("2026", "01", "01"), "train")}
+    for name, (ymd, src) in days.items():
+        base = root / name.split("_")[0]
+        dest = base.joinpath(*ymd)
+        dest.mkdir(parents=True)
+        shutil.copy(os.path.join(RATINGS, src, "part-00000.avro"), dest)
+    return str(root / "train"), str(root / "val")
+
+
+def test_date_range_flags_cli_match_jax(tmp_path):
+    """--train-date-range and --validation-date-range over a daily layout
+    read only their days: the fit equals the plain-dirs fit bitwise and the
+    JAX CLI's to 1e-4; score_game --date-range reproduces its RMSE."""
+    train_dir, val_dir = _daily_copy(tmp_path / "daily")
+    config_path = _ratings_config(tmp_path)
+    plain = train_game.run(train_game.parse_args(
+        _train_argv(tmp_path, config_path, "--output-dir", str(tmp_path / "plain"))))
+    argv = [
+        "--train-data-dirs", train_dir, "--validation-data-dirs", val_dir,
+        "--train-date-range", "20260225-20260301", "--validation-date-range",
+        "20260302-20260310", "--coordinate-config", config_path,
+        "--task", "LINEAR_REGRESSION", "--output-dir", str(tmp_path / "out"),
+        "--evaluator", "RMSE", "--num-outer-iterations", "2", "--device", "cpu",
+    ]
+    fit = train_game.run(train_game.parse_args(argv))
+    jfit = _jax_cli(tmp_path, argv)
+    assert fit.objective_history == plain.objective_history
+    assert fit.validation_metric == plain.validation_metric
+    assert abs(fit.validation_metric - jfit.validation_metric) <= 1e-4
+    rmse = score_game.run(score_game.parse_args([
+        "--data-dirs", val_dir, "--date-range", "20260302-20260302",
+        "--model-dir", str(tmp_path / "out" / "best"),
+        "--output-dir", str(tmp_path / "scores"), "--evaluator", "RMSE", "--device", "cpu",
+    ]))
+    assert abs(rmse - fit.validation_metric) <= 1e-6
+    with pytest.raises(FileNotFoundError, match="no input dirs"):
+        score_game.run(score_game.parse_args([
+            "--data-dirs", val_dir, "--date-range", "20250101-20250102",
+            "--model-dir", str(tmp_path / "out" / "best"),
+            "--output-dir", str(tmp_path / "scores2"), "--device", "cpu",
+        ]))
