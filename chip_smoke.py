@@ -53,7 +53,9 @@ exit code is not 0):
                       kernel/plain/library/bound times.
 5. score_game_cli   — photon_ml_tpu_torch.cli.score_game on an Avro fixture
                       written by the port's own writers (65,536 rows x 16 FE
-                      nonzeros), on cuda and on cpu: same AUC to 1e-6.
+                      nonzeros), on cuda and on cpu: same AUC to 1e-6; and
+                      on cuda with --telemetry-out and --trace-out: valid
+                      ledger and trace, scores bitwise the plain run's.
 6. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
                       full width (FE 2^20 rows x 2^24 dims x 16 nonzeros +
                       an intercept; per-user RE 65,536 x 16, per-item
@@ -170,7 +172,27 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-14. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+14. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 12
+                      (2 outer iterations): (a) tracing off; (b) traced
+                      (run ledger and Chrome trace), with a
+                      ConvergenceTracker and the memory gauges; in turns a,
+                      b, b, a: bitwise (a), the files valid, the count of
+                      spans by name, of stream syncs and of launches, the
+                      analyze_run report, the wall ratio (b)/(a), the peak
+                      memory, mem.device0_peak_bytes against
+                      torch.cuda.max_memory_allocated(); (c) async at
+                      staleness 1 traced and untraced: bitwise, every
+                      cd/overlap and re/solve_bucket span of a worker thread
+                      chained under the dispatcher's; (d) the objective of
+                      the second update poisoned to inf: DivergenceError,
+                      one AnomalyEvent non_finite_objective, the progress
+                      ledger's last record unhealthy; (e) the fault site
+                      train.checkpoint.publish armed once:1 on the fit
+                      resumed from a 1-iteration checkpoint: InjectedFault,
+                      that generation intact, then a resume bitwise the
+                      uninterrupted fit.
+15. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -200,14 +222,23 @@ exit code is not 0):
                       --no-warm-start, two RE part files and --check-data,
                       and the date-range flags over a daily copy of the
                       fixture (bitwise the plain run; score_game
-                      --date-range reproduces it).
-15. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+                      --date-range reproduces it). Then, on cuda and cpu,
+                      --telemetry-out, --trace-out, --progress-out and
+                      --introspect-port 0: bitwise the plain run, valid
+                      ledgers, analyze_run and analyze_run --progress exit
+                      0 on them; and --auto-tune --auto-tune-trials 1 on a
+                      config whose per_user has an adaptive block:
+                      auto-tune.json with the JAX CLI's keys, RMSE within
+                      0.005 of the golden 0.388473.
+16. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
                       selection, metrics and model-file coefficients to
-                      1e-4; and configuration (a) once more through
-                      ``python -m`` in a process of its own.
+                      1e-4; configuration (a) on cuda with --telemetry-out
+                      and --trace-out (valid files, the phases as spans,
+                      every output bitwise the plain run's); and (a) once
+                      more through ``python -m`` in a process of its own.
 
 Every kernel, plain version and library call that a phase times gets two
 figures (cuda_ms): "ms", one call between two CUDA events, and
@@ -251,7 +282,7 @@ ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "train_full_width", "train_glm_full_width", "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
               "train_async_full_width", "train_sweep_tuning_full_width",
-              "train_game_cli", "train_glm_cli")
+              "train_telemetry_full_width", "train_game_cli", "train_glm_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
 SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
 BF16_KERNELS = ("csr_matvec_bf16", "csc_rmatvec_bf16")
@@ -1255,20 +1286,34 @@ def phase_score_game_cli(seed: int) -> dict:
         write_cli_fixture(root, seed, n=n)
         fixture_s = time.perf_counter() - t0
         result = {"rows": n, "fixture_s": fixture_s}
-        for device in ("cuda", "cpu"):
-            out = os.path.join(root, f"scores_{device}")
+        scores = {}
+        for run, device, extra in (
+                ("cuda", "cuda", ()), ("cpu", "cpu", ()),
+                # the telemetry flags: scores bitwise the plain cuda run's
+                ("cuda_telemetry", "cuda", (
+                    "--telemetry-out", os.path.join(root, "score.jsonl"),
+                    "--trace-out", os.path.join(root, "score_trace.json")))):
+            out = os.path.join(root, f"scores_{run}")
             argv = [
                 "--data-dirs", os.path.join(root, "data"),
                 "--model-dir", os.path.join(root, "model"),
-                "--output-dir", out, "--evaluator", "AUC", "--device", device,
+                "--output-dir", out, "--evaluator", "AUC", "--device", device, *extra,
             ]
             launches.reset()
             t0 = time.perf_counter()
             auc = score_game.run(score_game.parse_args(argv))
-            result[f"{device}_s"] = time.perf_counter() - t0
-            result[f"{device}_launches"] = launches.counts()["csr_matvec_f32"]
-            result[f"{device}_auc"] = auc
-            result[f"{device}_records"] = sum(1 for _ in load_scores(out))
+            result[f"{run}_s"] = time.perf_counter() - t0
+            result[f"{run}_launches"] = launches.counts()["csr_matvec_f32"]
+            result[f"{run}_auc"] = auc
+            scores[run] = list(load_scores(out))
+            result[f"{run}_records"] = len(scores[run])
+        from photon_ml_tpu_torch.telemetry import validate_chrome_trace, validate_ledger
+
+        ledger = validate_ledger(os.path.join(root, "score.jsonl"))
+        validate_chrome_trace(os.path.join(root, "score_trace.json"))
+        result["telemetry_ledger_records"] = len(ledger)
+        result["telemetry_bitwise_plain"] = (scores["cuda_telemetry"] == scores["cuda"]
+                                             and result["cuda_telemetry_auc"] == result["cuda_auc"])
     if result["cuda_launches"] < 1:
         raise AssertionError(f"score_game on cuda did not launch csr_matvec_f32: {result}")
     for device in ("cuda", "cpu"):
@@ -1276,6 +1321,8 @@ def phase_score_game_cli(seed: int) -> dict:
             raise AssertionError(f"{device} scores file has {result[f'{device}_records']} records")
     if not np.isfinite(result["cuda_auc"]) or abs(result["cuda_auc"] - result["cpu_auc"]) > 1e-6:
         raise AssertionError(f"AUC on cuda and cpu differ: {result}")
+    if not result["telemetry_bitwise_plain"]:
+        raise AssertionError(f"score_game with telemetry differs from the plain run: {result}")
     emit("score_game_cli", **result)
     return result
 
@@ -2169,6 +2216,7 @@ def phase_train_game_cli(seed: int) -> dict:
             ]))
             result[f"score_game_launches_{run}"] = launches.counts()
         rest = _train_game_cli_rest(root)
+        rest["failures"] += _train_game_cli_telemetry(root, result)
     result.update(rest)
     if rest["failures"]:
         emit("train_game_cli", **result)
@@ -2363,6 +2411,82 @@ def _train_game_cli_rest(root: str) -> dict:
         fails.append("score_game --date-range does not reproduce the dated RMSE")
     result["failures"] = fails
     return result
+
+
+def _train_game_cli_telemetry(root: str, result: dict) -> list:
+    """The telemetry, progress, introspection and auto-tune flags of
+    train_game on the ratings GLMix config, on cuda and cpu: the fit
+    bitwise the plain run's (``result``), the ledgers valid, analyze_run
+    (and its --progress report) exiting 0 on them; --auto-tune on a config
+    whose per_user coordinate has an adaptive block writes auto-tune.json
+    with the JAX CLI's keys. Returns the failed gates."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.telemetry import validate_chrome_trace, validate_ledger
+
+    base_cfg = ratings_config(root)
+    with open(base_cfg) as f:
+        cfg = json.load(f)
+    cfg["coordinates"]["per_user"]["optimizer"]["adaptive"] = {
+        "enabled": True, "chunk_iters": 8, "min_lanes": 8}
+    adaptive_cfg = os.path.join(root, "game_adaptive.json")
+    with open(adaptive_cfg, "w") as f:
+        json.dump(cfg, f)
+    fails = []
+    for device in ("cuda", "cpu"):
+        out = os.path.join(root, f"telemetry_{device}")
+        files = {k: os.path.join(root, f"{device}_{k}") for k in (
+            "ledger.jsonl", "trace.json", "progress.jsonl", "port")}
+        for name, config, extra in (
+                ("telemetry", base_cfg, (
+                    "--telemetry-out", files["ledger.jsonl"], "--trace-out", files["trace.json"],
+                    "--progress-out", files["progress.jsonl"], "--introspect-port", "0",
+                    "--introspect-port-file", files["port"])),
+                ("autotune", adaptive_cfg, ("--auto-tune", "--auto-tune-trials", "1"))):
+            run = f"{name}_{device}"
+            argv = ["--train-data-dirs", os.path.join(RATINGS, "train"),
+                    "--validation-data-dirs", os.path.join(RATINGS, "test"),
+                    "--coordinate-config", config, "--task", "LINEAR_REGRESSION",
+                    "--output-dir", os.path.join(root, run), "--evaluator", "RMSE",
+                    "--num-outer-iterations", "2", "--device", device, *extra]
+            launches.reset()
+            t0 = time.perf_counter()
+            fit = train_game.run(train_game.parse_args(argv))
+            result[f"{run}_s"] = time.perf_counter() - t0
+            result[f"{run}_launches"] = launches.counts()
+            result[f"{run}_rmse"] = fit.validation_metric
+            result[f"{run}_objectives"] = [v for _, v in fit.objective_history]
+            same = (result[f"{run}_rmse"] == result[f"{device}_rmse"]
+                    and result[f"{run}_objectives"] == result[f"{device}_objectives"])
+            result[f"{run}_bitwise_plain"] = same
+            if name == "telemetry" and not same:
+                fails.append(f"{run}: not bitwise the plain {device} run")
+            if not abs(fit.validation_metric - GLMIX_RMSE) <= 5e-3:
+                fails.append(f"{run}: RMSE {fit.validation_metric} not within 0.005 of "
+                             f"{GLMIX_RMSE}")
+        ledger = validate_ledger(files["ledger.jsonl"])
+        progress = validate_ledger(files["progress.jsonl"])
+        validate_chrome_trace(files["trace.json"])
+        result[f"telemetry_{device}_records"] = {"ledger": len(ledger), "progress": len(progress)}
+        result[f"telemetry_{device}_introspect_port"] = int(open(files["port"]).read())
+        for flags in ((files["ledger.jsonl"],), ("--progress", files["progress.jsonl"])):
+            rc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.analyze_run",
+                                 *flags], capture_output=True, text=True, timeout=300,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+            result[f"analyze_run_{device}_{'progress' if len(flags) > 1 else 'ledger'}"] = (
+                rc.returncode, rc.stdout[-2000:])
+            if rc.returncode != 0:
+                fails.append(f"analyze_run {' '.join(flags)} exited {rc.returncode}: "
+                             f"{rc.stderr[-1000:]}")
+        with open(os.path.join(root, f"autotune_{device}", "auto-tune.json")) as f:
+            tuned = json.load(f)
+        result[f"autotune_{device}_json"] = tuned
+        keys = {"judge_metric", "minimize", "winner_index", "winner_config", "trials"}
+        trial_keys = {"index", "config", "score", "wall_s", "error"}
+        if set(tuned) != keys or len(tuned["trials"]) != 2 or any(
+                set(t) != trial_keys for t in tuned["trials"]):
+            fails.append(f"auto-tune.json of {device} lacks the JAX CLI's keys: {tuned}")
+    return fails
 
 
 class solve_log:
@@ -2968,7 +3092,7 @@ def _async_setup(seed: int):
     return train, val, coords, time.perf_counter() - t0
 
 
-def _timed_fit(estimator, train, val, coords):
+def _timed_fit(estimator, train, val, coords, **fit_kwargs):
     """One fit: (fit, {wall seconds, host CPU seconds of every thread},
     launches, peak bytes allocated)."""
     from photon_ml_tpu_torch.ops import launches
@@ -2977,7 +3101,7 @@ def _timed_fit(estimator, train, val, coords):
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
     t0, c0 = time.perf_counter(), time.process_time()
-    fit = estimator.fit(train, val, coordinates=coords)
+    fit = estimator.fit(train, val, coordinates=coords, **fit_kwargs)
     torch.cuda.synchronize()
     seconds = {"wall_s": time.perf_counter() - t0, "host_cpu_s": time.process_time() - c0}
     return fit, seconds, launches.counts(), torch.cuda.max_memory_allocated()
@@ -3163,6 +3287,241 @@ def phase_train_sweep_tuning_full_width(seed: int) -> dict:
     return result
 
 
+# the spans of the training path (the JAX package's names), in the order of
+# their sites in algorithm/ and estimators/
+TRAINING_SPANS = ("game/fit", "cd/run", "cd/outer_iter", "cd/coordinate", "cd/reconcile",
+                  "cd/overlap", "cd/objective", "cd/validate", "fe/solve", "re/train",
+                  "re/solve_bucket", "re/adaptive_round")
+
+
+class counting_barriers:
+    """Within the block, counts the stream syncs of device-sync spans
+    (``telemetry.span._device_barrier``), still running each."""
+
+    def __enter__(self):
+        import importlib
+
+        # the module (the package re-exports a function of the same name)
+        span_mod = importlib.import_module("photon_ml_tpu_torch.telemetry.span")
+        self._mod, self._real, self.count = span_mod, span_mod._device_barrier, 0
+
+        def counting():
+            self.count += 1
+            self._real()
+
+        span_mod._device_barrier = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._device_barrier = self._real
+        return False
+
+
+def _span_records(ledger: str) -> list:
+    from photon_ml_tpu_torch.telemetry import validate_ledger
+
+    return [r for r in validate_ledger(ledger) if r["type"] == "span"]
+
+
+def _worker_spans_chain(spans: list) -> dict:
+    """Every cd/overlap and re/solve_bucket span recorded on a thread other
+    than the dispatcher's (the thread of cd/run) has its parent, and its
+    chain of parents reaches a span of the dispatcher's thread."""
+    by_id = {s["span_id"]: s for s in spans}
+    dispatcher = next(s["thread"] for s in spans if s["name"] == "cd/run")
+    workers = [s for s in spans if s["name"] in ("cd/overlap", "re/solve_bucket")
+               and s["thread"] != dispatcher]
+    chained = 0
+    for s in workers:
+        node = s
+        while node is not None and node["thread"] != dispatcher:
+            node = by_id.get(node["parent_id"])
+        chained += node is not None and s["path"].startswith("game/fit/cd/run/")
+    return {"dispatcher_thread": dispatcher, "worker_spans": len(workers),
+            "chained": chained,
+            "worker_threads": sorted({s["thread"] for s in workers})}
+
+
+def phase_train_telemetry_full_width(seed: int) -> dict:
+    """Tracing, the convergence plane, the divergence watchdog and the
+    checkpoint fault at full width, on the async phase's coordinates."""
+    from photon_ml_tpu_torch import checkpoint as ckpt
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_ml_tpu_torch.event import AnomalyEvent, EventEmitter, EventListener
+    from photon_ml_tpu_torch.resilience import InjectedFault, configure_faults, reset_faults
+    from photon_ml_tpu_torch.telemetry import (
+        ConvergenceTracker,
+        DivergenceError,
+        analyze_ledger,
+        disable_tracing,
+        format_report,
+        record_memory_watermarks,
+        start_run,
+        validate_chrome_trace,
+        validate_ledger,
+    )
+
+    train, val, coords, _ = _async_setup(seed)
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as root:
+        paths = {k: os.path.join(root, k) for k in (
+            "ledger.jsonl", "trace.json", "progress.jsonl", "ledger_2.jsonl", "trace_2.json",
+            "progress_2.jsonl", "async.jsonl", "diverge.jsonl", "checkpoint")}
+        # (a) tracing off and (b) the same fit traced, tracked and with the
+        # memory gauges, in turns a, b, b, a; the first b is the main path:
+        # counts set to 0 just before, read just after
+        def fit_from(estimator, **kwargs):
+            """_timed_fit, and the bytes allocated when it starts: the fits
+            this phase keeps for its comparisons stay resident."""
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            return (*_timed_fit(estimator, train, val, coords, **kwargs), start)
+
+        def traced_fit(tag: str):
+            run = start_run("chip_smoke_telemetry", ledger_path=paths[f"ledger{tag}.jsonl"],
+                            trace_path=paths[f"trace{tag}.json"])
+            tracker = ConvergenceTracker(ledger_path=paths[f"progress{tag}.jsonl"],
+                                         label="chip_smoke")
+            try:
+                with counting_barriers() as barriers:
+                    out = fit_from(_async_estimator(), progress=tracker)
+                gauges = record_memory_watermarks()
+            finally:
+                tracker.finish()
+                run.finish()
+                disable_tracing()
+            return out, barriers.count, gauges
+
+        plain, plain_s, _, plain_mem, plain_start = fit_from(_async_estimator())
+        (traced, traced_s, counts, traced_mem, traced_start), syncs, gauges = traced_fit("")
+        (traced2, traced2_s, _, traced2_mem, traced2_start), _, _ = traced_fit("_2")
+        plain2, plain2_s, _, plain2_mem, plain2_start = fit_from(_async_estimator())
+        missing = [k for k in KERNELS if counts[k] < 1]
+        if missing:
+            raise AssertionError(f"the traced fit did not launch {missing}: {counts}")
+        spans = _span_records(paths["ledger.jsonl"])
+        trace = validate_chrome_trace(paths["trace.json"])
+        validate_chrome_trace(paths["trace_2.json"])
+        progress = validate_ledger(paths["progress.jsonl"])
+        span_counts = {name: sum(s["name"] == name for s in spans) for name in TRAINING_SPANS}
+        walls = {"plain": [plain_s["wall_s"], plain2_s["wall_s"]],
+                 "traced": [traced_s["wall_s"], traced2_s["wall_s"]]}
+        result.update({
+            "fits_in_turn_a_b_b_a": [plain_s, traced_s, traced2_s, plain2_s],
+            "wall_ratio_traced_over_plain": sum(walls["traced"]) / sum(walls["plain"]),
+            "traced_bitwise_plain": all(_same_fit(plain, f) for f in (traced, traced2, plain2)),
+            "launches": counts, "span_counts": span_counts, "spans": len(spans),
+            "stream_syncs": syncs,
+            "trace_events": len(trace.get("traceEvents", [])),
+            "ledger_bytes": os.path.getsize(paths["ledger.jsonl"]),
+            "progress_records": len(progress),
+            "progress_kinds": sorted({r.get("kind") for r in progress if r["type"] == "progress"}),
+            "peak_mem_in_turn_a_b_b_a": [plain_mem, traced_mem, traced2_mem, plain2_mem],
+            "peak_over_start_in_turn_a_b_b_a": [
+                plain_mem - plain_start, traced_mem - traced_start,
+                traced2_mem - traced2_start, plain2_mem - plain2_start],
+            "mem_device0_peak_gauge": gauges.get("mem.device0_peak_bytes"),
+            "analyze_report": format_report(analyze_ledger(paths["ledger.jsonl"])),
+        })
+
+        # (c) the async schedule at staleness 1, untraced and traced (no
+        # tracker: the peaks compare tracing alone)
+        a_plain, a_plain_s, _, a_plain_mem, a_plain_start = fit_from(_async_estimator("async", 1))
+        run = start_run("chip_smoke_async", ledger_path=paths["async.jsonl"])
+        try:
+            a_traced, a_traced_s, _, a_traced_mem, a_traced_start = fit_from(
+                _async_estimator("async", 1))
+        finally:
+            run.finish()
+            disable_tracing()
+        async_spans = _span_records(paths["async.jsonl"])
+        result.update({
+            "async_plain_fit": a_plain_s, "async_traced_fit": a_traced_s,
+            "async_peak_over_start_plain_traced": [a_plain_mem - a_plain_start,
+                                                    a_traced_mem - a_traced_start],
+            "async_traced_bitwise_plain": _same_fit(a_plain, a_traced),
+            "async_span_counts": {n: sum(s["name"] == n for s in async_spans)
+                                  for n in TRAINING_SPANS},
+            "async_chain": _worker_spans_chain(async_spans),
+        })
+
+        # (d) the divergence watchdog: the objective of the second update
+        # poisoned to inf
+        class Collect(EventListener):
+            def __init__(self):
+                self.events = []
+
+            def on_event(self, event):
+                self.events.append(event)
+
+        emitter, collect = EventEmitter(), Collect()
+        emitter.register_listener(collect)
+        poisoned = ConvergenceTracker(ledger_path=paths["diverge.jsonl"], emitter=emitter,
+                                      label="chip_smoke_divergence")
+        real_record = CoordinateDescent._record_progress
+        calls = [0]
+
+        def poison(self, outer, cid, coord, prev_model, model, objective, loss, reg):
+            calls[0] += 1
+            if calls[0] >= 2:
+                objective = float("inf")
+            real_record(self, outer, cid, coord, prev_model, model, objective, loss, reg)
+
+        CoordinateDescent._record_progress = poison
+        diverged = None
+        try:
+            _async_estimator().fit(train, val, coordinates=coords, progress=poisoned)
+        except DivergenceError as e:
+            diverged = str(e)
+        finally:
+            CoordinateDescent._record_progress = real_record
+            poisoned.finish()
+        records = validate_ledger(paths["diverge.jsonl"])
+        anomalies = [e for e in collect.events if isinstance(e, AnomalyEvent)]
+        result["divergence"] = {
+            "raised": diverged, "updates_recorded": calls[0],
+            "anomaly_events": [e.kind for e in anomalies],
+            "last_record_healthy": records[-1].get("healthy"),
+        }
+
+        # (e) train.checkpoint.publish armed once:1: a checkpoint of 1 outer
+        # iteration, then the 2-iteration fit resumed from it fails at its
+        # next publish; the first generation stays; a resume completes
+        ckdir = paths["checkpoint"]
+        one = _async_estimator(outer=1)
+        one.fit(train, val, coordinates=coords, checkpoint_dir=ckdir)
+        configure_faults("train.checkpoint.publish=once:1")
+        faulted = None
+        try:
+            _async_estimator().fit(train, val, coordinates=coords, checkpoint_dir=ckdir)
+        except InjectedFault as e:
+            faulted = str(e)
+        finally:
+            reset_faults()
+        leftovers = [n for n in os.listdir(root) if n.startswith(".ckpt-")]
+        _, state, _ = ckpt.load_training_checkpoint(ckdir, device="cuda")
+        resumed = _async_estimator().fit(train, val, coordinates=coords, checkpoint_dir=ckdir)
+        result["checkpoint_fault"] = {
+            "raised": faulted, "tmp_dirs_left": leftovers,
+            "generation_after_fault": state["completed_iterations"],
+            "resumed_bitwise_uninterrupted": _same_fit(plain, resumed),
+        }
+    emit("train_telemetry_full_width", **result)
+    div, ck, chain = result["divergence"], result["checkpoint_fault"], result["async_chain"]
+    if not (result["traced_bitwise_plain"] and result["async_traced_bitwise_plain"]
+            and result["mem_device0_peak_gauge"] == traced_mem
+            and all(span_counts[n] > 0 for n in TRAINING_SPANS
+                    if n not in ("cd/reconcile", "cd/overlap"))
+            and chain["worker_spans"] > 0 and chain["chained"] == chain["worker_spans"]
+            and div["raised"] and div["updates_recorded"] == 2
+            and div["anomaly_events"] == ["non_finite_objective"]
+            and div["last_record_healthy"] is False
+            and ck["raised"] and not ck["tmp_dirs_left"] and ck["generation_after_fault"] == 1
+            and ck["resumed_bitwise_uninterrupted"]):
+        raise AssertionError("a telemetry gate failed (see the train_telemetry_full_width line)")
+    return result
+
+
 def write_libsvm_fixture(path: str, seed: int, n: int, dim: int, task: str, k: int = 16) -> None:
     """LibSVM text rows of ``k`` distinct 1-based features out of ``dim``,
     labels of ``task`` from one coefficient vector drawn from ``seed``
@@ -3190,6 +3549,17 @@ def _model_text(path: str) -> dict:
             name, term, value = line.rstrip("\n").split("\t")[:3]
             out[(name, term)] = float(value)
     return out
+
+
+def _output_file(path: str):
+    """A file's contents for a bitwise comparison of two runs' outputs: an
+    Avro file's records (its sync marker is random), else its bytes."""
+    from photon_ml_tpu_torch.io.avro import read_avro_file
+
+    if path.endswith(".avro"):
+        return list(read_avro_file(path))
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def phase_train_glm_cli(seed: int) -> dict:
@@ -3263,6 +3633,25 @@ def phase_train_glm_cli(seed: int) -> dict:
             if name == "c_poisson_owlqn_box" and max(
                     abs(v) for v in cu["models"][1.0].values()) > 2.0:
                 raise AssertionError(f"a coefficient left the box [-2, 2]: {entry}")
+        # the telemetry flags: every output file bitwise the plain cuda run's
+        from photon_ml_tpu_torch.telemetry import validate_chrome_trace, validate_ledger
+
+        out = os.path.join(root, "a_logistic_lbfgs_sweep_telemetry")
+        plain_out = os.path.join(root, "a_logistic_lbfgs_sweep_cuda")
+        train_glm.run(train_glm.parse_args(invocations["a_logistic_lbfgs_sweep"] + [
+            "--output-dir", out, "--device", "cuda",
+            "--telemetry-out", os.path.join(root, "glm.jsonl"),
+            "--trace-out", os.path.join(root, "glm_trace.json")]))
+        ledger = validate_ledger(os.path.join(root, "glm.jsonl"))
+        validate_chrome_trace(os.path.join(root, "glm_trace.json"))
+        phases = sorted({r["name"] for r in ledger if r["type"] == "span"})
+        differ = [name for name in sorted(os.listdir(plain_out))
+                  if _output_file(os.path.join(plain_out, name))
+                  != _output_file(os.path.join(out, name))]
+        result["telemetry"] = {"ledger_records": len(ledger), "span_names": phases,
+                               "files_differing_from_plain": differ}
+        if differ or not {"preprocess", "train", "validate", "output"} <= set(phases):
+            raise AssertionError(f"train_glm with telemetry: {result['telemetry']}")
         # the module's own entry point, in a process of its own
         out = os.path.join(root, "a_logistic_lbfgs_sweep_module")
         t0 = time.perf_counter()
@@ -3297,6 +3686,7 @@ PHASES = {
     "train_full_game_full_width": phase_train_full_game_full_width,
     "train_async_full_width": phase_train_async_full_width,
     "train_sweep_tuning_full_width": phase_train_sweep_tuning_full_width,
+    "train_telemetry_full_width": phase_train_telemetry_full_width,
     "train_game_cli": phase_train_game_cli,
     "train_glm_cli": phase_train_glm_cli,
 }
@@ -3323,8 +3713,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             results[name] = PHASES[name](args.seed)
             phase_seconds[name] = time.perf_counter() - t0
-        if name == "train_sweep_tuning_full_width":
-            _async_setup.cache_clear()  # the coordinates both phases share
+        if name == "train_telemetry_full_width":
+            _async_setup.cache_clear()  # the coordinates the three phases share
         torch.cuda.empty_cache()
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
 

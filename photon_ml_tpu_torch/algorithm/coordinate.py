@@ -18,6 +18,10 @@ ignores the rate, as the JAX package's does.
 A random effect with ``overlap_buckets >= 2`` (set under the async
 schedule) solves its buckets at once on worker streams.
 
+Telemetry spans (the JAX package's names): ``fe/solve`` (with a
+current-stream barrier) around a fixed-effect update, ``re/train`` around
+a random effect's bucket solves.
+
 Not ported: the multi-device grid padding of the fixed effect and the mesh
 placement of random-effect buckets.
 """
@@ -45,6 +49,7 @@ from photon_ml_tpu_torch.opt.tracking import (
     RandomEffectOptimizationTracker,
 )
 from photon_ml_tpu_torch.sampler import down_sampler_for
+from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
 
 
@@ -93,18 +98,20 @@ class FixedEffectCoordinate:
         self, model: Optional[GeneralizedLinearModel], residual_scores: torch.Tensor
     ) -> GeneralizedLinearModel:
         """Solve against the residual offsets; models carry original-space
-        coefficients (``train_glm``)."""
-        data = dataclasses.replace(
-            self.data, offsets=self.data.offsets + residual_scores, weights=self._weights()
-        )
-        fit = train_glm(
-            data, self.task, self.configuration, initial_model=model,
-            compute_variances=self.compute_variances, intercept_index=self.intercept_index,
-        )[0]
-        self.last_tracker = FixedEffectOptimizationTracker(
-            states=OptimizationStatesTracker.from_result(fit.result)
-        )
-        return fit.model
+        coefficients (``train_glm``). Traced as ``fe/solve``."""
+        with span("fe/solve", device_sync=True,
+                  optimizer=self.configuration.optimizer_config.optimizer.name):
+            data = dataclasses.replace(
+                self.data, offsets=self.data.offsets + residual_scores, weights=self._weights()
+            )
+            fit = train_glm(
+                data, self.task, self.configuration, initial_model=model,
+                compute_variances=self.compute_variances, intercept_index=self.intercept_index,
+            )[0]
+            self.last_tracker = FixedEffectOptimizationTracker(
+                states=OptimizationStatesTracker.from_result(fit.result)
+            )
+            return fit.model
 
     def score_device(self, model: GeneralizedLinearModel) -> torch.Tensor:
         return self.data.features.matvec(model.coefficients.means)
@@ -134,11 +141,12 @@ class RandomEffectCoordinate:
     ) -> RandomEffectModel:
         ds = self.dataset.update_offsets_device(self.base_offsets + residual_scores)
         stats: list = []
-        new_model, results = train_random_effects(
-            ds, self.task, self.configuration, initial_model=model,
-            compute_variances=self.compute_variances, stats_out=stats,
-            overlap_buckets=self.overlap_buckets,
-        )
+        with span("re/train", buckets=len(ds.buckets)):
+            new_model, results = train_random_effects(
+                ds, self.task, self.configuration, initial_model=model,
+                compute_variances=self.compute_variances, stats_out=stats,
+                overlap_buckets=self.overlap_buckets,
+            )
         self.last_solver_stats = stats
         self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
         return new_model

@@ -32,8 +32,20 @@ bucket. ``run`` resumes from a checkpoint: it skips completed outer
 iterations, starts from the restored best model, and hands the running
 result to a callback after each outer iteration.
 
+Telemetry, with the JAX package's span names and attribute keys:
+``cd/run`` > ``cd/outer_iter`` > ``cd/coordinate`` (sync; a barrier on the
+current stream) or ``cd/reconcile`` (async, on the dispatching thread: its
+closing barrier runs after ``InFlight.result`` made the dispatcher's
+stream wait on the worker, so it covers the worker's work), then
+``cd/objective`` and ``cd/validate``; a worker's solve runs in
+``cd/overlap`` (``algorithm/schedule.py``). With ``progress`` (a
+``telemetry.progress.ConvergenceTracker``) every update is recorded and
+checked by the divergence watchdog, which may raise ``DivergenceError``.
+Spans and the tracker add stream syncs and host reads, never arithmetic:
+a traced or tracked fit is bitwise the plain one.
+
 Not ported: the host score plane, which serves multi-controller runs
-(ROADMAP.md, Queue A item 8), and progress tracking (item 4).
+(ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import torch
 from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES, ScheduleExecutor
 from photon_ml_tpu_torch.evaluation.evaluators import nan_aware_better_than
 from photon_ml_tpu_torch.event import SolverStatsEvent
+from photon_ml_tpu_torch.telemetry.span import span
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -79,6 +92,7 @@ class CoordinateDescent:
         emitter=None,
         schedule: str = "sync",
         staleness: int = 1,
+        progress: Optional[object] = None,
     ) -> None:
         if not coordinates:
             raise ValueError("need at least one coordinate")
@@ -100,6 +114,10 @@ class CoordinateDescent:
         self.emitter = emitter
         self.schedule = schedule
         self.staleness = int(staleness)
+        # optional telemetry.progress.ConvergenceTracker: one record per
+        # update plus the divergence watchdog (its record_coordinate may
+        # raise DivergenceError). None touches nothing.
+        self.progress = progress
         # seconds of each coordinate update of the most recent run, in
         # update order: train + rescore, synchronised (sync), or from the
         # worker's start to the end of its stream's work (async)
@@ -114,6 +132,46 @@ class CoordinateDescent:
             if self.emitter is not None:
                 self.emitter.send_event(SolverStatsEvent.from_stats(cid, s))
 
+    def _model_for_progress(self, run: "_Run", cid: str):
+        """The coordinate's model before its update, kept past the update
+        for the tracker's coefficient delta only: an untracked fit frees
+        it when the update is folded in, as before tracking existed."""
+        return run.models.get(cid) if self.progress is not None else None
+
+    def _record_progress(
+        self, outer: int, cid: str, coord, prev_model, model,
+        objective: float, loss: Optional[float], regularization: Optional[float],
+    ) -> None:
+        """Fold one update into the convergence tracker: the objective, the
+        solver telemetry of the coordinate's ``last_tracker`` (a fixed
+        effect's iterations, convergence reason and final gradient norm),
+        and the coefficient-delta norm, computed on a copy and pulled with
+        ``float()``. May raise ``DivergenceError`` (the watchdog).
+
+        The JAX package's branches for streamed blocks, gap-scheduler and
+        residency decisions, cluster events and skipped blocks have no
+        producer in the port yet (ROADMAP.md, Queue A items 7 and 8)."""
+        tracker = self.progress
+        if tracker is None:
+            return
+        solver_iterations = convergence_reason = grad_norm = None
+        states = getattr(getattr(coord, "last_tracker", None), "states", None)
+        if states is not None:
+            solver_iterations = int(states.iterations)
+            convergence_reason = states.convergence_reason.name
+            grad_norm = states.grad_norm
+        coef_delta_norm = None
+        new_means = getattr(getattr(model, "coefficients", None), "means", None)
+        if new_means is not None:
+            old_means = getattr(getattr(prev_model, "coefficients", None), "means", None)
+            delta = new_means if old_means is None else new_means - old_means
+            coef_delta_norm = float(torch.linalg.norm(delta))
+        tracker.record_coordinate(
+            outer, cid, objective, loss=loss, regularization=regularization,
+            grad_norm=grad_norm, coef_delta_norm=coef_delta_norm,
+            solver_iterations=solver_iterations, convergence_reason=convergence_reason,
+        )
+
     def run(
         self,
         num_iterations: int,
@@ -126,30 +184,37 @@ class CoordinateDescent:
         from ``initial_models``; ``initial_best`` is a restored (best models,
         best metric); ``on_iteration_end(outer, running result)`` runs after
         each outer iteration (checkpointing)."""
-        run = _Run(self, initial_models, initial_best)
-        self.update_seconds = run.update_seconds
-        if self.schedule == "async":
-            self._run_async(run, num_iterations, start_iteration, on_iteration_end)
-        else:
-            self._run_sync(run, num_iterations, start_iteration, on_iteration_end)
-        return run.result(final=True)
+        with span("cd/run", score_plane="device", num_rows=self.num_rows,
+                  iterations=num_iterations, schedule=self.schedule):
+            run = _Run(self, initial_models, initial_best)
+            self.update_seconds = run.update_seconds
+            if self.schedule == "async":
+                self._run_async(run, num_iterations, start_iteration, on_iteration_end)
+            else:
+                self._run_sync(run, num_iterations, start_iteration, on_iteration_end)
+            return run.result(final=True)
 
     def _run_sync(self, run: "_Run", num_iterations, start_iteration, on_iteration_end):
         for outer in range(start_iteration, num_iterations):
-            for cid in self.update_order:
-                coord = self.coordinates[cid]
-                t0 = time.perf_counter()
-                # partialScore = fullScore - ownScore (reference
-                # CoordinateDescent.scala:183)
-                old_own = run.scores.get(cid)
-                model = coord.update_model_device(run.models.get(cid), run.residual(old_own))
-                new_own = coord.score_device(model)
-                run.fold(cid, model, new_own, old_own)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                run.record(outer, cid, time.perf_counter() - t0)
-            if on_iteration_end is not None:
-                on_iteration_end(outer, run.result())
+            with span("cd/outer_iter", outer=outer):
+                for cid in self.update_order:
+                    coord = self.coordinates[cid]
+                    prev_model = self._model_for_progress(run, cid)
+                    with span("cd/coordinate", device_sync=True, coordinate=cid, outer=outer):
+                        t0 = time.perf_counter()
+                        # partialScore = fullScore - ownScore (reference
+                        # CoordinateDescent.scala:183)
+                        old_own = run.scores.get(cid)
+                        model = coord.update_model_device(
+                            run.models.get(cid), run.residual(old_own))
+                        new_own = coord.score_device(model)
+                        run.fold(cid, model, new_own, old_own)
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        seconds = time.perf_counter() - t0
+                    run.record(outer, cid, seconds, prev_model)
+                if on_iteration_end is not None:
+                    on_iteration_end(outer, run.result())
 
     # ------------------------------------------------------------- async
     def _solve_in_flight(self, coord, model0, residual):
@@ -181,34 +246,39 @@ class CoordinateDescent:
 
         def reconcile_one(outer: int) -> None:
             cid, old_own = pending.pop(0)
-            model, new_own, seconds = executor.pop_oldest().result()
-            run.fold(cid, model, new_own, old_own)
-            run.record(outer, cid, seconds)
+            prev_model = self._model_for_progress(run, cid)
+            with span("cd/reconcile", device_sync=True, coordinate=cid, outer=outer):
+                model, new_own, seconds = executor.pop_oldest().result()
+                run.fold(cid, model, new_own, old_own)
+            run.record(outer, cid, seconds, prev_model)
 
         try:
             for outer in range(start_iteration, num_iterations):
-                for cid in self.update_order:
-                    # bound the lag BEFORE dispatch: at most `staleness`
-                    # unreconciled updates may be missing from the residual
-                    # this coordinate trains against
-                    while len(pending) > self.staleness:
+                with span("cd/outer_iter", outer=outer, schedule="async"):
+                    for cid in self.update_order:
+                        # bound the lag BEFORE dispatch: at most `staleness`
+                        # unreconciled updates may be missing from the
+                        # residual this coordinate trains against
+                        while len(pending) > self.staleness:
+                            reconcile_one(outer)
+                        old_own = run.scores.get(cid)
+                        model0 = run.models.get(cid)
+                        residual = run.residual(old_own)
+                        executor.submit(
+                            cid,
+                            functools.partial(
+                                self._solve_in_flight, self.coordinates[cid], model0, residual
+                            ),
+                            inputs=(residual, model0),
+                            span_name="cd/overlap", coordinate=cid, outer=outer,
+                        )
+                        pending.append((cid, old_own))
+                    # iteration barrier: the plane lags within an iteration
+                    # only
+                    while pending:
                         reconcile_one(outer)
-                    old_own = run.scores.get(cid)
-                    model0 = run.models.get(cid)
-                    residual = run.residual(old_own)
-                    executor.submit(
-                        cid,
-                        functools.partial(
-                            self._solve_in_flight, self.coordinates[cid], model0, residual
-                        ),
-                        inputs=(residual, model0),
-                    )
-                    pending.append((cid, old_own))
-                # iteration barrier: the plane lags within an iteration only
-                while pending:
-                    reconcile_one(outer)
-                if on_iteration_end is not None:
-                    on_iteration_end(outer, run.result())
+                    if on_iteration_end is not None:
+                        on_iteration_end(outer, run.result())
         finally:
             executor.shutdown(wait=True)
 
@@ -245,40 +315,47 @@ class _Run:
         self.total = self.total + new_own - (old_own if old_own is not None else self.zeros)
         self.scores[cid] = new_own
 
-    def record(self, outer: int, cid: str, seconds: float) -> None:
+    def record(self, outer: int, cid: str, seconds: float, prev_model) -> None:
         """After an update is folded in: its seconds, solver stats, training
-        objective and validation metric, and the best model."""
+        objective, progress record and validation metric, and the best
+        model. ``prev_model``: the coordinate's model before the update."""
         cd = self.cd
+        coord = cd.coordinates[cid]
         self.update_seconds.append((cid, seconds))
-        cd._log_solver_stats(cid, cd.coordinates[cid])
+        cd._log_solver_stats(cid, coord)
         if cd.training_objective is not None:
-            loss_val = float(cd.training_objective(self.total))
-            if cd.regularization_term is not None:
-                reg = float(cd.regularization_term(self.models))
-                obj = loss_val + reg
-                logger.info(
-                    "CD iter %d coordinate %s: loss %.6f + regularization "
-                    "%.6f = objective %.6f", outer, cid, loss_val, reg, obj,
-                )
-            else:
-                obj = loss_val
-                logger.info(
-                    "CD iter %d coordinate %s: training objective %.6f", outer, cid, loss_val,
-                )
-            self.objective_history.append((cid, obj))
+            with span("cd/objective", coordinate=cid, outer=outer):
+                loss_val = float(cd.training_objective(self.total))
+                if cd.regularization_term is not None:
+                    reg = float(cd.regularization_term(self.models))
+                    obj = loss_val + reg
+                    logger.info(
+                        "CD iter %d coordinate %s: loss %.6f + regularization "
+                        "%.6f = objective %.6f", outer, cid, loss_val, reg, obj,
+                    )
+                else:
+                    reg, obj = None, loss_val
+                    logger.info(
+                        "CD iter %d coordinate %s: training objective %.6f", outer, cid, loss_val,
+                    )
+                self.objective_history.append((cid, obj))
+            cd._record_progress(outer, cid, coord, prev_model, self.models[cid], obj, loss_val, reg)
         if cd.validate is not None:
-            metric = float(cd.validate(self.models))
-            self.validation_history.append((cid, metric))
-            logger.info("CD iter %d coordinate %s: validation %.6f", outer, cid, metric)
-            # best-model tracking starts once every coordinate has trained:
-            # a snapshot missing whole coordinates is not a model (reference
-            # CoordinateDescent.scala:265-294)
-            if all(c in self.models for c in cd.update_order) and (
-                self.best_metric is None
-                or cd.validation_better_than(metric, self.best_metric)
-            ):
-                self.best_metric = metric
-                self.best_models = dict(self.models)
+            with span("cd/validate", coordinate=cid, outer=outer):
+                metric = float(cd.validate(self.models))
+                self.validation_history.append((cid, metric))
+                if cd.progress is not None:
+                    cd.progress.record_validation(outer, cid, metric)
+                logger.info("CD iter %d coordinate %s: validation %.6f", outer, cid, metric)
+                # best-model tracking starts once every coordinate has
+                # trained: a snapshot missing whole coordinates is not a
+                # model (reference CoordinateDescent.scala:265-294)
+                if all(c in self.models for c in cd.update_order) and (
+                    self.best_metric is None
+                    or cd.validation_better_than(metric, self.best_metric)
+                ):
+                    self.best_metric = metric
+                    self.best_models = dict(self.models)
 
     def result(self, final: bool = False) -> CoordinateDescentResult:
         best = self.best_models

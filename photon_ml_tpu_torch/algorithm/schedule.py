@@ -29,11 +29,12 @@ CUDA device gives every worker a CUDA stream of its own:
 On the CPU the executor is plain threads. A worker's exception re-raises in
 the thread that takes its result.
 
-The JAX package opens a telemetry span around each unit of work (default
-name ``cd/overlap``) and chains it under the dispatcher's span. The port has
-no telemetry yet: the spans go here, around ``fn`` in ``submit``, when the
-telemetry modules are ported (ROADMAP.md, Queue A item 4); the contextvars
-are already copied for them.
+Each unit of work runs inside a telemetry span (default name
+``cd/overlap``; ``re/solve_bucket`` for RE bucket overlap), opened in the
+worker inside the dispatching thread's copied contextvars context, so it
+chains under the span that was open at the call site (parent id and path
+in the run ledger). The span asks for no barrier: a barrier inside it
+would sync the worker's own stream only.
 
 Determinism: the executor imposes no ordering; callers get it by
 construction. The CD loop computes every residual on the dispatching thread
@@ -54,6 +55,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Deque, Optional
 
 import torch
+
+from photon_ml_tpu_torch.telemetry.span import span
 
 __all__ = ["SCHEDULES", "InFlight", "ScheduleExecutor", "record_stream"]
 
@@ -169,16 +172,22 @@ class ScheduleExecutor:
 
     # ----------------------------------------------------------- dispatch
     def submit(self, key: Any, fn: Callable[[], Any], inputs: Any = (),
-               **attrs: Any) -> InFlight:
-        """Dispatch ``fn`` onto the pool. ``inputs``: tensors (or
-        containers of them) made on the dispatching stream that ``fn``
-        reads; they are kept from reuse until the worker's stream is done
-        with them. The dispatching thread's contextvars context is entered
-        in the worker."""
+               span_name: str = "cd/overlap", **attrs: Any) -> InFlight:
+        """Dispatch ``fn`` onto the pool inside a ``span_name`` span
+        carrying ``attrs``. ``inputs``: tensors (or containers of them)
+        made on the dispatching stream that ``fn`` reads; they are kept
+        from reuse until the worker's stream is done with them. The
+        dispatching thread's contextvars context (the live span among
+        them) is entered in the worker."""
         ctx = contextvars.copy_context()
         dev = self._device
+
+        def _in_span() -> Any:
+            with span(span_name, **attrs):
+                return fn()
+
         if dev is None:
-            future = self._pool.submit(ctx.run, fn)
+            future = self._pool.submit(ctx.run, _in_span)
         else:
             ready = torch.cuda.Event()
             ready.record(self._parent)
@@ -188,7 +197,7 @@ class ScheduleExecutor:
                 stream.wait_event(ready)
                 record_stream(inputs, stream)
                 with torch.cuda.stream(stream):
-                    out = ctx.run(fn)
+                    out = ctx.run(_in_span)
                     done = torch.cuda.Event()
                     done.record(stream)
                 return out, done

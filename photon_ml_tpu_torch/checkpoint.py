@@ -11,9 +11,10 @@ mid-training checkpoint (its recovery is Spark lineage recompute).
 Models are ``.npz`` arrays with JSON metadata (bucket structure included),
 not the Avro export format: a resume must restore the exact padded layouts
 the coordinates were built with, and a layout fingerprint guards against
-resuming with other data or configuration. One process writes; the JAX
-package's fault point between the fsync and the rename (its ``resilience``
-package) is not ported.
+resuming with other data or configuration. One process writes. The fault
+point ``train.checkpoint.publish`` sits between the fsync and the rename
+(``resilience/faultpoints.py``): a fault there must leave the previous
+checkpoint loadable.
 """
 
 from __future__ import annotations
@@ -33,12 +34,19 @@ from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.projector import ProjectorType
+from photon_ml_tpu_torch.resilience.faultpoints import fault_point, register_fault_site
 from photon_ml_tpu_torch.types import TaskType
 
 STATE_FILE = "training-state.json"
 _FORMAT_VERSION = 1
 _TMP_PREFIX = ".ckpt-tmp-"
 _OLD_PREFIX = ".ckpt-old-"
+
+FAULT_PUBLISH = register_fault_site(
+    "train.checkpoint.publish",
+    "between the checkpoint tmp-dir fsync and the atomic rename — a fault "
+    "here must leave the previous checkpoint loadable",
+)
 
 
 # ------------------------------------------------------------- serialization
@@ -263,6 +271,7 @@ def save_training_checkpoint(
             json.dump(payload, f)
             f.flush()
             os.fsync(f.fileno())
+        fault_point(FAULT_PUBLISH)
         # move the old checkpoint aside first, so that a kill at any point
         # leaves either the old or the new one loadable
         old = None

@@ -3,7 +3,8 @@ date-range expansion of the data dirs, the JSON coordinate config → typed
 configs and its λ sweep lists, and coefficient box constraints.
 
 Port of the parts of ``photon_ml_tpu/cli/common.py`` that ``score_game``,
-``train_game`` and ``train_glm`` use (reference
+``train_game`` and ``train_glm`` use, the telemetry flags
+(``--telemetry-out``, ``--trace-out``) among them (reference
 GameTrainingParams.scala:269-610; the config mini-languages replaced by
 JSON, GLMOptimizationConfiguration.scala:64-67,
 RandomEffectDataConfiguration.scala:78-143; the per-feature constraint map
@@ -71,6 +72,52 @@ def setup_logger(log_file: Optional[str] = None, level: str = "INFO") -> logging
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
+
+
+def add_telemetry_args(parser) -> None:
+    """``--telemetry-out`` / ``--trace-out``: shared by the drivers."""
+    parser.add_argument(
+        "--telemetry-out",
+        default=None,
+        metavar="LEDGER.jsonl",
+        help="write a JSONL run ledger (spans, events, metrics snapshot) "
+        "to this path; enables span tracing for the run",
+    )
+    parser.add_argument(
+        "--trace-out",
+        default=None,
+        metavar="TRACE.json",
+        help="write a Chrome trace-event file (load in Perfetto or "
+        "chrome://tracing) to this path; enables span tracing for the run",
+    )
+
+
+def start_telemetry(args, label: str, emitter=None):
+    """Start a telemetry run when the driver asked for one (either flag);
+    returns None otherwise. ``emitter`` gets the event->ledger bridge."""
+    ledger_path = getattr(args, "telemetry_out", None)
+    trace_path = getattr(args, "trace_out", None)
+    if not ledger_path and not trace_path:
+        return None
+    from photon_ml_tpu_torch.telemetry import start_run
+
+    run = start_run(label, ledger_path=ledger_path, trace_path=trace_path)
+    if emitter is not None:
+        run.attach(emitter)
+    return run
+
+
+def finish_telemetry(run, **extra):
+    """Finish a run from ``start_telemetry`` (None-safe); disables the
+    tracer again so later driver runs in-process start clean."""
+    if run is None:
+        return None
+    from photon_ml_tpu_torch.telemetry import disable_tracing
+
+    try:
+        return run.finish(extra=extra or None)
+    finally:
+        disable_tracing()
 
 
 def delete_dirs_if_exist(*dirs: Optional[str]) -> None:

@@ -5,7 +5,9 @@ cli/game/scoring/Driver.scala:37, run() :176-209): read data (response
 optional) → load the GAME model → score → write ScoringResultAvro → optional
 evaluation. ``--date-range`` / ``--date-days-ago`` expand each data dir to
 its daily yyyy/MM/dd subdirs. Scoring runs on ``--device`` (default
-``cuda``; ``cpu`` only when asked).
+``cuda``; ``cpu`` only when asked). ``--telemetry-out`` writes a JSONL run
+ledger (the phases as spans, the scoring start and finish events, the
+metrics) and ``--trace-out`` a Chrome trace.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.score_game \
@@ -24,16 +26,21 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.common import (
+    add_telemetry_args,
     delete_dirs_if_exist,
     expand_data_dirs,
+    finish_telemetry,
     parse_input_columns,
     setup_logger,
+    start_telemetry,
 )
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.evaluation.evaluators import make_evaluator
+from photon_ml_tpu_torch.event import EventEmitter, ScoringFinishEvent, ScoringStartEvent
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, read_game_data
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_game_model_metadata
 from photon_ml_tpu_torch.io.scores_io import ScoredItem, save_scores
+from photon_ml_tpu_torch.utils.timer import Timer
 
 
 def _positive_int(v: str) -> int:
@@ -77,6 +84,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "'fe-only' (default) scores them with the fixed "
                         "effects only (RE contribution 0, the reference "
                         "left-join semantics); 'error' fails fast instead")
+    add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to score on: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -112,14 +120,21 @@ def run(args: argparse.Namespace) -> Optional[float]:
     """Score the data; returns the evaluator's metric (None without one)."""
     logger = setup_logger()
     device = resolve_device(args.device)
-    durations = {}
+    timer = Timer()
+    emitter = EventEmitter()
+    telemetry = start_telemetry(args, "score_game", emitter=emitter)
+    t_start = time.perf_counter()
+    try:
+        return _run_scoring(args, logger, device, timer, emitter, t_start)
+    finally:
+        # listeners flush and close even when the run fails; telemetry
+        # finishes after them so that every bridged event is in the ledger
+        emitter.clear_listeners()
+        finish_telemetry(telemetry, phases=dict(timer.durations))
 
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        durations[name] = time.perf_counter() - t0
-        return out
 
+def _run_scoring(args, logger, device, timer: Timer, emitter: EventEmitter,
+                 t_start: float) -> Optional[float]:
     # a bad date spec must fail before the (possibly huge) model load
     data_dirs = expand_data_dirs(args.data_dirs, args.date_range, args.date_days_ago)
     metadata = load_game_model_metadata(args.model_dir)
@@ -135,7 +150,8 @@ def run(args: argparse.Namespace) -> Optional[float]:
             add_intercept=bool(s.get("add_intercept", True)),
         )
 
-    model, index_maps = timed("load model", load_game_model, args.model_dir, device=device)
+    with timer.time("load model"):
+        model, index_maps = load_game_model(args.model_dir, device=device)
     for sid in index_maps:
         shard_bags.setdefault(sid, FeatureShardConfiguration(feature_bags=[sid]))
 
@@ -153,20 +169,20 @@ def run(args: argparse.Namespace) -> Optional[float]:
         if tag and tag not in id_tags:
             id_tags.append(tag)
 
-    data, _, uids = timed(
-        "read data", read_game_data, data_dirs, shard_bags, index_maps,
-        id_tags=id_tags, is_response_required=False,
-        **parse_input_columns(args.input_columns_names),
-    )
+    with timer.time("read data"):
+        data, _, uids = read_game_data(
+            data_dirs, shard_bags, index_maps,
+            id_tags=id_tags, is_response_required=False,
+            **parse_input_columns(args.input_columns_names),
+        )
     logger.info("scoring rows: %d on %s", data.num_rows, device)
+    emitter.send_event(ScoringStartEvent(model_id=model_id, num_requests=data.num_rows))
 
     if args.missing_entity_policy == "error":
         _check_missing_entities(model, data)
 
-    def score():
-        return (model.score(data) + _to(data.offsets, device)).cpu().numpy()
-
-    scores = timed("score", score)
+    with timer.time("score"):
+        scores = (model.score(data) + _to(data.offsets, device)).cpu().numpy()
 
     if args.delete_output_dir_if_exists:
         delete_dirs_if_exist(args.output_dir)
@@ -178,24 +194,24 @@ def run(args: argparse.Namespace) -> Optional[float]:
         nf = args.num_output_files
         base, rem = divmod(data.num_rows, nf)
         file_sizes = [base + (1 if i < rem else 0) for i in range(nf)]
-    n = timed(
-        "save scores", save_scores,
-        args.output_dir,
-        (
-            ScoredItem(
-                prediction_score=float(s),
-                label=None if np.isnan(lab) else float(lab),
-                weight=float(w),
-                uid=uid,
-                id_tags={t: str(data.id_tags[t][i]) for t in id_tags},
-            )
-            for i, (s, lab, w, uid) in enumerate(
-                zip(scores, data.labels, data.weights, uids)
-            )
-        ),
-        model_id=model_id,
-        file_sizes=file_sizes,
-    )
+    with timer.time("save scores"):
+        n = save_scores(
+            args.output_dir,
+            (
+                ScoredItem(
+                    prediction_score=float(s),
+                    label=None if np.isnan(lab) else float(lab),
+                    weight=float(w),
+                    uid=uid,
+                    id_tags={t: str(data.id_tags[t][i]) for t in id_tags},
+                )
+                for i, (s, lab, w, uid) in enumerate(
+                    zip(scores, data.labels, data.weights, uids)
+                )
+            ),
+            model_id=model_id,
+            file_sizes=file_sizes,
+        )
     logger.info("saved %d scores to %s", n, args.output_dir)
 
     metric = None
@@ -211,7 +227,13 @@ def run(args: argparse.Namespace) -> Optional[float]:
                 _to(data.weights[have_labels], device),
             )
             logger.info("%s: %.6f", ev.name, metric)
-    for name, seconds in durations.items():
+    emitter.send_event(ScoringFinishEvent(
+        model_id=model_id,
+        num_requests=data.num_rows,
+        wall_seconds=time.perf_counter() - t_start,
+        metrics={} if metric is None else {"evaluator_metric": metric},
+    ))
+    for name, seconds in timer.durations.items():
         logger.info("timing %-20s %.3fs", name, seconds)
     return metric
 

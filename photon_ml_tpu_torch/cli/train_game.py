@@ -23,6 +23,19 @@ after every outer iteration and resumes a checkpoint found there;
 Coordinates are fixed, random or factored random effects. Training runs on
 ``--device`` (default ``cuda``; ``cpu`` only when asked).
 
+Telemetry and resilience: ``--telemetry-out`` (a JSONL run ledger of
+spans, events and metrics) and ``--trace-out`` (a Chrome trace);
+``--progress-out`` (the convergence ledger, one record per coordinate
+update and held-out evaluation; it arms the divergence watchdog, which
+aborts the run with exit code 2 and saves no model); ``--introspect-port``
+(``/progress``, ``/metrics``, ``/healthz``, ``/varz`` and
+``/quitquitquit`` on 127.0.0.1), ``--introspect-port-file``,
+``--introspect-hold``; ``--auto-tune`` (an A/B of the adaptive RE solver's
+knobs on 1-outer-iteration trial fits, judged by a metric of the trial's
+own registry, ``--auto-tune-judge``; the result in
+``<output-dir>/auto-tune.json``, the winner in the model metadata's
+``tuned_config``).
+
 Usage:
     python -m photon_ml_tpu_torch.cli.train_game \\
         --train-data-dirs data/train --validation-data-dirs data/test \\
@@ -30,10 +43,9 @@ Usage:
         --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \\
         [--checkpoint-dir ckpt/] [--schedule async] [--device cpu]
 
-Refused, naming their ROADMAP.md Queue A item: the telemetry, auto-tune and
-introspection flags (item 4), ``--offheap-indexmap-dir`` (item 6),
-``--streaming`` and its flags (item 7), and the device-grid, cluster and
-multi-host flags (item 8).
+Refused, naming their ROADMAP.md Queue A item: ``--offheap-indexmap-dir``
+(item 6), ``--streaming`` and its flags, ``--on-block-error`` among them
+(item 7), and the device-grid, cluster and multi-host flags (item 8).
 """
 
 from __future__ import annotations
@@ -52,12 +64,15 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.common import (
+    add_telemetry_args,
     coordinate_weight_sweeps,
     delete_dirs_if_exist,
     expand_data_dirs,
+    finish_telemetry,
     load_game_config,
     parse_input_columns,
     setup_logger,
+    start_telemetry,
 )
 from photon_ml_tpu_torch.data.validators import validate_labeled_data
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -85,19 +100,20 @@ from photon_ml_tpu_torch.io.data_reader import read_game_data
 from photon_ml_tpu_torch.io.model_io import save_game_model
 from photon_ml_tpu_torch.normalization import build_normalization_context
 from photon_ml_tpu_torch.ops.data import LabeledData
+from photon_ml_tpu_torch.serving.introspect import IntrospectionServer
 from photon_ml_tpu_torch.stat.summary import summarize
+from photon_ml_tpu_torch.telemetry import ConvergenceTracker, DivergenceError
+from photon_ml_tpu_torch.telemetry.analyze import RunReport
+from photon_ml_tpu_torch.telemetry.sinks import TelemetryEventListener
+from photon_ml_tpu_torch.tuning import ab_candidates, get_knob, propose, run_ab_trials
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
+from photon_ml_tpu_torch.utils.timer import Timer
 
 # flags of the JAX package's train_game that need modules not ported yet,
 # with the ROADMAP.md Queue A item that ports them
-_TELEMETRY = "item 4, Telemetry and resilience"
 _STREAMING = "item 7, Streaming out-of-core"
 _CLUSTER = "item 8, The cluster plane"
 _UNPORTED = {
-    "telemetry_out": _TELEMETRY, "trace_out": _TELEMETRY, "progress_out": _TELEMETRY,
-    "introspect_port": _TELEMETRY, "introspect_port_file": _TELEMETRY,
-    "introspect_hold": _TELEMETRY, "auto_tune": _TELEMETRY, "auto_tune_trials": _TELEMETRY,
-    "auto_tune_judge": _TELEMETRY, "auto_tune_report": _TELEMETRY,
     "offheap_indexmap_dir": "item 6, Off-heap index maps",
     "streaming": _STREAMING, "block_rows": _STREAMING, "prefetch_depth": _STREAMING,
     "block_cache_dir": _STREAMING, "no_block_cache": _STREAMING,
@@ -204,6 +220,46 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="async schedule only: max unreconciled coordinate "
                         "updates a dispatch may ignore (0 = serialize, "
                         "bitwise equal to sync)")
+    p.add_argument("--auto-tune", action="store_true",
+                   help="A/B adaptive-RE solver configs on a 1-outer-"
+                        "iteration trial fit before the real fit (judged by "
+                        "the metrics registry); the winner trains the model "
+                        "and is saved as the metadata's tuned_config")
+    p.add_argument("--auto-tune-trials", type=int, default=2,
+                   help="candidate configs trialed besides the incumbent "
+                        "(default 2)")
+    p.add_argument("--auto-tune-judge", default="autotune.wall_s",
+                   help="registry metric that judges auto-tune trials, "
+                        "minimized (default autotune.wall_s = trial "
+                        "wall-clock)")
+    p.add_argument("--auto-tune-report", default=None,
+                   help="RunReport JSON from analyze_run; when given, trial "
+                        "candidates come from the offline tuner's proposal "
+                        "instead of ladder neighbors")
+    p.add_argument("--progress-out", default=None, metavar="PROGRESS.jsonl",
+                   help="write the convergence-plane ledger here: one JSONL "
+                        "record per coordinate update (objective, grad norm, "
+                        "coefficient delta, solver iterations) and per "
+                        "held-out evaluation. "
+                        "Replay with analyze_run --progress. Also arms the "
+                        "divergence watchdog: NaN/Inf or increasing "
+                        "objectives abort the run instead of saving garbage")
+    p.add_argument("--introspect-port", type=int, default=None,
+                   metavar="PORT",
+                   help="serve live training introspection on "
+                        "127.0.0.1:PORT (0 = ephemeral): /progress (JSON "
+                        "convergence trace), /metrics (Prometheus), /healthz "
+                        "(503 once the divergence watchdog trips), /varz. "
+                        "Implies the convergence tracker even without "
+                        "--progress-out")
+    p.add_argument("--introspect-port-file", default=None,
+                   help="write the bound introspection port here (for "
+                        "--introspect-port 0)")
+    p.add_argument("--introspect-hold", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="keep the introspection server up for at most this "
+                        "long after training, until /quitquitquit")
+    add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
     for flag, item in _UNPORTED.items():
@@ -212,6 +268,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.staleness < 0:
         p.error("--staleness must be >= 0")
+    if args.introspect_port is not None and args.introspect_port < 0:
+        p.error("--introspect-port must be >= 0 (0 = ephemeral)")
     return args
 
 
@@ -234,6 +292,113 @@ def _sweep_model_configs(sweeps, coordinates) -> List[dict]:
          for cid, w in zip(ids, combo)}
         for combo in itertools.product(*(sweeps[cid] for cid in ids))
     ]
+
+
+def _apply_adaptive_knobs(coordinates: dict, knobs: dict) -> dict:
+    """Return ``coordinates`` with the adaptive-RE knob values folded into
+    every optimizer that carries an AdaptiveSolveConfig (frozen dataclasses
+    throughout, so this is replace(), never mutation — the originals stay
+    usable as the A/B control)."""
+    out = {}
+    for cid, cfg in coordinates.items():
+        opt = getattr(cfg, "optimizer", None)
+        adaptive = getattr(opt, "adaptive", None) if opt is not None else None
+        if adaptive is None:
+            out[cid] = cfg
+            continue
+        new_adaptive = dataclasses.replace(
+            adaptive,
+            chunk_iters=int(
+                knobs.get("adaptive.chunk_iters", adaptive.chunk_iters)
+            ),
+            min_lanes=int(knobs.get("adaptive.min_lanes", adaptive.min_lanes)),
+        )
+        out[cid] = dataclasses.replace(
+            cfg, optimizer=dataclasses.replace(opt, adaptive=new_adaptive)
+        )
+    return out
+
+
+def _auto_tune_training(args, logger, estimator_kwargs, coordinates, data):
+    """Iteration-0 A/B over the adaptive-RE knob space.
+
+    Each candidate runs a 1-outer-iteration fit with its knob values and a
+    FRESH MetricsRegistry fed by a trial-local emitter (trial A's solver
+    counters cannot leak into trial B's judgment, and none of it pollutes
+    the surrounding run's telemetry). Judged by ``--auto-tune-judge``
+    (default: trial wall-clock). Returns (winner_knobs, ab_result_dict) —
+    winner_knobs is {} when the incumbent wins."""
+    spec = get_knob("adaptive.chunk_iters")
+    incumbent = None
+    for cfg in coordinates.values():
+        adaptive = getattr(getattr(cfg, "optimizer", None), "adaptive", None)
+        if adaptive is not None:
+            incumbent = {
+                "adaptive.chunk_iters": adaptive.chunk_iters,
+                "adaptive.min_lanes": adaptive.min_lanes,
+            }
+            break
+    if incumbent is None:
+        logger.info("auto-tune: no adaptive-RE coordinate; nothing to tune")
+        return {}, None
+
+    candidates = [dict(incumbent)]
+    if args.auto_tune_report:
+        with open(args.auto_tune_report, "r", encoding="utf-8") as f:
+            report = RunReport.from_dict(json.load(f))
+        for cand in ab_candidates(propose(report), "train")[1:]:
+            knobs = {
+                k: v for k, v in cand.items() if k.startswith("adaptive.")
+            }
+            if knobs and knobs != incumbent:
+                candidates.append({**incumbent, **knobs})
+    else:
+        ladder = list(spec.candidates)
+        cur = incumbent["adaptive.chunk_iters"]
+        for alt in sorted(ladder, key=lambda v: abs(v - cur)):
+            if alt != cur:
+                candidates.append(
+                    {**incumbent, "adaptive.chunk_iters": alt}
+                )
+    candidates = candidates[: 1 + max(0, args.auto_tune_trials)]
+
+    def _trial(knobs, registry):
+        trial_emitter = EventEmitter()
+        trial_emitter.register_listener(
+            TelemetryEventListener(ledger=None, registry=registry)
+        )
+        try:
+            trial = GameEstimator(
+                coordinates=_apply_adaptive_knobs(coordinates, knobs),
+                emitter=trial_emitter,
+                **{**estimator_kwargs, "num_outer_iterations": 1},
+            )
+            trial.fit(data, validation_data=None)
+        finally:
+            trial_emitter.clear_listeners()
+
+    logger.info(
+        "auto-tune: %d candidate config(s) over 1-outer-iteration trials",
+        len(candidates),
+    )
+    result = run_ab_trials(
+        candidates,
+        _trial,
+        judge_metric=args.auto_tune_judge,
+        minimize=True,
+        logger=logger,
+    )
+    winner = result.winner
+    logger.info(
+        "auto-tune winner: trial %d %s=%s config=%s",
+        winner.index,
+        args.auto_tune_judge,
+        f"{winner.score:.6g}" if winner.score is not None else "n/a",
+        winner.config,
+    )
+    if winner.index == 0:
+        return {}, result.to_dict()
+    return dict(winner.config), result.to_dict()
 
 
 def _weight_range(spec: str):
@@ -334,27 +499,52 @@ def run(args: argparse.Namespace) -> GameFit:
     _refuse_unported(args)
     logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
+    timer = Timer()
     emitter = EventEmitter()
     for name in args.event_listeners:
         emitter.register_listener_class(name)
+    telemetry = start_telemetry(args, "train_game", emitter=emitter)
+    progress = None
+    introspect = None
     try:
-        return _run(args, logger, device, emitter)
+        if args.progress_out or args.introspect_port is not None:
+            progress = ConvergenceTracker(
+                ledger_path=args.progress_out, emitter=emitter, label="train_game"
+            )
+            # resilience failures land in the convergence ledger as they happen
+            progress.attach_failure_sink()
+        if args.introspect_port is not None:
+            introspect = IntrospectionServer(
+                varz=lambda: vars(args),
+                health=progress.health,
+                port=args.introspect_port,
+                extra_json={"/progress": progress.progress_json},
+            ).start()
+            logger.info("introspection on http://%s:%d (/progress /metrics /healthz)",
+                        introspect.host, introspect.port)
+            if args.introspect_port_file:
+                with open(args.introspect_port_file, "w") as f:
+                    f.write(str(introspect.port))
+        return _run(args, logger, device, emitter, timer, progress)
     finally:
-        # listeners flush and close even when the run fails
+        # the introspection hold runs first, so that /healthz (503 after a
+        # divergence abort) and /progress stay readable before teardown
+        if introspect is not None:
+            if args.introspect_hold > 0:
+                introspect.wait_quit(args.introspect_hold)
+            introspect.stop()
+        if progress is not None:
+            progress.finish()
+        # listeners flush and close even when the run fails; telemetry
+        # finishes after them so that every bridged event is in the ledger
         emitter.clear_listeners()
+        finish_telemetry(telemetry, phases=dict(timer.durations))
 
 
-def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> GameFit:
+def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer: Timer,
+         progress: Optional[ConvergenceTracker]) -> GameFit:
     t_start = time.perf_counter()
     emitter.send_event(PhotonSetupEvent(params=vars(args)))
-    durations = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        durations[name] = time.perf_counter() - t0
-        return out
-
     task = TaskType[args.task]
     shard_configs, coordinates, update_order, raw_config = load_game_config(
         args.coordinate_config
@@ -378,24 +568,23 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
     train_dirs = expand_data_dirs(
         args.train_data_dirs, args.train_date_range, args.train_date_days_ago
     )
-    data, index_maps, _ = timed(
-        "read training data", read_game_data, train_dirs, shard_configs,
-        None, id_tags=id_tags, **col_names,
-    )
+    with timer.time("read training data"):
+        data, index_maps, _ = read_game_data(
+            train_dirs, shard_configs, None, id_tags=id_tags, **col_names,
+        )
     logger.info("training rows: %d on %s", data.num_rows, device)
 
     def check_shards(game_data, phase: str) -> None:
         """--check-data over every feature shard (reference CHECK_DATA wraps
         both the training and the validation read, Driver.scala:74-75)."""
-        t0 = time.perf_counter()
-        for sid in shard_configs:
-            validate_labeled_data(LabeledData.create(
-                game_data.sparse_features(sid, engine="auto", device=device),
-                torch.from_numpy(game_data.labels).to(device),
-                offsets=torch.from_numpy(game_data.offsets).to(device),
-                weights=torch.from_numpy(game_data.weights).to(device),
-            ), task)
-        durations[f"check data [{phase}]"] = time.perf_counter() - t0
+        with timer.time(f"check data [{phase}]"):
+            for sid in shard_configs:
+                validate_labeled_data(LabeledData.create(
+                    game_data.sparse_features(sid, engine="auto", device=device),
+                    torch.from_numpy(game_data.labels).to(device),
+                    offsets=torch.from_numpy(game_data.offsets).to(device),
+                    weights=torch.from_numpy(game_data.weights).to(device),
+                ), task)
 
     if args.check_data:
         check_shards(data, "train")
@@ -412,10 +601,10 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
             args.validation_data_dirs, args.validation_date_range,
             args.validation_date_days_ago,
         )
-        validation_data, _, _ = timed(
-            "read validation data", read_game_data, validation_dirs,
-            shard_configs, index_maps, id_tags=val_tags, **col_names,
-        )
+        with timer.time("read validation data"):
+            validation_data, _, _ = read_game_data(
+                validation_dirs, shard_configs, index_maps, id_tags=val_tags, **col_names,
+            )
         logger.info("validation rows: %d", validation_data.num_rows)
         if args.check_data:
             check_shards(validation_data, "validation")
@@ -434,14 +623,13 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
     stat_shards = list(shard_configs) if stats_base else sorted(fe_shards)
     if norm_type is not NormalizationType.NONE or stats_base:
         for sid in stat_shards:
-            t0 = time.perf_counter()
-            labeled = LabeledData.create(
-                data.sparse_features(sid, engine="auto", device=device),
-                torch.from_numpy(data.labels).to(device),
-                weights=torch.from_numpy(data.weights).to(device),
-            )
-            summary = summarize(labeled)
-            durations[f"feature stats [{sid}]"] = time.perf_counter() - t0
+            with timer.time(f"feature stats [{sid}]"):
+                labeled = LabeledData.create(
+                    data.sparse_features(sid, engine="auto", device=device),
+                    torch.from_numpy(data.labels).to(device),
+                    weights=torch.from_numpy(data.weights).to(device),
+                )
+                summary = summarize(labeled)
             if stats_base:
                 _save_feature_stats(stats_base, sid, summary, index_maps[sid])
             icpt = index_maps[sid].get_index(INTERCEPT_KEY)
@@ -457,24 +645,40 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         evaluator = make_evaluator(args.evaluator[0], validation_data)
         extra = [make_evaluator(s, validation_data) for s in args.evaluator[1:]]
 
-    estimator = GameEstimator(
+    estimator_kwargs = dict(
         task=task,
-        coordinates=coordinates,
         update_order=update_order,
         num_outer_iterations=(
             args.num_outer_iterations
             if args.num_outer_iterations is not None
             else int(raw_config.get("num_outer_iterations", 1))
         ),
-        evaluator=evaluator,
-        extra_evaluators=extra,
-        compute_variance=args.compute_variance,
         normalization=normalization,
         intercept_indices=intercept_indices,
         device=device,
-        emitter=emitter,
+        compute_variance=False,  # trials skip variances; the real fit opts in
         schedule=args.schedule,
         staleness=args.staleness,
+    )
+    tuned_config: Dict[str, object] = {}
+    if args.auto_tune:
+        with timer.time("auto-tune"):
+            tuned_config, ab_result = _auto_tune_training(
+                args, logger, estimator_kwargs, coordinates, data
+            )
+        if tuned_config:
+            coordinates = _apply_adaptive_knobs(coordinates, tuned_config)
+        if ab_result is not None:
+            os.makedirs(args.output_dir, exist_ok=True)
+            with open(os.path.join(args.output_dir, "auto-tune.json"), "w") as f:
+                json.dump(ab_result, f, indent=2, sort_keys=True)
+
+    estimator = GameEstimator(
+        coordinates=coordinates,
+        evaluator=evaluator,
+        extra_evaluators=extra,
+        emitter=emitter,
+        **{**estimator_kwargs, "compute_variance": args.compute_variance},
     )
     sweep_configs = _sweep_model_configs(coordinate_weight_sweeps(raw_config), coordinates)
     if len(sweep_configs) > 1 and validation_data is None:
@@ -483,10 +687,14 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
             "without a validation evaluator there is no way to select "
             "the best of the swept models"
         )
+    if progress is not None and len(sweep_configs) > 1:
+        raise ValueError(
+            "--progress-out/--introspect-port track ONE fit's trajectory; "
+            "they do not compose with regularization_weights sweeps"
+        )
     emitter.send_event(TrainingStartEvent(task=args.task))
     fit_overrides: Dict[str, object] = {}
-    with _profiled(args.profile_dir, device):
-        t0 = time.perf_counter()
+    with _profiled(args.profile_dir, device), timer.time("fit"):
         if len(sweep_configs) > 1:
             # one fit per swept configuration over coordinates built once,
             # the best by the validation evaluator (reference
@@ -510,9 +718,8 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
             all_overrides = list(sweep_configs)
         else:
             fit = estimator.fit(data, validation_data=validation_data,
-                                checkpoint_dir=args.checkpoint_dir)
+                                checkpoint_dir=args.checkpoint_dir, progress=progress)
             all_fits, all_overrides = [fit], [{}]
-        durations["fit"] = time.perf_counter() - t0
     for cid, value in fit.objective_history:
         opt_cfg = fit_overrides.get(cid) or coordinates[cid].optimizer
         emitter.send_event(PhotonOptimizationLogEvent(
@@ -532,13 +739,13 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
         tuning_kwargs = {}
         if args.regularization_weight_range:
             tuning_kwargs["log10_range"] = _weight_range(args.regularization_weight_range)
-        trials = timed(
-            "hyperparameter tuning", run_hyperparameter_tuning,
-            estimator, data, validation_data,
-            mode=args.hyperparameter_tuning,
-            num_iterations=args.hyperparameter_tuning_iter,
-            prior_fits=[fit], warm_start=args.use_warm_start, **tuning_kwargs,
-        )
+        with timer.time("hyperparameter tuning"):
+            trials = run_hyperparameter_tuning(
+                estimator, data, validation_data,
+                mode=args.hyperparameter_tuning,
+                num_iterations=args.hyperparameter_tuning_iter,
+                prior_fits=[fit], warm_start=args.use_warm_start, **tuning_kwargs,
+            )
         for t in trials:
             logger.info("trial lambda=%s metric=%.6f",
                         ["%.4g" % (10.0 ** v) for v in t.hyperparameters], t.value)
@@ -552,33 +759,47 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter) -> Gam
             ):
                 best, best_overrides = c, ovr
 
+    def final_config(overrides) -> dict:
+        """The configuration that trained a saved model, with the
+        --auto-tune winner as ``tuned_config``."""
+        cfg = _config_with_overrides(raw_config, overrides)
+        if tuned_config:
+            cfg = dict(cfg)
+            cfg["tuned_config"] = dict(tuned_config)
+        return cfg
+
     if args.model_output_mode != "NONE":
-        t0 = time.perf_counter()
-        save = dict(index_maps=index_maps, model_name=args.model_name,
-                    num_output_files_per_random_effect=(
-                        args.num_output_files_for_random_effect_model))
-        save_game_model(best.model, os.path.join(args.output_dir, "best"),
-                        configurations=_config_with_overrides(raw_config, best_overrides),
-                        **save)
-        if args.model_output_mode == "ALL":
-            # reference Driver.scala:416-433: every swept configuration's
-            # model under <output>/all/<i>, each with its own configuration
-            for i, (f, ovr) in enumerate(zip(all_fits, all_overrides)):
-                save_game_model(f.model, os.path.join(args.output_dir, "all", str(i)),
-                                configurations=_config_with_overrides(raw_config, ovr),
-                                **save)
-        durations["save model"] = time.perf_counter() - t0
+        with timer.time("save model"):
+            save = dict(index_maps=index_maps, model_name=args.model_name,
+                        num_output_files_per_random_effect=(
+                            args.num_output_files_for_random_effect_model))
+            save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                            configurations=final_config(best_overrides), **save)
+            if args.model_output_mode == "ALL":
+                # reference Driver.scala:416-433: every swept configuration's
+                # model under <output>/all/<i>, each with its own
+                # configuration
+                for i, (f, ovr) in enumerate(zip(all_fits, all_overrides)):
+                    save_game_model(f.model, os.path.join(args.output_dir, "all", str(i)),
+                                    configurations=final_config(ovr), **save)
         logger.info("model saved to %s", os.path.join(args.output_dir, "best"))
     emitter.send_event(TrainingFinishEvent(
         task=args.task, wall_seconds=time.perf_counter() - t_start
     ))
-    for name, seconds in durations.items():
+    for name, seconds in timer.durations.items():
         logger.info("timing %-20s %.3fs", name, seconds)
     return best
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    try:
+        run(args)
+    except DivergenceError as e:
+        # the watchdog already wrote the anomaly record and flipped
+        # /healthz; abort without a model rather than save a diverged one
+        print(f"training aborted by divergence watchdog: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

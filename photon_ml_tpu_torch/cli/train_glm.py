@@ -15,9 +15,11 @@ Usage:
         --task LOGISTIC_REGRESSION --regularization-weights 0.1 1 10 100 \\
         --output-dir out/ [--input-format LIBSVM] [--device cpu]
 
+``--telemetry-out`` writes a JSONL run ledger (spans, events, metrics) and
+``--trace-out`` a Chrome trace; the phases (``utils/timer.py``) are spans.
+
 Refused, naming their ROADMAP.md Queue A item: ``--diagnostic-mode`` other
-than NONE, ``--telemetry-out`` / ``--trace-out``, ``--offheap-indexmap-dir``
-and the multi-host flags.
+than NONE, ``--offheap-indexmap-dir`` and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.common import (
+    add_telemetry_args,
     delete_dirs_if_exist,
+    finish_telemetry,
     parse_box_constraints,
     parse_optimizer_config,
     setup_logger,
+    start_telemetry,
 )
 from photon_ml_tpu_torch.cli.train_game import write_feature_stats
 from photon_ml_tpu_torch.data.validators import DataValidationType, validate_labeled_data
@@ -62,11 +67,10 @@ from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.types import ConvergenceReason, NormalizationType, TaskType
 from photon_ml_tpu_torch.utils.timer import Timer
 
-# flags of the reference driver that name modules not ported yet, with the
-# ROADMAP.md Queue A item that ports them
+# flags of the reference driver whose modules are not ported yet (off-heap
+# index maps, the cluster plane), with the ROADMAP.md Queue A item that
+# ports them
 _UNPORTED = {
-    "telemetry_out": "Telemetry and resilience",
-    "trace_out": "Telemetry and resilience",
     "offheap_indexmap_dir": "Off-heap index maps",
     "coordinator_address": "The cluster plane",
     "num_processes": "The cluster plane",
@@ -134,6 +138,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--log-file", default=None)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
+    add_telemetry_args(p)
     for flag in _UNPORTED:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
                        help=f"not ported yet (ROADMAP.md, Queue A: {_UNPORTED[flag]})")
@@ -219,11 +224,15 @@ def run(args: argparse.Namespace) -> dict:
     emitter = EventEmitter()
     for name in args.event_listeners:
         emitter.register_listener_class(name)
+    timer = Timer()
+    telemetry = start_telemetry(args, "train_glm", emitter=emitter)
     try:
-        return _run(args, logger, device, emitter)
+        return _run(args, logger, device, emitter, timer)
     finally:
-        # listeners flush and close even when the run fails
+        # listeners flush and close even when the run fails; telemetry
+        # finishes after them so that every bridged event is in the ledger
         emitter.clear_listeners()
+        finish_telemetry(telemetry, phases=dict(timer.durations))
 
 
 def _read(args, task, paths, feature_dimension=None, index_maps=None):
@@ -243,8 +252,7 @@ def _read(args, task, paths, feature_dimension=None, index_maps=None):
     return data, index_maps
 
 
-def _run(args, logger, device, emitter: EventEmitter) -> dict:
-    timer = Timer()
+def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
     task = TaskType[args.task]
     emitter.send_event(PhotonSetupEvent(params=vars(args)))
     t_start = time.perf_counter()

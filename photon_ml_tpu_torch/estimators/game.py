@@ -25,9 +25,13 @@ coordinate solves and overlaps random-effect buckets on CUDA streams
 (``algorithm/schedule.py``). Hyperparameter tuning is
 ``estimators/tuning.py``.
 
+``fit(progress=...)`` feeds a ``telemetry.progress.ConvergenceTracker``
+(one record per coordinate update, the divergence watchdog). Telemetry
+spans: ``game/build_coordinate``, ``game/resolve_coordinate`` and
+``game/fit`` around the coordinate-descent run.
+
 Not ported (ROADMAP.md, Queue A): ``fit_streaming`` (item 7), the device
-mesh and the host score plane (item 8), progress tracking and spans (item
-4).
+mesh and the host score plane (item 8).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
+from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger("photon_ml_tpu_torch")
@@ -213,6 +218,10 @@ class GameEstimator:
         self.last_resolve_stats: list = []
 
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
+        with span("game/build_coordinate", coordinate=cid, kind=type(cfg).__name__):
+            return self._build_coordinate_impl(cid, cfg, data)
+
+    def _build_coordinate_impl(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         dev = self.device
         if isinstance(cfg, FixedEffectCoordinateConfiguration):
             labeled = LabeledData.create(
@@ -339,6 +348,10 @@ class GameEstimator:
                 f"coordinate {cid!r} is factored — single-coordinate re-solve "
                 "supports fixed-effect and plain random-effect coordinates"
             )
+        with span("game/resolve_coordinate", coordinate=cid, num_rows=data.num_rows):
+            return self._resolve_coordinate_impl(cid, cfg, data, models, initial_model)
+
+    def _resolve_coordinate_impl(self, cid, cfg, data, models, initial_model):
         coord = self._build_coordinate(cid, cfg, data)
         meta = self._meta()
         others = {c: m for c, m in models.items() if c != cid and m is not None}
@@ -365,16 +378,20 @@ class GameEstimator:
         initial_models: Optional[Dict[str, object]] = None,
         coordinates: Optional[Dict[str, object]] = None,
         checkpoint_dir: Optional[str] = None,
+        progress: Optional[object] = None,
     ) -> GameFit:
         """Train by block coordinate descent; ``initial_models`` warm-start
         coordinates (models of the same datasets); ``coordinates`` reuses
         datasets from :meth:`build_coordinates`. With ``checkpoint_dir`` the
         training state is written atomically after every outer iteration,
         and a checkpoint already there is resumed (its completed iterations
-        skipped; it takes precedence over ``initial_models``)."""
+        skipped; it takes precedence over ``initial_models``). ``progress``
+        is an optional ``telemetry.progress.ConvergenceTracker``; None (the
+        default) and a tracker give bitwise the same fit."""
         if coordinates is None:
             coordinates = self.build_coordinates(data)
-        return self._run_fit(coordinates, data, validation_data, initial_models, checkpoint_dir)
+        return self._run_fit(coordinates, data, validation_data, initial_models, checkpoint_dir,
+                             progress=progress)
 
     def fit_multiple(
         self,
@@ -469,7 +486,8 @@ class GameEstimator:
         return dataclasses.replace(coord, configuration=cfg.optimizer)
 
     def _run_fit(
-        self, coordinates, data, validation_data, initial_models, checkpoint_dir=None
+        self, coordinates, data, validation_data, initial_models, checkpoint_dir=None,
+        progress=None,
     ) -> GameFit:
         dev = self.device
         meta = self._meta()
@@ -536,6 +554,7 @@ class GameEstimator:
             emitter=self.emitter,
             schedule=self.schedule,
             staleness=self.staleness,
+            progress=progress,
         )
         start_iteration, initial_best, on_iteration_end = 0, None, None
         prior_objectives: List[Tuple[str, float]] = []
@@ -571,11 +590,13 @@ class GameEstimator:
                     best_models=running.best_models if validate is not None else None,
                 )
 
-        result = cd.run(
-            self.num_outer_iterations, initial_models=initial_models,
-            start_iteration=start_iteration, initial_best=initial_best,
-            on_iteration_end=on_iteration_end,
-        )
+        with span("game/fit", coordinates=len(coordinates), num_rows=data.num_rows,
+                  score_plane="device"):
+            result = cd.run(
+                self.num_outer_iterations, initial_models=initial_models,
+                start_iteration=start_iteration, initial_best=initial_best,
+                on_iteration_end=on_iteration_end,
+            )
         return GameFit(
             model=GameModel(models=result.best_models, meta=meta, task=self.task),
             validation_metric=result.best_metric,

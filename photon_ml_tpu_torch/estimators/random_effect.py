@@ -53,6 +53,7 @@ from photon_ml_tpu_torch.opt.solve import (
 from photon_ml_tpu_torch.opt.state import SolveResult
 from photon_ml_tpu_torch.opt.tracking import SolverStats
 from photon_ml_tpu_torch.projector import ProjectorType
+from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import ConvergenceReason, TaskType
 
 _NOT_CONVERGED = ConvergenceReason.NOT_CONVERGED.value
@@ -141,26 +142,28 @@ class _BucketSolver:
 
         # ceil(max_iter/K) chunks finish every lane; +1 for the
         # converged-at-init case where the first chunk advances nothing
-        for _ in range(-(-max_iter // K) + 1):
-            state = solve_chunk(self.objective, state, data, cfg, num_iters=K)
-            widths.append(width)
-            its_after = state.it.cpu().numpy()
-            executed += width * int(np.max(its_after - its_before))
-            its_before = its_after
-            done = (state.reason != _NOT_CONVERGED) | (state.it >= max_iter)
-            n_live = int((~done).sum())
-            if n_live == 0:
-                break
-            new_width = _next_pow2(max(n_live, cfg.adaptive.min_lanes))
-            if new_width < width:
-                # freeze the current results, then move the survivors (and
-                # done lanes as filler up to the new width) to a dense prefix
-                scatter_extract()
-                keep = torch.argsort(done.to(torch.int8), stable=True)[:new_width]
-                state = state.take_lanes(keep)
-                data = data.take_lanes(keep)
-                pv, live, width = pv[keep], live[keep], new_width
-                its_before = its_before[keep.cpu().numpy()]
+        for round_index in range(-(-max_iter // K) + 1):
+            with span("re/adaptive_round", bucket=index, round=round_index, width=width):
+                state = solve_chunk(self.objective, state, data, cfg, num_iters=K)
+                widths.append(width)
+                its_after = state.it.cpu().numpy()
+                executed += width * int(np.max(its_after - its_before))
+                its_before = its_after
+                done = (state.reason != _NOT_CONVERGED) | (state.it >= max_iter)
+                n_live = int((~done).sum())
+                if n_live == 0:
+                    break
+                new_width = _next_pow2(max(n_live, cfg.adaptive.min_lanes))
+                if new_width < width:
+                    # freeze the current results, then move the survivors
+                    # (and done lanes as filler up to the new width) to a
+                    # dense prefix
+                    scatter_extract()
+                    keep = torch.argsort(done.to(torch.int8), stable=True)[:new_width]
+                    state = state.take_lanes(keep)
+                    data = data.take_lanes(keep)
+                    pv, live, width = pv[keep], live[keep], new_width
+                    its_before = its_before[keep.cpu().numpy()]
         scatter_extract()
         res = SolveResult(**{
             f.name: buffers.get(f.name) for f in dataclasses.fields(SolveResult)
@@ -210,10 +213,17 @@ def train_random_effects(
             device=bucket.X.device,
         )
 
+    def use_adaptive(bucket: ReBucket) -> bool:
+        return adaptive.enabled and bucket.num_entities > adaptive.min_lanes
+
     def solve_bucket(b: int, bucket: ReBucket, w0: torch.Tensor):
-        if adaptive.enabled and bucket.num_entities > adaptive.min_lanes:
+        if use_adaptive(bucket):
             return solver.adaptive(bucket, w0, b)
         return solver.oneshot(bucket, w0, b)
+
+    def span_attrs(b: int, bucket: ReBucket) -> dict:
+        return dict(bucket=b, mode="adaptive" if use_adaptive(bucket) else "oneshot",
+                    entities=bucket.num_entities, optimizer=solver.kind)
 
     buckets = dataset.buckets
     if int(overlap_buckets) >= 2 and len(buckets) > 1:
@@ -223,11 +233,17 @@ def train_random_effects(
         ) as executor:
             for b, bucket in enumerate(buckets):
                 w0 = warm_start(b, bucket)
-                executor.submit(b, functools.partial(solve_bucket, b, bucket, w0), inputs=w0)
+                executor.submit(
+                    b, functools.partial(solve_bucket, b, bucket, w0), inputs=w0,
+                    span_name="re/solve_bucket", overlap=True, **span_attrs(b, bucket),
+                )
             outs = executor.drain()
     else:
-        outs = [solve_bucket(b, bucket, warm_start(b, bucket))
-                for b, bucket in enumerate(buckets)]
+        outs = []
+        for b, bucket in enumerate(buckets):
+            w0 = warm_start(b, bucket)
+            with span("re/solve_bucket", device_sync=True, **span_attrs(b, bucket)):
+                outs.append(solve_bucket(b, bucket, w0))
 
     coeffs, variances, results = [], [], []
     for res, w, var, stats in outs:

@@ -5,8 +5,9 @@ photon-client event/{Event,EventEmitter,EventListener}.scala; events fired
 from Driver.scala:120,162,186). Listeners are registered by instance, or by
 dotted class name (the reference's ``--event-listeners`` flag,
 Params.scala:186), and receive every event; a listener's exception is
-logged and counted, never raised into training. The serving and
-score-plane events of the reference belong to modules not ported yet.
+logged and counted, never raised into training. The scoring, hot-swap,
+transfer and anomaly events are declared here for the telemetry sinks
+(``telemetry/sinks.py``); the convergence watchdog sends ``AnomalyEvent``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,39 @@ class TrainingFinishEvent(Event):
 
 
 @dataclasses.dataclass(frozen=True)
+class ScoringStartEvent(Event):
+    """Online/offline scoring phase entered (serving replay, serve CLI)."""
+
+    model_id: str
+    num_requests: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringFinishEvent(Event):
+    """Scoring phase finished; carries the serving metrics snapshot."""
+
+    model_id: str
+    num_requests: int
+    wall_seconds: float
+    metrics: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSwapEvent(Event):
+    """A hot-swap attempt on a live scorer (serving.hotswap). Fired for
+    successful swaps AND rollbacks (``rolled_back`` distinguishes them)."""
+
+    model_id: str
+    generation: int
+    fingerprint: Optional[str]
+    coordinates: Tuple[str, ...]
+    rows_updated: int
+    blackout_s: float
+    rolled_back: bool = False
+    validation_metric: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class SolverStatsEvent(Event):
     """Per-bucket telemetry of the convergence-adaptive random-effect
     driver (``opt.tracking.SolverStats``), sent by coordinate descent after
@@ -90,6 +124,40 @@ class SolverStatsEvent(Event):
             lockstep_lane_iterations=stats.lockstep_lane_iterations,
             wasted_lane_fraction=stats.wasted_lane_fraction,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferStatsEvent(Event):
+    """Per-outer-iteration score-plane transfer accounting from the
+    coordinate-descent driver (opt.tracking.TransferStats deltas): row-length
+    score arrays moved host<->device plus host score-plane re-sums. On the
+    device plane the steady state is all-zero row transfers."""
+
+    score_plane: str
+    outer_iteration: int
+    num_rows: int
+    row_transfers_h2d: int
+    row_transfers_d2h: int
+    row_bytes_h2d: int
+    row_bytes_d2h: int
+    host_score_sums: int
+    device_plane_updates: int
+
+
+@dataclasses.dataclass(frozen=True)
+class AnomalyEvent(Event):
+    """The divergence watchdog tripped during training: a non-finite
+    objective, an objective increase beyond tolerance, or repeated
+    line-search failure while the gradient is still large. ``kind`` names
+    the trigger; ``detail`` carries the offending values. Listeners see it
+    before the driver aborts (the /healthz endpoint flips unhealthy on the
+    same signal)."""
+
+    kind: str
+    coordinate_id: Optional[str]
+    outer_iteration: int
+    objective_value: float
+    detail: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 class EventListener:

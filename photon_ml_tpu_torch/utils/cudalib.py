@@ -9,7 +9,10 @@ source is never served by a stale build. Builds go
 to a temporary file that is renamed into place, so concurrent builders
 (test workers sharing a checkout) never load a half-written library.
 
-Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+Nothing here falls back: a missing ``nvcc`` or a failed build raises. Each
+build that runs is counted in the metrics registry as
+``jit.traces.nvcc/<name>`` (``telemetry.note_jit_trace``), the port's one
+compile step.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+from photon_ml_tpu_torch.telemetry.metrics import note_jit_trace
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "photon_ml_tpu_torch"
@@ -84,6 +89,7 @@ def _finish_build(name: str, started) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}")
         os.replace(tmp, str(lib))
+        note_jit_trace("nvcc", name)
         return out
     finally:
         if os.path.exists(tmp):

@@ -220,3 +220,70 @@ def jax_vmapped_solve(loss: str, jd, w0, cfg, box=None):
 
     obj = jax_objective(getattr(jax_pointwise, loss), use_pallas=False)
     return jax.vmap(lambda w, dd: jax_solve(obj, w, dd, cfg, box=box))(jnp.asarray(w0), jd)
+
+
+def write_tiny_glmix(root) -> dict:
+    """The JAX package's tests/test_progress.py tiny logistic GLMix CLI
+    fixture (fixed + per_user, 60 training and 24 held-out rows) written
+    under ``root`` with the port's Avro writer: {"train", "test",
+    "config"} paths."""
+    import json
+    import os
+
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+
+    rng = np.random.default_rng(7)
+    n_users, rows, dg, du = 6, 10, 4, 2
+    wg = rng.normal(size=dg)
+    wu = {f"user{i}": rng.normal(size=du) for i in range(n_users)}
+
+    def make(n_rows, seed):
+        r = np.random.default_rng(seed)
+        records = []
+        for i in range(n_rows):
+            user = f"user{i % n_users}"
+            xg = r.normal(size=dg)
+            xu = r.normal(size=du)
+            z = xg @ wg + xu @ wu[user]
+            y = 1.0 if 1 / (1 + np.exp(-z)) > r.random() else 0.0
+            records.append({
+                "uid": f"r{i}", "label": y,
+                "features": [("g", str(j), xg[j]) for j in range(dg)],
+                "userFeatures": [("u", str(j), xu[j]) for j in range(du)],
+                "metadataMap": {"userId": user},
+            })
+        return records
+
+    paths = {"train": os.path.join(str(root), "train"), "test": os.path.join(str(root), "test"),
+             "config": os.path.join(str(root), "game.json")}
+    for name, n_rows, seed in (("train", n_users * rows, 1), ("test", n_users * 4, 2)):
+        os.makedirs(paths[name])
+        write_training_examples(os.path.join(paths[name], "part-00000.avro"), make(n_rows, seed))
+    opt = {"optimizer": "LBFGS", "regularization": "L2"}
+    config = {
+        "feature_shards": {
+            "global": {"feature_bags": ["features"], "add_intercept": True},
+            "per_user": {"feature_bags": ["userFeatures"], "add_intercept": False},
+        },
+        "coordinates": {
+            "fixed": {"type": "fixed", "feature_shard": "global",
+                      "optimizer": {**opt, "regularization_weight": 0.1}},
+            "per_user": {"type": "random", "feature_shard": "per_user",
+                         "random_effect_type": "userId",
+                         "optimizer": {**opt, "regularization_weight": 1.0}},
+        },
+        "update_order": ["fixed", "per_user"],
+    }
+    with open(paths["config"], "w") as f:
+        json.dump(config, f)
+    return paths
+
+
+def tiny_glmix_argv(paths: dict, out, *extra) -> list:
+    """train_game arguments over ``write_tiny_glmix``'s files (AUC, 2 outer
+    iterations), as the JAX test passes them."""
+    return [
+        "--train-data-dirs", paths["train"], "--validation-data-dirs", paths["test"],
+        "--coordinate-config", paths["config"], "--task", "LOGISTIC_REGRESSION",
+        "--output-dir", str(out), "--evaluator", "AUC", "--num-outer-iterations", "2", *extra,
+    ]

@@ -19,7 +19,9 @@
   layout under --model-output-mode ALL), RANDOM tuning (the same best and
   saved λ), --schedule async with --updating-sequence and --check-data
   (RMSE to 1e-4), and the date-range flags over a daily layout (bitwise
-  the plain-dirs fit; score_game --date-range reproduces it).
+  the plain-dirs fit; score_game --date-range reproduces it);
+- the telemetry, progress, introspection and auto-tune flags on the
+  ratings fixture: bitwise the plain run, valid ledgers.
 """
 
 import json
@@ -200,8 +202,10 @@ def test_train_game_cli_on_ratings_fixture(tmp_path):
 def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     """What stays refused: TRON with L1 (as in the JAX package) and the
     flags whose modules are not ported, each naming its ROADMAP item.
-    Regularization-weight sweeps, once refused here, now train:
-    test_sweep_cli_picks_the_jax_best below."""
+    Regularization-weight sweeps, once refused here, now train
+    (test_sweep_cli_picks_the_jax_best below), and so do the telemetry,
+    introspection and auto-tune flags (test_train_game_cli_telemetry_flags
+    below)."""
     path = tmp_path / "bad.json"
     cfg = json.loads(open(_ratings_config(tmp_path)).read())
     cfg["coordinates"]["fixed"]["optimizer"].update(
@@ -210,10 +214,10 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="TRON does not support L1"):
         train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
     config_path = _ratings_config(tmp_path)
-    for flags, item in ((("--streaming",), "item 7"), (("--telemetry-out", "t.jsonl"), "item 4"),
+    for flags, item in ((("--streaming",), "item 7"), (("--on-block-error", "skip"), "item 7"),
                         (("--parallel-data", "2"), "item 8"), (("--hosts", "2"), "item 8"),
                         (("--offheap-indexmap-dir", "x"), "item 6"),
-                        (("--auto-tune",), "item 4")):
+                        (("--coordinator-address", "localhost:1"), "item 8")):
         with pytest.raises(NotImplementedError, match=f"{flags[0]} is not ported.*{item}"):
             train_game.run(train_game.parse_args(_train_argv(tmp_path, config_path, *flags)))
     # a sweep needs validation data to pick its best, as in the JAX CLI
@@ -356,6 +360,42 @@ def test_standardized_benes_cli_matches_jax(tmp_path):
         "--output-dir", str(tmp_path / "scores"), "--evaluator", "RMSE", "--device", "cpu",
     ]))
     assert abs(rmse - fit.validation_metric) <= 1e-6
+
+
+@pytest.mark.parametrize("flags", [
+    ("--telemetry-out", "run.jsonl", "--trace-out", "trace.json"),
+    ("--progress-out", "progress.jsonl", "--introspect-port", "0"),
+    ("--auto-tune", "--auto-tune-trials", "1"),
+])
+def test_train_game_cli_telemetry_flags(tmp_path, flags):
+    """The flags refused before the telemetry was ported now run on the
+    ratings fixture: the fit is bitwise the plain run's, the ledgers and the
+    trace validate, --auto-tune writes auto-tune.json."""
+    import photon_ml_tpu_torch.telemetry as tt
+
+    config = _ratings_config(tmp_path)
+    plain = train_game.run(train_game.parse_args(_train_argv(tmp_path, config)))
+    extra = [str(tmp_path / f) if f.endswith((".jsonl", ".json")) else f for f in flags]
+    argv = _train_argv(tmp_path, config, *extra)
+    argv[argv.index(str(tmp_path / "out"))] = str(tmp_path / "flags")
+    fit = train_game.run(train_game.parse_args(argv))
+    assert not tt.get_tracer().enabled
+    assert fit.objective_history == plain.objective_history
+    assert fit.validation_metric == plain.validation_metric < 0.45
+    if "--telemetry-out" in flags:
+        spans = {r["name"] for r in tt.validate_ledger(str(tmp_path / "run.jsonl"))
+                 if r["type"] == "span"}
+        assert {"read training data", "fit", "game/fit", "cd/run", "cd/coordinate",
+                "fe/solve", "re/solve_bucket", "save model"} <= spans
+        tt.validate_chrome_trace(str(tmp_path / "trace.json"))
+    if "--progress-out" in flags:
+        progress = tt.extract_progress_records(
+            tt.validate_ledger(str(tmp_path / "progress.jsonl")))
+        assert [r["kind"] for r in progress].count("coordinate") == 6
+    if "--auto-tune" in flags:
+        with open(tmp_path / "flags" / "auto-tune.json") as f:
+            tuned = json.load(f)
+        assert len(tuned["trials"]) == 2 and tuned["judge_metric"] == "autotune.wall_s"
 
 
 def _sweep_config(tmp_path):

@@ -7,7 +7,8 @@
   per-feature boxes given in the original space; tracked models;
 - the ``train_glm`` CLI on Avro and on LibSVM input against the JAX CLI: the
   same best λ, metrics to 1e-4, model-file coefficients atol 2e-3; its
-  refusals of flags not ported yet;
+  refusals of flags not ported yet; ``--telemetry-out`` and
+  ``--trace-out`` (outputs as the plain run's, the phases as spans);
 - ``io/libsvm.py``, ``data/validators.py``, ``opt/tracking.py``,
   ``event.py``, ``utils/timer.py`` and ``cli.common.parse_box_constraints``
   against their JAX counterparts.
@@ -280,14 +281,62 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             "--task", "LOGISTIC_REGRESSION", "--output-dir", str(tmp_path / "o"),
             "--device", "cpu"]
     for extra, item in ((["--diagnostic-mode", "ALL"], "Also still to port"),
-                        (["--telemetry-out", "x.jsonl"], "Telemetry and resilience"),
-                        (["--trace-out", "x.json"], "Telemetry and resilience"),
                         (["--offheap-indexmap-dir", "idx"], "Off-heap index maps"),
-                        (["--coordinator-address", "localhost:1"], "The cluster plane")):
+                        (["--coordinator-address", "localhost:1"], "The cluster plane"),
+                        (["--num-processes", "2"], "The cluster plane"),
+                        (["--process-id", "1"], "The cluster plane")):
         with pytest.raises(NotImplementedError, match=item):
             train_glm_cli.run(train_glm_cli.parse_args(base + extra))
     with pytest.raises(ValueError, match="requires --validation-data-dirs"):
         train_glm_cli.run(train_glm_cli.parse_args(base + ["--validate-per-iteration"]))
+
+
+@pytest.mark.parametrize("flags", [("--telemetry-out",), ("--trace-out",),
+                                   ("--telemetry-out", "--trace-out")])
+def test_cli_telemetry_flags(tmp_path, flags):
+    """--telemetry-out and --trace-out (refused before the telemetry was
+    ported): the same outputs as the plain run, a valid ledger and trace
+    whose spans are the phases, and the same span names as the JAX CLI's
+    ledger."""
+    import photon_ml_tpu.telemetry as jt
+    from photon_ml_tpu.cli import train_glm as jax_train_glm_cli
+    import photon_ml_tpu_torch.telemetry as tt
+
+    _write_libsvm(tmp_path / "train.txt", 5, 120)
+    _write_libsvm(tmp_path / "val.txt", 6, 60)
+    base = ["--training-data-dirs", str(tmp_path / "train.txt"), "--validation-data-dirs",
+            str(tmp_path / "val.txt"), "--input-format", "LIBSVM", "--task",
+            "LOGISTIC_REGRESSION", "--regularization-weights", "0.1", "1"]
+    files = {"--telemetry-out": "run.jsonl", "--trace-out": "trace.json"}
+
+    def telemetry(root):
+        return [a for f in flags for a in (f, str(root / files[f]))]
+
+    plain = train_glm_cli.run(train_glm_cli.parse_args(
+        base + ["--output-dir", str(tmp_path / "plain"), "--device", "cpu"]))
+    traced = train_glm_cli.run(train_glm_cli.parse_args(
+        base + ["--output-dir", str(tmp_path / "t"), "--device", "cpu"]
+        + telemetry(tmp_path / "t")))
+    assert not tt.get_tracer().enabled
+    assert traced["best_lambda"] == plain["best_lambda"] and traced["metrics"] == plain["metrics"]
+    for name in ("model-lambda-0.1.txt", "model-lambda-1.txt", "selection.json"):
+        assert (tmp_path / "t" / name).read_text() == (tmp_path / "plain" / name).read_text()
+    jax_train_glm_cli.main(base + ["--output-dir", str(tmp_path / "j")]
+                           + telemetry(tmp_path / "j"))
+    jt.disable_tracing()
+    if "--telemetry-out" in flags:
+        mine = tt.validate_ledger(str(tmp_path / "t" / "run.jsonl"))
+        ref = jt.validate_ledger(str(tmp_path / "j" / "run.jsonl"))
+        names = sorted(r["name"] for r in mine if r["type"] == "span")
+        assert names == ["output", "preprocess", "train", "validate"]
+        assert names == sorted(r["name"] for r in ref if r["type"] == "span")
+        assert [r["event"] for r in mine if r["type"] == "event"] == [
+            r["event"] for r in ref if r["type"] == "event"]
+    if "--trace-out" in flags:
+        doc = tt.validate_chrome_trace(str(tmp_path / "t" / "trace.json"))
+        assert sorted(e["name"] for e in doc["traceEvents"]) == sorted(
+            e["name"] for e in jt.validate_chrome_trace(
+                str(tmp_path / "j" / "trace.json"))["traceEvents"])
 
 
 def test_cli_flags_and_event_listener(tmp_path):
