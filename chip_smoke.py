@@ -6,9 +6,13 @@ Phases, in order, each printing one JSON line (any failure raises, so the
 exit code is not 0):
 
 1. env              — torch/CUDA versions, the card's name and power limit,
-                      where nvcc resolves, whether triton imports.
+                      where nvcc resolves, whether triton imports, whether
+                      zlib.h is there and a program using it links with
+                      -lz (native/avrodecode.cpp is built so).
 2. build            — build every kernel library from ops/csrc with nvcc
-                      (one process per source, all started together).
+                      (one process per source, all started together), and
+                      the host C++ libraries of the data plane with g++
+                      (the Avro decoder and the off-heap index store).
 3. kernel           — each kernel against its plain PyTorch version and a
                       float64 computation, on the card: csr_matvec_f32 over
                       random CSR matrices (n in {1, 31, 4097, 2^20}, rows of
@@ -53,10 +57,36 @@ exit code is not 0):
                       kernel/plain/library/bound times.
 5. score_game_cli   — photon_ml_tpu_torch.cli.score_game on an Avro fixture
                       written by the port's own writers (65,536 rows x 16 FE
-                      nonzeros), on cuda and on cpu: same AUC to 1e-6; and
-                      on cuda with --telemetry-out and --trace-out: valid
-                      ledger and trace, scores bitwise the plain run's.
-6. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
+                      nonzeros), read through the native columnar decoder,
+                      on cuda and on cpu: same AUC to 1e-6; on cuda with
+                      --telemetry-out and --trace-out: valid ledger and
+                      trace, scores bitwise the plain run's; on cuda with
+                      --offheap-indexmap-dir over stores that the port's
+                      build_index built from the fixture (scores within
+                      rtol 2e-4, atol 1e-5 of the plain run's, AUC 1e-6);
+                      on cuda with --model-id, --log-data-and-model-stats,
+                      --log-file and --event-listeners (scores bitwise the
+                      plain run's, the id on every record, the stats in the
+                      log, the scoring events); csr_matvec_f32 launched;
+                      the fixture read natively and through the Python
+                      codec, called directly, in turns (read_native_s,
+                      read_python_s).
+6. read_score_full_width
+                    — the data of score_full_width (make_glmix at 2^20
+                      rows x 2^24 dims x 16 nonzeros, per-user and per-item
+                      REs) written as 16 Avro part files of 65,536 rows by
+                      worker processes; off-heap stores of the FE (8
+                      partitions), per-user and per-item shards built by
+                      the build_index CLI; read_game_data through those
+                      stores on the native path, twice; the model's
+                      coefficients carried into the stores' column space
+                      by name; scored on cuda: the natively read GameData
+                      equal to make_glmix's as sorted (row, name, value)
+                      triples, the scores equal to score_full_width's
+                      (bitwise, else rtol 2e-4, atol 1e-5), with the
+                      write, build, read and score seconds, the read's
+                      rows/s, peak RSS and csr_matvec_f32 launches.
+7. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
                       full width (FE 2^20 rows x 2^24 dims x 16 nonzeros +
                       an intercept; per-user RE 65,536 x 16, per-item
                       16,384 x 16), one outer iteration fixed -> per_user ->
@@ -70,7 +100,7 @@ exit code is not 0):
                       L2-flushed time of each redesigned kernel, each kernel
                       against its plain version at those shapes, and the
                       device idle share of one random-effect solve.
-7. train_glm_full_width
+8. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
                       + an intercept; fused engine), labels of each task from
@@ -90,7 +120,7 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-8. train_tron_full_width
+9. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -98,7 +128,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-9. fe_bf16_full_width
+10. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -115,7 +145,7 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-10. train_benes_full_width
+11. train_benes_full_width
                     — the same training data with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
@@ -131,7 +161,7 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-11. train_full_game_full_width
+12. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
@@ -149,7 +179,7 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-12. train_async_full_width
+13. train_async_full_width
                     — the train_full_width fit with per_user in 4 buckets
                       and per_item in 2, 2 outer iterations, on the sync
                       schedule and on schedule="async" (a CUDA stream a
@@ -163,7 +193,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-13. train_sweep_tuning_full_width
+14. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -172,8 +202,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-14. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 12
+15. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 13
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -192,7 +222,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-15. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+16. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -230,7 +260,7 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-16. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+17. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -279,6 +309,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
+              "read_score_full_width",
               "train_full_width", "train_glm_full_width", "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
               "train_async_full_width", "train_sweep_tuning_full_width",
@@ -466,13 +497,34 @@ def phase_env() -> dict:
         "nvcc": cudalib.find_nvcc(),
         "triton": triton_version,
         "device_count": torch.cuda.device_count(),
+        **zlib_probe(),
     }
     emit("env", **info)
     return info
 
 
+def zlib_probe() -> dict:
+    """Whether zlib.h is there and a program calling zlib links with -lz:
+    native/avrodecode.cpp includes the header and is linked so
+    (io/native_reader.LDFLAGS), a choice made at build time."""
+    from photon_ml_tpu_torch.io import native_reader
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zlib_") as d:
+        src = os.path.join(d, "probe.cpp")
+        with open(src, "w") as f:
+            f.write("#include <zlib.h>\nint main() { return zlibVersion()[0] == 0; }\n")
+        link = subprocess.run(["g++", src, "-o", os.path.join(d, "probe"), "-lz"],
+                              capture_output=True, text=True, timeout=120)
+    return {"zlib_h": os.path.exists("/usr/include/zlib.h"),
+            "zlib_links": link.returncode == 0,
+            "avrodecode_ldflags": list(native_reader.LDFLAGS)}
+
+
 def phase_build() -> dict:
     from photon_ml_tpu_torch.utils import cudalib
+
+    from photon_ml_tpu_torch.indexmap import offheap
+    from photon_ml_tpu_torch.io import native_reader
 
     sources = sorted(p.stem for p in cudalib.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
@@ -480,7 +532,13 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     ptxas = {name: [l for l in log.splitlines() if "registers" in l or "spill" in l]
              for name, log in logs.items()}
-    emit("build", seconds=seconds, sources=sources, ptxas=ptxas)
+    # the host C++ of the data plane (g++; a failed build raises)
+    t0 = time.perf_counter()
+    native_reader.native_available()
+    offheap.native_available()
+    host_seconds = time.perf_counter() - t0
+    emit("build", seconds=seconds, sources=sources, ptxas=ptxas,
+         host_libraries=["avrodecode", "indexstore"], host_seconds=host_seconds)
     return {"seconds": seconds}
 
 
@@ -1275,24 +1333,72 @@ def write_cli_fixture(root: str, seed: int, n: int = 65_536, fe_dim: int = 1 << 
     )
 
 
-def phase_score_game_cli(seed: int) -> dict:
-    from photon_ml_tpu_torch.cli import score_game
+class ScoringEvents:
+    """An event listener for score_game --event-listeners (registered by its
+    dotted path, ``chip_smoke.ScoringEvents``): the names of the events it
+    received, and whether it was closed."""
+
+    seen: list = []
+    closed = False
+
+    def __init__(self):
+        ScoringEvents.seen = []
+        ScoringEvents.closed = False
+
+    def on_event(self, event):
+        ScoringEvents.seen.append(type(event).__name__)
+
+    def close(self):
+        ScoringEvents.closed = True
+
+
+def _python_codec_read(fn, *args, **kwargs):
+    """``fn`` (a data_reader function) with the native columnar path off:
+    the record-at-a-time Python codec."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    saved = data_reader._read_game_data_native, data_reader._build_index_maps_native
+    data_reader._read_game_data_native = lambda *a: None
+    data_reader._build_index_maps_native = lambda *a: None
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        data_reader._read_game_data_native, data_reader._build_index_maps_native = saved
+
+
+def phase_score_game_cli(seed: int, n: int = 65_536) -> dict:
+    import importlib
+
+    from photon_ml_tpu_torch.cli import build_index, score_game
+    from photon_ml_tpu_torch.io import data_reader
+    from photon_ml_tpu_torch.io.avro import read_avro_dir
+    from photon_ml_tpu_torch.io.model_io import load_game_model
     from photon_ml_tpu_torch.io.scores_io import load_scores
     from photon_ml_tpu_torch.ops import launches
 
-    n = 65_536
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         t0 = time.perf_counter()
         write_cli_fixture(root, seed, n=n)
         fixture_s = time.perf_counter() - t0
         result = {"rows": n, "fixture_s": fixture_s}
+        t0 = time.perf_counter()
+        build_index.main([
+            "--data-dirs", os.path.join(root, "data"), "--output-dir", os.path.join(root, "idx"),
+            "--feature-shard", "global=features", "--feature-shard", "per_user=userFeatures",
+            "--feature-shard", "per_item=itemFeatures"])
+        result["build_index_s"] = time.perf_counter() - t0
+        log_file = os.path.join(root, "score.log")
         scores = {}
         for run, device, extra in (
                 ("cuda", "cuda", ()), ("cpu", "cpu", ()),
                 # the telemetry flags: scores bitwise the plain cuda run's
                 ("cuda_telemetry", "cuda", (
                     "--telemetry-out", os.path.join(root, "score.jsonl"),
-                    "--trace-out", os.path.join(root, "score_trace.json")))):
+                    "--trace-out", os.path.join(root, "score_trace.json"))),
+                ("cuda_offheap", "cuda", ("--offheap-indexmap-dir", os.path.join(root, "idx"))),
+                ("cuda_flags", "cuda", (
+                    "--model-id", "chip-smoke-model", "--log-data-and-model-stats",
+                    "--log-file", log_file, "--event-listeners", "chip_smoke.ScoringEvents"))):
             out = os.path.join(root, f"scores_{run}")
             argv = [
                 "--data-dirs", os.path.join(root, "data"),
@@ -1314,16 +1420,260 @@ def phase_score_game_cli(seed: int) -> dict:
         result["telemetry_ledger_records"] = len(ledger)
         result["telemetry_bitwise_plain"] = (scores["cuda_telemetry"] == scores["cuda"]
                                              and result["cuda_telemetry_auc"] == result["cuda_auc"])
-    if result["cuda_launches"] < 1:
-        raise AssertionError(f"score_game on cuda did not launch csr_matvec_f32: {result}")
-    for device in ("cuda", "cpu"):
-        if result[f"{device}_records"] != n:
-            raise AssertionError(f"{device} scores file has {result[f'{device}_records']} records")
+        result["flags_bitwise_plain"] = (scores["cuda_flags"] == scores["cuda"]
+                                         and result["cuda_flags_auc"] == result["cuda_auc"])
+        model_ids = {r["modelId"] for r in read_avro_dir(os.path.join(root, "scores_cuda_flags"))}
+        with open(log_file) as f:
+            log_text = f.read()
+        listener = importlib.import_module("chip_smoke").ScoringEvents
+        result["flags_model_ids"] = sorted(model_ids)
+        result["flags_stats_logged"] = (f"dataset stats: numSamples: {n}" in log_text
+                                        and "model stats [fixed]" in log_text)
+        result["flags_events"] = list(listener.seen) + (["closed"] if listener.closed else [])
+        uids = [item.uid for item in scores["cuda"]]
+        offheap = np.array([item.prediction_score for item in scores["cuda_offheap"]])
+        plain = np.array([item.prediction_score for item in scores["cuda"]])
+        result["offheap_uids_equal"] = [item.uid for item in scores["cuda_offheap"]] == uids
+        result["offheap_bitwise"] = bool(np.array_equal(offheap, plain))
+        result["offheap_max_abs_diff"] = float(np.abs(offheap - plain).max())
+
+        # the fixture's read, natively and through the Python codec, in turns
+        _, maps = load_game_model(os.path.join(root, "model"), device="cpu")
+        configs = {sid: data_reader.FeatureShardConfiguration([bag], add_intercept=icpt)
+                   for sid, bag, icpt in (("global", "features", True),
+                                          ("per_user", "userFeatures", False),
+                                          ("per_item", "itemFeatures", False))}
+        read = functools.partial(data_reader.read_game_data, [os.path.join(root, "data")],
+                                 configs, maps, id_tags=["userId", "itemId"])
+        native_s, python_s = [], []
+        for turn in ("native", "python", "native"):
+            t0 = time.perf_counter()
+            got = read() if turn == "native" else _python_codec_read(read)
+            (native_s if turn == "native" else python_s).append(time.perf_counter() - t0)
+            if got[0].num_rows != n:
+                raise AssertionError(f"{turn} read {got[0].num_rows} rows, not {n}")
+        result["read_native_s"] = native_s
+        result["read_python_s"] = python_s
+    for run in ("cuda", "cuda_offheap", "cuda_flags"):
+        if result[f"{run}_launches"] < 1:
+            raise AssertionError(f"score_game {run} did not launch csr_matvec_f32: {result}")
+    for run in scores:
+        if result[f"{run}_records"] != n:
+            raise AssertionError(f"{run} scores file has {result[f'{run}_records']} records")
     if not np.isfinite(result["cuda_auc"]) or abs(result["cuda_auc"] - result["cpu_auc"]) > 1e-6:
         raise AssertionError(f"AUC on cuda and cpu differ: {result}")
     if not result["telemetry_bitwise_plain"]:
         raise AssertionError(f"score_game with telemetry differs from the plain run: {result}")
+    if not (result["offheap_uids_equal"]
+            and np.allclose(offheap, plain, rtol=2e-4, atol=1e-5)
+            and abs(result["cuda_offheap_auc"] - result["cuda_auc"]) <= 1e-6):
+        raise AssertionError(f"score_game through off-heap maps disagrees: {result}")
+    if not (result["flags_bitwise_plain"] and result["flags_model_ids"] == ["chip-smoke-model"]
+            and result["flags_stats_logged"]
+            and result["flags_events"] == ["ScoringStartEvent", "ScoringFinishEvent", "closed"]):
+        raise AssertionError(f"score_game --model-id/--log-*/--event-listeners: {result}")
     emit("score_game_cli", **result)
+    return result
+
+
+def _peak_rss_gb() -> dict:
+    """Peak resident set of this process and of its waited-for children."""
+    return {
+        "self": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+        "children": resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1e6,
+    }
+
+
+GLMIX_BAGS = (("global", "features", "f"), ("per_user", "userFeatures", "u"),
+              ("per_item", "itemFeatures", "i"))
+
+
+def _glmix_part_job(data, path: str, lo: int, hi: int) -> tuple:
+    """The arguments of one writer process: rows [lo, hi) of a make_glmix
+    GameData (k entries a row, in row order, in each shard)."""
+    bags = {}
+    for shard, bag, prefix in GLMIX_BAGS:
+        sh = data.feature_shards[shard]
+        k = len(sh.rows) // data.num_rows
+        bags[bag] = (prefix, sh.cols[lo * k:hi * k].reshape(-1, k),
+                     sh.vals[lo * k:hi * k].reshape(-1, k))
+    return (path, lo, bags, data.id_tags["userId"][lo:hi], data.id_tags["itemId"][lo:hi],
+            data.labels[lo:hi])
+
+
+def _write_glmix_part(job) -> float:
+    """One Avro part file (a writer process' body) from ``_glmix_part_job``:
+    FE features ("f", column), the RE bags ("u" / "i", column), the id tags
+    in metadataMap. Its seconds."""
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+
+    path, lo, bags, users, items, labels = job
+    t0 = time.perf_counter()
+    rows = {bag: [[(prefix, str(c), v) for c, v in zip(cr, vr)]
+                  for cr, vr in zip(cols.tolist(), vals.astype(np.float64).tolist())]
+            for bag, (prefix, cols, vals) in bags.items()}
+    users, items, labels = users.tolist(), items.tolist(), labels.astype(np.float64).tolist()
+    records = ({
+        "uid": f"r{lo + r}", "label": labels[r],
+        **{bag: feats[r] for bag, feats in rows.items()},
+        "metadataMap": {"userId": users[r], "itemId": items[r]},
+    } for r in range(len(labels)))
+    write_training_examples(path, records)
+    return time.perf_counter() - t0
+
+
+def _packed_names(prefix: str, n: int) -> tuple:
+    """The feature keys prefix\\x01<c> of columns 0..n-1, packed for an
+    off-heap lookup: (blob, offsets, lengths)."""
+    keys = np.char.add(prefix.encode() + b"\x01", np.arange(n).astype("S10"))
+    width = keys.dtype.itemsize
+    return (keys.tobytes(), np.arange(n, dtype=np.uint64) * np.uint64(width),
+            np.char.str_len(keys).astype(np.uint32))
+
+
+def _carry_by_name(coords: dict, maps: dict, dims: dict) -> tuple:
+    """The model's coordinates with every coefficient moved into the
+    off-heap stores' column space by feature name, and per shard the
+    store index -> original column map (-1: no column)."""
+    luts, inverse = {}, {}
+    for shard, _, prefix in GLMIX_BAGS:
+        lut = maps[shard].get_indices_packed(*_packed_names(prefix, dims[shard]))
+        inv = np.full(len(maps[shard]), -1, dtype=np.int64)
+        inv[lut[lut >= 0]] = np.nonzero(lut >= 0)[0]
+        if (inv < 0).any():
+            raise AssertionError(f"store {shard} holds a key of no column")
+        luts[shard], inverse[shard] = lut, inv
+    out = {}
+    for cid, c in coords.items():
+        c = dict(c)
+        shard = c["feature_shard"]
+        new_dim = len(maps[shard])
+        lut = luts[shard]
+        if "means" in c:
+            means = np.zeros(new_dim, dtype=np.float32)
+            means[lut[lut >= 0]] = c["means"][lut >= 0]
+            c["means"] = means
+        else:
+            lut_ext = np.append(lut, -1)  # the padding column global_dim
+            pidx, valid, coef = [], [], []
+            for p, v, w in zip(c["proj_indices"], c["proj_valid"], c["coefficients"]):
+                q = lut_ext[p]
+                v = v & (q >= 0)
+                key = np.where(v, q, new_dim)
+                order = np.argsort(key, axis=1, kind="stable")
+                pidx.append(np.take_along_axis(key, order, axis=1))
+                valid.append(np.take_along_axis(v, order, axis=1))
+                coef.append(np.take_along_axis(w, order, axis=1))
+            c.update(proj_indices=pidx, proj_valid=valid, coefficients=coef, global_dim=new_dim)
+        out[cid] = c
+    return out, inverse
+
+
+def _same_triples(a, b, inverse=None) -> bool:
+    """Two COO shards hold the same (row, column, value) triples; ``a``'s
+    columns are mapped through ``inverse`` first."""
+    cols = a.cols if inverse is None else inverse[a.cols]
+    ka = np.lexsort((a.vals, cols, a.rows))
+    kb = np.lexsort((b.vals, b.cols, b.rows))
+    return (len(a.rows) == len(b.rows) and np.array_equal(a.rows[ka], b.rows[kb])
+            and np.array_equal(cols[ka], b.cols[kb]) and np.array_equal(a.vals[ka], b.vals[kb]))
+
+
+def phase_read_score_full_width(seed: int, n: int = 1 << 20, fe_dim: int = 1 << 24,
+                                n_users: int = 65_536, n_items: int = 16_384,
+                                files: int = 16, device: str = "cuda") -> dict:
+    import multiprocessing
+
+    from photon_ml_tpu_torch.cli import build_index
+    from photon_ml_tpu_torch.cli.common import load_index_maps
+    from photon_ml_tpu_torch.convert import game_model_from_numpy
+    from photon_ml_tpu_torch.io import data_reader
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.types import TaskType
+
+    fe_k, rows_a_file = 16, n // files
+    t0 = time.perf_counter()
+    data, coords = make_glmix(seed, n, fe_dim, fe_k, n_users=n_users, n_items=n_items)
+    setup_s = time.perf_counter() - t0
+    dims = {shard: data.feature_shards[shard].dim for shard, _, _ in GLMIX_BAGS}
+    result = {"n": n, "fe_dim": fe_dim, "files": files, "setup_s": setup_s}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_read_") as root:
+        data_dir = os.path.join(root, "data")
+        os.makedirs(data_dir)
+        paths = [os.path.join(data_dir, f"part-{i:05d}.avro") for i in range(files)]
+        t0 = time.perf_counter()
+        # spawned writers (this process runs threads): each gets its rows
+        with multiprocessing.get_context("spawn").Pool(min(files, os.cpu_count() or 1)) as pool:
+            file_s = pool.map(_write_glmix_part, [
+                _glmix_part_job(data, path, i * rows_a_file, (i + 1) * rows_a_file)
+                for i, path in enumerate(paths)])
+        result["write_s"] = time.perf_counter() - t0
+        result["write_file_s_max"] = max(file_s)
+        result["avro_bytes"] = sum(os.path.getsize(p) for p in paths)
+
+        idx = os.path.join(root, "idx")
+        t0 = time.perf_counter()
+        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
+                          "--feature-shard", "global=features", "--num-partitions", "8"])
+        result["build_fe_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
+                          "--feature-shard", "per_user=userFeatures",
+                          "--feature-shard", "per_item=itemFeatures"])
+        result["build_re_s"] = time.perf_counter() - t0
+        maps = load_index_maps(idx, dims)
+        result["store_keys"] = {shard: len(m) for shard, m in maps.items()}
+
+        configs = {shard: data_reader.FeatureShardConfiguration([bag], add_intercept=False)
+                   for shard, bag, _ in GLMIX_BAGS}
+        read_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            native, _, uids = data_reader.read_game_data(
+                [data_dir], configs, maps, id_tags=["userId", "itemId"])
+            read_s.append(time.perf_counter() - t0)
+        result["read_s"] = read_s
+        result["read_rows_per_s"] = [n / s for s in read_s]
+        t0 = time.perf_counter()
+        carried, inverse = _carry_by_name(coords, maps, dims)
+        result["carry_s"] = time.perf_counter() - t0
+        for m in maps.values():
+            m.close()
+
+    same = {shard: _same_triples(native.feature_shards[shard], data.feature_shards[shard],
+                                 inverse[shard]) for shard, _, _ in GLMIX_BAGS}
+    same["labels"] = bool(np.array_equal(native.labels, data.labels))
+    same["id_tags"] = all(np.array_equal(native.id_tags[t], data.id_tags[t])
+                          for t in ("userId", "itemId"))
+    same["uids"] = uids == [f"r{r}" for r in range(n)]
+    result["data_equal"] = same
+
+    def timed_score(model, game_data) -> tuple:
+        t0 = time.perf_counter()
+        z = model.score(game_data)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return z, time.perf_counter() - t0
+
+    reference = game_model_from_numpy(coords, TaskType.LOGISTIC_REGRESSION, device=device)
+    z_ref, result["reference_score_s"] = timed_score(reference, data)
+    model = game_model_from_numpy(carried, TaskType.LOGISTIC_REGRESSION, device=device)
+    # the main path: counts set to 0 just before, read just after
+    launches.reset()
+    z, result["score_s"] = timed_score(model, native)
+    result["launches"] = launches.counts()["csr_matvec_f32"]
+    result["rescore_s"] = timed_score(model, native)[1]
+    result["scores_bitwise"] = bool(torch.equal(z, z_ref))
+    result["scores_max_abs_diff"] = float((z - z_ref).abs().max())
+    result["peak_rss_gb"] = _peak_rss_gb()
+    if not all(same.values()):
+        raise AssertionError(f"natively read data differs from make_glmix's: {same}")
+    if result["launches"] < 1:
+        raise AssertionError(f"scoring did not launch csr_matvec_f32: {result}")
+    if z.shape != (n,) or not bool(torch.isfinite(z).all()) or not (
+            result["scores_bitwise"] or torch.allclose(z, z_ref, rtol=2e-4, atol=1e-5)):
+        raise AssertionError(f"scores through the off-heap read disagree: {result}")
+    emit("read_score_full_width", **result)
     return result
 
 
@@ -3678,6 +4028,7 @@ PHASES = {
     "kernel": phase_kernel,
     "score_full_width": phase_score_full_width,
     "score_game_cli": phase_score_game_cli,
+    "read_score_full_width": phase_read_score_full_width,
     "train_full_width": phase_train_full_width,
     "train_glm_full_width": phase_train_glm_full_width,
     "train_tron_full_width": phase_train_tron_full_width,

@@ -28,9 +28,14 @@ worker's update is timed by a sync of its own stream.
 
 After each update the coordinate's solver trackers are logged, and an
 ``event.EventEmitter`` receives one ``SolverStatsEvent`` per random-effect
-bucket. ``run`` resumes from a checkpoint: it skips completed outer
-iterations, starts from the restored best model, and hands the running
-result to a callback after each outer iteration.
+bucket. ``transfer_stats`` (``opt.tracking.TransferStats``) counts the
+run's coordinate updates and device-plane folds (``total += new − old``);
+no row-length score array crosses to the host on this plane, so its row
+transfers stay 0. After each outer iteration the emitter receives one
+``TransferStatsEvent`` with that iteration's deltas. ``run`` resumes from
+a checkpoint: it skips completed outer iterations, starts from the
+restored best model, and hands the running result to a callback after
+each outer iteration.
 
 Telemetry, with the JAX package's span names and attribute keys:
 ``cd/run`` > ``cd/outer_iter`` > ``cd/coordinate`` (sync; a barrier on the
@@ -60,7 +65,8 @@ import torch
 
 from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES, ScheduleExecutor
 from photon_ml_tpu_torch.evaluation.evaluators import nan_aware_better_than
-from photon_ml_tpu_torch.event import SolverStatsEvent
+from photon_ml_tpu_torch.event import SolverStatsEvent, TransferStatsEvent
+from photon_ml_tpu_torch.opt.tracking import TransferStats
 from photon_ml_tpu_torch.telemetry.span import span
 
 logger = logging.getLogger("photon_ml_tpu_torch")
@@ -122,6 +128,8 @@ class CoordinateDescent:
         # update order: train + rescore, synchronised (sync), or from the
         # worker's start to the end of its stream's work (async)
         self.update_seconds: List[Tuple[str, float]] = []
+        # transfer accounting of the most recent (or in-flight) run
+        self.transfer_stats = TransferStats(score_plane="device", num_rows=num_rows)
 
     def _log_solver_stats(self, cid: str, coord) -> None:
         tracker = getattr(coord, "last_tracker", None)
@@ -131,6 +139,27 @@ class CoordinateDescent:
             logger.info("CD coordinate %s: %s", cid, s.to_summary_string())
             if self.emitter is not None:
                 self.emitter.send_event(SolverStatsEvent.from_stats(cid, s))
+
+    def _emit_transfer_stats(self, outer: int, prev: Dict[str, object]) -> None:
+        """One TransferStatsEvent with THIS outer iteration's deltas."""
+        t = self.transfer_stats
+        t.outer_iterations += 1
+        if self.emitter is None:
+            return
+        cur = t.snapshot()
+
+        def delta(key: str) -> int:
+            return int(cur[key]) - int(prev[key])
+
+        d_h2d, d_d2h = delta("row_transfers_h2d"), delta("row_transfers_d2h")
+        self.emitter.send_event(TransferStatsEvent(
+            score_plane=t.score_plane, outer_iteration=outer, num_rows=t.num_rows,
+            row_transfers_h2d=d_h2d, row_transfers_d2h=d_d2h,
+            row_bytes_h2d=d_h2d * t.bytes_per_row_array,
+            row_bytes_d2h=d_d2h * t.bytes_per_row_array,
+            host_score_sums=delta("host_score_sums"),
+            device_plane_updates=delta("device_plane_updates"),
+        ))
 
     def _model_for_progress(self, run: "_Run", cid: str):
         """The coordinate's model before its update, kept past the update
@@ -186,19 +215,23 @@ class CoordinateDescent:
         each outer iteration (checkpointing)."""
         with span("cd/run", score_plane="device", num_rows=self.num_rows,
                   iterations=num_iterations, schedule=self.schedule):
+            self.transfer_stats = TransferStats(score_plane="device", num_rows=self.num_rows)
             run = _Run(self, initial_models, initial_best)
             self.update_seconds = run.update_seconds
             if self.schedule == "async":
                 self._run_async(run, num_iterations, start_iteration, on_iteration_end)
             else:
                 self._run_sync(run, num_iterations, start_iteration, on_iteration_end)
+            logger.info("CD %s", self.transfer_stats.to_summary_string())
             return run.result(final=True)
 
     def _run_sync(self, run: "_Run", num_iterations, start_iteration, on_iteration_end):
         for outer in range(start_iteration, num_iterations):
             with span("cd/outer_iter", outer=outer):
+                prev_transfers = self.transfer_stats.snapshot()
                 for cid in self.update_order:
                     coord = self.coordinates[cid]
+                    self.transfer_stats.coordinate_updates += 1
                     prev_model = self._model_for_progress(run, cid)
                     with span("cd/coordinate", device_sync=True, coordinate=cid, outer=outer):
                         t0 = time.perf_counter()
@@ -213,6 +246,7 @@ class CoordinateDescent:
                             torch.cuda.synchronize(self.device)
                         seconds = time.perf_counter() - t0
                     run.record(outer, cid, seconds, prev_model)
+                self._emit_transfer_stats(outer, prev_transfers)
                 if on_iteration_end is not None:
                     on_iteration_end(outer, run.result())
 
@@ -255,12 +289,14 @@ class CoordinateDescent:
         try:
             for outer in range(start_iteration, num_iterations):
                 with span("cd/outer_iter", outer=outer, schedule="async"):
+                    prev_transfers = self.transfer_stats.snapshot()
                     for cid in self.update_order:
                         # bound the lag BEFORE dispatch: at most `staleness`
                         # unreconciled updates may be missing from the
                         # residual this coordinate trains against
                         while len(pending) > self.staleness:
                             reconcile_one(outer)
+                        self.transfer_stats.coordinate_updates += 1
                         old_own = run.scores.get(cid)
                         model0 = run.models.get(cid)
                         residual = run.residual(old_own)
@@ -277,6 +313,7 @@ class CoordinateDescent:
                     # only
                     while pending:
                         reconcile_one(outer)
+                    self._emit_transfer_stats(outer, prev_transfers)
                     if on_iteration_end is not None:
                         on_iteration_end(outer, run.result())
         finally:
@@ -314,6 +351,7 @@ class _Run:
         self.models[cid] = model
         self.total = self.total + new_own - (old_own if old_own is not None else self.zeros)
         self.scores[cid] = new_own
+        self.cd.transfer_stats.device_plane_updates += 1
 
     def record(self, outer: int, cid: str, seconds: float, prev_model) -> None:
         """After an update is folded in: its seconds, solver stats, training

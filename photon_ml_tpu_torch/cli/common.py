@@ -30,7 +30,8 @@ from photon_ml_tpu_torch.estimators.game import (
     FixedEffectCoordinateConfiguration,
     RandomEffectCoordinateConfiguration,
 )
-from photon_ml_tpu_torch.indexmap import NAME_TERM_DELIMITER, feature_key
+from photon_ml_tpu_torch.indexmap import NAME_TERM_DELIMITER, IndexMap, feature_key
+from photon_ml_tpu_torch.indexmap.offheap import OffHeapIndexMap
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration
 from photon_ml_tpu_torch.opt.config import (
     AdaptiveSolveConfig,
@@ -413,3 +414,32 @@ def parse_box_constraints(
     if not assigned.any():
         return None, None, None
     return None, None, (lower, upper)
+
+
+def load_index_maps(
+    offheap_dir: Optional[str],
+    shard_ids,
+) -> Optional[Dict[str, IndexMap]]:
+    """Off-heap (PHIX) maps when a directory is given — one subdir per
+    feature shard, as ``build_index`` writes them — else None (callers
+    build the maps by scanning the Avro input, reference
+    GameDriver.prepareFeatureMaps)."""
+    if not offheap_dir:
+        return None
+    out: Dict[str, IndexMap] = {}
+    for sid in shard_ids:
+        d = os.path.join(offheap_dir, sid)
+        if not os.path.isdir(d):
+            raise FileNotFoundError(f"no off-heap index map for shard {sid} at {d}")
+        out[sid] = OffHeapIndexMap(d)
+    return out
+
+
+def id_tags_needed(coordinates: Dict[str, CoordinateConfiguration]) -> List[str]:
+    """The random-effect id tags the coordinates read, in config order."""
+    tags = []
+    for cfg in coordinates.values():
+        re_type = getattr(getattr(cfg, "data", None), "random_effect_type", None)
+        if re_type and re_type not in tags:
+            tags.append(re_type)
+    return tags

@@ -7,7 +7,15 @@ evaluation. ``--date-range`` / ``--date-days-ago`` expand each data dir to
 its daily yyyy/MM/dd subdirs. Scoring runs on ``--device`` (default
 ``cuda``; ``cpu`` only when asked). ``--telemetry-out`` writes a JSONL run
 ledger (the phases as spans, the scoring start and finish events, the
-metrics) and ``--trace-out`` a Chrome trace.
+metrics) and ``--trace-out`` a Chrome trace. ``--offheap-indexmap-dir``
+scores through the off-heap index stores of ``build_index`` (one
+subdirectory a feature shard) instead of maps rebuilt from the model;
+``--model-id`` stamps the output records; ``--log-data-and-model-stats``
+logs the dataset's entity counts and the model's sizes;
+``--event-listeners`` registers listener classes (they receive
+``ScoringStartEvent`` and ``ScoringFinishEvent``); ``--log-file`` also
+writes the log to a file. The multi-host flags are item 8 of ROADMAP.md
+Queue A.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.score_game \
@@ -30,6 +38,7 @@ from photon_ml_tpu_torch.cli.common import (
     delete_dirs_if_exist,
     expand_data_dirs,
     finish_telemetry,
+    load_index_maps,
     parse_input_columns,
     setup_logger,
     start_telemetry,
@@ -64,6 +73,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "--date-range-days-ago)")
     p.add_argument("--model-dir", required=True)
     p.add_argument("--output-dir", required=True)
+    p.add_argument("--model-id", default=None,
+                   help="modelId stamped on ScoringResultAvro records "
+                        "(defaults to the saved model name)")
+    p.add_argument("--offheap-indexmap-dir", default=None,
+                   help="score through prebuilt off-heap index stores "
+                        "instead of the maps reconstructed from the model "
+                        "(reference --offheap-indexmap-dir)")
     p.add_argument("--num-output-files", type=_positive_int, default=None,
                    help="partition the score output into this many part "
                         "files (reference --num-files)")
@@ -84,10 +100,44 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "'fe-only' (default) scores them with the fixed "
                         "effects only (RE contribution 0, the reference "
                         "left-join semantics); 'error' fails fast instead")
+    p.add_argument("--log-data-and-model-stats", action="store_true",
+                   help="log dataset stats (rows, per-id-tag entity counts "
+                        "and samples-per-entity) and per-coordinate model "
+                        "sizes (reference --log-game-dataset-and-model-stats)")
+    p.add_argument("--event-listeners", nargs="*", default=[],
+                   metavar="module.Class",
+                   help="EventListener classes to register")
+    p.add_argument("--log-file", default=None)
     add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to score on: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
+
+
+def _log_data_and_model_stats(logger, data, model, id_tags) -> None:
+    """Reference logGameDataSet/logGameModel (scoring Driver.scala:88-103):
+    the dataset summary (samples per id-tag entity) and the model sizes."""
+    logger.info("dataset stats: numSamples: %d", data.num_rows)
+    for tag in id_tags:
+        ids = data.id_tags.get(tag)
+        if ids is None:
+            continue
+        _, counts = np.unique(np.asarray(ids), return_counts=True)
+        logger.info(
+            "dataset stats: samples per %s: entities=%d mean=%.2f "
+            "stdev=%.2f min=%d max=%d",
+            tag, counts.size, counts.mean(), counts.std(), counts.min(), counts.max(),
+        )
+    for cid, sub in model.models.items():
+        coef = getattr(sub, "coefficients", None)
+        if coef is not None and hasattr(coef, "means"):
+            logger.info("model stats [%s]: fixed effect, %d coefficients",
+                        cid, int(coef.means.shape[0]))
+        elif hasattr(sub, "num_entities"):
+            logger.info("model stats [%s]: random effect '%s', %d entities",
+                        cid, getattr(sub, "random_effect_type", "?"), sub.num_entities)
+        else:
+            logger.info("model stats [%s]: %s", cid, type(sub).__name__)
 
 
 def _check_missing_entities(model, data) -> None:
@@ -118,10 +168,12 @@ def _check_missing_entities(model, data) -> None:
 
 def run(args: argparse.Namespace) -> Optional[float]:
     """Score the data; returns the evaluator's metric (None without one)."""
-    logger = setup_logger()
+    logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
     timer = Timer()
     emitter = EventEmitter()
+    for name in args.event_listeners:
+        emitter.register_listener_class(name)
     telemetry = start_telemetry(args, "score_game", emitter=emitter)
     t_start = time.perf_counter()
     try:
@@ -138,7 +190,7 @@ def _run_scoring(args, logger, device, timer: Timer, emitter: EventEmitter,
     # a bad date spec must fail before the (possibly huge) model load
     data_dirs = expand_data_dirs(args.data_dirs, args.date_range, args.date_days_ago)
     metadata = load_game_model_metadata(args.model_dir)
-    model_id = metadata.get("modelName", "game-model")
+    model_id = args.model_id or metadata.get("modelName", "game-model")
 
     # the saved config names the shard → feature bags mapping; without it,
     # each shard reads the record field of the same name
@@ -150,8 +202,23 @@ def _run_scoring(args, logger, device, timer: Timer, emitter: EventEmitter,
             add_intercept=bool(s.get("add_intercept", True)),
         )
 
+    preloaded_maps = None
+    if args.offheap_indexmap_dir:
+        if not shard_bags:
+            raise ValueError(
+                "--offheap-indexmap-dir needs the model metadata to name "
+                "its feature shards (configurations.feature_shards); this "
+                "model carries none, so the off-heap stores cannot be "
+                "bound to shards"
+            )
+        with timer.time("load index maps"):
+            preloaded_maps = load_index_maps(args.offheap_indexmap_dir, shard_bags)
+        logger.info("scoring through off-heap index stores for shards: %s",
+                    sorted(preloaded_maps))
+
     with timer.time("load model"):
-        model, index_maps = load_game_model(args.model_dir, device=device)
+        model, index_maps = load_game_model(
+            args.model_dir, index_maps=preloaded_maps, device=device)
     for sid in index_maps:
         shard_bags.setdefault(sid, FeatureShardConfiguration(feature_bags=[sid]))
 
@@ -177,6 +244,9 @@ def _run_scoring(args, logger, device, timer: Timer, emitter: EventEmitter,
         )
     logger.info("scoring rows: %d on %s", data.num_rows, device)
     emitter.send_event(ScoringStartEvent(model_id=model_id, num_requests=data.num_rows))
+
+    if args.log_data_and_model_stats:
+        _log_data_and_model_stats(logger, data, model, id_tags)
 
     if args.missing_entity_policy == "error":
         _check_missing_entities(model, data)

@@ -43,9 +43,13 @@ Usage:
         --output-dir out/ [--evaluator AUC] [--normalization-type STANDARDIZATION] \\
         [--checkpoint-dir ckpt/] [--schedule async] [--device cpu]
 
-Refused, naming their ROADMAP.md Queue A item: ``--offheap-indexmap-dir``
-(item 6), ``--streaming`` and its flags, ``--on-block-error`` among them
-(item 7), and the device-grid, cluster and multi-host flags (item 8).
+``--offheap-indexmap-dir`` reads training and validation data through the
+prebuilt off-heap index stores of ``build_index``, one subdirectory a
+feature shard, instead of building the maps by a scan.
+
+Refused, naming their ROADMAP.md Queue A item: ``--streaming`` and its
+flags, ``--on-block-error`` among them (item 7), and the device-grid,
+cluster and multi-host flags (item 8).
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ from photon_ml_tpu_torch.cli.common import (
     delete_dirs_if_exist,
     expand_data_dirs,
     finish_telemetry,
+    id_tags_needed,
     load_game_config,
+    load_index_maps,
     parse_input_columns,
     setup_logger,
     start_telemetry,
@@ -114,7 +120,6 @@ from photon_ml_tpu_torch.utils.timer import Timer
 _STREAMING = "item 7, Streaming out-of-core"
 _CLUSTER = "item 8, The cluster plane"
 _UNPORTED = {
-    "offheap_indexmap_dir": "item 6, Off-heap index maps",
     "streaming": _STREAMING, "block_rows": _STREAMING, "prefetch_depth": _STREAMING,
     "block_cache_dir": _STREAMING, "no_block_cache": _STREAMING,
     "on_block_error": _STREAMING, "decode_workers": _STREAMING, "stream_mode": _STREAMING,
@@ -155,6 +160,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="one or more of AUC, RMSE, PRECISION@k, or grouped "
                         "'AUC:userId'; the first selects the best model, all "
                         "are logged per coordinate update")
+    p.add_argument("--offheap-indexmap-dir", default=None,
+                   help="prebuilt off-heap index stores (build_index), one "
+                        "subdirectory a feature shard")
     p.add_argument("--normalization-type", default="NONE",
                    choices=[n.name for n in NormalizationType],
                    help="feature normalization of the fixed-effect shards, from "
@@ -560,17 +568,15 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
     col_names = parse_input_columns(args.input_columns_names)
     if args.delete_output_dir_if_exists:
         delete_dirs_if_exist(args.output_dir)
-    id_tags = sorted({
-        c.data.random_effect_type
-        for c in coordinates.values()
-        if not isinstance(c, FixedEffectCoordinateConfiguration)
-    })
+    id_tags = sorted(id_tags_needed(coordinates))
+    with timer.time("prepare feature maps"):
+        index_maps = load_index_maps(args.offheap_indexmap_dir, shard_configs)
     train_dirs = expand_data_dirs(
         args.train_data_dirs, args.train_date_range, args.train_date_days_ago
     )
     with timer.time("read training data"):
         data, index_maps, _ = read_game_data(
-            train_dirs, shard_configs, None, id_tags=id_tags, **col_names,
+            train_dirs, shard_configs, index_maps, id_tags=id_tags, **col_names,
         )
     logger.info("training rows: %d on %s", data.num_rows, device)
 

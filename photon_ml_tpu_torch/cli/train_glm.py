@@ -18,8 +18,11 @@ Usage:
 ``--telemetry-out`` writes a JSONL run ledger (spans, events, metrics) and
 ``--trace-out`` a Chrome trace; the phases (``utils/timer.py``) are spans.
 
+``--offheap-indexmap-dir`` reads AVRO input through the prebuilt off-heap
+index stores of ``build_index`` (the ``features`` shard).
+
 Refused, naming their ROADMAP.md Queue A item: ``--diagnostic-mode`` other
-than NONE, ``--offheap-indexmap-dir`` and the multi-host flags.
+than NONE and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from photon_ml_tpu_torch.cli.common import (
     add_telemetry_args,
     delete_dirs_if_exist,
     finish_telemetry,
+    load_index_maps,
     parse_box_constraints,
     parse_optimizer_config,
     setup_logger,
@@ -67,11 +71,9 @@ from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.types import ConvergenceReason, NormalizationType, TaskType
 from photon_ml_tpu_torch.utils.timer import Timer
 
-# flags of the reference driver whose modules are not ported yet (off-heap
-# index maps, the cluster plane), with the ROADMAP.md Queue A item that
-# ports them
+# flags of the reference driver whose modules are not ported yet (the
+# cluster plane), with the ROADMAP.md Queue A item that ports them
 _UNPORTED = {
-    "offheap_indexmap_dir": "Off-heap index maps",
     "coordinator_address": "The cluster plane",
     "num_processes": "The cluster plane",
     "process_id": "The cluster plane",
@@ -108,6 +110,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         '[{"name": "age", "term": "", "lowerBound": 0.0, '
                         '"upperBound": 1.0}, ...] with "*" wildcards '
                         "(GLMSuite constraint-map rules)")
+    p.add_argument("--offheap-indexmap-dir", default=None,
+                   help="read features through prebuilt off-heap index "
+                        "stores (reference --offheap-indexmap-dir; AVRO "
+                        "input only)")
     p.add_argument("--summarization-output-dir", default=None,
                    help="write per-feature summary stats as "
                         "FeatureSummarizationResultAvro")
@@ -258,15 +264,19 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
     t_start = time.perf_counter()
     if args.validate_per_iteration and not args.validation_data_dirs:
         raise ValueError("--validate-per-iteration requires --validation-data-dirs")
-    if args.input_format == "LIBSVM" and args.selected_features_file:
-        raise ValueError(
-            "--selected-features-file applies to AVRO input (LIBSVM features are positional)"
-        )
+    if args.input_format == "LIBSVM":
+        for flag in ("offheap_indexmap_dir", "selected_features_file"):
+            if getattr(args, flag):
+                raise ValueError(
+                    f"--{flag.replace('_', '-')} applies to AVRO input "
+                    "(LIBSVM features are positional)"
+                )
     if args.delete_output_dirs_if_exist:
         delete_dirs_if_exist(args.output_dir, args.summarization_output_dir)
 
     with timer.time("preprocess"):
-        data, index_maps = _read(args, task, args.training_data_dirs)
+        data, index_maps = _read(args, task, args.training_data_dirs, index_maps=load_index_maps(
+            args.offheap_indexmap_dir, ["features"]))
         imap = index_maps["features"]
         if args.selected_features_file:
             data = _filter_selected_features(data, imap, args.selected_features_file, logger)

@@ -71,6 +71,7 @@ from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
+from photon_ml_tpu_torch.opt.tracking import TransferStats
 from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
 
@@ -216,6 +217,9 @@ class GameEstimator:
         self.staleness = int(staleness)
         # per-bucket SolverStats of the most recent resolve_coordinate
         self.last_resolve_stats: list = []
+        # TransferStats of the most recent fit / resolve_coordinate
+        self.last_transfer_stats: Optional[TransferStats] = None
+        self.last_resolve_transfers: Optional[TransferStats] = None
 
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         with span("game/build_coordinate", coordinate=cid, kind=type(cfg).__name__):
@@ -364,7 +368,13 @@ class GameEstimator:
         model0 = models.get(cid) if initial_model == "auto" else initial_model
         if isinstance(coord, RandomEffectCoordinate) and model0 is not None:
             model0 = align_warm_start(model0, coord.dataset)
+        # the residual is scored on the device: one update folded on the
+        # device plane, no row-length array moved
+        transfers = TransferStats(score_plane="device", num_rows=data.num_rows)
+        transfers.coordinate_updates = 1
+        transfers.device_plane_updates = 1
         updated = coord.update_model_device(model0, residual)
+        self.last_resolve_transfers = transfers
         self.last_resolve_stats = list(getattr(coord, "last_solver_stats", []))
         if self.emitter is not None:
             for s in self.last_resolve_stats:
@@ -597,6 +607,7 @@ class GameEstimator:
                 start_iteration=start_iteration, initial_best=initial_best,
                 on_iteration_end=on_iteration_end,
             )
+        self.last_transfer_stats = cd.transfer_stats
         return GameFit(
             model=GameModel(models=result.best_models, meta=meta, task=self.task),
             validation_metric=result.best_metric,

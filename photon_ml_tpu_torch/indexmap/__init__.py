@@ -2,9 +2,10 @@
 
 Reference parity: photon-api util/IndexMap.scala:22 (the name->index
 contract), DefaultIndexMap.scala:27 (in-heap map built by
-distinct+zipWithIndex :78) and DefaultIndexMapLoader.scala. A copy of
-``photon_ml_tpu/indexmap/__init__.py`` without the vectorized lookup and
-the content digest; the off-heap store is not ported yet.
+distinct+zipWithIndex :78), DefaultIndexMapLoader.scala, and the PalDB
+off-heap path (PalDBIndexMap.scala:43) whose equivalent here is the
+mmap'd PHIX store in :mod:`photon_ml_tpu_torch.indexmap.offheap`. A copy of
+``photon_ml_tpu/indexmap/__init__.py``.
 
 Feature names follow the reference's ``name + INTERCEPT_DELIMITER + term``
 convention (Constants.scala): a feature is identified by a single string key.
@@ -13,7 +14,11 @@ convention (Constants.scala): a feature is identified by a single string key.
 from __future__ import annotations
 
 import abc
-from typing import Dict, Optional
+import hashlib
+from itertools import repeat
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
 
 # reference Constants.scala: the intercept pseudo-feature's key
 INTERCEPT_KEY = "(INTERCEPT)"
@@ -40,8 +45,27 @@ class IndexMap(abc.ABC):
     def __len__(self) -> int:
         ...
 
+    def get_indices(self, names: Sequence[str]) -> np.ndarray:
+        """Vectorized lookup; -1 for unmapped names."""
+        return np.fromiter(
+            (self.get_index(n) for n in names), dtype=np.int64, count=len(names)
+        )
+
     def __contains__(self, name: str) -> bool:
         return self.get_index(name) >= 0
+
+    def content_digest(self) -> str:
+        """Hex digest committing to the full name->index assignment.
+
+        Decoded feature columns are a function of this mapping, so anything
+        caching decoded data (the streaming block cache) must include it in
+        its fingerprint — two same-size maps with permuted assignments
+        otherwise collide. The generic implementation walks the dense index
+        space; subclasses override with cheaper equivalents."""
+        h = hashlib.sha256()
+        for i in range(len(self)):
+            h.update(f"{self.get_feature_name(i)}\x00{i}\x01".encode("utf-8"))
+        return h.hexdigest()
 
 
 class DefaultIndexMap(IndexMap):
@@ -53,14 +77,41 @@ class DefaultIndexMap(IndexMap):
         if len(self._reverse) != len(self._forward):
             raise ValueError("index map has duplicate indices")
 
+    @classmethod
+    def from_names(
+        cls, names: Iterable[str], add_intercept: bool = False
+    ) -> "DefaultIndexMap":
+        """distinct + sort + enumerate (the deterministic analog of the
+        reference's distinct().sort().zipWithIndex(), DefaultIndexMap.scala:78)."""
+        uniq: List[str] = sorted(set(names))
+        if add_intercept and INTERCEPT_KEY not in uniq:
+            uniq.append(INTERCEPT_KEY)
+        return cls({n: i for i, n in enumerate(uniq)})
+
     def get_index(self, name: str) -> int:
         return self._forward.get(name, -1)
+
+    def get_indices(self, names: Sequence[str]) -> np.ndarray:
+        # hot on the serving route path: map(dict.get, names, repeat(-1))
+        # stays entirely in C, vs one Python frame per name via get_index
+        return np.fromiter(
+            map(self._forward.get, names, repeat(-1)),
+            dtype=np.int64,
+            count=len(names),
+        )
 
     def get_feature_name(self, index: int) -> Optional[str]:
         return self._reverse.get(int(index))
 
     def __len__(self) -> int:
         return len(self._forward)
+
+    def content_digest(self) -> str:
+        # index order, matching the base implementation byte-for-byte
+        h = hashlib.sha256()
+        for name, idx in sorted(self._forward.items(), key=lambda kv: kv[1]):
+            h.update(f"{name}\x00{idx}\x01".encode("utf-8"))
+        return h.hexdigest()
 
     def items(self):
         return self._forward.items()

@@ -280,33 +280,34 @@ def _record_sparse(
     fly when no map is given. Coefficients whose feature is absent from a
     provided map are counted into ``dropped`` (a one-element list)."""
     out: Dict[int, float] = {}
-    for ntv in record.get(field) or []:
-        key = (
-            ntv["name"]
-            if not ntv["term"]
-            else f"{ntv['name']}{NAME_TERM_DELIMITER}{ntv['term']}"
-        )
-        if imap is not None:
-            idx = imap.get_index(key)
+    entries = record.get(field) or []
+    keys = [
+        ntv["name"] if not ntv["term"] else f"{ntv['name']}{NAME_TERM_DELIMITER}{ntv['term']}"
+        for ntv in entries
+    ]
+    if imap is not None:
+        # one batched lookup: an off-heap map answers it natively
+        for ntv, idx in zip(entries, imap.get_indices(keys).tolist()):
             if idx < 0:
                 if dropped is not None:
                     dropped[0] += 1
                 continue
-        else:
-            if key not in builder.map:
-                if positional:
-                    # positional saves name features by original index
-                    if ntv["term"] or not key.isdigit():
-                        raise ValueError(
-                            f"positional model has non-numeric feature name {key!r}"
-                        )
-                    idx_new = int(key)
-                else:
-                    idx_new = builder.next
-                builder.map[key] = idx_new
-                builder.next = max(builder.next, idx_new + 1)
-            idx = builder.map[key]
-        out[idx] = float(ntv["value"])
+            out[idx] = float(ntv["value"])
+        return out
+    for ntv, key in zip(entries, keys):
+        if key not in builder.map:
+            if positional:
+                # positional saves name features by original index
+                if ntv["term"] or not key.isdigit():
+                    raise ValueError(
+                        f"positional model has non-numeric feature name {key!r}"
+                    )
+                idx_new = int(key)
+            else:
+                idx_new = builder.next
+            builder.map[key] = idx_new
+            builder.next = max(builder.next, idx_new + 1)
+        out[builder.map[key]] = float(ntv["value"])
     return out
 
 

@@ -4,9 +4,10 @@ Port of ``photon_ml_tpu/opt/tracking.py`` (reference
 OptimizationStatesTracker.scala:31, FixedEffectOptimizationTracker.scala,
 RandomEffectOptimizationTracker.scala): the host view of the device-side
 ``SolveResult`` history, as loggable summaries. One process holds every
-lane, so results come to the host with ``.cpu()``. The score-plane
-``TransferStats`` of the reference are not ported (the port has the device
-score plane only).
+lane, so results come to the host with ``.cpu()``. ``TransferStats`` is
+the reference's score-plane accounting; the port has the device plane only,
+so its row-transfer counts stay 0 unless a caller moves a row-length score
+array across.
 """
 
 from __future__ import annotations
@@ -191,6 +192,87 @@ class SolverStats:
             f"({self.lane_iteration_savings:.2f}x saved, "
             f"wasted={self.wasted_lane_fraction:.1%}), "
             f"converged={self.converged}/{self.num_entities}"
+        )
+
+
+@dataclasses.dataclass
+class TransferStats:
+    """Score-plane transfer accounting for one coordinate-descent run.
+
+    The CD driver owns one instance per ``run`` and counts every row-length
+    (``num_rows``) score array that crosses the host/device boundary, plus
+    the full host score-plane re-sums the legacy host plane performs. On the
+    device plane the steady state is zero row transfers and zero host sums —
+    tests and the ``bench.py --cd-scores`` contract gate on exactly that.
+    """
+
+    score_plane: str               # 'host' | 'device'
+    num_rows: int
+    bytes_per_row_array: int = 0   # num_rows * 4 (f32), set in __post_init__
+    coordinate_updates: int = 0
+    outer_iterations: int = 0
+    host_score_sums: int = 0       # full C-way score-plane re-sums on host
+    device_plane_updates: int = 0  # incremental total += new - old updates
+    row_transfers_h2d: int = 0     # row-length arrays pushed host -> device
+    row_transfers_d2h: int = 0     # row-length arrays pulled device -> host
+
+    def __post_init__(self) -> None:
+        self.bytes_per_row_array = int(self.num_rows) * 4
+
+    def record_h2d(self, arrays: int = 1) -> None:
+        self.row_transfers_h2d += int(arrays)
+
+    def record_d2h(self, arrays: int = 1) -> None:
+        self.row_transfers_d2h += int(arrays)
+
+    @property
+    def row_bytes_h2d(self) -> int:
+        return self.row_transfers_h2d * self.bytes_per_row_array
+
+    @property
+    def row_bytes_d2h(self) -> int:
+        return self.row_transfers_d2h * self.bytes_per_row_array
+
+    @property
+    def row_bytes_total(self) -> int:
+        return self.row_bytes_h2d + self.row_bytes_d2h
+
+    def per_outer_iteration(self) -> Dict[str, float]:
+        """Steady-state rates: row arrays / bytes / sums per outer iteration."""
+        it = max(self.outer_iterations, 1)
+        return {
+            "row_transfers_per_iter": (
+                (self.row_transfers_h2d + self.row_transfers_d2h) / it
+            ),
+            "row_bytes_per_iter": self.row_bytes_total / it,
+            "host_score_sums_per_iter": self.host_score_sums / it,
+        }
+
+    def snapshot(self) -> Dict[str, object]:
+        out = {
+            "score_plane": self.score_plane,
+            "num_rows": self.num_rows,
+            "coordinate_updates": self.coordinate_updates,
+            "outer_iterations": self.outer_iterations,
+            "host_score_sums": self.host_score_sums,
+            "device_plane_updates": self.device_plane_updates,
+            "row_transfers_h2d": self.row_transfers_h2d,
+            "row_transfers_d2h": self.row_transfers_d2h,
+            "row_bytes_h2d": self.row_bytes_h2d,
+            "row_bytes_d2h": self.row_bytes_d2h,
+        }
+        out.update(self.per_outer_iteration())
+        return out
+
+    def to_summary_string(self) -> str:
+        return (
+            f"score plane '{self.score_plane}' over {self.num_rows} rows: "
+            f"{self.coordinate_updates} updates in {self.outer_iterations} "
+            f"outer iterations, {self.host_score_sums} host score sums, "
+            f"{self.device_plane_updates} device plane updates, "
+            f"row transfers h2d={self.row_transfers_h2d} "
+            f"d2h={self.row_transfers_d2h} "
+            f"({self.row_bytes_total / 1e6:.3f} MB)"
         )
 
 

@@ -2,10 +2,13 @@
 
 Counterpart of ``photon_ml_tpu/utils/nativelib.py``. Each source
 ``native/<name>.cpp`` (the Euler-split edge colorer of the routing plans,
-the threaded radix argsort) is compiled by ``g++`` into a shared library
-under ``build/photon_ml_tpu_torch/`` at the root of the checkout, at first
-use, then loaded with ``ctypes``. The library's file name carries a digest
-of the source, so an edited source is never served by a stale build; the
+the threaded radix argsort, the columnar Avro decoder, the off-heap index
+store) is compiled by ``g++`` into a shared library under
+``build/photon_ml_tpu_torch/`` at the root of the checkout, at first use,
+then loaded with ``ctypes``. The library's file name carries a digest of
+the source and of the link flags (``ldflags``, e.g. ``("-lz",)``, placed
+after the source so that an ``--as-needed`` linker keeps them), so an
+edited source or a changed flag is never served by a stale build; the
 build goes to a temporary file that is renamed into place, so concurrent
 processes building one library (test workers sharing a checkout) never
 load a half-written library.
@@ -23,7 +26,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 from photon_ml_tpu_torch.utils.cudalib import BUILD_DIR
 
@@ -31,18 +34,20 @@ NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+# (name, ldflags) -> library, so that a call after the first does no file IO
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, ldflags: Sequence[str] = ()) -> Path:
     src = NATIVE_DIR / f"{name}.cpp"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(ldflags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str) -> None:
-    lib = library_path(name)
+def _build(name: str, ldflags: Sequence[str]) -> None:
+    lib = library_path(name, ldflags)
     if lib.exists():
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -51,7 +56,7 @@ def _build(name: str) -> None:
     try:
         try:
             subprocess.run(
-                ["g++", *GXX_FLAGS, "-o", tmp, str(NATIVE_DIR / f"{name}.cpp")],
+                ["g++", *GXX_FLAGS, "-o", tmp, str(NATIVE_DIR / f"{name}.cpp"), *ldflags],
                 check=True, capture_output=True, text=True,
             )
         except FileNotFoundError as e:
@@ -65,13 +70,14 @@ def _build(name: str) -> None:
             os.unlink(tmp)
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded host library ``name``, built first if needed; raises when
-    it cannot be built."""
+def load_library(name: str, ldflags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded host library ``name`` linked with ``ldflags``, built first
+    if needed; raises when it cannot be built."""
+    key = (name, tuple(ldflags))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            _build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
+            _build(name, key[1])
+            lib = ctypes.CDLL(str(library_path(name, key[1])))
+            _loaded[key] = lib
         return lib

@@ -63,6 +63,39 @@ def test_no_jax_or_reference_import_in_source(path):
             )
 
 
+def test_the_port_never_loads_the_reference_native_libraries(tmp_path):
+    """The port builds and loads its own copies of the host C++ libraries
+    (build/photon_ml_tpu_torch/), never photon_ml_tpu/native/_*.so: after
+    a native Avro read and an off-heap store build and lookup in a fresh
+    process, the process maps no file of the JAX package's native dir."""
+    script = (
+        "import json, sys\n"
+        "from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, "
+        "read_game_data, write_training_examples\n"
+        "from photon_ml_tpu_torch.indexmap.offheap import build_offheap_index_map\n"
+        "d = sys.argv[1]\n"
+        "write_training_examples(d + '/part-0.avro', [{'label': 1.0, "
+        "'features': [('f', '1', 2.0)]}])\n"
+        "m = build_offheap_index_map(['f\\x011'], d + '/idx')\n"
+        "data, _, _ = read_game_data([d], {'g': FeatureShardConfiguration(['features'], False)},"
+        " index_maps={'g': m})\n"
+        "assert data.feature_shards['g'].cols.tolist() == [0]\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if l.rstrip().endswith('.so')]\n"
+        "print(json.dumps(sorted(set(maps))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", script, str(tmp_path)], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    libs = json.loads(out.stdout.strip().splitlines()[-1])
+    reference_native = str(REPO / "photon_ml_tpu" / "native")
+    assert not [p for p in libs if p.startswith(reference_native)]
+    port_build = str(REPO / "build" / "photon_ml_tpu_torch")
+    for name in ("libavrodecode-", "libindexstore-"):
+        assert [p for p in libs if p.startswith(port_build) and name in p], name
+
+
 def test_tf32_is_off_after_import():
     import photon_ml_tpu_torch  # noqa: F401
 

@@ -1,8 +1,8 @@
 """Avro data and GAME models cross between the JAX package and the port.
 
 Data written by either package's ``write_training_examples`` reads into
-identical arrays through the other's ``read_game_data`` (the JAX reader on
-its pure-Python decode path, the one the port copies). A model saved by
+identical arrays through the other's ``read_game_data``, both packages on
+their pure-Python decode path and both on their native columnar path. A model saved by
 either package's ``save_game_model`` loads in the other and scores the same
 rows to rtol 2e-4, atol 1e-5.
 """
@@ -77,10 +77,25 @@ def _assert_same_data(a, b, uids_a, uids_b, maps_a, maps_b):
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_avro_data_reads_the_same_in_both_packages(tmp_path, monkeypatch, writer):
+    # both packages on their record-at-a-time Python codec
     monkeypatch.setattr(native_reader, "native_available", lambda: False)
+    monkeypatch.setattr(port_reader, "_read_game_data_native", lambda *a: None)
+    monkeypatch.setattr(port_reader, "_build_index_maps_native", lambda *a: None)
     path = str(tmp_path / "part-00000.avro")
     write = (jax_reader if writer == "jax" else port_reader).write_training_examples
     assert write(path, _records(3)) == 60
+    a, maps_a, uids_a = _read(jax_reader, path)
+    b, maps_b, uids_b = _read(port_reader, path)
+    _assert_same_data(a, b, uids_a, uids_b, maps_a, maps_b)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_avro_data_reads_the_same_natively_in_both_packages(tmp_path, writer):
+    """Both packages on their default native columnar path: the same
+    arrays, uids and index maps (keys numbered per bag stream)."""
+    path = str(tmp_path / "part-00000.avro")
+    write = (jax_reader if writer == "jax" else port_reader).write_training_examples
+    assert write(path, _records(4)) == 60
     a, maps_a, uids_a = _read(jax_reader, path)
     b, maps_b, uids_b = _read(port_reader, path)
     _assert_same_data(a, b, uids_a, uids_b, maps_a, maps_b)

@@ -281,7 +281,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             "--task", "LOGISTIC_REGRESSION", "--output-dir", str(tmp_path / "o"),
             "--device", "cpu"]
     for extra, item in ((["--diagnostic-mode", "ALL"], "Also still to port"),
-                        (["--offheap-indexmap-dir", "idx"], "Off-heap index maps"),
                         (["--coordinator-address", "localhost:1"], "The cluster plane"),
                         (["--num-processes", "2"], "The cluster plane"),
                         (["--process-id", "1"], "The cluster plane")):
@@ -289,6 +288,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             train_glm_cli.run(train_glm_cli.parse_args(base + extra))
     with pytest.raises(ValueError, match="requires --validation-data-dirs"):
         train_glm_cli.run(train_glm_cli.parse_args(base + ["--validate-per-iteration"]))
+    # off-heap index maps are ported; with LIBSVM input they are refused, as
+    # in the JAX CLI (LIBSVM features are positional)
+    with pytest.raises(ValueError, match="--offheap-indexmap-dir applies to AVRO input"):
+        train_glm_cli.run(train_glm_cli.parse_args(base + ["--offheap-indexmap-dir", "idx"]))
 
 
 @pytest.mark.parametrize("flags", [("--telemetry-out",), ("--trace-out",),
