@@ -100,7 +100,32 @@ exit code is not 0):
                       L2-flushed time of each redesigned kernel, each kernel
                       against its plain version at those shapes, and the
                       device idle share of one random-effect solve.
-8. train_glm_full_width
+8. train_streaming_full_width
+                    — fit_streaming at the width of train_full_width: its
+                      training rows written as 16 Avro part files of
+                      65,536 rows by worker processes, off-heap stores built
+                      by build_index, StreamingSource.open(block_rows=65,536)
+                      with a block cache in a temporary directory;
+                      train_full_width's in-memory fit of the same rows
+                      (moved into the stores' column space) as the
+                      reference. Gates: the streamed full-batch (f, g) at
+                      w = 0 and at the in-memory FE w equal to the
+                      in-memory objective (f rtol 1e-4, g within 1e-4
+                      max|g|); fit_streaming cold, warm, warm bitwise
+                      equal, a warm fit with no decode; against the
+                      in-memory fit, the final objective within rtol 1e-4,
+                      the FE coefficients within 2e-3 and held-out AUC
+                      within 1e-3 (the stochastic fit read the same way as
+                      a control); K6 and csr_matvec_f32
+                      launched on that main path; the FE solve alone (under
+                      torch.profiler: passes, device idle share) bitwise the
+                      fit's FE update; a warm fit with 8 resident blocks
+                      bitwise the warm fit, its h2d bytes down by the saved
+                      bytes; two gap-scheduled stochastic fits of 2 epochs
+                      bitwise equal. With open, fit and decode, stall,
+                      transfer, hidden-upload seconds, hide ratio, h2d
+                      bytes, peak device memory and peak RSS.
+9. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
                       + an intercept; fused engine), labels of each task from
@@ -120,7 +145,7 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-9. train_tron_full_width
+10. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -128,7 +153,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-10. fe_bf16_full_width
+11. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -145,7 +170,7 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-11. train_benes_full_width
+12. train_benes_full_width
                     — the same training data with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
@@ -161,7 +186,7 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-12. train_full_game_full_width
+13. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
@@ -179,7 +204,7 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-13. train_async_full_width
+14. train_async_full_width
                     — the train_full_width fit with per_user in 4 buckets
                       and per_item in 2, 2 outer iterations, on the sync
                       schedule and on schedule="async" (a CUDA stream a
@@ -193,7 +218,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-14. train_sweep_tuning_full_width
+15. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -202,8 +227,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-15. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 13
+16. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 14
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -222,7 +247,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-16. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+17. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -239,7 +264,11 @@ exit code is not 0):
                       equal to 1e-4, score_game reproduces it; and that
                       config stopped after 1 of 2 outer iterations with
                       --checkpoint-dir and resumed: bitwise equal to the
-                      uninterrupted run. Then, on cuda and cpu: a
+                      uninterrupted run. Then --streaming (blocks of 512
+                      rows, one block cache) on cuda and cpu: RMSE < 0.45,
+                      equal to 1e-4, within 1e-3 of the in-memory cuda
+                      fit (the JAX package's streaming gate on this
+                      fixture), K6 launched on cuda. Then, on cuda and cpu: a
                       regularization_weights sweep on per_user with
                       --model-output-mode ALL (the same best lambda,
                       metrics to 1e-4 and saved layout), RANDOM tuning (the
@@ -260,7 +289,7 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-17. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+18. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -310,7 +339,8 @@ F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "read_score_full_width",
-              "train_full_width", "train_glm_full_width", "train_tron_full_width",
+              "train_full_width", "train_streaming_full_width",
+              "train_glm_full_width", "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
               "train_async_full_width", "train_sweep_tuning_full_width",
               "train_telemetry_full_width", "train_game_cli", "train_glm_cli")
@@ -1917,32 +1947,47 @@ def value_grad_times(bucket, gen) -> dict:
             "bound_by": bound_by, "inputs": vg_in}
 
 
-def phase_train_full_width(seed: int) -> dict:
-    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
-    from photon_ml_tpu_torch.ops import fused_perm, launches, pallas_kernels
+@functools.lru_cache(maxsize=1)
+def _in_memory_glmix_fit(seed: int) -> dict:
+    """train_full_width's main path, kept for train_streaming_full_width,
+    which holds its streamed fits against it: the GLMix estimator, its
+    coordinates over make_glmix_training's rows at FULL_WIDTH and its fit,
+    with the seconds of each step and the fit's launches (counts set to 0
+    just before the fit, read just after)."""
+    from photon_ml_tpu_torch.ops import launches
 
-    n, n_val, fe_dim, fe_k = 1 << 20, 1 << 18, 1 << 24, 16
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
     t0 = time.perf_counter()
-    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, 65_536, 16_384)
+    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
     data_s = time.perf_counter() - t0
     estimator = _glmix_estimator("cuda")
     t0 = time.perf_counter()
     coords = estimator.build_coordinates(train)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    launches.reset()
+    t0 = time.perf_counter()
+    fit = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    return {"train": train, "val": val, "estimator": estimator, "coords": coords,
+            "fit": fit, "data_s": data_s, "build_s": build_s,
+            "fit_s": time.perf_counter() - t0, "counts": launches.counts()}
+
+
+def phase_train_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import fused_perm, launches, pallas_kernels
+
+    main = _in_memory_glmix_fit(seed)
+    train, val, estimator, coords, fit, counts = (
+        main[k] for k in ("train", "val", "estimator", "coords", "fit", "counts"))
+    n, n_val = FULL_WIDTH[:2]
+    data_s, build_s, fit_s = main["data_s"], main["build_s"], main["fit_s"]
     feats = coords["fixed"].data.features
     if not isinstance(feats, fused_perm.FusedSparseFeatures):
         raise AssertionError(f"auto engine picked {type(feats).__name__}, not fused")
     buckets = {cid: [tuple(b.X.shape) for b in coords[cid].dataset.buckets]
                for cid in ("per_user", "per_item")}
-
-    # the main path: counts set to 0 just before, read just after
-    launches.reset()
-    t0 = time.perf_counter()
-    fit = estimator.fit(train, val, coordinates=coords)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    counts = launches.counts()
     missing = [k for k in KERNELS if counts[k] < 1]
     if missing:
         raise AssertionError(f"training did not launch {missing}: {counts}")
@@ -2078,6 +2123,250 @@ def phase_train_full_width(seed: int) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit("train_full_width", **result)
+    return result
+
+
+STREAM_FILES = 16
+STREAM_RESIDENT_BLOCKS = 8
+
+
+def _store_luts(maps, dims: dict) -> dict:
+    """Per shard of GLMIX_BAGS, the original column -> off-heap store index
+    map (-1: a column the store has no key for)."""
+    return {shard: maps[shard].get_indices_packed(*_packed_names(prefix, dims[shard]))
+            for shard, _, prefix in GLMIX_BAGS}
+
+
+def _in_store_space(data, luts: dict, store_dims: dict):
+    """``data`` with every shard's columns moved into the stores' column
+    space (entries of columns the stores lack dropped, as a read through
+    the stores drops them)."""
+    from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
+
+    shards = {}
+    for shard, fs in data.feature_shards.items():
+        cols = luts[shard][fs.cols]
+        keep = cols >= 0
+        shards[shard] = FeatureShard(fs.rows[keep], cols[keep].astype(np.int64),
+                                     fs.vals[keep], store_dims[shard])
+    return GameData(labels=data.labels, feature_shards=shards, id_tags=data.id_tags,
+                    offsets=data.offsets, weights=data.weights)
+
+
+def _stream_counters() -> dict:
+    from photon_ml_tpu_torch.telemetry import get_registry
+
+    return {k: v for k, v in get_registry().snapshot()["counters"].items()
+            if k.startswith("stream.")}
+
+
+def phase_train_streaming_full_width(seed: int) -> dict:
+    """fit_streaming at the width of train_full_width over 16 Avro part
+    files read through off-heap stores, held against train_full_width's
+    in-memory fit of the same rows (moved into the stores' column space)."""
+    import multiprocessing
+
+    from photon_ml_tpu_torch import streaming
+    from photon_ml_tpu_torch.cli import build_index
+    from photon_ml_tpu_torch.cli.common import load_index_maps
+    from photon_ml_tpu_torch.io import data_reader
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.streaming import solver as stream_solver
+    from photon_ml_tpu_torch.types import TaskType
+
+    n, n_val = FULL_WIDTH[:2]
+    rows_a_file = n // STREAM_FILES
+    mem = _in_memory_glmix_fit(seed)
+    train, val, fit_mem = mem["train"], mem["val"], mem["fit"]
+    result = {"rows": n, "validation_rows": n_val, "files": STREAM_FILES,
+              "block_rows": rows_a_file}
+    dims = {shard: train.feature_shards[shard].dim for shard, _, _ in GLMIX_BAGS}
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as root:
+        data_dir = os.path.join(root, "data")
+        os.makedirs(data_dir)
+        paths = [os.path.join(data_dir, f"part-{i:05d}.avro") for i in range(STREAM_FILES)]
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(
+                min(STREAM_FILES, os.cpu_count() or 1)) as pool:
+            pool.map(_write_glmix_part, [
+                _glmix_part_job(train, path, i * rows_a_file, (i + 1) * rows_a_file)
+                for i, path in enumerate(paths)])
+        result["write_s"] = time.perf_counter() - t0
+        result["avro_bytes"] = sum(os.path.getsize(p) for p in paths)
+        idx = os.path.join(root, "idx")
+        t0 = time.perf_counter()
+        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
+                          "--feature-shard", "global=features", "--num-partitions", "8"])
+        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
+                          "--feature-shard", "per_user=userFeatures",
+                          "--feature-shard", "per_item=itemFeatures"])
+        result["build_index_s"] = time.perf_counter() - t0
+        maps = load_index_maps(idx, dims)
+        store_dims = {shard: len(m) for shard, m in maps.items()}
+        result["store_dims"] = store_dims
+        t0 = time.perf_counter()
+        luts = _store_luts(maps, dims)
+        val_mem = _in_store_space(val, luts, store_dims)
+        # store index -> original FE column (the stores hold the training
+        # rows' columns only; the in-memory fit leaves every other column 0)
+        fe_lut = luts["global"]
+        fe_cols = torch.full((store_dims["global"],), -1, dtype=torch.long)
+        fe_cols[torch.from_numpy(fe_lut[fe_lut >= 0])] = torch.from_numpy(
+            np.nonzero(fe_lut >= 0)[0])
+        if bool((fe_cols < 0).any()):
+            raise AssertionError("the FE store holds a key of no column")
+        fe_cols = fe_cols.cuda()
+        result["store_space_s"] = time.perf_counter() - t0
+        w_mem = fit_mem.model.models["fixed"].coefficients.means
+        result["in_memory_auc"] = fit_mem.validation_metric
+        result["in_memory_objective"] = fit_mem.objective_history[-1][1]
+        result["in_memory_fe_coef_max_abs"] = float(w_mem.abs().max())
+
+        def against_in_memory(fit) -> dict:
+            """A streamed fit against the in-memory one: final objective
+            (relative), FE coefficients (largest absolute difference),
+            held-out AUC."""
+            obj = fit.objective_history[-1][1]
+            w = fit.model.models["fixed"].coefficients.means
+            return {
+                "objective_rel": abs(obj - result["in_memory_objective"])
+                / abs(result["in_memory_objective"]),
+                "fe_coef_max_abs_diff": float((w - w_mem[fe_cols]).abs().max()),
+                "auc_diff": abs(fit.validation_metric - fit_mem.validation_metric),
+            }
+
+        configs = {shard: data_reader.FeatureShardConfiguration([bag], add_intercept=False)
+                   for shard, bag, _ in GLMIX_BAGS}
+        t0 = time.perf_counter()
+        source = streaming.StreamingSource.open(
+            data_dir, configs, index_maps=maps, block_rows=rows_a_file,
+            id_tags=("userId", "itemId"), cache_dir=os.path.join(root, "block_cache"))
+        result["open_s"] = time.perf_counter() - t0
+        result["num_blocks"] = source.plan.num_blocks
+        result["block_upload_bytes"] = source.block_upload_bytes(("global",))
+        if source.plan.num_blocks != STREAM_FILES or source.plan.shard_dims != store_dims:
+            raise AssertionError(f"unexpected plan {source.plan}")
+
+        def stream_fit(**kw) -> tuple:
+            c0 = _stream_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = _glmix_estimator("cuda").fit_streaming(source, validation_data=val_mem, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            c1 = _stream_counters()
+            stats = {k[len("stream."):]: c1[k] - c0.get(k, 0) for k in c1}
+            if stats.get("decode_s", 0) > 0:
+                stats["hide_ratio"] = max(0.0, (stats["decode_s"] - stats["stall_s"])
+                                          / stats["decode_s"])
+            stats["fit_s"] = seconds
+            stats["auc"] = fit.validation_metric
+            stats["objective"] = fit.objective_history[-1][1]
+            stats["seconds_per_coordinate"] = fit.update_seconds
+            return fit, stats
+
+        # the main path, cold (the first pass decodes and fills the block
+        # cache): counts set to 0 just before, read just after
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        cold, result["cold"] = stream_fit()
+        counts = launches.counts()
+        result["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result["launches"] = {k: counts[k] for k in ("fused_value_grad_batched_f32",
+                                                     "csr_matvec_f32")}
+        if min(result["launches"].values()) < 1:
+            failures.append(f"the streamed fit did not launch {result['launches']}")
+        warm, result["warm"] = stream_fit()
+        warm2, result["warm_again"] = stream_fit()
+        result["cold_warm_warm_bitwise"] = _same_fit(cold, warm) and _same_fit(warm, warm2)
+        if not result["cold_warm_warm_bitwise"]:
+            failures.append("cold, warm and warm fits differ")
+        if result["warm"]["cache_hit_blocks"] < result["warm"]["blocks"]:
+            failures.append(f"a warm fit decoded: {result['warm']}")
+        # the streamed fit lands where the in-memory fit lands: final
+        # objective (the CPU tests' rtol), FE coefficients (the JAX
+        # streaming gate's atol) and held-out AUC
+        result["vs_in_memory"] = against_in_memory(cold)
+        if not (result["vs_in_memory"]["objective_rel"] <= 1e-4
+                and result["vs_in_memory"]["fe_coef_max_abs_diff"] <= 2e-3
+                and result["vs_in_memory"]["auc_diff"] <= 1e-3):
+            failures.append(f"the streamed fit is not the in-memory fit: "
+                            f"{result['vs_in_memory']}")
+
+        # exactness: the streamed full-batch (f, g) against the in-memory
+        # objective over the same rows, at w = 0 and at the in-memory w
+        objective = streaming.coordinate._objective_for_task(TaskType.LOGISTIC_REGRESSION)
+        programs = stream_solver.StreamPrograms.for_objective(objective)
+        fe_opt = mem["estimator"].coordinate_configs["fixed"].optimizer
+        fe_data = mem["coords"]["fixed"].data
+        l2 = float(fe_opt.l2_weight)
+        exact = {}
+        for label, w_m in (("w0", torch.zeros_like(w_mem)), ("w_in_memory", w_mem)):
+            f_s, g_s, _ = stream_solver._full_pass(
+                programs, w_m[fe_cols],
+                lambda: (b.data["global"] for b in streaming.BlockPrefetcher(
+                    source, shards=("global",), device="cuda")), store_dims["global"],
+                torch.tensor(l2, device="cuda"), streaming.StreamSolveInfo())
+            f_m, g_m = objective.value_and_grad(w_m, fe_data, l2)
+            g_m = g_m[fe_cols]
+            exact[label] = {
+                "f_streamed": float(f_s), "f_in_memory": float(f_m),
+                "f_rel": abs(float(f_s) - float(f_m)) / abs(float(f_m)),
+                "g_err_over_max": float((g_s - g_m).abs().max() / g_m.abs().max()),
+            }
+            if not (exact[label]["f_rel"] <= 1e-4 and exact[label]["g_err_over_max"] <= 1e-4):
+                failures.append(f"streamed (f, g) at {label} differ: {exact[label]}")
+        result["exactness"] = exact
+
+        # the FE streamed solve alone (the fit's first update: zero residual,
+        # no warm start), under torch.profiler: passes and device idle share
+        coord = streaming.StreamingFixedEffectCoordinate(
+            source=source, shard_id="global", task=TaskType.LOGISTIC_REGRESSION,
+            configuration=fe_opt, device="cuda")
+        holder = {}
+        result["fe_update_profile"] = profile_device_idle(
+            lambda: holder.setdefault("m", coord.update_model_device(
+                None, torch.zeros(n, device="cuda"))))
+        info = coord.last_solve_info
+        result["fe_solve"] = {"passes": info.passes, "blocks": info.blocks,
+                              "iterations": info.iterations,
+                              "line_search_trials": info.line_search_trials}
+        if not _bits_equal(holder["m"].coefficients.means,
+                           cold.model.models["fixed"].coefficients.means):
+            failures.append("the FE solve alone differs from the fit's FE update")
+
+        # residency: 8 of 16 blocks kept on the card, the same fit bitwise
+        resident, result["resident"] = stream_fit(resident_blocks=STREAM_RESIDENT_BLOCKS)
+        saved = result["resident"].get("residency.h2d_saved_bytes", 0)
+        result["resident_bitwise"] = _same_fit(resident, warm)
+        if not result["resident_bitwise"]:
+            failures.append("the resident fit differs from the warm fit")
+        if not (saved > 0 and result["warm"]["h2d_bytes"] - result["resident"]["h2d_bytes"]
+                == saved and saved >= STREAM_RESIDENT_BLOCKS * result["block_upload_bytes"]
+                * (info.passes - 2)):
+            failures.append(f"residency saved {saved} bytes: {result['resident']}")
+
+        # stochastic, gap-scheduled: bitwise repeatable
+        kw = dict(mode="stochastic", gap_schedule=True, stochastic_epochs=2)
+        sto, result["stochastic"] = stream_fit(**kw)
+        sto2, result["stochastic_again"] = stream_fit(**kw)
+        result["stochastic_bitwise"] = _same_fit(sto, sto2)
+        if not result["stochastic_bitwise"]:
+            failures.append("two stochastic fits differ")
+        # the control: a fit that lands elsewhere (two stochastic epochs),
+        # read by the same comparison as the full fit above
+        result["stochastic_vs_in_memory"] = against_in_memory(sto)
+        for fit in (cold, sto):
+            z = fit.model.score(val_mem)
+            if not bool(torch.isfinite(z).all()) or z.shape != (n_val,):
+                failures.append("a streamed model scores non-finite or misshapen values")
+        result["peak_rss_gb"] = _peak_rss_gb()
+        for m in maps.values():
+            m.close()
+    emit("train_streaming_full_width", **result)
+    if failures:
+        raise AssertionError(f"train_streaming_full_width gates failed: {failures}")
     return result
 
 
@@ -2530,6 +2819,8 @@ def phase_train_game_cli(seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         std = ("--normalization-type", "STANDARDIZATION")
         ckpt = ("--checkpoint-dir", os.path.join(root, "checkpoint"))
+        stream = ("--streaming", "--block-rows", "512",
+                  "--block-cache-dir", os.path.join(root, "block_cache"))
         runs = (("cuda", "cuda", "auto", ()), ("cuda_again", "cuda", "auto", ()),
                 ("cpu", "cpu", "auto", ()), ("cuda_std_benes", "cuda", "benes", std),
                 ("cpu_std_benes", "cpu", "benes", std), ("cuda_fe_tron", "cuda", "tron", ()),
@@ -2537,7 +2828,9 @@ def phase_train_game_cli(seed: int) -> dict:
                 ("cuda_full_game_again", "cuda", "full", ()), ("cpu_full_game", "cpu", "full", ()),
                 # stopped after the first outer iteration, then resumed
                 ("cuda_resume_first", "cuda", "full", ("--num-outer-iterations", "1", *ckpt)),
-                ("cuda_resume", "cuda", "full", ckpt))
+                ("cuda_resume", "cuda", "full", ckpt),
+                # out of core: blocks of 512 rows, one block cache for both
+                ("cuda_streaming", "cuda", "auto", stream), ("cpu_streaming", "cpu", "auto", stream))
         for run, device, engine, extra in runs:
             config = (ratings_config(root, fe_only_tron=True) if engine == "tron"
                       else ratings_config(root, full_game=True) if engine == "full"
@@ -2576,14 +2869,15 @@ def phase_train_game_cli(seed: int) -> dict:
             or result["dated_cuda_rmse"] != result["cuda_rmse"]):
         raise AssertionError(f"the date-range run differs from the plain run: {result}")
     rescored = result["score_game_rmse_cuda"]
-    if result["cuda_launches"]["fused_value_grad_batched_f32"] < 1:
-        raise AssertionError(f"train_game on cuda did not launch the RE kernel: {result}")
+    for run in ("cuda", "cuda_streaming"):
+        if result[f"{run}_launches"]["fused_value_grad_batched_f32"] < 1:
+            raise AssertionError(f"train_game {run} did not launch the RE kernel: {result}")
     missing = [k for k in SHUFFLES if result["cuda_std_benes_launches"][k] < 1
                or result["score_game_launches_cuda_std_benes"][k] < 1]
     if missing:
         raise AssertionError(f"the standardized Benes run did not launch {missing}: {result}")
     for run in ("cuda", "cpu", "cuda_std_benes", "cpu_std_benes", "cuda_full_game",
-                "cpu_full_game"):
+                "cpu_full_game", "cuda_streaming", "cpu_streaming"):
         if not result[f"{run}_rmse"] < 0.45:
             raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.45")
     for run in ("cuda_fe_tron", "cpu_fe_tron"):
@@ -2591,9 +2885,14 @@ def phase_train_game_cli(seed: int) -> dict:
         if not result[f"{run}_rmse"] < 0.95:
             raise AssertionError(f"{run} RMSE {result[f'{run}_rmse']} not under 0.95")
     for a, b in (("cuda", "cpu"), ("cuda_std_benes", "cpu_std_benes"),
-                 ("cuda_fe_tron", "cpu_fe_tron"), ("cuda_full_game", "cpu_full_game")):
+                 ("cuda_fe_tron", "cpu_fe_tron"), ("cuda_full_game", "cpu_full_game"),
+                 ("cuda_streaming", "cpu_streaming")):
         if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
             raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
+    # the streamed fit against the in-memory one (the JAX package's streaming
+    # parity gate on this fixture, tests/test_streaming.py: 1e-3)
+    if abs(result["cuda_streaming_rmse"] - result["cuda_rmse"]) > 1e-3:
+        raise AssertionError(f"the streamed fit's RMSE is off the in-memory one: {result}")
     if abs(result["score_game_rmse_cuda_std_benes"] - result["cuda_std_benes_rmse"]) > 1e-5:
         raise AssertionError(f"score_game does not reproduce the standardized RMSE: {result}")
     # the sync schedule, and scoring, repeat bitwise on one device
@@ -4030,6 +4329,7 @@ PHASES = {
     "score_game_cli": phase_score_game_cli,
     "read_score_full_width": phase_read_score_full_width,
     "train_full_width": phase_train_full_width,
+    "train_streaming_full_width": phase_train_streaming_full_width,
     "train_glm_full_width": phase_train_glm_full_width,
     "train_tron_full_width": phase_train_tron_full_width,
     "fe_bf16_full_width": phase_fe_bf16_full_width,
@@ -4064,6 +4364,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             results[name] = PHASES[name](args.seed)
             phase_seconds[name] = time.perf_counter() - t0
+        if name == "train_streaming_full_width":
+            _in_memory_glmix_fit.cache_clear()  # the fit the two phases share
         if name == "train_telemetry_full_width":
             _async_setup.cache_clear()  # the coordinates the three phases share
         torch.cuda.empty_cache()

@@ -173,13 +173,15 @@ class CoordinateDescent:
     ) -> None:
         """Fold one update into the convergence tracker: the objective, the
         solver telemetry of the coordinate's ``last_tracker`` (a fixed
-        effect's iterations, convergence reason and final gradient norm),
-        and the coefficient-delta norm, computed on a copy and pulled with
-        ``float()``. May raise ``DivergenceError`` (the watchdog).
+        effect's iterations, convergence reason and final gradient norm)
+        and ``last_solve_info`` (a streamed solve's line-search trials),
+        the coefficient-delta norm, computed on a copy and pulled with
+        ``float()``, and a streamed coordinate's per-block stats,
+        gap-scheduler and residency decisions and skipped blocks. May raise
+        ``DivergenceError`` (the watchdog).
 
-        The JAX package's branches for streamed blocks, gap-scheduler and
-        residency decisions, cluster events and skipped blocks have no
-        producer in the port yet (ROADMAP.md, Queue A items 7 and 8)."""
+        The JAX package's branches for cluster events have no producer in
+        the port yet (ROADMAP.md, Queue A item 8, The cluster plane)."""
         tracker = self.progress
         if tracker is None:
             return
@@ -189,16 +191,38 @@ class CoordinateDescent:
             solver_iterations = int(states.iterations)
             convergence_reason = states.convergence_reason.name
             grad_norm = states.grad_norm
+        info = getattr(coord, "last_solve_info", None)
+        line_search_trials = int(info.line_search_trials) if info is not None else None
         coef_delta_norm = None
         new_means = getattr(getattr(model, "coefficients", None), "means", None)
         if new_means is not None:
             old_means = getattr(getattr(prev_model, "coefficients", None), "means", None)
             delta = new_means if old_means is None else new_means - old_means
             coef_delta_norm = float(torch.linalg.norm(delta))
+        block_stats = getattr(coord, "last_block_stats", None)
+        if block_stats:
+            tracker.record_blocks(outer, cid, block_stats)
+        schedule = getattr(coord, "last_schedule_decisions", None)
+        if schedule:
+            tracker.record_schedule(outer, cid, schedule)
+            coord.last_schedule_decisions = None
+        residency = getattr(coord, "last_residency_decisions", None)
+        if residency:
+            tracker.record_residency(outer, cid, residency)
+            coord.last_residency_decisions = None
+        skipped = getattr(coord, "last_skipped_blocks", None)
+        if skipped:
+            for s in skipped:
+                tracker.record_resilience(
+                    "block_skipped", "stream.build_block", s.get("error", ""),
+                    outer=outer, coordinate=cid, block=s.get("block"),
+                )
+            coord.last_skipped_blocks = None
         tracker.record_coordinate(
             outer, cid, objective, loss=loss, regularization=regularization,
             grad_norm=grad_norm, coef_delta_norm=coef_delta_norm,
-            solver_iterations=solver_iterations, convergence_reason=convergence_reason,
+            solver_iterations=solver_iterations, line_search_trials=line_search_trials,
+            convergence_reason=convergence_reason,
         )
 
     def run(

@@ -47,9 +47,16 @@ Usage:
 prebuilt off-heap index stores of ``build_index``, one subdirectory a
 feature shard, instead of building the maps by a scan.
 
-Refused, naming their ROADMAP.md Queue A item: ``--streaming`` and its
-flags, ``--on-block-error`` among them (item 7), and the device-grid,
-cluster and multi-host flags (item 8).
+``--streaming`` trains out of core: the training set is streamed from disk
+in fixed-shape blocks of ``--block-rows`` through a pinned host-to-device
+prefetcher (``--prefetch-depth``, ``--decode-workers``), with a decoded
+block cache (``--block-cache-dir``, ``--no-block-cache``), exact
+full-batch or stochastic solves (``--stream-mode``, ``--gap-schedule``),
+device-resident blocks (``--resident-blocks``, ``--resident-bytes``) and
+``--on-block-error``; validation data is still read in memory.
+
+Refused, naming their ROADMAP.md Queue A item: the device-grid, cluster
+and multi-host flags (item 8).
 """
 
 from __future__ import annotations
@@ -108,6 +115,7 @@ from photon_ml_tpu_torch.normalization import build_normalization_context
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.serving.introspect import IntrospectionServer
 from photon_ml_tpu_torch.stat.summary import summarize
+from photon_ml_tpu_torch.streaming import StreamingSource
 from photon_ml_tpu_torch.telemetry import ConvergenceTracker, DivergenceError
 from photon_ml_tpu_torch.telemetry.analyze import RunReport
 from photon_ml_tpu_torch.telemetry.sinks import TelemetryEventListener
@@ -117,14 +125,8 @@ from photon_ml_tpu_torch.utils.timer import Timer
 
 # flags of the JAX package's train_game that need modules not ported yet,
 # with the ROADMAP.md Queue A item that ports them
-_STREAMING = "item 7, Streaming out-of-core"
 _CLUSTER = "item 8, The cluster plane"
 _UNPORTED = {
-    "streaming": _STREAMING, "block_rows": _STREAMING, "prefetch_depth": _STREAMING,
-    "block_cache_dir": _STREAMING, "no_block_cache": _STREAMING,
-    "on_block_error": _STREAMING, "decode_workers": _STREAMING, "stream_mode": _STREAMING,
-    "gap_schedule": _STREAMING, "resident_blocks": _STREAMING,
-    "resident_bytes": _STREAMING,
     "parallel_data": _CLUSTER, "parallel_feat": _CLUSTER, "parallel_engine": _CLUSTER,
     "hosts": _CLUSTER, "cluster_block_latency_ms": _CLUSTER, "cluster_kill_host": _CLUSTER,
     "coordinator_address": _CLUSTER, "num_processes": _CLUSTER, "process_id": _CLUSTER,
@@ -267,6 +269,67 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    metavar="SECONDS",
                    help="keep the introspection server up for at most this "
                         "long after training, until /quitquitquit")
+    p.add_argument("--streaming", action="store_true",
+                   help="out-of-core training: stream the training set from "
+                        "disk in fixed-shape blocks through a pinned "
+                        "host->device prefetcher instead of materializing "
+                        "fixed-effect design matrices in memory (validation "
+                        "data is still read in-memory)")
+    p.add_argument("--block-rows", type=int, default=65536,
+                   help="streaming: rows per example block; every block has "
+                        "this exact (padded) shape (default 65536)")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="streaming: staged blocks the background decode "
+                        "thread may buffer ahead (0 = synchronous decode; "
+                        "default 2 = double buffering). Host staging memory "
+                        "is bounded by prefetch-depth x block bytes")
+    p.add_argument("--block-cache-dir", default=None,
+                   help="streaming: directory for the decoded block cache "
+                        "(default: a '_block_cache' directory next to the "
+                        "input data). The first pass decodes Avro once and "
+                        "spills each padded block; later passes (and later "
+                        "runs over identical inputs) reload blocks via mmap "
+                        "with no decode work. Entries are keyed by a "
+                        "fingerprint of the input files (path, size, "
+                        "mtime_ns), block-rows, shard geometry and the "
+                        "feature index maps (--offheap-indexmap-dir "
+                        "contents included), so any input, index-map or "
+                        "config change invalidates them")
+    p.add_argument("--no-block-cache", action="store_true",
+                   help="streaming: disable the decoded block cache and "
+                        "re-decode Avro every pass")
+    p.add_argument("--on-block-error", default="abort", choices=("abort", "skip"),
+                   help="streaming: what to do when a block permanently "
+                        "fails to decode after IO retries: 'abort' (default) "
+                        "fails the fit; 'skip' drops the block from the "
+                        "pass, records a resilience anomaly in the progress "
+                        "ledger, and excludes it from gap scheduling")
+    p.add_argument("--decode-workers", type=int, default=-1,
+                   help="streaming: decode pool threads (-1 = auto: "
+                        "cpu_count-1 capped at 16; 0 = synchronous decode in "
+                        "the prefetch thread). Each worker decodes one part "
+                        "file in a native call that releases the interpreter "
+                        "lock")
+    p.add_argument("--stream-mode", default="full", choices=("full", "stochastic"),
+                   help="streaming solver: 'full' replays every block per "
+                        "optimizer iteration (exact full-batch, default); "
+                        "'stochastic' visits shuffled block groups per epoch")
+    p.add_argument("--gap-schedule", action="store_true",
+                   help="stochastic streaming only: visit blocks by "
+                        "staleness-decayed duality-gap importance (DuHL) "
+                        "instead of a blind per-epoch shuffle, with an "
+                        "exploration floor refreshing stale blocks")
+    p.add_argument("--resident-blocks", type=int, default=0, metavar="N",
+                   help="streaming: keep up to N top-duality-gap blocks' "
+                        "device tensors across passes; later passes upload "
+                        "only the non-resident remainder, with the same fit "
+                        "bitwise. 0 = off. Costs N x block upload bytes of "
+                        "device memory")
+    p.add_argument("--resident-bytes", type=int, default=None, metavar="B",
+                   help="streaming: cap the resident set by device BYTES "
+                        "instead of (or besides) --resident-blocks; the "
+                        "tighter budget wins (B // block upload bytes "
+                        "blocks)")
     add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
@@ -276,6 +339,30 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.staleness < 0:
         p.error("--staleness must be >= 0")
+    if args.block_rows < 1:
+        p.error("--block-rows must be >= 1")
+    if args.prefetch_depth < 0:
+        p.error("--prefetch-depth must be >= 0")
+    if args.decode_workers < -1:
+        p.error("--decode-workers must be >= -1 (-1 = auto)")
+    if args.gap_schedule and not (args.streaming and args.stream_mode == "stochastic"):
+        p.error(
+            "--gap-schedule requires --streaming with "
+            "--stream-mode stochastic (full-batch mode must visit every "
+            "block per pass to stay exact)"
+        )
+    if args.resident_blocks < 0:
+        p.error("--resident-blocks must be >= 0")
+    if args.resident_bytes is not None and args.resident_bytes < 1:
+        p.error("--resident-bytes must be >= 1")
+    residency_on = args.resident_blocks > 0 or args.resident_bytes is not None
+    if residency_on and not args.streaming:
+        p.error("--resident-blocks/--resident-bytes require --streaming "
+                "(they pin streamed block uploads)")
+    if residency_on and args.stream_mode == "stochastic" and not args.gap_schedule:
+        p.error("--resident-blocks/--resident-bytes with --stream-mode "
+                "stochastic require --gap-schedule (the scheduler's gap "
+                "feedback picks the resident set)")
     if args.introspect_port is not None and args.introspect_port < 0:
         p.error("--introspect-port must be >= 0 (0 = ephemeral)")
     return args
@@ -287,6 +374,39 @@ def _refuse_unported(args: argparse.Namespace) -> None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md, Queue A {item})"
             )
+
+
+def _default_block_cache_dir(train_dirs) -> str:
+    """Default decoded-block cache location: a ``_block_cache`` directory
+    next to the input part files (inside the first data directory, or
+    beside the first file when inputs are listed as files), so the cache
+    travels with, and is cleaned up with, the dataset; fingerprint keying
+    makes sharing one directory across configurations safe."""
+    first = str(train_dirs[0])
+    base = first if os.path.isdir(first) else os.path.dirname(first)
+    return os.path.join(base, "_block_cache")
+
+
+def _check_streaming_compatible(args: argparse.Namespace) -> None:
+    """--streaming replaces the in-memory training read; every flag whose
+    implementation needs the materialized training GameData (or a second
+    full-data pass) fails fast here rather than deep in the fit."""
+    conflicts = [
+        (args.compute_variance, "--compute-variance (Hessian-diagonal pass)"),
+        (args.check_data, "--check-data (validates in-memory shards)"),
+        (args.auto_tune, "--auto-tune (trial fits need in-memory data)"),
+        (args.hyperparameter_tuning != "NONE", "--hyperparameter-tuning"),
+        (args.normalization_type != "NONE",
+         "--normalization-type (needs a streamed feature-stats pass)"),
+        (bool(args.summarization_output_dir) or args.save_feature_stats,
+         "feature-stats output (summarizes in-memory shards)"),
+    ]
+    bad = [name for flag, name in conflicts if flag]
+    if bad:
+        raise ValueError(
+            "--streaming is incompatible with: " + "; ".join(bad)
+            + ". Drop those flags or train in-memory."
+        )
 
 
 def _sweep_model_configs(sweeps, coordinates) -> List[dict]:
@@ -574,11 +694,33 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
     train_dirs = expand_data_dirs(
         args.train_data_dirs, args.train_date_range, args.train_date_days_ago
     )
-    with timer.time("read training data"):
-        data, index_maps, _ = read_game_data(
-            train_dirs, shard_configs, index_maps, id_tags=id_tags, **col_names,
+    source = data = None
+    if args.streaming:
+        _check_streaming_compatible(args)
+        cache_dir = None
+        if not args.no_block_cache:
+            cache_dir = args.block_cache_dir or _default_block_cache_dir(train_dirs)
+        with timer.time("open streaming source"):
+            source = StreamingSource.open(
+                train_dirs, shard_configs, index_maps=index_maps,
+                block_rows=args.block_rows, id_tags=id_tags,
+                decode_workers=None if args.decode_workers < 0 else args.decode_workers,
+                cache_dir=cache_dir, **col_names,
+            )
+        source.on_block_error = args.on_block_error
+        index_maps = source.index_maps
+        logger.info(
+            "training rows (streamed): %d in %d blocks of %d on %s "
+            "(block cache: %s, decode workers: %d)",
+            source.plan.total_rows, source.plan.num_blocks, args.block_rows, device,
+            cache_dir or "off", source.decode_workers,
         )
-    logger.info("training rows: %d on %s", data.num_rows, device)
+    else:
+        with timer.time("read training data"):
+            data, index_maps, _ = read_game_data(
+                train_dirs, shard_configs, index_maps, id_tags=id_tags, **col_names,
+            )
+        logger.info("training rows: %d on %s", data.num_rows, device)
 
     def check_shards(game_data, phase: str) -> None:
         """--check-data over every feature shard (reference CHECK_DATA wraps
@@ -687,6 +829,12 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
         **{**estimator_kwargs, "compute_variance": args.compute_variance},
     )
     sweep_configs = _sweep_model_configs(coordinate_weight_sweeps(raw_config), coordinates)
+    if args.streaming and len(sweep_configs) > 1:
+        raise ValueError(
+            "--streaming does not compose with regularization_weights "
+            "sweeps (each swept fit would re-stream the dataset); pick "
+            "one weight per coordinate or train in-memory"
+        )
     if len(sweep_configs) > 1 and validation_data is None:
         raise ValueError(
             "regularization_weights sweeps need --validation-data-dirs: "
@@ -701,7 +849,17 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
     emitter.send_event(TrainingStartEvent(task=args.task))
     fit_overrides: Dict[str, object] = {}
     with _profiled(args.profile_dir, device), timer.time("fit"):
-        if len(sweep_configs) > 1:
+        if args.streaming:
+            fit = estimator.fit_streaming(
+                source, validation_data=validation_data,
+                checkpoint_dir=args.checkpoint_dir,
+                prefetch_depth=args.prefetch_depth, mode=args.stream_mode,
+                gap_schedule=args.gap_schedule,
+                resident_blocks=args.resident_blocks,
+                resident_bytes=args.resident_bytes, progress=progress,
+            )
+            all_fits, all_overrides = [fit], [{}]
+        elif len(sweep_configs) > 1:
             # one fit per swept configuration over coordinates built once,
             # the best by the validation evaluator (reference
             # Driver.scala:112 selectBestModel over getAllModelConfigs)

@@ -30,8 +30,13 @@ coordinate solves and overlaps random-effect buckets on CUDA streams
 spans: ``game/build_coordinate``, ``game/resolve_coordinate`` and
 ``game/fit`` around the coordinate-descent run.
 
-Not ported (ROADMAP.md, Queue A): ``fit_streaming`` (item 7), the device
-mesh and the host score plane (item 8).
+``fit_streaming`` trains out of core: fixed effects stream fixed-shape
+blocks from a ``streaming.StreamingSource`` through the pinned prefetcher
+(``streaming/*``); random effects train in memory from one streamed setup
+pass.
+
+Not ported (ROADMAP.md, Queue A item 8, The cluster plane): the device
+mesh, the host score plane and cluster streaming.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from photon_ml_tpu_torch.algorithm.factored_random_effect import (
     FactoredRandomEffectModel,
     MFOptimizationConfiguration,
 )
-from photon_ml_tpu_torch.data.game_data import GameData
+from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
 from photon_ml_tpu_torch.data.random_effect import (
     RandomEffectDataConfiguration,
     build_random_effect_dataset,
@@ -72,6 +77,10 @@ from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
 from photon_ml_tpu_torch.opt.tracking import TransferStats
+from photon_ml_tpu_torch.streaming.coordinate import (
+    CLUSTER_NOT_PORTED,
+    StreamingFixedEffectCoordinate,
+)
 from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
 
@@ -296,14 +305,18 @@ class GameEstimator:
                 problems.append(f"{cid}: not in current configuration")
                 continue
             if isinstance(model, GeneralizedLinearModel):
-                if not isinstance(coord, FixedEffectCoordinate):
+                if not isinstance(coord, (FixedEffectCoordinate,
+                                          StreamingFixedEffectCoordinate)):
                     problems.append(
                         f"{cid}: checkpoint holds a fixed-effect model but the "
                         f"coordinate is now configured as {type(coord).__name__}"
                     )
-                elif model.dim != coord.data.dim:
+                    continue
+                want = (coord.dim if isinstance(coord, StreamingFixedEffectCoordinate)
+                        else coord.data.dim)
+                if model.dim != want:
                     problems.append(
-                        f"{cid}: checkpoint dim {model.dim} != data dim {coord.data.dim}"
+                        f"{cid}: checkpoint dim {model.dim} != data dim {want}"
                     )
                 continue
             latent = getattr(model, "latent", model)
@@ -402,6 +415,102 @@ class GameEstimator:
             coordinates = self.build_coordinates(data)
         return self._run_fit(coordinates, data, validation_data, initial_models, checkpoint_dir,
                              progress=progress)
+
+    def fit_streaming(
+        self,
+        source,
+        validation_data: Optional[GameData] = None,
+        checkpoint_dir: Optional[str] = None,
+        initial_models: Optional[Dict[str, object]] = None,
+        prefetch_depth: int = 2,
+        mode: str = "full",
+        stochastic_epochs: int = 5,
+        stochastic_chunk_iters: int = 4,
+        blocks_per_update: int = 1,
+        seed: int = 0,
+        gap_schedule: bool = False,
+        resident_blocks: int = 0,
+        resident_bytes: Optional[int] = None,
+        progress: Optional[object] = None,
+        cluster: Optional[object] = None,
+    ) -> GameFit:
+        """Out-of-core ``fit`` (JAX ``GameEstimator.fit_streaming``):
+        fixed-effect coordinates stream fixed-shape blocks from a
+        :class:`~photon_ml_tpu_torch.streaming.StreamingSource` instead of
+        holding the design matrix in memory.
+
+        One streamed setup pass accumulates the per-row scalar planes
+        (labels/offsets/weights/id tags) and the COO of the random-effect
+        shards, so RE coordinates are built as in ``fit``. The FE feature
+        payload never materializes: each CD update and score re-streams it,
+        with host staging bounded by ``prefetch_depth × block bytes``.
+
+        ``mode='full'`` is the exact full-batch streamed solve (the
+        default); ``mode='stochastic'`` visits shuffled block groups per
+        epoch on the resumable solver seam. ``gap_schedule=True``
+        (stochastic only) replaces the blind shuffle with duality-gap-guided
+        block selection. ``resident_blocks``/``resident_bytes`` cap a
+        device-resident set of top-gap blocks whose uploads persist across
+        passes; the fit is bitwise the non-resident one, only the uploaded
+        bytes drop. ``cluster`` is not ported (it raises)."""
+        if cluster is not None:
+            raise ValueError(CLUSTER_NOT_PORTED)
+        if self.compute_variance:
+            raise ValueError(
+                "streaming training cannot compute coefficient variances "
+                "(needs a second Hessian-diagonal pass; train in-memory)"
+            )
+        fe_cfgs = {
+            cid: cfg for cid, cfg in self.coordinate_configs.items()
+            if isinstance(cfg, FixedEffectCoordinateConfiguration)
+        }
+        for cid, cfg in fe_cfgs.items():
+            if self.normalization.get(cfg.feature_shard) is not None:
+                raise ValueError(
+                    f"streaming coordinate {cid!r}: normalization requires "
+                    "a streamed feature-stats pass (not implemented); use "
+                    "--normalization-type NONE or train in-memory"
+                )
+        re_shards = sorted({
+            cfg.feature_shard for cid, cfg in self.coordinate_configs.items()
+            if cid not in fe_cfgs
+        })
+        planes = source.row_planes(coo_shards=re_shards)
+        data = GameData(
+            labels=planes.labels,
+            feature_shards={
+                sid: FeatureShard(rows=r, cols=c, vals=v, dim=d)
+                for sid, (r, c, v, d) in planes.shard_coo.items()
+            },
+            id_tags=planes.id_tags,
+            offsets=planes.offsets,
+            weights=planes.weights,
+        )
+        coordinates: Dict[str, object] = {}
+        for cid, cfg in self.coordinate_configs.items():
+            if cid in fe_cfgs:
+                coordinates[cid] = StreamingFixedEffectCoordinate(
+                    source=source,
+                    shard_id=cfg.feature_shard,
+                    task=self.task,
+                    configuration=cfg.optimizer,
+                    prefetch_depth=prefetch_depth,
+                    mode=mode,
+                    epochs=stochastic_epochs,
+                    chunk_iters=stochastic_chunk_iters,
+                    blocks_per_update=blocks_per_update,
+                    seed=seed,
+                    device=self.device,
+                    gap_schedule=gap_schedule,
+                    resident_blocks=resident_blocks,
+                    resident_bytes=resident_bytes,
+                    # per-block probes only when a tracker reads them
+                    collect_block_stats=progress is not None,
+                )
+            else:
+                coordinates[cid] = self._build_coordinate(cid, cfg, data)
+        return self._run_fit(coordinates, data, validation_data, initial_models,
+                             checkpoint_dir, progress=progress)
 
     def fit_multiple(
         self,

@@ -112,17 +112,26 @@ class AvroSchema:
 
 # ---------------------------------------------------------------- encoding
 
-def _write_long(out: BinaryIO, n: int) -> None:
+_PACK_FLOAT = struct.Struct("<f").pack
+_PACK_DOUBLE = struct.Struct("<d").pack
+_SMALL_LONGS = [bytes([n << 1]) for n in range(64)]  # 0..63: one byte
+
+
+def _long_bytes(n: int) -> bytes:
     """Zigzag varint (Avro spec 'int and long')."""
+    if 0 <= n < 64:
+        return _SMALL_LONGS[n]
     n = (n << 1) ^ (n >> 63)
-    while True:
-        b = n & 0x7F
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
         n >>= 7
-        if n:
-            out.write(bytes([b | 0x80]))
-        else:
-            out.write(bytes([b]))
-            return
+    out.append(n)
+    return bytes(out)
+
+
+def _write_long(out: BinaryIO, n: int) -> None:
+    out.write(_long_bytes(n))
 
 
 def _union_branch(schema: List[Any], value: Any) -> int:
@@ -155,59 +164,104 @@ def _union_branch(schema: List[Any], value: Any) -> int:
 
 
 def _encode(out: BinaryIO, schema: Any, value: Any) -> None:
+    _compile_encoder(schema)(out.write, value)
+
+
+def _compile_encoder(schema: Any, memo: Optional[Dict[int, Any]] = None):
+    """Compile ``schema`` into ``fn(write, value)``, which writes the binary
+    encoding of ``value`` through ``write``. The schema is walked here once,
+    not per value; a named record that refers to itself compiles once
+    (``memo``)."""
+    if memo is None:
+        memo = {}
     if isinstance(schema, list):
-        i = _union_branch(schema, value)
-        _write_long(out, i)
-        _encode(out, schema[i], value)
-        return
+        branches = [_compile_encoder(b, memo) for b in schema]
+
+        def union(write, value):
+            i = _union_branch(schema, value)
+            write(_long_bytes(i))
+            branches[i](write, value)
+
+        return union
     t = schema if isinstance(schema, str) else schema["type"]
     if t == "null":
-        return
+        return lambda write, value: None
     if t == "boolean":
-        out.write(b"\x01" if value else b"\x00")
-    elif t in ("int", "long"):
-        _write_long(out, int(value))
-    elif t == "float":
-        out.write(struct.pack("<f", float(value)))
-    elif t == "double":
-        out.write(struct.pack("<d", float(value)))
-    elif t == "bytes":
-        _write_long(out, len(value))
-        out.write(value)
-    elif t == "string":
-        raw = value.encode("utf-8")
-        _write_long(out, len(raw))
-        out.write(raw)
-    elif t == "record":
-        for f in schema["fields"]:
-            if f["name"] in value:
-                v = value[f["name"]]
-            elif "default" in f:
-                v = f["default"]
-            else:
-                raise ValueError(f"missing field {f['name']}")
-            _encode(out, f["type"], v)
-    elif t == "array":
-        if value:
-            _write_long(out, len(value))
-            for item in value:
-                _encode(out, schema["items"], item)
-        _write_long(out, 0)
-    elif t == "map":
-        if value:
-            _write_long(out, len(value))
-            for k, v in value.items():
-                _encode(out, "string", k)
-                _encode(out, schema["values"], v)
-        _write_long(out, 0)
-    elif t == "enum":
-        _write_long(out, schema["symbols"].index(value))
-    elif t == "fixed":
-        if len(value) != schema["size"]:
-            raise ValueError("fixed size mismatch")
-        out.write(value)
-    else:
-        raise ValueError(f"cannot encode type {t}")
+        return lambda write, value: write(b"\x01" if value else b"\x00")
+    if t in ("int", "long"):
+        return lambda write, value: write(_long_bytes(int(value)))
+    if t == "float":
+        return lambda write, value: write(_PACK_FLOAT(float(value)))
+    if t == "double":
+        return lambda write, value: write(_PACK_DOUBLE(float(value)))
+    if t == "bytes":
+        def raw_bytes(write, value):
+            write(_long_bytes(len(value)))
+            write(value)
+
+        return raw_bytes
+    if t == "string":
+        def string(write, value):
+            raw = value.encode("utf-8")
+            write(_long_bytes(len(raw)))
+            write(raw)
+
+        return string
+    if t == "record":
+        if id(schema) in memo:
+            return memo[id(schema)]
+        fields = []
+
+        def record(write, value):
+            for name, fn, has_default, default in fields:
+                if name in value:
+                    fn(write, value[name])
+                elif has_default:
+                    fn(write, default)
+                else:
+                    raise ValueError(f"missing field {name}")
+
+        memo[id(schema)] = record
+        fields.extend((f["name"], _compile_encoder(f["type"], memo), "default" in f,
+                       f.get("default")) for f in schema["fields"])
+        return record
+    if t == "array":
+        item = _compile_encoder(schema["items"], memo)
+
+        def array(write, value):
+            if value:
+                write(_long_bytes(len(value)))
+                for v in value:
+                    item(write, v)
+            write(b"\x00")
+
+        return array
+    if t == "map":
+        key = _compile_encoder("string")
+        item = _compile_encoder(schema["values"], memo)
+
+        def map_(write, value):
+            if value:
+                write(_long_bytes(len(value)))
+                for k, v in value.items():
+                    key(write, k)
+                    item(write, v)
+            write(b"\x00")
+
+        return map_
+    if t == "enum":
+        symbols = schema["symbols"]
+        return lambda write, value: write(_long_bytes(symbols.index(value)))
+    if t == "fixed":
+        size = schema["size"]
+
+        def fixed(write, value):
+            if len(value) != size:
+                raise ValueError("fixed size mismatch")
+            write(value)
+
+        return fixed
+    raise ValueError(f"cannot encode type {t}")
 
 
 # ---------------------------------------------------------------- decoding
@@ -574,8 +628,9 @@ def write_avro_file(
             block = io.BytesIO()
             block_count = 0
 
+        encode = _compile_encoder(schema.root)
         for rec in records:
-            _encode(block, schema.root, rec)
+            encode(block.write, rec)
             block_count += 1
             count_total += 1
             if block.tell() >= sync_interval:

@@ -146,25 +146,67 @@ def coalesce_coo(rows, cols, vals, n, d):
     return rows, cols, vals, counts
 
 
+def _scatter_ell(rows, cols, vals, counts, values, indices) -> None:
+    """Scatter coalesced, (row, col)-sorted triplets into ELL arrays."""
+    if not rows.size:
+        return
+    n = values.shape[0]
+    # slot index within each row: position minus that row's start offset
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slots = np.arange(rows.size, dtype=np.int64) - starts[rows]
+    values[rows, slots] = vals
+    indices[rows, slots] = cols
+
+
+def pack_ell_host(rows, cols, vals, shape, max_nnz=None):
+    """Host-side ELL packing of COO triplets: numpy ``(values [n, k] f32,
+    indices [n, k] int32)``, allocating nothing on a device (copy of the
+    reference's). Duplicates coalesced by summation; ``ValueError`` when a
+    row exceeds ``max_nnz``. Indices stay int32 on the host, as in the JAX
+    package, so a staged block counts the same bytes in both packages."""
+    n, d = shape
+    rows, cols, vals, counts = coalesce_coo(rows, cols, vals, n, d)
+    needed = int(counts.max()) if rows.size else 1
+    k = max(int(max_nnz) if max_nnz is not None else needed, 1)
+    if needed > k:
+        raise ValueError(
+            f"row with {needed} nonzeros exceeds max_nnz={k}; raise max_nnz or "
+            "pre-select features"
+        )
+    values = np.zeros((n, k), dtype=np.float32)
+    indices = np.zeros((n, k), dtype=np.int32)
+    _scatter_ell(rows, cols, vals, counts, values, indices)
+    return values, indices
+
+
+def pack_ell_into(rows, cols, vals, values_out, indices_out, num_cols=None) -> None:
+    """In-place :func:`pack_ell_host`: scatter COO triplets into
+    caller-owned, zero-initialized ``[n, k]`` staging arrays (copy of the
+    reference's). The streaming block assembler packs each file piece of a
+    block as it arrives; pieces are row-disjoint, so piecewise packing
+    equals packing the whole block at once. Rows written by an earlier
+    call must not be revisited."""
+    n, k = values_out.shape
+    rows, cols, vals, counts = coalesce_coo(rows, cols, vals, n, num_cols)
+    needed = int(counts.max()) if rows.size else 0
+    if needed > k:
+        raise ValueError(
+            f"row with {needed} nonzeros exceeds max_nnz={k}; raise max_nnz or "
+            "pre-select features"
+        )
+    _scatter_ell(rows, cols, vals, counts, values_out, indices_out)
+
+
 def from_scipy_like(
     rows, cols, vals, shape, device: DeviceLike = DEFAULT_DEVICE
 ) -> EllFeatures:
     """EllFeatures from COO triplets on ``device``, k = the longest row
     (duplicates coalesced by summation, as scipy's COO does)."""
     dev = resolve_device(device)
-    n, d = shape
-    rows, cols, vals, counts = coalesce_coo(rows, cols, vals, n, d)
-    k = max(int(counts.max()) if rows.size else 1, 1)
-    values = np.zeros((n, k), dtype=np.float32)
-    indices = np.zeros((n, k), dtype=np.int64)
-    if rows.size:
-        starts = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(counts, out=starts[1:])
-        slots = np.arange(rows.size, dtype=np.int64) - starts[rows]
-        values[rows, slots] = vals
-        indices[rows, slots] = cols
+    values, indices = pack_ell_host(rows, cols, vals, shape)
     return EllFeatures(
         values=torch.from_numpy(values).to(dev),
-        indices=torch.from_numpy(indices).to(dev),
+        indices=torch.from_numpy(indices).to(dev, torch.int64),
         num_cols=int(shape[1]),
     )

@@ -102,19 +102,47 @@ def two_loop_direction(g, s_hist, y_hist, rho, count) -> torch.Tensor:
     return -r_vec
 
 
-def update_history(s_hist, y_hist, rho, count, s_vec, y_vec, lanes) -> torch.Tensor:
+def update_history(s_hist, y_hist, rho, count, s_vec, y_vec, lanes=None) -> torch.Tensor:
     """Curvature-guarded ring-buffer insert (skipped when s.y is too small)
-    for the ``lanes`` that advanced, in place; returns the new counts."""
+    for the ``lanes`` that advanced (None: every lane), in place; returns
+    the new counts."""
     m = rho.shape[-1]
     lane = torch.arange(s_vec.shape[0], device=s_vec.device)
     sy = dot(s_vec, y_vec)
-    good = lanes & (sy > 1e-10 * torch.clamp(dot(y_vec, y_vec), min=1e-30))
+    good = sy > 1e-10 * torch.clamp(dot(y_vec, y_vec), min=1e-30)
+    if lanes is not None:
+        good = lanes & good
     slot = torch.remainder(count, m)
     g2 = good.unsqueeze(-1)
     s_hist[lane, slot] = torch.where(g2, s_vec.to(s_hist.dtype), s_hist[lane, slot])
     y_hist[lane, slot] = torch.where(g2, y_vec.to(y_hist.dtype), y_hist[lane, slot])
     rho[lane, slot] = torch.where(good, 1.0 / torch.clamp(sy, min=1e-30), rho[lane, slot])
     return torch.where(good, count + 1, count)
+
+
+def two_loop_direction_one(g, s_hist, y_hist, rho, count) -> torch.Tensor:
+    """:func:`two_loop_direction` of one problem: g [d], s_hist / y_hist
+    [m, d], rho [m], count a 0-d tensor."""
+    return two_loop_direction(
+        g.unsqueeze(0), s_hist.unsqueeze(0), y_hist.unsqueeze(0),
+        rho.unsqueeze(0), count.reshape(1),
+    )[0]
+
+
+def update_history_one(s_hist, y_hist, rho, count, s_vec, y_vec) -> torch.Tensor:
+    """:func:`update_history` of one problem, in place on s_hist / y_hist
+    [m, d] and rho [m]; returns the new count (0-d)."""
+    return update_history(
+        s_hist.unsqueeze(0), y_hist.unsqueeze(0), rho.unsqueeze(0),
+        count.reshape(1), s_vec.unsqueeze(0), y_vec.unsqueeze(0),
+    )[0]
+
+
+def resolve_history_dtype(config: OptimizerConfig, working_dtype: torch.dtype) -> torch.dtype:
+    """The storage dtype of the s/y ring buffers: ``config.history_dtype``
+    or the working dtype; shared by L-BFGS, OWL-QN and the streamed
+    solver."""
+    return getattr(torch, config.history_dtype) if config.history_dtype else working_dtype
 
 
 def _project_box(w: torch.Tensor, lower, upper) -> torch.Tensor:
@@ -206,7 +234,7 @@ def empty_memory(w0: torch.Tensor, config: OptimizerConfig) -> dict:
     rho [E, m]; shared by L-BFGS and OWL-QN."""
     E, d = w0.shape
     m = config.history_length
-    hdtype = getattr(torch, config.history_dtype) if config.history_dtype else w0.dtype
+    hdtype = resolve_history_dtype(config, w0.dtype)
     return {
         "s_hist": torch.zeros((E, m, d), dtype=hdtype, device=w0.device),
         "y_hist": torch.zeros((E, m, d), dtype=hdtype, device=w0.device),

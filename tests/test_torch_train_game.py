@@ -205,7 +205,8 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     Regularization-weight sweeps, once refused here, now train
     (test_sweep_cli_picks_the_jax_best below), and so do the telemetry,
     introspection and auto-tune flags (test_train_game_cli_telemetry_flags
-    below), and --offheap-indexmap-dir (tests/test_torch_cli_io.py)."""
+    below), --offheap-indexmap-dir (tests/test_torch_cli_io.py), and
+    --streaming with its flags (tests/test_torch_streaming.py)."""
     path = tmp_path / "bad.json"
     cfg = json.loads(open(_ratings_config(tmp_path)).read())
     cfg["coordinates"]["fixed"]["optimizer"].update(
@@ -214,8 +215,7 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="TRON does not support L1"):
         train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
     config_path = _ratings_config(tmp_path)
-    for flags, item in ((("--streaming",), "item 7"), (("--on-block-error", "skip"), "item 7"),
-                        (("--parallel-data", "2"), "item 8"), (("--hosts", "2"), "item 8"),
+    for flags, item in ((("--parallel-data", "2"), "item 8"), (("--hosts", "2"), "item 8"),
                         (("--coordinator-address", "localhost:1"), "item 8")):
         with pytest.raises(NotImplementedError, match=f"{flags[0]} is not ported.*{item}"):
             train_game.run(train_game.parse_args(_train_argv(tmp_path, config_path, *flags)))
