@@ -72,18 +72,22 @@ exit code is not 0):
                       codec, called directly, in turns (read_native_s,
                       read_python_s).
 6. read_score_full_width
-                    — the data of score_full_width (make_glmix at 2^20
-                      rows x 2^24 dims x 16 nonzeros, per-user and per-item
-                      REs) written as 16 Avro part files of 65,536 rows by
-                      worker processes; off-heap stores of the FE (8
-                      partitions), per-user and per-item shards built by
+                    — the data of score_full_width at a quarter of its
+                      depth (make_glmix at 2^18 rows x 2^24 dims x 16
+                      nonzeros, per-user and per-item REs) written as 8
+                      Avro part files of 32,768 rows by worker processes,
+                      and indexed, in the background (nice 19) from the
+                      end of phase 2 on;
+                      off-heap stores of the FE (8 partitions), per-user
+                      and per-item shards built by
                       the build_index CLI; read_game_data through those
                       stores on the native path, twice; the model's
                       coefficients carried into the stores' column space
                       by name; scored on cuda: the natively read GameData
                       equal to make_glmix's as sorted (row, name, value)
-                      triples, the scores equal to score_full_width's
-                      (bitwise, else rtol 2e-4, atol 1e-5), with the
+                      triples, the scores equal to the model's on
+                      make_glmix's rows (bitwise, else rtol 2e-4, atol
+                      1e-5), with the
                       write, build, read and score seconds, the read's
                       rows/s, peak RSS and csr_matvec_f32 launches.
 7. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
@@ -104,7 +108,9 @@ exit code is not 0):
                     — fit_streaming at the width of train_full_width: its
                       training rows written as 16 Avro part files of
                       65,536 rows by worker processes, off-heap stores built
-                      by build_index, StreamingSource.open(block_rows=65,536)
+                      by build_index (both in the background, nice 19,
+                      from the end of phase 4 on),
+                      StreamingSource.open(block_rows=65,536)
                       with a block cache in a temporary directory;
                       train_full_width's in-memory fit of the same rows
                       (moved into the stores' column space) as the
@@ -121,11 +127,49 @@ exit code is not 0):
                       torch.profiler: passes, device idle share) bitwise the
                       fit's FE update; a warm fit with 8 resident blocks
                       bitwise the warm fit, its h2d bytes down by the saved
-                      bytes; two gap-scheduled stochastic fits of 2 epochs
+                      bytes; two gap-scheduled stochastic fits of 1 epoch
                       bitwise equal. With open, fit and decode, stall,
                       transfer, hidden-upload seconds, hide ratio, h2d
                       bytes, peak device memory and peak RSS.
-9. train_glm_full_width
+9. train_cluster_full_width
+                    — the cluster path, train_game --streaming --hosts
+                      2 at that width: ClusterPlane.launch of two worker
+                      processes on the card (each its own CUDA context,
+                      stream, pinned ring and block-cache subdirectory)
+                      over phase 8's part files and stores, launched with
+                      the drill's plane in the background (nice 19) during
+                      phase 8's resident and stochastic fits; a cold and a
+                      warm fit_streaming(cluster=...) (the warm one under
+                      torch.profiler: the coordinator's device idle share)
+                      held against phase 8's single-host streamed fit
+                      (final objective rtol 1e-4, FE coefficients atol
+                      2e-3, AUC 1e-3; whether the two are bitwise equal
+                      is recorded: the warm fit's partitions follow the
+                      gap ledger the cold one left); then the
+                      chaos drill, host 1 killed after 4 blocks: the same
+                      gates, one host_lost event and failure record, its
+                      blocks reassigned, its exit code 17. With passes,
+                      bytes a reply and a pass message, busy, allreduce
+                      wait and fold seconds from the pass profiles, each
+                      worker's allocator peak, the card's memory in use.
+10. train_grid_full_width
+                    — the grid path: train_full_width's fit on a 2 x 2 grid of
+                      fused tiles with devices [cuda:0] * 4 (the per-user
+                      and per-item entity blocks split over the 4
+                      positions), held against train_full_width's fit (FE
+                      coefficients atol 5e-3, scores 1e-2, objective rtol
+                      1e-4, AUC 1e-4), itself (bitwise) and the same fit on
+                      the host score plane; csr_matvec_f32 and
+                      csc_rmatvec_f32 at a tile's shape and K6 at a device
+                      slice's against their plain versions and float64,
+                      timed, with the fit's launches; a 2 x 1 Benes grid at
+                      that width over 16 (2^16 rows, 2^20 columns) against
+                      the fused fit of its rows, lane_shuffle_f32 and
+                      sublane_shuffle_f32 at a tile network's stages
+                      (bitwise); and a 2 x 2 grid of distinct cards refused
+                      on a one-card machine ("need 4 devices, have 1") by
+                      the estimator and train_game.
+11. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
                       + an intercept; fused engine), labels of each task from
@@ -145,7 +189,7 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-10. train_tron_full_width
+12. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -153,7 +197,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-11. fe_bf16_full_width
+13. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -170,8 +214,10 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-12. train_benes_full_width
-                    — the same training data with the fixed effect on the
+14. train_benes_full_width
+                    — training data of that width at a quarter of its
+                      depth (2^18 rows, 2^16 held out: cold routing of
+                      2^20 rows took 75-160 s) with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
                       engine built with a fresh plan cache (cold routing
@@ -186,7 +232,7 @@ exit code is not 0):
                       torch.gather/bound times), Benes vs fused matvec and
                       rmatvec times, and the device idle share of one FE
                       solve.
-13. train_full_game_full_width
+15. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
@@ -204,9 +250,9 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-14. train_async_full_width
+16. train_async_full_width
                     — the train_full_width fit with per_user in 4 buckets
-                      and per_item in 2, 2 outer iterations, on the sync
+                      and per_item in 2, 1 outer iteration, on the sync
                       schedule and on schedule="async" (a CUDA stream a
                       worker; bucket overlap two at a time): staleness 0
                       bitwise the sync fit, two staleness-1 fits bitwise
@@ -218,7 +264,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-15. train_sweep_tuning_full_width
+17. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -227,8 +273,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-16. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 14
+18. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 16
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -247,7 +293,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-17. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+19. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -268,7 +314,12 @@ exit code is not 0):
                       rows, one block cache) on cuda and cpu: RMSE < 0.45,
                       equal to 1e-4, within 1e-3 of the in-memory cuda
                       fit (the JAX package's streaming gate on this
-                      fixture), K6 launched on cuda. Then, on cuda and cpu: a
+                      fixture), K6 launched on cuda. Then, on cuda and cpu,
+                      --streaming --hosts 2 (worker processes on that
+                      device), the same with --cluster-kill-host 1:4, and
+                      --parallel-data 1 --parallel-feat 1: RMSE within 1e-4
+                      of the single-host streamed and in-memory runs. Then,
+                      on cuda and cpu: a
                       regularization_weights sweep on per_user with
                       --model-output-mode ALL (the same best lambda,
                       metrics to 1e-4 and saved layout), RANDOM tuning (the
@@ -289,7 +340,7 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-18. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+20. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -322,12 +373,14 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import resource
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -340,6 +393,7 @@ F32_FLOPS = 67e12
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "read_score_full_width",
               "train_full_width", "train_streaming_full_width",
+              "train_cluster_full_width", "train_grid_full_width",
               "train_glm_full_width", "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
               "train_async_full_width", "train_sweep_tuning_full_width",
@@ -1552,6 +1606,79 @@ def _write_glmix_part(job) -> float:
     return time.perf_counter() - t0
 
 
+class AvroPrep:
+    """Avro part files of a make_glmix-style GameData's rows and the
+    build_index stores of their shards, made in the background while other
+    phases run: writer processes write the files, then each build_index
+    invocation runs in a process of its own. The thread that starts them
+    runs at the lowest CPU priority (nice 19), which its processes inherit,
+    so the phase running meanwhile keeps its core. ``wait`` joins it and
+    returns the seconds of each step; ``close`` removes the files."""
+
+    def __init__(self, prefix: str, data, files: int, index_args: tuple):
+        self.tmp = tempfile.TemporaryDirectory(prefix=prefix)
+        self.data_dir = os.path.join(self.tmp.name, "data")
+        self.idx = os.path.join(self.tmp.name, "idx")
+        os.makedirs(self.data_dir)
+        rows = data.num_rows // files
+        self.paths = [os.path.join(self.data_dir, f"part-{i:05d}.avro") for i in range(files)]
+        jobs = [_glmix_part_job(data, path, i * rows, (i + 1) * rows)
+                for i, path in enumerate(self.paths)]
+        self.info, self.error = {}, None
+        self.thread = threading.Thread(target=self._run, args=(jobs, index_args),
+                                       name=f"{prefix}prep")
+        self.thread.start()
+
+    def _run(self, jobs: list, index_args: tuple) -> None:
+        import multiprocessing
+
+        try:
+            try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+            except OSError:
+                pass
+            t0 = time.perf_counter()
+            # spawned writers (this process runs threads): each gets its rows
+            with multiprocessing.get_context("spawn").Pool(
+                    min(len(jobs), os.cpu_count() or 1)) as pool:
+                self.info["write_file_s"] = pool.map(_write_glmix_part, jobs)
+            self.info["write_s"] = time.perf_counter() - t0
+            self.info["index_s"] = []
+            for args in index_args:
+                t0 = time.perf_counter()
+                run = subprocess.run(
+                    [sys.executable, "-m", "photon_ml_tpu_torch.cli.build_index",
+                     "--data-dirs", self.data_dir, "--output-dir", self.idx, *args],
+                    capture_output=True, text=True, timeout=900,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+                if run.returncode != 0:
+                    raise RuntimeError(f"build_index {args} exited {run.returncode}: "
+                                       f"{run.stderr[-2000:]}")
+                self.info["index_s"].append(time.perf_counter() - t0)
+        except BaseException as e:  # re-raised by wait() on the phase's thread
+            self.error = e
+
+    def wait(self) -> dict:
+        t0 = time.perf_counter()
+        self.thread.join()
+        self.info["waited_s"] = time.perf_counter() - t0
+        if self.error is not None:
+            raise RuntimeError(f"preparing {self.data_dir} failed") from self.error
+        return self.info
+
+    def close(self) -> None:
+        self.thread.join()
+        self.tmp.cleanup()
+
+
+FE_INDEX_ARGS = ("--no-intercept", "--feature-shard", "global=features",
+                 "--num-partitions", "8")
+RE_INDEX_ARGS = ("--no-intercept", "--feature-shard", "per_user=userFeatures",
+                 "--feature-shard", "per_item=itemFeatures")
+# the phases whose Avro files are made in the background (set by main)
+BACKGROUND_PREP: set = set()
+
+
 def _packed_names(prefix: str, n: int) -> tuple:
     """The feature keys prefix\\x01<c> of columns 0..n-1, packed for an
     off-heap lookup: (blob, offsets, lengths)."""
@@ -1609,49 +1736,46 @@ def _same_triples(a, b, inverse=None) -> bool:
             and np.array_equal(cols[ka], b.cols[kb]) and np.array_equal(a.vals[ka], b.vals[kb]))
 
 
-def phase_read_score_full_width(seed: int, n: int = 1 << 20, fe_dim: int = 1 << 24,
-                                n_users: int = 65_536, n_items: int = 16_384,
-                                files: int = 16, device: str = "cuda") -> dict:
-    import multiprocessing
+# rows, FE dims, users, items, part files: score_full_width's widths at a
+# quarter of its depth
+READ_SCORE = (1 << 18, 1 << 24, 65_536, 16_384, 8)
 
-    from photon_ml_tpu_torch.cli import build_index
+
+@functools.lru_cache(maxsize=1)
+def _read_score_prep(seed: int) -> tuple:
+    """read_score_full_width's rows and model (make_glmix), and its Avro
+    files and stores, made in the background (AvroPrep) from the call on."""
+    n, fe_dim, n_users, n_items, files = READ_SCORE
+    t0 = time.perf_counter()
+    data, coords = make_glmix(seed, n, fe_dim, 16, n_users=n_users, n_items=n_items)
+    setup_s = time.perf_counter() - t0
+    return data, coords, setup_s, AvroPrep("chip_smoke_read_", data, files,
+                                           (FE_INDEX_ARGS, RE_INDEX_ARGS))
+
+
+def phase_read_score_full_width(seed: int, device: str = "cuda") -> dict:
     from photon_ml_tpu_torch.cli.common import load_index_maps
     from photon_ml_tpu_torch.convert import game_model_from_numpy
     from photon_ml_tpu_torch.io import data_reader
     from photon_ml_tpu_torch.ops import launches
     from photon_ml_tpu_torch.types import TaskType
 
-    fe_k, rows_a_file = 16, n // files
-    t0 = time.perf_counter()
-    data, coords = make_glmix(seed, n, fe_dim, fe_k, n_users=n_users, n_items=n_items)
-    setup_s = time.perf_counter() - t0
+    n, fe_dim, _, _, files = READ_SCORE
+    data, coords, setup_s, prep = _read_score_prep(seed)
+    _read_score_prep.cache_clear()
     dims = {shard: data.feature_shards[shard].dim for shard, _, _ in GLMIX_BAGS}
     result = {"n": n, "fe_dim": fe_dim, "files": files, "setup_s": setup_s}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_read_") as root:
-        data_dir = os.path.join(root, "data")
-        os.makedirs(data_dir)
-        paths = [os.path.join(data_dir, f"part-{i:05d}.avro") for i in range(files)]
-        t0 = time.perf_counter()
-        # spawned writers (this process runs threads): each gets its rows
-        with multiprocessing.get_context("spawn").Pool(min(files, os.cpu_count() or 1)) as pool:
-            file_s = pool.map(_write_glmix_part, [
-                _glmix_part_job(data, path, i * rows_a_file, (i + 1) * rows_a_file)
-                for i, path in enumerate(paths)])
-        result["write_s"] = time.perf_counter() - t0
-        result["write_file_s_max"] = max(file_s)
-        result["avro_bytes"] = sum(os.path.getsize(p) for p in paths)
-
-        idx = os.path.join(root, "idx")
-        t0 = time.perf_counter()
-        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
-                          "--feature-shard", "global=features", "--num-partitions", "8"])
-        result["build_fe_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
-                          "--feature-shard", "per_user=userFeatures",
-                          "--feature-shard", "per_item=itemFeatures"])
-        result["build_re_s"] = time.perf_counter() - t0
-        maps = load_index_maps(idx, dims)
+    try:
+        # written and indexed in the background (nice 19) since main started
+        # it: the seconds of each step, and this phase's wait
+        info = prep.wait()
+        data_dir = prep.data_dir
+        result["write_s"] = info["write_s"]
+        result["write_file_s_max"] = max(info["write_file_s"])
+        result["avro_bytes"] = sum(os.path.getsize(p) for p in prep.paths)
+        result["build_fe_s"], result["build_re_s"] = info["index_s"]
+        result["prep_waited_s"] = info["waited_s"]
+        maps = load_index_maps(prep.idx, dims)
         result["store_keys"] = {shard: len(m) for shard, m in maps.items()}
 
         configs = {shard: data_reader.FeatureShardConfiguration([bag], add_intercept=False)
@@ -1669,6 +1793,8 @@ def phase_read_score_full_width(seed: int, n: int = 1 << 20, fe_dim: int = 1 << 
         result["carry_s"] = time.perf_counter() - t0
         for m in maps.values():
             m.close()
+    finally:
+        prep.close()
 
     same = {shard: _same_triples(native.feature_shards[shard], data.feature_shards[shard],
                                  inverse[shard]) for shard, _, _ in GLMIX_BAGS}
@@ -1707,7 +1833,7 @@ def phase_read_score_full_width(seed: int, n: int = 1 << 20, fe_dim: int = 1 << 
     return result
 
 
-@functools.lru_cache(maxsize=1)
+@functools.lru_cache(maxsize=2)  # FULL_WIDTH's rows and a smaller set between their uses
 def make_glmix_training(seed: int, n: int, n_val: int, fe_dim: int, fe_k: int,
                         n_users: int, n_items: int, re_dim: int = 4096,
                         re_local: int = 16, re_k: int = 8, unseen: float = 0.03):
@@ -1960,6 +2086,8 @@ def _in_memory_glmix_fit(seed: int) -> dict:
     t0 = time.perf_counter()
     train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
     data_s = time.perf_counter() - t0
+    if "stream" in BACKGROUND_PREP:
+        _stream_prep(seed)  # the streaming phases' files (main starts them earlier)
     estimator = _glmix_estimator("cuda")
     t0 = time.perf_counter()
     coords = estimator.build_coordinates(train)
@@ -2128,6 +2256,7 @@ def phase_train_full_width(seed: int) -> dict:
 
 STREAM_FILES = 16
 STREAM_RESIDENT_BLOCKS = 8
+STREAM_STOCHASTIC_EPOCHS = 1  # each stochastic fit: one epoch over the 16 blocks
 
 
 def _store_luts(maps, dims: dict) -> dict:
@@ -2160,213 +2289,789 @@ def _stream_counters() -> dict:
             if k.startswith("stream.")}
 
 
+@functools.lru_cache(maxsize=1)
+def _stream_prep(seed: int) -> AvroPrep:
+    """train_full_width's training rows as 16 Avro part files of 65,536 rows
+    and their stores, made in the background (AvroPrep) from the call on:
+    main starts it after score_full_width."""
+    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, _ = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    return AvroPrep("chip_smoke_stream_", train, STREAM_FILES, (FE_INDEX_ARGS, RE_INDEX_ARGS))
+
+
+@functools.lru_cache(maxsize=1)
+def _stream_fixture(seed: int) -> dict:
+    """train_full_width's rows as 16 Avro part files of 65,536 rows, written
+    by worker processes, with off-heap stores of their shards built by the
+    build_index CLI (both in the background: _stream_prep); the validation
+    rows and the in-memory fit's FE columns moved into the stores' column
+    space. Shared by the streaming and cluster phases (the writes are paid
+    once); ``close`` removes it."""
+    from photon_ml_tpu_torch.cli.common import load_index_maps
+
+    n = FULL_WIDTH[0]
+    rows_a_file = n // STREAM_FILES
+    mem = _in_memory_glmix_fit(seed)
+    train, val = mem["train"], mem["val"]
+    fx = {"rows_a_file": rows_a_file}
+    dims = {shard: train.feature_shards[shard].dim for shard, _, _ in GLMIX_BAGS}
+    prep = _stream_prep(seed)
+    _stream_prep.cache_clear()
+    try:
+        info = prep.wait()
+    except BaseException:
+        prep.close()
+        raise
+    fx.update(root=prep.tmp.name, data_dir=prep.data_dir, idx=prep.idx,
+              write_s=info["write_s"], build_index_s=sum(info["index_s"]),
+              prep_waited_s=info["waited_s"],
+              avro_bytes=sum(os.path.getsize(p) for p in prep.paths))
+    maps = fx["maps"] = load_index_maps(prep.idx, dims)
+    store_dims = fx["store_dims"] = {shard: len(m) for shard, m in maps.items()}
+    t0 = time.perf_counter()
+    luts = _store_luts(maps, dims)
+    fx["val_mem"] = _in_store_space(val, luts, store_dims)
+    # store index -> original FE column (the stores hold the training
+    # rows' columns only; the in-memory fit leaves every other column 0)
+    fe_lut = luts["global"]
+    fe_cols = torch.full((store_dims["global"],), -1, dtype=torch.long)
+    fe_cols[torch.from_numpy(fe_lut[fe_lut >= 0])] = torch.from_numpy(
+        np.nonzero(fe_lut >= 0)[0])
+    if bool((fe_cols < 0).any()):
+        raise AssertionError("the FE store holds a key of no column")
+    fx["fe_cols"] = fe_cols.cuda()
+    fx["store_space_s"] = time.perf_counter() - t0
+
+    def close():
+        for m in maps.values():
+            m.close()
+        prep.close()
+
+    fx["close"] = close
+    return fx
+
+
+_STREAM_FIXTURES: list = []  # the fixtures made, closed when the cache clears
+
+
+def _stream_fixture_clear() -> None:
+    """Close and forget the streaming phases' shared fixture."""
+    while _STREAM_FIXTURES:
+        _STREAM_FIXTURES.pop()["close"]()
+    _stream_fixture.cache_clear()
+
+
 def phase_train_streaming_full_width(seed: int) -> dict:
     """fit_streaming at the width of train_full_width over 16 Avro part
     files read through off-heap stores, held against train_full_width's
     in-memory fit of the same rows (moved into the stores' column space)."""
-    import multiprocessing
-
     from photon_ml_tpu_torch import streaming
-    from photon_ml_tpu_torch.cli import build_index
-    from photon_ml_tpu_torch.cli.common import load_index_maps
     from photon_ml_tpu_torch.io import data_reader
     from photon_ml_tpu_torch.ops import launches
     from photon_ml_tpu_torch.streaming import solver as stream_solver
     from photon_ml_tpu_torch.types import TaskType
 
     n, n_val = FULL_WIDTH[:2]
-    rows_a_file = n // STREAM_FILES
     mem = _in_memory_glmix_fit(seed)
-    train, val, fit_mem = mem["train"], mem["val"], mem["fit"]
+    fx = _stream_fixture(seed)
+    if fx not in _STREAM_FIXTURES:
+        _STREAM_FIXTURES.append(fx)
+    rows_a_file = fx["rows_a_file"]
+    fit_mem = mem["fit"]
     result = {"rows": n, "validation_rows": n_val, "files": STREAM_FILES,
               "block_rows": rows_a_file}
-    dims = {shard: train.feature_shards[shard].dim for shard, _, _ in GLMIX_BAGS}
+    result.update({k: fx[k] for k in ("write_s", "avro_bytes", "build_index_s",
+                                      "prep_waited_s", "store_dims", "store_space_s")})
     failures = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as root:
-        data_dir = os.path.join(root, "data")
-        os.makedirs(data_dir)
-        paths = [os.path.join(data_dir, f"part-{i:05d}.avro") for i in range(STREAM_FILES)]
+    root, data_dir, maps = fx["root"], fx["data_dir"], fx["maps"]
+    store_dims, val_mem, fe_cols = fx["store_dims"], fx["val_mem"], fx["fe_cols"]
+    w_mem = fit_mem.model.models["fixed"].coefficients.means
+    result["in_memory_auc"] = fit_mem.validation_metric
+    result["in_memory_objective"] = fit_mem.objective_history[-1][1]
+    result["in_memory_fe_coef_max_abs"] = float(w_mem.abs().max())
+
+    def against_in_memory(fit) -> dict:
+        """A streamed fit against the in-memory one: final objective
+        (relative), FE coefficients (largest absolute difference),
+        held-out AUC."""
+        obj = fit.objective_history[-1][1]
+        w = fit.model.models["fixed"].coefficients.means
+        return {
+            "objective_rel": abs(obj - result["in_memory_objective"])
+            / abs(result["in_memory_objective"]),
+            "fe_coef_max_abs_diff": float((w - w_mem[fe_cols]).abs().max()),
+            "auc_diff": abs(fit.validation_metric - fit_mem.validation_metric),
+        }
+
+    configs = {shard: data_reader.FeatureShardConfiguration([bag], add_intercept=False)
+               for shard, bag, _ in GLMIX_BAGS}
+    t0 = time.perf_counter()
+    source = streaming.StreamingSource.open(
+        data_dir, configs, index_maps=maps, block_rows=rows_a_file,
+        id_tags=("userId", "itemId"), cache_dir=os.path.join(root, "block_cache"))
+    result["open_s"] = time.perf_counter() - t0
+    result["num_blocks"] = source.plan.num_blocks
+    result["block_upload_bytes"] = source.block_upload_bytes(("global",))
+    if source.plan.num_blocks != STREAM_FILES or source.plan.shard_dims != store_dims:
+        raise AssertionError(f"unexpected plan {source.plan}")
+
+    def stream_fit(**kw) -> tuple:
+        c0 = _stream_counters()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with multiprocessing.get_context("spawn").Pool(
-                min(STREAM_FILES, os.cpu_count() or 1)) as pool:
-            pool.map(_write_glmix_part, [
-                _glmix_part_job(train, path, i * rows_a_file, (i + 1) * rows_a_file)
-                for i, path in enumerate(paths)])
-        result["write_s"] = time.perf_counter() - t0
-        result["avro_bytes"] = sum(os.path.getsize(p) for p in paths)
-        idx = os.path.join(root, "idx")
-        t0 = time.perf_counter()
-        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
-                          "--feature-shard", "global=features", "--num-partitions", "8"])
-        build_index.main(["--data-dirs", data_dir, "--output-dir", idx, "--no-intercept",
-                          "--feature-shard", "per_user=userFeatures",
-                          "--feature-shard", "per_item=itemFeatures"])
-        result["build_index_s"] = time.perf_counter() - t0
-        maps = load_index_maps(idx, dims)
-        store_dims = {shard: len(m) for shard, m in maps.items()}
-        result["store_dims"] = store_dims
-        t0 = time.perf_counter()
-        luts = _store_luts(maps, dims)
-        val_mem = _in_store_space(val, luts, store_dims)
-        # store index -> original FE column (the stores hold the training
-        # rows' columns only; the in-memory fit leaves every other column 0)
-        fe_lut = luts["global"]
-        fe_cols = torch.full((store_dims["global"],), -1, dtype=torch.long)
-        fe_cols[torch.from_numpy(fe_lut[fe_lut >= 0])] = torch.from_numpy(
-            np.nonzero(fe_lut >= 0)[0])
-        if bool((fe_cols < 0).any()):
-            raise AssertionError("the FE store holds a key of no column")
-        fe_cols = fe_cols.cuda()
-        result["store_space_s"] = time.perf_counter() - t0
-        w_mem = fit_mem.model.models["fixed"].coefficients.means
-        result["in_memory_auc"] = fit_mem.validation_metric
-        result["in_memory_objective"] = fit_mem.objective_history[-1][1]
-        result["in_memory_fe_coef_max_abs"] = float(w_mem.abs().max())
+        fit = _glmix_estimator("cuda").fit_streaming(source, validation_data=val_mem, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c1 = _stream_counters()
+        stats = {k[len("stream."):]: c1[k] - c0.get(k, 0) for k in c1}
+        if stats.get("decode_s", 0) > 0:
+            stats["hide_ratio"] = max(0.0, (stats["decode_s"] - stats["stall_s"])
+                                      / stats["decode_s"])
+        stats["fit_s"] = seconds
+        stats["auc"] = fit.validation_metric
+        stats["objective"] = fit.objective_history[-1][1]
+        stats["seconds_per_coordinate"] = fit.update_seconds
+        return fit, stats
 
-        def against_in_memory(fit) -> dict:
-            """A streamed fit against the in-memory one: final objective
-            (relative), FE coefficients (largest absolute difference),
-            held-out AUC."""
-            obj = fit.objective_history[-1][1]
-            w = fit.model.models["fixed"].coefficients.means
-            return {
-                "objective_rel": abs(obj - result["in_memory_objective"])
-                / abs(result["in_memory_objective"]),
-                "fe_coef_max_abs_diff": float((w - w_mem[fe_cols]).abs().max()),
-                "auc_diff": abs(fit.validation_metric - fit_mem.validation_metric),
-            }
+    # the main path, cold (the first pass decodes and fills the block
+    # cache): counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    cold, result["cold"] = stream_fit()
+    counts = launches.counts()
+    result["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result["launches"] = {k: counts[k] for k in ("fused_value_grad_batched_f32",
+                                                 "csr_matvec_f32")}
+    if min(result["launches"].values()) < 1:
+        failures.append(f"the streamed fit did not launch {result['launches']}")
+    warm, result["warm"] = stream_fit()
+    warm2, result["warm_again"] = stream_fit()
+    result["cold_warm_warm_bitwise"] = _same_fit(cold, warm) and _same_fit(warm, warm2)
+    if not result["cold_warm_warm_bitwise"]:
+        failures.append("cold, warm and warm fits differ")
+    if result["warm"]["cache_hit_blocks"] < result["warm"]["blocks"]:
+        failures.append(f"a warm fit decoded: {result['warm']}")
+    # the streamed fit lands where the in-memory fit lands: final
+    # objective (the CPU tests' rtol), FE coefficients (the JAX
+    # streaming gate's atol) and held-out AUC
+    result["vs_in_memory"] = against_in_memory(cold)
+    if not (result["vs_in_memory"]["objective_rel"] <= 1e-4
+            and result["vs_in_memory"]["fe_coef_max_abs_diff"] <= 2e-3
+            and result["vs_in_memory"]["auc_diff"] <= 1e-3):
+        failures.append(f"the streamed fit is not the in-memory fit: "
+                        f"{result['vs_in_memory']}")
 
-        configs = {shard: data_reader.FeatureShardConfiguration([bag], add_intercept=False)
-                   for shard, bag, _ in GLMIX_BAGS}
-        t0 = time.perf_counter()
-        source = streaming.StreamingSource.open(
-            data_dir, configs, index_maps=maps, block_rows=rows_a_file,
-            id_tags=("userId", "itemId"), cache_dir=os.path.join(root, "block_cache"))
-        result["open_s"] = time.perf_counter() - t0
-        result["num_blocks"] = source.plan.num_blocks
-        result["block_upload_bytes"] = source.block_upload_bytes(("global",))
-        if source.plan.num_blocks != STREAM_FILES or source.plan.shard_dims != store_dims:
-            raise AssertionError(f"unexpected plan {source.plan}")
+    # exactness: the streamed full-batch (f, g) against the in-memory
+    # objective over the same rows, at w = 0 and at the in-memory w
+    objective = streaming.coordinate._objective_for_task(TaskType.LOGISTIC_REGRESSION)
+    programs = stream_solver.StreamPrograms.for_objective(objective)
+    fe_opt = mem["estimator"].coordinate_configs["fixed"].optimizer
+    fe_data = mem["coords"]["fixed"].data
+    l2 = float(fe_opt.l2_weight)
+    exact = {}
+    for label, w_m in (("w0", torch.zeros_like(w_mem)), ("w_in_memory", w_mem)):
+        f_s, g_s, _ = stream_solver._full_pass(
+            programs, w_m[fe_cols],
+            lambda: (b.data["global"] for b in streaming.BlockPrefetcher(
+                source, shards=("global",), device="cuda")), store_dims["global"],
+            torch.tensor(l2, device="cuda"), streaming.StreamSolveInfo())
+        f_m, g_m = objective.value_and_grad(w_m, fe_data, l2)
+        g_m = g_m[fe_cols]
+        exact[label] = {
+            "f_streamed": float(f_s), "f_in_memory": float(f_m),
+            "f_rel": abs(float(f_s) - float(f_m)) / abs(float(f_m)),
+            "g_err_over_max": float((g_s - g_m).abs().max() / g_m.abs().max()),
+        }
+        if not (exact[label]["f_rel"] <= 1e-4 and exact[label]["g_err_over_max"] <= 1e-4):
+            failures.append(f"streamed (f, g) at {label} differ: {exact[label]}")
+    result["exactness"] = exact
 
-        def stream_fit(**kw) -> tuple:
-            c0 = _stream_counters()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fit = _glmix_estimator("cuda").fit_streaming(source, validation_data=val_mem, **kw)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            c1 = _stream_counters()
-            stats = {k[len("stream."):]: c1[k] - c0.get(k, 0) for k in c1}
-            if stats.get("decode_s", 0) > 0:
-                stats["hide_ratio"] = max(0.0, (stats["decode_s"] - stats["stall_s"])
-                                          / stats["decode_s"])
-            stats["fit_s"] = seconds
-            stats["auc"] = fit.validation_metric
-            stats["objective"] = fit.objective_history[-1][1]
-            stats["seconds_per_coordinate"] = fit.update_seconds
-            return fit, stats
+    # the FE streamed solve alone (the fit's first update: zero residual,
+    # no warm start), under torch.profiler: passes and device idle share
+    coord = streaming.StreamingFixedEffectCoordinate(
+        source=source, shard_id="global", task=TaskType.LOGISTIC_REGRESSION,
+        configuration=fe_opt, device="cuda")
+    holder = {}
+    result["fe_update_profile"] = profile_device_idle(
+        lambda: holder.setdefault("m", coord.update_model_device(
+            None, torch.zeros(n, device="cuda"))))
+    info = coord.last_solve_info
+    result["fe_solve"] = {"passes": info.passes, "blocks": info.blocks,
+                          "iterations": info.iterations,
+                          "line_search_trials": info.line_search_trials}
+    if not _bits_equal(holder["m"].coefficients.means,
+                       cold.model.models["fixed"].coefficients.means):
+        failures.append("the FE solve alone differs from the fit's FE update")
 
-        # the main path, cold (the first pass decodes and fills the block
-        # cache): counts set to 0 just before, read just after
-        torch.cuda.reset_peak_memory_stats()
-        launches.reset()
-        cold, result["cold"] = stream_fit()
-        counts = launches.counts()
-        result["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        result["launches"] = {k: counts[k] for k in ("fused_value_grad_batched_f32",
-                                                     "csr_matvec_f32")}
-        if min(result["launches"].values()) < 1:
-            failures.append(f"the streamed fit did not launch {result['launches']}")
-        warm, result["warm"] = stream_fit()
-        warm2, result["warm_again"] = stream_fit()
-        result["cold_warm_warm_bitwise"] = _same_fit(cold, warm) and _same_fit(warm, warm2)
-        if not result["cold_warm_warm_bitwise"]:
-            failures.append("cold, warm and warm fits differ")
-        if result["warm"]["cache_hit_blocks"] < result["warm"]["blocks"]:
-            failures.append(f"a warm fit decoded: {result['warm']}")
-        # the streamed fit lands where the in-memory fit lands: final
-        # objective (the CPU tests' rtol), FE coefficients (the JAX
-        # streaming gate's atol) and held-out AUC
-        result["vs_in_memory"] = against_in_memory(cold)
-        if not (result["vs_in_memory"]["objective_rel"] <= 1e-4
-                and result["vs_in_memory"]["fe_coef_max_abs_diff"] <= 2e-3
-                and result["vs_in_memory"]["auc_diff"] <= 1e-3):
-            failures.append(f"the streamed fit is not the in-memory fit: "
-                            f"{result['vs_in_memory']}")
+    if "cluster" in BACKGROUND_PREP:
+        # the cluster phase's workers start up while the fits below run (the
+        # warm fits and the profiled FE solve above ran alone)
+        _cluster_launches(seed)
+    # residency: 8 of 16 blocks kept on the card, the same fit bitwise
+    resident, result["resident"] = stream_fit(resident_blocks=STREAM_RESIDENT_BLOCKS)
+    saved = result["resident"].get("residency.h2d_saved_bytes", 0)
+    result["resident_bitwise"] = _same_fit(resident, warm)
+    if not result["resident_bitwise"]:
+        failures.append("the resident fit differs from the warm fit")
+    if not (saved > 0 and result["warm"]["h2d_bytes"] - result["resident"]["h2d_bytes"]
+            == saved and saved >= STREAM_RESIDENT_BLOCKS * result["block_upload_bytes"]
+            * (info.passes - 2)):
+        failures.append(f"residency saved {saved} bytes: {result['resident']}")
 
-        # exactness: the streamed full-batch (f, g) against the in-memory
-        # objective over the same rows, at w = 0 and at the in-memory w
-        objective = streaming.coordinate._objective_for_task(TaskType.LOGISTIC_REGRESSION)
-        programs = stream_solver.StreamPrograms.for_objective(objective)
-        fe_opt = mem["estimator"].coordinate_configs["fixed"].optimizer
-        fe_data = mem["coords"]["fixed"].data
-        l2 = float(fe_opt.l2_weight)
-        exact = {}
-        for label, w_m in (("w0", torch.zeros_like(w_mem)), ("w_in_memory", w_mem)):
-            f_s, g_s, _ = stream_solver._full_pass(
-                programs, w_m[fe_cols],
-                lambda: (b.data["global"] for b in streaming.BlockPrefetcher(
-                    source, shards=("global",), device="cuda")), store_dims["global"],
-                torch.tensor(l2, device="cuda"), streaming.StreamSolveInfo())
-            f_m, g_m = objective.value_and_grad(w_m, fe_data, l2)
-            g_m = g_m[fe_cols]
-            exact[label] = {
-                "f_streamed": float(f_s), "f_in_memory": float(f_m),
-                "f_rel": abs(float(f_s) - float(f_m)) / abs(float(f_m)),
-                "g_err_over_max": float((g_s - g_m).abs().max() / g_m.abs().max()),
-            }
-            if not (exact[label]["f_rel"] <= 1e-4 and exact[label]["g_err_over_max"] <= 1e-4):
-                failures.append(f"streamed (f, g) at {label} differ: {exact[label]}")
-        result["exactness"] = exact
-
-        # the FE streamed solve alone (the fit's first update: zero residual,
-        # no warm start), under torch.profiler: passes and device idle share
-        coord = streaming.StreamingFixedEffectCoordinate(
-            source=source, shard_id="global", task=TaskType.LOGISTIC_REGRESSION,
-            configuration=fe_opt, device="cuda")
-        holder = {}
-        result["fe_update_profile"] = profile_device_idle(
-            lambda: holder.setdefault("m", coord.update_model_device(
-                None, torch.zeros(n, device="cuda"))))
-        info = coord.last_solve_info
-        result["fe_solve"] = {"passes": info.passes, "blocks": info.blocks,
-                              "iterations": info.iterations,
-                              "line_search_trials": info.line_search_trials}
-        if not _bits_equal(holder["m"].coefficients.means,
-                           cold.model.models["fixed"].coefficients.means):
-            failures.append("the FE solve alone differs from the fit's FE update")
-
-        # residency: 8 of 16 blocks kept on the card, the same fit bitwise
-        resident, result["resident"] = stream_fit(resident_blocks=STREAM_RESIDENT_BLOCKS)
-        saved = result["resident"].get("residency.h2d_saved_bytes", 0)
-        result["resident_bitwise"] = _same_fit(resident, warm)
-        if not result["resident_bitwise"]:
-            failures.append("the resident fit differs from the warm fit")
-        if not (saved > 0 and result["warm"]["h2d_bytes"] - result["resident"]["h2d_bytes"]
-                == saved and saved >= STREAM_RESIDENT_BLOCKS * result["block_upload_bytes"]
-                * (info.passes - 2)):
-            failures.append(f"residency saved {saved} bytes: {result['resident']}")
-
-        # stochastic, gap-scheduled: bitwise repeatable
-        kw = dict(mode="stochastic", gap_schedule=True, stochastic_epochs=2)
-        sto, result["stochastic"] = stream_fit(**kw)
-        sto2, result["stochastic_again"] = stream_fit(**kw)
-        result["stochastic_bitwise"] = _same_fit(sto, sto2)
-        if not result["stochastic_bitwise"]:
-            failures.append("two stochastic fits differ")
-        # the control: a fit that lands elsewhere (two stochastic epochs),
-        # read by the same comparison as the full fit above
-        result["stochastic_vs_in_memory"] = against_in_memory(sto)
-        for fit in (cold, sto):
-            z = fit.model.score(val_mem)
-            if not bool(torch.isfinite(z).all()) or z.shape != (n_val,):
-                failures.append("a streamed model scores non-finite or misshapen values")
-        result["peak_rss_gb"] = _peak_rss_gb()
-        for m in maps.values():
-            m.close()
+    # stochastic, gap-scheduled: bitwise repeatable
+    kw = dict(mode="stochastic", gap_schedule=True, stochastic_epochs=STREAM_STOCHASTIC_EPOCHS)
+    sto, result["stochastic"] = stream_fit(**kw)
+    sto2, result["stochastic_again"] = stream_fit(**kw)
+    result["stochastic_bitwise"] = _same_fit(sto, sto2)
+    if not result["stochastic_bitwise"]:
+        failures.append("two stochastic fits differ")
+    # the control: a fit that lands elsewhere (one stochastic epoch),
+    # read by the same comparison as the full fit above
+    result["stochastic_vs_in_memory"] = against_in_memory(sto)
+    for fit in (cold, sto):
+        z = fit.model.score(val_mem)
+        if not bool(torch.isfinite(z).all()) or z.shape != (n_val,):
+            failures.append("a streamed model scores non-finite or misshapen values")
+    result["peak_rss_gb"] = _peak_rss_gb()
+    fx["single_host_fit"] = cold
+    fx["single_host_fit_s"] = result["cold"]["fit_s"]
+    fx["source"] = source
     emit("train_streaming_full_width", **result)
     if failures:
         raise AssertionError(f"train_streaming_full_width gates failed: {failures}")
+    return result
+
+
+CLUSTER_HOSTS = 2
+CLUSTER_KILL = (1, 4)  # host 1 dies after streaming 4 blocks
+
+
+def _glmix_config_json(root: str) -> str:
+    """_glmix_estimator's shards and coordinates as train_game's JSON (the
+    cluster workers read their shard configurations and id tags from it)."""
+    optimizer = {"optimizer": "LBFGS", "regularization": "L2", "regularization_weight": 1.0,
+                 "max_iterations": 10}
+    cfg = {
+        "feature_shards": {shard: {"feature_bags": [bag], "add_intercept": False}
+                           for shard, bag, _ in GLMIX_BAGS},
+        "coordinates": {
+            "fixed": {"type": "fixed", "feature_shard": "global", "optimizer": optimizer},
+            "per_user": {"type": "random", "feature_shard": "per_user",
+                         "random_effect_type": "userId", "optimizer": optimizer},
+            "per_item": {"type": "random", "feature_shard": "per_item",
+                         "random_effect_type": "itemId", "optimizer": optimizer},
+        },
+        "update_order": ["fixed", "per_user", "per_item"],
+    }
+    path = os.path.join(root, "glmix_cluster.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _worker_peaks(plane) -> dict:
+    """Each worker's peak device memory of its allocator, as its log reports
+    it when the worker ends (its CUDA context comes on top)."""
+    out = {}
+    for host, text in plane.worker_logs().items():
+        found = re.findall(r"peak device memory (\d+) bytes", text)
+        out[str(host)] = int(found[-1]) if found else None
+    return out
+
+
+def _card_memory_used_mib():
+    """The card's memory in use, MiB, every process's (nvidia-smi)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30).stdout.split()
+        return int(out[0]) if out and out[0].isdigit() else "not measured"
+    except (OSError, subprocess.SubprocessError):
+        return "not measured"
+
+
+def _pass_summary(passes: list) -> dict:
+    """Sums over a cluster fit's pass profiles: passes, wall, the overlapped
+    compute (busy), the wait for the last reply (allreduce wait) and the
+    coordinator's own fold (bubble)."""
+    return {
+        "passes": len(passes),
+        "wall_s": sum(p["wall_s"] for p in passes),
+        "busy_s": sum(p["busy_s"] for p in passes),
+        "allreduce_wait_s": sum(p["allreduce_wait_s"] for p in passes),
+        "coordinator_fold_s": sum(p["bubble_s"] for p in passes),
+        "requeued_blocks": sum(p["requeued_blocks"] for p in passes),
+        "blocks": sum(p["blocks"] for p in passes),
+        "worker_h2d_bytes": sum(h.get("h2d_bytes", 0) for p in passes
+                                for h in p["hosts"].values()),
+    }
+
+
+class PlaneLaunch:
+    """ClusterPlane.launch of CLUSTER_HOSTS workers on the card over the
+    streaming fixture's files and stores, on a thread of its own at the
+    lowest CPU priority (nice 19; the workers and the coordinator's threads
+    inherit it), started before the phase that uses the plane so that the
+    workers' start-up overlaps the phase before it. ``wait`` returns the
+    plane and the seconds the launch took."""
+
+    def __init__(self, fx: dict, config: str, kill, tag: str):
+        self.plane, self.seconds, self.error = None, None, None
+        self.thread = threading.Thread(target=self._run, args=(fx, config, kill, tag),
+                                       name=f"cluster-launch-{tag}")
+        self.thread.start()
+
+    def _run(self, fx: dict, config: str, kill, tag: str) -> None:
+        from photon_ml_tpu_torch.parallel.cluster import ClusterPlane
+
+        try:
+            try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+            except OSError:
+                pass
+            t0 = time.perf_counter()
+            self.plane = ClusterPlane.launch(
+                num_hosts=CLUSTER_HOSTS, num_blocks=STREAM_FILES,
+                train_dirs=[fx["data_dir"]], coordinate_config=config,
+                task="LOGISTIC_REGRESSION", feature_shard="global",
+                block_rows=fx["rows_a_file"],
+                block_cache_dir=os.path.join(fx["root"], "cluster_cache"),
+                offheap_indexmap_dir=fx["idx"], kill_host=kill, device="cuda",
+                log_dir=os.path.join(fx["root"], f"cluster_logs_{tag}"),
+            )
+            self.plane.coordinator.enable_telemetry()
+            self.seconds = time.perf_counter() - t0
+        except BaseException as e:  # re-raised by wait() on the phase's thread
+            self.error = e
+
+    def wait(self) -> tuple:
+        self.thread.join()
+        if self.error is not None:
+            raise RuntimeError(f"launching {self.thread.name} failed") from self.error
+        return self.plane, self.seconds
+
+    def close(self) -> None:
+        """Every worker process ends, whatever failed."""
+        self.thread.join()
+        if self.plane is not None:
+            self.plane.close()
+
+
+_PLANE_LAUNCHES: list = []  # closed by main at exit, whatever failed
+
+
+@functools.lru_cache(maxsize=1)
+def _cluster_launches(seed: int) -> dict:
+    """The cluster phase's two planes, launched side by side in the
+    background: the main path's and the chaos drill's (host 1 killed after
+    4 blocks). train_streaming_full_width starts them before its resident
+    and stochastic fits."""
+    fx = _stream_fixture(seed)
+    config = _glmix_config_json(fx["root"])
+    out = {"plane": PlaneLaunch(fx, config, None, "plane"),
+           "chaos": PlaneLaunch(fx, config, CLUSTER_KILL, "chaos")}
+    _PLANE_LAUNCHES.extend(out.values())
+    return out
+
+
+def phase_train_cluster_full_width(seed: int) -> dict:
+    """The cluster path: train_game --streaming --hosts 2 at full width, via
+    ClusterPlane.launch with two worker processes on the card over
+    train_streaming_full_width's 16 part files and stores, held against the
+    single-host streamed fit of the same rows; then the chaos drill (host 1
+    killed after 4 blocks)."""
+    import pickle
+
+    from photon_ml_tpu_torch import streaming
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.resilience import clear_failures, recent_failures
+    from photon_ml_tpu_torch.telemetry import ConvergenceTracker
+
+    fx = _stream_fixture(seed)
+    if fx not in _STREAM_FIXTURES:
+        _STREAM_FIXTURES.append(fx)
+    root, rows_a_file = fx["root"], fx["rows_a_file"]
+    val_mem = fx["val_mem"]
+    source = fx.get("source")  # the streaming phase's, its cache warm
+    if source is None:
+        configs = {shard: data_reader_configuration(bag) for shard, bag, _ in GLMIX_BAGS}
+        source = streaming.StreamingSource.open(
+            fx["data_dir"], configs, index_maps=fx["maps"], block_rows=rows_a_file,
+            id_tags=("userId", "itemId"), cache_dir=os.path.join(root, "block_cache"))
+    result = {"hosts": CLUSTER_HOSTS, "num_blocks": source.plan.num_blocks,
+              "block_rows": rows_a_file, "fe_dim": source.plan.shard_dims["global"]}
+    single = fx.get("single_host_fit")
+    if single is None:
+        t0 = time.perf_counter()
+        single = _glmix_estimator("cuda").fit_streaming(source, validation_data=val_mem)
+        result["single_host_fit_s"] = time.perf_counter() - t0
+    else:
+        result["single_host_fit_s"] = fx["single_host_fit_s"]
+    failures = []
+
+    def cluster_fit(plane) -> tuple:
+        tracker = ConvergenceTracker(abort_on_divergence=False)
+        torch.cuda.synchronize()
+        launches.reset()
+        t0 = time.perf_counter()
+        fit = _glmix_estimator("cuda").fit_streaming(
+            source, validation_data=val_mem, cluster=plane, progress=tracker)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches.counts()
+        tracker.finish()
+        return fit, {"fit_s": seconds, "launches": dict(counts),
+                     **_pass_summary(tracker.cluster_passes)}, tracker
+
+    def against_single(fit) -> dict:
+        obj, obj_s = fit.objective_history[-1][1], single.objective_history[-1][1]
+        w = fit.model.models["fixed"].coefficients.means
+        w_s = single.model.models["fixed"].coefficients.means
+        return {"objective_rel": abs(obj - obj_s) / abs(obj_s),
+                "fe_coef_max_abs_diff": float((w - w_s).abs().max()),
+                "auc_diff": abs(fit.validation_metric - single.validation_metric)}
+
+    def gate(name, fit) -> dict:
+        vs = against_single(fit)
+        if not (vs["objective_rel"] <= 1e-4 and vs["fe_coef_max_abs_diff"] <= 2e-3
+                and vs["auc_diff"] <= 1e-3):
+            failures.append(f"the {name} cluster fit is not the single-host fit: {vs}")
+        z = fit.model.score(val_mem)
+        if not bool(torch.isfinite(z).all()) or z.shape != (val_mem.num_rows,):
+            failures.append(f"the {name} cluster model scores non-finite or misshapen values")
+        return vs
+
+    # both planes were launched side by side in the background (their
+    # workers idle, heartbeating, until used); this phase's wait for them
+    planes = _cluster_launches(seed)
+    _cluster_launches.cache_clear()
+    try:
+        t0 = time.perf_counter()
+        plane, result["launch_s"] = planes["plane"].wait()
+        result["launch_waited_s"] = time.perf_counter() - t0
+        try:
+            # the main path, cold (each worker's first pass decodes its blocks
+            # into its own cache): counts set to 0 just before, read just after
+            cold, result["cold"], _ = cluster_fit(plane)
+            result["cold"]["vs_single_host"] = gate("cold", cold)
+            result["launches_by_kernel"] = result["cold"]["launches"]
+            missing = [k for k in ("fused_value_grad_batched_f32", "csr_matvec_f32")
+                       if result["cold"]["launches"][k] < 1]
+            if missing:
+                failures.append(f"the cluster fit did not launch {missing}")
+            # the warm fit (the workers' caches filled) under torch.profiler: the
+            # coordinator's device idle share; its wall includes the profiler's
+            held = []
+            result["warm_profile"] = profile_device_idle(lambda: held.append(cluster_fit(plane)))
+            warm, result["warm"], _ = held[0]
+            result["warm"]["vs_single_host"] = gate("warm", warm)
+            # not a gate: the warm fit's partitions follow the gap ledger the
+            # cold fit left in the plane's assigner, and each host's f32
+            # partial depends on its blocks (a fit on a fresh 2-host plane
+            # repeats bitwise: tests/test_torch_cluster.py)
+            result["cold_warm_bitwise"] = _same_fit(cold, warm)
+            # the card's memory in use with the coordinator and both workers up
+            result["card_memory_used_mib"] = _card_memory_used_mib()
+            dim = result["fe_dim"]
+            result["reply_bytes"] = len(pickle.dumps({
+                "f": 0.0, "g": np.zeros(dim, np.float64),
+                "block_stats": [{"block": b, "partial_loss": 0.0, "partial_grad_norm": 0.0,
+                                 "gap": 0.0} for b in range(source.plan.num_blocks
+                                                             // CLUSTER_HOSTS)],
+                "type": "partial", "pass_id": 1, "frag": 0, "host": 0,
+            }, protocol=pickle.HIGHEST_PROTOCOL))
+            result["pass_message_bytes"] = len(pickle.dumps({
+                "type": "pass", "pass_id": 1, "frag": 0, "w": np.zeros(dim, np.float32),
+                "blocks": list(range(source.plan.num_blocks // CLUSTER_HOSTS)),
+                "telemetry": True}, protocol=pickle.HIGHEST_PROTOCOL))
+        finally:
+            plane.close()
+        result["worker_peak_device_bytes"] = _worker_peaks(plane)
+
+        # the chaos drill: host 1 dies after streaming 4 blocks, mid-pass; its
+        # blocks go to host 0 and the fit completes (warm caches)
+        plane, result["chaos_launch_s"] = planes["chaos"].wait()
+        clear_failures()
+        try:
+            chaos, result["chaos"], tracker = cluster_fit(plane)
+        finally:
+            plane.close()
+    finally:
+        # every worker process ends with the phase, whatever failed
+        for launch in planes.values():
+            launch.close()
+    result["chaos"]["vs_single_host"] = gate("chaos", chaos)
+    events = [r for r in tracker.records if r.get("kind") == "cluster"]
+    lost = [e for e in events if e.get("event") == "host_lost"]
+    moved = [e for e in events if e.get("event") == "blocks_reassigned"]
+    ring = [f for f in recent_failures() if f.get("kind") == "cluster_host_lost"]
+    result["chaos"].update(
+        host_lost_events=len(lost), reassigned_blocks=sorted(
+            b for e in moved for b in e.get("blocks", [])),
+        failure_ring_host_lost=len(ring),
+        worker_exit_codes=[p.returncode for p in plane.procs],
+        worker_peak_device_bytes=_worker_peaks(plane))
+    if not (len(lost) == 1 and lost[0].get("host") == CLUSTER_KILL[0] and moved
+            and len(ring) == 1):
+        failures.append(f"the chaos drill's events: {events}, failure ring {ring}")
+    if plane.procs[CLUSTER_KILL[0]].returncode != 17:
+        failures.append(f"host {CLUSTER_KILL[0]} exited {plane.procs[CLUSTER_KILL[0]].returncode}")
+    result["peak_rss_gb"] = _peak_rss_gb()
+    emit("train_cluster_full_width", **result)
+    if failures:
+        raise AssertionError(f"train_cluster_full_width gates failed: {failures}")
+    return result
+
+
+def data_reader_configuration(bag: str):
+    """A feature shard of one bag without an intercept (the stores' shards)."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    return data_reader.FeatureShardConfiguration([bag], add_intercept=False)
+
+
+GRID = (2, 2)                       # data x feat
+GRID_DEVICES = ("cuda:0",) * 4      # every tile on the one card
+BENES_GRID = (2, 1)
+BENES_GRID_SCALE = 16  # rows, columns and entities of FULL_WIDTH over 16
+
+
+def _fused_tile_checks(feats, w: torch.Tensor, c: torch.Tensor) -> tuple:
+    """csr_matvec_f32 and csc_rmatvec_f32 on one fused engine's own arrays
+    (a grid tile) against their plain versions and float64, and their
+    kernel / plain / library times and bounds at its shape."""
+    from photon_ml_tpu_torch.ops import fused_perm
+
+    n = feats.num_rows
+    split = fused_perm.merge_path_split(feats.col_ptr, feats.row_idx.numel())
+    row_split = fused_perm.merge_path_split(feats.row_ptr, feats.col_idx.numel())
+    row_ptr, col_idx, vals = row_major_csr(feats)
+    csr_kernel = lambda: fused_perm.csr_matvec_f32(  # noqa: E731
+        feats.row_ptr, feats.col_idx, feats.vals, w, feats.dim, row_split, feats.row_blocks)
+    csc_kernel = lambda: fused_perm.csc_rmatvec_f32(  # noqa: E731
+        feats.col_ptr, feats.row_idx, feats.vals_csc, c, n, "id", split)
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), row_ptr.diff())
+    prod = vals.double() * w.double()[col_idx.long()]
+    z64 = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod)
+    row_abs = torch.zeros(n, dtype=torch.float64, device="cuda").index_add_(0, rows, prod.abs())
+    g_plain = fused_perm.csc_rmatvec_plain(feats.col_ptr, feats.row_idx, feats.vals_csc, c)
+    col_abs = fused_perm.csc_rmatvec_plain(
+        feats.col_ptr, feats.row_idx, feats.vals_csc.abs(), c.abs()).double()
+    checks = {
+        "csr_matvec_f32": _compare(csr_kernel(),
+                                   fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w),
+                                   z64, row_abs, row_ptr.diff(), (n,)),
+        "csc_rmatvec_f32": _compare(csc_kernel(), g_plain, g_plain.double(), col_abs,
+                                    feats.col_ptr.diff(), (feats.dim,)),
+    }
+    csr = torch.sparse_csr_tensor(row_ptr, col_idx.long(), vals, size=(n, feats.dim))
+    csr_t = torch.sparse_csr_tensor(feats.col_ptr, feats.row_idx.long(), feats.vals_csc,
+                                    size=(feats.dim, n))
+    times = {
+        "csr_matvec_f32": cuda_ms({
+            "kernel": csr_kernel,
+            "plain": lambda: fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w),
+            "library": lambda: torch.mv(csr, w)}, reps=10),
+        "csc_rmatvec_f32": cuda_ms({
+            "kernel": csc_kernel,
+            "plain": lambda: fused_perm.csc_rmatvec_plain(
+                feats.col_ptr, feats.row_idx, feats.vals_csc, c),
+            "library": lambda: torch.mv(csr_t, c)}, reps=10),
+    }
+    bounds = {"csr_matvec_f32": csr_bound_ms(n, feats.nnz, feats.dim),
+              "csc_rmatvec_f32": csc_bound_ms(n, feats.nnz, feats.dim)}
+    out = {k: {"shape": [n, feats.dim], "nnz": feats.nnz, **kernel_times(times[k]),
+               "bound_ms": bounds[k][0], "bound_by": bounds[k][1]} for k in times}
+    return checks, out
+
+
+def _slice_value_grad_checks(bucket, gen) -> tuple:
+    """K6 at one device slice's shape of a bucket: against its plain
+    version and float64, with its times."""
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+    from photon_ml_tpu_torch.ops import pallas_kernels
+
+    times = value_grad_times(bucket, gen)
+    vg_in = times.pop("inputs")
+    ref, scale = _value_grad_f64(*vg_in, LogisticLoss)
+    checks = [_compare(o, p, r, a, bucket.X.shape[1], o.shape, part=part)
+              for part, o, p, r, a in zip(
+                  ("value", "grad", "csum"),
+                  pallas_kernels.fused_value_grad_batched_f32(*vg_in, LogisticLoss),
+                  pallas_kernels.fused_value_grad_plain(*vg_in, LogisticLoss), ref, scale)]
+    return checks, times
+
+
+def phase_train_grid_full_width(seed: int) -> dict:
+    """The grid path: train_full_width's GLMix fit on a 2 x 2 grid of fused tiles
+    (every tile on the one card) with the per-user and per-item entity
+    blocks split over the grid's 4 devices, held against train_full_width's
+    single-device fit; twice (bitwise), and on the host score plane; the
+    kernels at the tile and slice shapes; a 2 x 1 Benes grid at 2^16 rows;
+    the one-card refusal of a 2 x 2 grid of distinct cards."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.data.random_effect import slice_bucket
+    from photon_ml_tpu_torch.estimators.game import ParallelConfiguration
+    from photon_ml_tpu_torch.ops import launches
+
+    mem = _in_memory_glmix_fit(seed)
+    train, val, single = mem["train"], mem["val"], mem["fit"]
+    n_dev = GRID[0] * GRID[1]
+    result = {"grid": list(GRID), "devices": list(GRID_DEVICES), "engine": "fused"}
+    failures = []
+    parallel = ParallelConfiguration(*GRID, engine="fused", devices=GRID_DEVICES)
+    estimator = _glmix_estimator("cuda", parallel=parallel)
+    t0 = time.perf_counter()
+    coords = estimator.build_coordinates(train)
+    torch.cuda.synchronize()
+    result["build_coordinates_s"] = time.perf_counter() - t0
+    gf = coords["fixed"].data.features
+    result["padded_shape"] = [gf.num_rows, gf.dim]
+    result["tile_shape"] = [gf.n_loc, gf.d_loc]
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    fit = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    result["fit_s"] = time.perf_counter() - t0
+    counts = launches.counts()
+    result["launches"] = {k: counts[k] for k in KERNELS}
+    result["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if min(result["launches"].values()) < 1:
+        failures.append(f"the grid fit did not launch {result['launches']}")
+    t0 = time.perf_counter()
+    again = estimator.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    result["fit_again_s"] = time.perf_counter() - t0
+    result["bitwise_repeat"] = _same_fit(fit, again)
+    if not result["bitwise_repeat"]:
+        failures.append("two grid fits differ")
+
+    def against(a, b, data=val) -> dict:
+        obj_a, obj_b = a.objective_history[-1][1], b.objective_history[-1][1]
+        wa = a.model.models["fixed"].coefficients.means
+        wb = b.model.models["fixed"].coefficients.means
+        return {"objective_rel": abs(obj_a - obj_b) / abs(obj_b),
+                "fe_coef_max_abs_diff": float((wa - wb).abs().max()) if wa.shape == wb.shape
+                else float("inf"),
+                "score_max_abs_diff": float((a.model.score(data) - b.model.score(data))
+                                            .abs().max()),
+                "auc_diff": abs(a.validation_metric - b.validation_metric)}
+
+    result["vs_single_device"] = vs = against(fit, single)
+    if not (vs["objective_rel"] <= 1e-4 and vs["fe_coef_max_abs_diff"] <= 5e-3
+            and vs["score_max_abs_diff"] <= 1e-2 and vs["auc_diff"] <= 1e-4):
+        failures.append(f"the grid fit is not the single-device fit: {vs}")
+
+    # the host score plane (what multi-process runs use) against the device plane
+    host_est = _glmix_estimator("cuda", parallel=parallel, score_plane="host")
+    t0 = time.perf_counter()
+    host = host_est.fit(train, val, coordinates=coords)
+    torch.cuda.synchronize()
+    result["host_plane_fit_s"] = time.perf_counter() - t0
+    result["host_plane_vs_device_plane"] = vh = against(host, fit)
+    result["host_plane_bitwise"] = _same_fit(host, fit)
+    result["host_plane_transfers"] = host_est.last_transfer_stats.snapshot()
+    if not (vh["objective_rel"] <= 1e-4 and vh["fe_coef_max_abs_diff"] <= 5e-3
+            and vh["score_max_abs_diff"] <= 1e-2 and vh["auc_diff"] <= 1e-4):
+        failures.append(f"the host-plane grid fit is off the device plane: {vh}")
+
+    # the kernels at the tile and slice shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tile = gf.shards[0][0]
+    w_pad = torch.nn.functional.pad(fit.model.models["fixed"].coefficients.means,
+                                    (0, gf.dim - train.feature_shards["global"].dim))
+    checks, kernels = _fused_tile_checks(
+        tile, w_pad[: gf.d_loc].contiguous(),
+        torch.randn(gf.n_loc, generator=gen, device="cuda"))
+    bucket = coords["per_user"].dataset.buckets[0]
+    per = bucket.num_entities // n_dev
+    result["slice_shape"] = [per] + list(bucket.X.shape[1:])
+    vg_checks, vg_times = _slice_value_grad_checks(slice_bucket(bucket, 0, per, "cuda"), gen)
+    checks["fused_value_grad_batched_f32"] = vg_checks
+    kernels["fused_value_grad_batched_f32"] = vg_times
+    for k in KERNELS:
+        kernels[k]["launches"] = counts[k]
+    result["tile_kernel_checks"] = checks
+    result["kernels"] = kernels
+    if not all(c["ok"] for c in (checks["csr_matvec_f32"], checks["csc_rmatvec_f32"],
+                                 *checks["fused_value_grad_batched_f32"])):
+        failures.append("a kernel disagrees with its plain version at a tile or slice shape")
+
+    # a 2 x 1 grid of Benes tiles at FULL_WIDTH over 16 (2^16 rows, 2^20
+    # columns: the same rows to columns and nonzeros a row; cold routing at
+    # full width costs minutes): its fit against the same rows'
+    # single-device fit on the fused engine (the same maps), and the
+    # shuffle kernels at a tile network's stage shapes
+    n_b, nv_b, fe_dim_b, fe_k, users, items = FULL_WIDTH
+    k = BENES_GRID_SCALE
+    n_b, nv_b, fe_dim_b, users, items = n_b // k, nv_b // k, fe_dim_b // k, users // k, items // k
+    btrain, bval = make_glmix_training(seed + 1, n_b, nv_b, fe_dim_b, fe_k, users, items)
+    bpar = ParallelConfiguration(*BENES_GRID, engine="benes", devices=GRID_DEVICES[:2])
+    t0 = time.perf_counter()
+    bcoords = _glmix_estimator("cuda", parallel=bpar).build_coordinates(btrain)
+    torch.cuda.synchronize()
+    result["benes_build_coordinates_s"] = time.perf_counter() - t0
+    launches.reset()
+    t0 = time.perf_counter()
+    bfit = _glmix_estimator("cuda", parallel=bpar).fit(btrain, bval, coordinates=bcoords)
+    torch.cuda.synchronize()
+    result["benes_fit_s"] = time.perf_counter() - t0
+    bcounts = launches.counts()
+    bsingle = _glmix_estimator("cuda", fe_engine="fused").fit(btrain, bval)
+    result["benes_vs_single_device"] = vb = against(bfit, bsingle, bval)
+    if not (vb["objective_rel"] <= 1e-4 and vb["fe_coef_max_abs_diff"] <= 5e-3
+            and vb["score_max_abs_diff"] <= 1e-2 and vb["auc_diff"] <= 1e-4):
+        failures.append(f"the Benes grid fit is not the single-device fit: {vb}")
+    btile = bcoords["fixed"].data.features.shards[0][0]
+    block = next(b for b in getattr(btile, "blocks", (btile,)) if hasattr(b, "plan"))
+    plan = block.plan
+    v = torch.randn(plan.size // 128, 128, generator=gen, device="cuda")
+    stages = list(zip([k for k in plan.kinds if k[0] in ("lane", "sublane")], plan.idx))
+    lane_idx = next(i for k, i in stages if k[0] == "lane")
+    sub_kind, sub_idx = next((k, i) for k, i in stages if k[0] == "sublane" and k[1] > 1)
+    shuffles = {"lane_shuffle_f32": shuffle_times(v, lane_idx, 0),
+                "sublane_shuffle_f32": shuffle_times(v, sub_idx, sub_kind[1])}
+    for name, k in shuffles.items():
+        k["launches"] = bcounts[name]
+        if not k["bitwise_equal"] or bcounts[name] < 1:
+            failures.append(f"{name} at the Benes tile: launches {bcounts[name]}, "
+                            f"bitwise {k['bitwise_equal']}")
+    # the path's launches: the fused grid's fit, the Benes grid's shuffles
+    result["launches_by_kernel"] = {**counts, **{k: bcounts[k] for k in SHUFFLES}}
+    bgf = bcoords["fixed"].data.features
+    result["benes"] = {"rows": n_b, "fe_dim": fe_dim_b + 1,
+                       "padded_shape": [bgf.num_rows, bgf.dim],
+                       "launches": {k: bcounts[k] for k in SHUFFLES + KERNELS},
+                       "kernels": shuffles}
+
+    # a grid of 4 distinct cards on a one-card machine is refused, by the
+    # estimator and the CLI, as the JAX package refuses it
+    refusals = {}
+    if torch.cuda.device_count() < n_dev:
+        for name, call in (
+            ("estimator", lambda: ParallelConfiguration(*GRID, engine="fused").build_mesh()),
+            ("train_game", lambda: train_game.run(train_game.parse_args([
+                "--train-data-dirs", os.path.join(RATINGS, "train"),
+                "--coordinate-config", ratings_config(tempfile.gettempdir()),
+                "--task", "LINEAR_REGRESSION", "--output-dir",
+                os.path.join(tempfile.gettempdir(), "chip_smoke_grid_refusal"),
+                "--parallel-data", str(GRID[0]), "--parallel-feat", str(GRID[1])]))),
+        ):
+            try:
+                call()
+                refusals[name] = "not refused"
+            except ValueError as e:
+                refusals[name] = str(e)
+        want = f"need {n_dev} devices, have {torch.cuda.device_count()}"
+        if any(r != want for r in refusals.values()):
+            failures.append(f"the one-card refusals: {refusals}")
+    result["refusals"] = refusals
+    emit("train_grid_full_width", **result)
+    if failures:
+        raise AssertionError(f"train_grid_full_width gates failed: {failures}")
     return result
 
 
@@ -2540,12 +3245,15 @@ def phase_fe_bf16_full_width(seed: int) -> dict:
 class routing_seconds:
     """Within the block, host seconds spent building routing plans
     (``sparse_perm._build_plan_cached``: the colorer, the stage arrays and
-    the plan-cache write) are summed into ``self.seconds``."""
+    the plan-cache write): ``seconds`` the wall they cover (the union of
+    their intervals: a column split routes its networks on a thread each),
+    ``thread_seconds`` their sum."""
 
     def __enter__(self):
         from photon_ml_tpu_torch.ops import sparse_perm
 
-        self.seconds, self.plans = 0.0, 0
+        self.plans, self._spans = 0, []
+        self._lock = threading.Lock()
         self._saved = sparse_perm._build_plan_cached
 
         def timed(perm, cache_dir):
@@ -2553,11 +3261,24 @@ class routing_seconds:
             try:
                 return self._saved(perm, cache_dir)
             finally:
-                self.seconds += time.perf_counter() - t0
-                self.plans += 1
+                with self._lock:
+                    self._spans.append((t0, time.perf_counter()))
+                    self.plans += 1
 
         sparse_perm._build_plan_cached = timed
         return self
+
+    @property
+    def thread_seconds(self) -> float:
+        return sum(b - a for a, b in self._spans)
+
+    @property
+    def seconds(self) -> float:
+        wall, end = 0.0, float("-inf")
+        for a, b in sorted(self._spans):
+            wall += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return wall
 
     def __exit__(self, *exc):
         from photon_ml_tpu_torch.ops import sparse_perm
@@ -2608,6 +3329,9 @@ def _summaries_agree(a, b) -> dict:
             "ok": mean_err <= 1e-5 and var_err <= 1e-4 and all(exact.values())}
 
 
+BENES_DEPTH = (1 << 18, 1 << 16)  # rows, held-out: full width, a quarter of the depth
+
+
 def phase_train_benes_full_width(seed: int) -> dict:
     from photon_ml_tpu_torch.normalization import build_normalization_context
     from photon_ml_tpu_torch.ops import launches, sparse_perm
@@ -2615,7 +3339,7 @@ def phase_train_benes_full_width(seed: int) -> dict:
     from photon_ml_tpu_torch.stat.summary import summarize
     from photon_ml_tpu_torch.types import NormalizationType
 
-    n, n_val, fe_dim, fe_k = 1 << 20, 1 << 18, 1 << 24, 16
+    n, n_val, fe_dim, fe_k = BENES_DEPTH[0], BENES_DEPTH[1], 1 << 24, 16
     t0 = time.perf_counter()
     train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, 65_536, 16_384)
     data_s = time.perf_counter() - t0
@@ -2633,6 +3357,7 @@ def phase_train_benes_full_width(seed: int) -> dict:
                 torch.cuda.synchronize()
                 total = time.perf_counter() - t0
             build[name] = {"rows": data.num_rows, "build_s": total, "routing_s": rs.seconds,
+                           "routing_thread_s": rs.thread_seconds,
                            "rest_of_build_s": total - rs.seconds, "plans": rs.plans,
                            "layout": benes_layout(feats_of),
                            "host_peak_rss_gb_so_far": resource.getrusage(
@@ -2821,6 +3546,9 @@ def phase_train_game_cli(seed: int) -> dict:
         ckpt = ("--checkpoint-dir", os.path.join(root, "checkpoint"))
         stream = ("--streaming", "--block-rows", "512",
                   "--block-cache-dir", os.path.join(root, "block_cache"))
+        hosts = stream + ("--hosts", "2")
+        kill = ("--cluster-kill-host", "1:4")
+        grid = ("--parallel-data", "1", "--parallel-feat", "1")
         runs = (("cuda", "cuda", "auto", ()), ("cuda_again", "cuda", "auto", ()),
                 ("cpu", "cpu", "auto", ()), ("cuda_std_benes", "cuda", "benes", std),
                 ("cpu_std_benes", "cpu", "benes", std), ("cuda_fe_tron", "cuda", "tron", ()),
@@ -2830,7 +3558,14 @@ def phase_train_game_cli(seed: int) -> dict:
                 ("cuda_resume_first", "cuda", "full", ("--num-outer-iterations", "1", *ckpt)),
                 ("cuda_resume", "cuda", "full", ckpt),
                 # out of core: blocks of 512 rows, one block cache for both
-                ("cuda_streaming", "cuda", "auto", stream), ("cpu_streaming", "cpu", "auto", stream))
+                ("cuda_streaming", "cuda", "auto", stream),
+                ("cpu_streaming", "cpu", "auto", stream),
+                # the cluster plane: two worker processes on the device, and
+                # the chaos drill; a 1 x 1 device grid
+                ("cuda_hosts2", "cuda", "auto", hosts), ("cpu_hosts2", "cpu", "auto", hosts),
+                ("cuda_hosts2_kill", "cuda", "auto", hosts + kill),
+                ("cpu_hosts2_kill", "cpu", "auto", hosts + kill),
+                ("cuda_grid_1x1", "cuda", "auto", grid), ("cpu_grid_1x1", "cpu", "auto", grid))
         for run, device, engine, extra in runs:
             config = (ratings_config(root, fe_only_tron=True) if engine == "tron"
                       else ratings_config(root, full_game=True) if engine == "full"
@@ -2889,6 +3624,12 @@ def phase_train_game_cli(seed: int) -> dict:
                  ("cuda_streaming", "cpu_streaming")):
         if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
             raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
+    # the cluster and grid runs against the single-host CLI's on their device
+    for run, base in (("hosts2", "streaming"), ("hosts2_kill", "streaming"), ("grid_1x1", "")):
+        for dev in ("cuda", "cpu"):
+            other = f"{dev}_{base}" if base else dev
+            if abs(result[f"{dev}_{run}_rmse"] - result[f"{other}_rmse"]) > 1e-4:
+                raise AssertionError(f"RMSE of {dev}_{run} is off {other}: {result}")
     # the streamed fit against the in-memory one (the JAX package's streaming
     # parity gate on this fixture, tests/test_streaming.py: 1e-3)
     if abs(result["cuda_streaming_rmse"] - result["cuda_rmse"]) > 1e-3:
@@ -3081,7 +3822,7 @@ def _train_game_cli_telemetry(root: str, result: dict) -> list:
     adaptive_cfg = os.path.join(root, "game_adaptive.json")
     with open(adaptive_cfg, "w") as f:
         json.dump(cfg, f)
-    fails = []
+    fails, analyses = [], {}
     for device in ("cuda", "cpu"):
         out = os.path.join(root, f"telemetry_{device}")
         files = {k: os.path.join(root, f"{device}_{k}") for k in (
@@ -3119,14 +3860,7 @@ def _train_game_cli_telemetry(root: str, result: dict) -> list:
         result[f"telemetry_{device}_records"] = {"ledger": len(ledger), "progress": len(progress)}
         result[f"telemetry_{device}_introspect_port"] = int(open(files["port"]).read())
         for flags in ((files["ledger.jsonl"],), ("--progress", files["progress.jsonl"])):
-            rc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.analyze_run",
-                                 *flags], capture_output=True, text=True, timeout=300,
-                                cwd=os.path.dirname(os.path.abspath(__file__)))
-            result[f"analyze_run_{device}_{'progress' if len(flags) > 1 else 'ledger'}"] = (
-                rc.returncode, rc.stdout[-2000:])
-            if rc.returncode != 0:
-                fails.append(f"analyze_run {' '.join(flags)} exited {rc.returncode}: "
-                             f"{rc.stderr[-1000:]}")
+            analyses[f"analyze_run_{device}_{'progress' if len(flags) > 1 else 'ledger'}"] = flags
         with open(os.path.join(root, f"autotune_{device}", "auto-tune.json")) as f:
             tuned = json.load(f)
         result[f"autotune_{device}_json"] = tuned
@@ -3135,6 +3869,22 @@ def _train_game_cli_telemetry(root: str, result: dict) -> list:
         if set(tuned) != keys or len(tuned["trials"]) != 2 or any(
                 set(t) != trial_keys for t in tuned["trials"]):
             fails.append(f"auto-tune.json of {device} lacks the JAX CLI's keys: {tuned}")
+    # analyze_run on the four ledgers, each in a process of its own, together
+    procs = {key: subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.analyze_run", *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for key, flags in analyses.items()}
+    for key, proc in procs.items():
+        flags = analyses[key]
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        result[key] = (proc.returncode, stdout[-2000:])
+        if proc.returncode != 0:
+            fails.append(f"analyze_run {' '.join(flags)} exited {proc.returncode}: "
+                         f"{stderr[-1000:]}")
     return fails
 
 
@@ -3710,6 +4460,10 @@ def phase_train_full_game_full_width(seed: int) -> dict:
 RANDOM_TRIALS_LOG10 = [[-0.720403291285038, 3.7129617482423782, 2.8612390011548996],
                        [1.6987586095929146, 0.6855398789048195, 1.1011880710721016]]
 ASYNC_BUCKETS = {"per_user": 4, "per_item": 2}
+# outer iterations of the async fits of the async and telemetry phases (1,
+# not the 2 of the telemetry phase's sync fits: it keeps the script inside
+# its time limit)
+ASYNC_OUTER = 1
 
 
 def _async_estimator(schedule: str = "sync", staleness: int = 1, outer: int = 2):
@@ -3775,27 +4529,30 @@ def _same_fit(a, b) -> bool:
 
 
 def phase_train_async_full_width(seed: int) -> dict:
-    """The async schedule at full width against the sync loop."""
+    """The async schedule at full width against the sync loop, over
+    ASYNC_OUTER outer iterations."""
     train, val, coords, build_s = _async_setup(seed)
     buckets = {cid: [tuple(b.X.shape) for b in coords[cid].dataset.buckets]
                for cid in ASYNC_BUCKETS}
     if any(len(buckets[c]) != k for c, k in ASYNC_BUCKETS.items()):
         raise AssertionError(f"bucket counts {buckets} are not {ASYNC_BUCKETS}")
-    sync, sync_s, sync_counts, sync_mem = _timed_fit(_async_estimator(), train, val, coords)
-    a0, a0_s, _, _ = _timed_fit(_async_estimator("async", 0), train, val, coords)
+    sync, sync_s, sync_counts, sync_mem = _timed_fit(_async_estimator(outer=ASYNC_OUTER),
+                                                     train, val, coords)
+    a0, a0_s, _, _ = _timed_fit(_async_estimator("async", 0, ASYNC_OUTER), train, val, coords)
     # the main path of this phase: counts set to 0 just before, read after
-    a1, a1_s, a1_counts, a1_mem = _timed_fit(_async_estimator("async", 1), train, val, coords)
+    a1, a1_s, a1_counts, a1_mem = _timed_fit(_async_estimator("async", 1, ASYNC_OUTER),
+                                             train, val, coords)
     missing = [k for k in KERNELS if a1_counts[k] < 1]
     if missing:
         raise AssertionError(f"the async fit did not launch {missing}: {a1_counts}")
     # the repeat runs under the profiler (its wall is the profiled one)
     repeat = []
     async_profile = profile_device_idle(lambda: repeat.append(
-        _async_estimator("async", 1).fit(train, val, coordinates=coords)))
+        _async_estimator("async", 1, ASYNC_OUTER).fit(train, val, coordinates=coords)))
     a1b = repeat[0]
     with plain_versions():
         plain, plain_s, plain_counts, _ = _timed_fit(
-            _async_estimator("async", 1), train, val, coords)
+            _async_estimator("async", 1, ASYNC_OUTER), train, val, coords)
     if any(plain_counts[k] for k in KERNELS):
         raise AssertionError(f"the plain run launched kernels: {plain_counts}")
     after = a1.objective_history[-1][1]
@@ -3803,7 +4560,7 @@ def phase_train_async_full_width(seed: int) -> dict:
     auc_vs_plain = abs(a1.validation_metric - plain.validation_metric)
     auc_gap = a1.validation_metric - sync.validation_metric
     profiles = {
-        "sync": profile_device_idle(lambda: _async_estimator().fit(
+        "sync": profile_device_idle(lambda: _async_estimator(outer=ASYNC_OUTER).fit(
             train, val, coordinates=coords)),
         "async_staleness_1": async_profile,
     }
@@ -3834,7 +4591,7 @@ def phase_train_async_full_width(seed: int) -> dict:
                                       zip(seq.coefficients, ovl.coefficients)]
         re_updates[cid] = runs
     result = {
-        "buckets": buckets, "build_coordinates_s": build_s, "outer_iterations": 2,
+        "buckets": buckets, "build_coordinates_s": build_s, "outer_iterations": ASYNC_OUTER,
         "sync_fit": sync_s, "async_staleness_0_fit": a0_s,
         "async_staleness_1_fit": a1_s, "async_plain_fit": plain_s,
         "sync_update_seconds": sync.update_seconds,
@@ -4075,11 +4832,12 @@ def phase_train_telemetry_full_width(seed: int) -> dict:
 
         # (c) the async schedule at staleness 1, untraced and traced (no
         # tracker: the peaks compare tracing alone)
-        a_plain, a_plain_s, _, a_plain_mem, a_plain_start = fit_from(_async_estimator("async", 1))
+        a_plain, a_plain_s, _, a_plain_mem, a_plain_start = fit_from(
+            _async_estimator("async", 1, ASYNC_OUTER))
         run = start_run("chip_smoke_async", ledger_path=paths["async.jsonl"])
         try:
             a_traced, a_traced_s, _, a_traced_mem, a_traced_start = fit_from(
-                _async_estimator("async", 1))
+                _async_estimator("async", 1, ASYNC_OUTER))
         finally:
             run.finish()
             disable_tracing()
@@ -4245,6 +5003,13 @@ def phase_train_glm_cli(seed: int) -> dict:
                 "--regularization-weights", "1",
                 "--coefficient-box-constraints", '{"lower": -2.0, "upper": 2.0}'],
         }
+        module_out = os.path.join(root, "a_logistic_lbfgs_sweep_module")
+        module_t0 = time.perf_counter()
+        module_run = subprocess.Popen(
+            [sys.executable, "-m", "photon_ml_tpu_torch.cli.train_glm",
+             *invocations["a_logistic_lbfgs_sweep"], "--output-dir", module_out],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
         for name, argv in invocations.items():
             runs = {}
             for device in ("cuda", "cpu"):
@@ -4301,17 +5066,20 @@ def phase_train_glm_cli(seed: int) -> dict:
                                "files_differing_from_plain": differ}
         if differ or not {"preprocess", "train", "validate", "output"} <= set(phases):
             raise AssertionError(f"train_glm with telemetry: {result['telemetry']}")
-        # the module's own entry point, in a process of its own
-        out = os.path.join(root, "a_logistic_lbfgs_sweep_module")
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.train_glm",
-                        *invocations["a_logistic_lbfgs_sweep"], "--output-dir", out],
-                       check=True, timeout=600, capture_output=True,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
-        module_sel = json.load(open(os.path.join(out, "selection.json")))
+        # the module's own entry point, in a process of its own (started
+        # with the in-process runs, above)
+        try:
+            _, stderr = module_run.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            module_run.kill()
+            _, stderr = module_run.communicate()
+        if module_run.returncode != 0:
+            raise AssertionError(f"python -m train_glm exited {module_run.returncode}: "
+                                 f"{stderr[-2000:]}")
+        module_sel = json.load(open(os.path.join(module_out, "selection.json")))
         in_process = json.load(open(os.path.join(root, "a_logistic_lbfgs_sweep_cuda",
                                                  "selection.json")))
-        result["python_m_s"] = time.perf_counter() - t0
+        result["python_m_s"] = time.perf_counter() - module_t0  # start to reaped
         result["python_m_selection"] = module_sel
         if not (module_sel["best_lambda"] == in_process["best_lambda"] and all(
                 abs(module_sel["metrics"][k] - v) <= 1e-4
@@ -4330,6 +5098,8 @@ PHASES = {
     "read_score_full_width": phase_read_score_full_width,
     "train_full_width": phase_train_full_width,
     "train_streaming_full_width": phase_train_streaming_full_width,
+    "train_cluster_full_width": phase_train_cluster_full_width,
+    "train_grid_full_width": phase_train_grid_full_width,
     "train_glm_full_width": phase_train_glm_full_width,
     "train_tron_full_width": phase_train_tron_full_width,
     "fe_bf16_full_width": phase_fe_bf16_full_width,
@@ -4358,17 +5128,33 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
+    if {"train_streaming_full_width", "train_cluster_full_width"} & set(phases):
+        BACKGROUND_PREP.add("stream")  # started by train_full_width's rows
+    if "train_cluster_full_width" in phases:
+        BACKGROUND_PREP.add("cluster")  # started by train_streaming_full_width
     results, phase_seconds = {}, {}
-    for name in ALL_PHASES:
-        if name in phases:
-            t0 = time.perf_counter()
-            results[name] = PHASES[name](args.seed)
-            phase_seconds[name] = time.perf_counter() - t0
-        if name == "train_streaming_full_width":
-            _in_memory_glmix_fit.cache_clear()  # the fit the two phases share
-        if name == "train_telemetry_full_width":
-            _async_setup.cache_clear()  # the coordinates the three phases share
-        torch.cuda.empty_cache()
+    try:
+        for name in ALL_PHASES:
+            if name in phases:
+                t0 = time.perf_counter()
+                results[name] = PHASES[name](args.seed)
+                phase_seconds[name] = time.perf_counter() - t0
+            if name == "build" and "read_score_full_width" in phases:
+                # its Avro files and stores, made while the phases before it run
+                _read_score_prep(args.seed)
+            if name == "score_full_width" and "stream" in BACKGROUND_PREP:
+                _stream_prep(args.seed)  # the same for the streaming phases
+            if name == "train_grid_full_width":
+                # the in-memory fit and the part files the four phases share
+                _stream_fixture_clear()
+                _in_memory_glmix_fit.cache_clear()
+            if name == "train_telemetry_full_width":
+                _async_setup.cache_clear()  # the coordinates the three phases share
+            torch.cuda.empty_cache()
+    finally:
+        # the cluster workers started in the background end, whatever failed
+        for launch in _PLANE_LAUNCHES:
+            launch.close()
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
 
     # launches and times from the phase that runs each kernel: the training
@@ -4399,6 +5185,11 @@ def main(argv=None) -> int:
         "library_ms": train.get(name, {}).get("library_ms"),
         "library_device_ms": train.get(name, {}).get("library_device_ms"),
         "flushed_ms": train.get(name, {}).get("flushed_ms"),
+        # each later path's own count, set to 0 just before it ran
+        "launches_by_path": {
+            path: results[path]["launches_by_kernel"].get(name)
+            for path in ("train_cluster_full_width", "train_grid_full_width")
+            if path in results},
     } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

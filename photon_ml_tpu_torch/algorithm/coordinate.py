@@ -22,8 +22,12 @@ Telemetry spans (the JAX package's names): ``fe/solve`` (with a
 current-stream barrier) around a fixed-effect update, ``re/train`` around
 a random effect's bucket solves.
 
-Not ported: the multi-device grid padding of the fixed effect and the mesh
-placement of random-effect buckets.
+On a (data x feat) device grid (``estimators.game.ParallelConfiguration``)
+a fixed effect trains over ``parallel.GridShardedFeatures``, whose rows and
+columns are padded to the grid: the coordinate speaks real shapes at its
+boundary (models of ``num_real_cols`` coefficients, ``num_real_rows``
+scores). A random effect given a ``mesh`` solves each bucket's entities
+split over every device of the mesh (``data.random_effect.place_dataset``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from photon_ml_tpu_torch.estimators.random_effect import (
     score_random_effects_device,
     train_random_effects,
 )
+from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.data import LabeledData
@@ -71,10 +76,19 @@ class FixedEffectCoordinate:
     # (reference COMPUTE_VARIANCE -> DistributedOptimizationProblem.scala:80-94)
     compute_variances: bool = False
     down_sampling_seed: int = 0
+    # a grid layout pads the batch and the feature axis; the coordinate
+    # speaks real shapes at its boundary (models of num_real_cols
+    # coefficients, num_real_rows scores)
+    num_real_rows: Optional[int] = None
+    num_real_cols: Optional[int] = None
 
     last_tracker: Optional[FixedEffectOptimizationTracker] = dataclasses.field(
         default=None, repr=False
     )
+    # (model, padded solve vector) of the model last returned: warm starts
+    # and scoring of that model reuse the padded vector. Keyed by identity
+    # through the strong reference.
+    _w_padded_cache: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False)
     _sampled_weights: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False
     )
@@ -101,20 +115,60 @@ class FixedEffectCoordinate:
         coefficients (``train_glm``). Traced as ``fe/solve``."""
         with span("fe/solve", device_sync=True,
                   optimizer=self.configuration.optimizer_config.optimizer.name):
+            n_pad = self.data.labels.shape[0]
+            if residual_scores.shape[0] < n_pad:
+                residual_scores = torch.nn.functional.pad(
+                    residual_scores, (0, n_pad - residual_scores.shape[0]))
             data = dataclasses.replace(
                 self.data, offsets=self.data.offsets + residual_scores, weights=self._weights()
             )
             fit = train_glm(
-                data, self.task, self.configuration, initial_model=model,
+                data, self.task, self.configuration, initial_model=self._pad_model(model),
                 compute_variances=self.compute_variances, intercept_index=self.intercept_index,
             )[0]
             self.last_tracker = FixedEffectOptimizationTracker(
                 states=OptimizationStatesTracker.from_result(fit.result)
             )
-            return fit.model
+            trimmed = self._trim_model(fit.model)
+            if self.num_real_cols is not None:
+                self._w_padded_cache = (trimmed, fit.model.coefficients.means)
+            return trimmed
+
+    def _pad_model(self, model: Optional[GeneralizedLinearModel]):
+        """A warm start of real [d] coefficients in the padded [d_pad]
+        solve space (zeros for the padding columns)."""
+        if model is None or self.num_real_cols is None:
+            return model
+        return dataclasses.replace(model, coefficients=Coefficients(means=self._padded_w(model)))
+
+    def _trim_model(self, model: GeneralizedLinearModel) -> GeneralizedLinearModel:
+        if self.num_real_cols is None:
+            return model
+        d = self.num_real_cols
+        coef = model.coefficients
+        if coef.means.shape[0] == d:
+            return model
+        return dataclasses.replace(model, coefficients=Coefficients(
+            means=coef.means[:d],
+            variances=None if coef.variances is None else coef.variances[:d],
+        ))
+
+    def _padded_w(self, model: GeneralizedLinearModel) -> torch.Tensor:
+        """The [d_pad] solve-space vector of ``model``, cached by identity."""
+        cached = self._w_padded_cache
+        if cached is not None and cached[0] is model:
+            return cached[1]
+        w = model.coefficients.means
+        if self.num_real_cols is not None and w.shape[0] < self.data.dim:
+            w = torch.nn.functional.pad(w, (0, self.data.dim - w.shape[0]))
+        self._w_padded_cache = (model, w)
+        return w
 
     def score_device(self, model: GeneralizedLinearModel) -> torch.Tensor:
-        return self.data.features.matvec(model.coefficients.means)
+        scores = self.data.features.matvec(self._padded_w(model))
+        if self.num_real_rows is not None:
+            scores = scores[: self.num_real_rows]
+        return scores
 
 
 @dataclasses.dataclass
@@ -131,6 +185,11 @@ class RandomEffectCoordinate:
     # the async schedule's RE leg: buckets solved at once (0 or 1: in turn);
     # set by GameEstimator for every fit
     overlap_buckets: int = 0
+    # a device mesh: each bucket's entity axis is split over every device
+    # of it (independent per-entity solves, no reduction); the dataset is
+    # placed by GameEstimator (data.random_effect.place_dataset)
+    mesh: Optional[object] = None
+    mesh_axes: Optional[tuple] = None
     last_tracker: Optional[RandomEffectOptimizationTracker] = dataclasses.field(
         default=None, repr=False
     )
@@ -148,7 +207,12 @@ class RandomEffectCoordinate:
                 overlap_buckets=self.overlap_buckets,
             )
         self.last_solver_stats = stats
-        self.last_tracker = RandomEffectOptimizationTracker.from_results(results)
+        # entity lanes beyond the real ids (mesh padding) carry zero weights
+        # and no valid projection: their solves are trivial and the
+        # telemetry excludes them
+        self.last_tracker = RandomEffectOptimizationTracker.from_results(
+            results, real_counts=[len(ids) for ids in ds.entity_ids]
+        )
         return new_model
 
     def score_device(self, model: RandomEffectModel) -> torch.Tensor:

@@ -49,8 +49,14 @@ checked by the divergence watchdog, which may raise ``DivergenceError``.
 Spans and the tracker add stream syncs and host reads, never arithmetic:
 a traced or tracked fit is bitwise the plain one.
 
-Not ported: the host score plane, which serves multi-controller runs
-(ROADMAP.md, Queue A item 8).
+Score plane: ``score_plane="device"`` (default) keeps the running total
+and the scores above on the device. ``score_plane="host"`` keeps them in
+numpy, with the same incremental algebra in the same order (so the two
+planes train bitwise-equal models on the host): each update pushes its
+residual to the device and pulls its scores back, two row-length
+transfers that ``transfer_stats`` counts. Multi-process runs (a process
+group of more than one rank) use the host plane, and the async schedule
+falls back to sync on it.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES, ScheduleExecutor
@@ -70,6 +77,8 @@ from photon_ml_tpu_torch.opt.tracking import TransferStats
 from photon_ml_tpu_torch.telemetry.span import span
 
 logger = logging.getLogger("photon_ml_tpu_torch")
+
+SCORE_PLANES = ("device", "host")
 
 
 @dataclasses.dataclass
@@ -99,9 +108,12 @@ class CoordinateDescent:
         schedule: str = "sync",
         staleness: int = 1,
         progress: Optional[object] = None,
+        score_plane: str = "device",
     ) -> None:
         if not coordinates:
             raise ValueError("need at least one coordinate")
+        if score_plane not in SCORE_PLANES:
+            raise ValueError(f"score_plane must be one of {SCORE_PLANES}, got {score_plane!r}")
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
         if int(staleness) < 0:
@@ -118,6 +130,7 @@ class CoordinateDescent:
         self.validate = validate
         self.validation_better_than = validation_better_than or nan_aware_better_than
         self.emitter = emitter
+        self.score_plane = score_plane
         self.schedule = schedule
         self.staleness = int(staleness)
         # optional telemetry.progress.ConvergenceTracker: one record per
@@ -129,7 +142,18 @@ class CoordinateDescent:
         # worker's start to the end of its stream's work (async)
         self.update_seconds: List[Tuple[str, float]] = []
         # transfer accounting of the most recent (or in-flight) run
-        self.transfer_stats = TransferStats(score_plane="device", num_rows=num_rows)
+        self.transfer_stats = TransferStats(score_plane=score_plane, num_rows=num_rows)
+
+    def _effective_schedule(self) -> str:
+        """The async schedule needs the device plane; on the host plane the
+        loop runs sync."""
+        if self.schedule == "async" and self.score_plane != "device":
+            logger.warning(
+                "schedule='async' requires the device score plane; falling back "
+                "to the sync schedule on the %r plane", self.score_plane,
+            )
+            return "sync"
+        return self.schedule
 
     def _log_solver_stats(self, cid: str, coord) -> None:
         tracker = getattr(coord, "last_tracker", None)
@@ -180,8 +204,8 @@ class CoordinateDescent:
         gap-scheduler and residency decisions and skipped blocks. May raise
         ``DivergenceError`` (the watchdog).
 
-        The JAX package's branches for cluster events have no producer in
-        the port yet (ROADMAP.md, Queue A item 8, The cluster plane)."""
+        A coordinate of the cluster plane also hands over its cluster events
+        (host loss, reassignment, rebalance) and its pass profiles."""
         tracker = self.progress
         if tracker is None:
             return
@@ -210,6 +234,14 @@ class CoordinateDescent:
         if residency:
             tracker.record_residency(outer, cid, residency)
             coord.last_residency_decisions = None
+        cluster_events = getattr(coord, "last_cluster_events", None)
+        if cluster_events:
+            tracker.record_cluster(outer, cid, cluster_events)
+            coord.last_cluster_events = None
+        cluster_passes = getattr(coord, "last_cluster_passes", None)
+        if cluster_passes:
+            tracker.record_cluster_passes(outer, cid, cluster_passes)
+            coord.last_cluster_passes = None
         skipped = getattr(coord, "last_skipped_blocks", None)
         if skipped:
             for s in skipped:
@@ -237,12 +269,14 @@ class CoordinateDescent:
         from ``initial_models``; ``initial_best`` is a restored (best models,
         best metric); ``on_iteration_end(outer, running result)`` runs after
         each outer iteration (checkpointing)."""
-        with span("cd/run", score_plane="device", num_rows=self.num_rows,
-                  iterations=num_iterations, schedule=self.schedule):
-            self.transfer_stats = TransferStats(score_plane="device", num_rows=self.num_rows)
+        schedule = self._effective_schedule()
+        with span("cd/run", score_plane=self.score_plane, num_rows=self.num_rows,
+                  iterations=num_iterations, schedule=schedule):
+            self.transfer_stats = TransferStats(score_plane=self.score_plane,
+                                                num_rows=self.num_rows)
             run = _Run(self, initial_models, initial_best)
             self.update_seconds = run.update_seconds
-            if self.schedule == "async":
+            if schedule == "async":
                 self._run_async(run, num_iterations, start_iteration, on_iteration_end)
             else:
                 self._run_sync(run, num_iterations, start_iteration, on_iteration_end)
@@ -264,7 +298,7 @@ class CoordinateDescent:
                         old_own = run.scores.get(cid)
                         model = coord.update_model_device(
                             run.models.get(cid), run.residual(old_own))
-                        new_own = coord.score_device(model)
+                        new_own = run.score(cid, model)
                         run.fold(cid, model, new_own, old_own)
                         if self.device.type == "cuda":
                             torch.cuda.synchronize(self.device)
@@ -346,17 +380,23 @@ class CoordinateDescent:
 
 class _Run:
     """The running state of one ``CoordinateDescent.run``: models, the
-    device score plane, histories and the best model; shared by both
-    schedules, touched by the dispatching thread alone."""
+    score plane (device tensors, or numpy on the host plane), histories
+    and the best model; shared by both schedules, touched by the
+    dispatching thread alone."""
 
     def __init__(self, cd: CoordinateDescent, initial_models, initial_best) -> None:
         self.cd = cd
+        self.host = cd.score_plane == "host"
         self.models: Dict[str, object] = dict(initial_models or {})
-        self.scores: Dict[str, torch.Tensor] = {
-            cid: cd.coordinates[cid].score_device(m) for cid, m in self.models.items()
+        self.scores: Dict[str, object] = {
+            cid: self.score(cid, m) for cid, m in self.models.items()
         }
-        self.zeros = torch.zeros(cd.num_rows, dtype=torch.float32, device=cd.device)
-        self.total = self.zeros.clone()
+        if self.host:
+            self.zeros = np.zeros(cd.num_rows, dtype=np.float32)
+            self.total = self.zeros.copy()
+        else:
+            self.zeros = torch.zeros(cd.num_rows, dtype=torch.float32, device=cd.device)
+            self.total = self.zeros.clone()
         for s in self.scores.values():
             self.total = self.total + s
         self.objective_history: List[Tuple[str, float]] = []
@@ -367,15 +407,35 @@ class _Run:
             self.best_models, self.best_metric = dict(initial_best[0]), initial_best[1]
         self.update_seconds: List[Tuple[str, float]] = []
 
-    def residual(self, old_own: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.total - (old_own if old_own is not None else self.zeros)
+    def score(self, cid: str, model):
+        """One coordinate's [num_rows] scores on the plane: on the host
+        plane pulled to numpy (a row-length transfer)."""
+        s = self.cd.coordinates[cid].score_device(model)
+        if not self.host:
+            return s
+        self.cd.transfer_stats.record_d2h()
+        return s.detach().to(torch.float32).cpu().numpy()
 
-    def fold(self, cid: str, model, new_own: torch.Tensor,
-             old_own: Optional[torch.Tensor]) -> None:
+    def residual(self, old_own) -> torch.Tensor:
+        """total − own on the device the coordinate trains on (on the host
+        plane computed in numpy and pushed: a row-length transfer)."""
+        r = self.total - (old_own if old_own is not None else self.zeros)
+        if not self.host:
+            return r
+        self.cd.transfer_stats.record_h2d()
+        return torch.from_numpy(r).to(self.cd.device)
+
+    def plane_total(self) -> torch.Tensor:
+        """The running total as a device tensor (the training objective's
+        input)."""
+        return torch.from_numpy(self.total).to(self.cd.device) if self.host else self.total
+
+    def fold(self, cid: str, model, new_own, old_own) -> None:
         self.models[cid] = model
         self.total = self.total + new_own - (old_own if old_own is not None else self.zeros)
         self.scores[cid] = new_own
-        self.cd.transfer_stats.device_plane_updates += 1
+        if not self.host:
+            self.cd.transfer_stats.device_plane_updates += 1
 
     def record(self, outer: int, cid: str, seconds: float, prev_model) -> None:
         """After an update is folded in: its seconds, solver stats, training
@@ -387,7 +447,7 @@ class _Run:
         cd._log_solver_stats(cid, coord)
         if cd.training_objective is not None:
             with span("cd/objective", coordinate=cid, outer=outer):
-                loss_val = float(cd.training_objective(self.total))
+                loss_val = float(cd.training_objective(self.plane_total()))
                 if cd.regularization_term is not None:
                     reg = float(cd.regularization_term(self.models))
                     obj = loss_val + reg

@@ -283,6 +283,10 @@ class FactoredRandomEffectCoordinate:
     last_step_seconds: List[Tuple[float, float]] = dataclasses.field(
         default_factory=list, repr=False
     )
+    # a device mesh (the dataset placed over it by GameEstimator): the
+    # latent solves inherit the placement, a device slice at a time
+    mesh: Optional[object] = None
+    mesh_axes: Optional[tuple] = None
 
     def __post_init__(self) -> None:
         # a RANDOM-projected dataset has no per-column global index map

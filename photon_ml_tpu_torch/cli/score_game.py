@@ -14,8 +14,8 @@ subdirectory a feature shard) instead of maps rebuilt from the model;
 logs the dataset's entity counts and the model's sizes;
 ``--event-listeners`` registers listener classes (they receive
 ``ScoringStartEvent`` and ``ScoringFinishEvent``); ``--log-file`` also
-writes the log to a file. The multi-host flags are item 8 of ROADMAP.md
-Queue A.
+writes the log to a file. ``--coordinator-address --num-processes
+--process-id`` join a multi-process run on ``torch.distributed`` first.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.score_game \
@@ -49,6 +49,7 @@ from photon_ml_tpu_torch.event import EventEmitter, ScoringFinishEvent, ScoringS
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, read_game_data
 from photon_ml_tpu_torch.io.model_io import load_game_model, load_game_model_metadata
 from photon_ml_tpu_torch.io.scores_io import ScoredItem, save_scores
+from photon_ml_tpu_torch.parallel.multihost import add_distributed_args, initialize_from_args
 from photon_ml_tpu_torch.utils.timer import Timer
 
 
@@ -111,6 +112,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to score on: 'cuda' (default) or 'cpu'")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -313,7 +315,10 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    # the process group (or the single-process no-op) before any device use
+    initialize_from_args(args)
+    run(args)
     return 0
 
 

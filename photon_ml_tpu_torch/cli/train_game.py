@@ -54,9 +54,15 @@ block cache (``--block-cache-dir``, ``--no-block-cache``), exact
 full-batch or stochastic solves (``--stream-mode``, ``--gap-schedule``),
 device-resident blocks (``--resident-blocks``, ``--resident-bytes``) and
 ``--on-block-error``; validation data is still read in memory.
+``--streaming --hosts N`` runs the streamed fixed-effect solve
+data-parallel across N worker processes on the same device
+(``parallel/cluster``; ``--cluster-kill-host HOST:BLOCKS`` is the chaos
+drill, ``--cluster-block-latency-ms`` an emulated per-block latency).
 
-Refused, naming their ROADMAP.md Queue A item: the device-grid, cluster
-and multi-host flags (item 8).
+``--parallel-data N --parallel-feat M --parallel-engine E`` trains over an
+(N x M) device grid (``estimators.game.ParallelConfiguration``);
+``--coordinator-address --num-processes --process-id`` join a
+multi-process run on ``torch.distributed`` first.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from photon_ml_tpu_torch.estimators.game import (
     FixedEffectCoordinateConfiguration,
     GameEstimator,
     GameFit,
+    ParallelConfiguration,
 )
 from photon_ml_tpu_torch.estimators.tuning import (
     GameEstimatorEvaluationFunction,
@@ -112,25 +119,18 @@ from photon_ml_tpu_torch.io.avro import write_avro_file
 from photon_ml_tpu_torch.io.data_reader import read_game_data
 from photon_ml_tpu_torch.io.model_io import save_game_model
 from photon_ml_tpu_torch.normalization import build_normalization_context
+from photon_ml_tpu_torch.parallel.multihost import add_distributed_args, initialize_from_args
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.serving.introspect import IntrospectionServer
 from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.streaming import StreamingSource
-from photon_ml_tpu_torch.telemetry import ConvergenceTracker, DivergenceError
+from photon_ml_tpu_torch.telemetry import ConvergenceTracker, DivergenceError, cluster_lane_events
 from photon_ml_tpu_torch.telemetry.analyze import RunReport
 from photon_ml_tpu_torch.telemetry.sinks import TelemetryEventListener
 from photon_ml_tpu_torch.tuning import ab_candidates, get_knob, propose, run_ab_trials
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
 from photon_ml_tpu_torch.utils.timer import Timer
 
-# flags of the JAX package's train_game that need modules not ported yet,
-# with the ROADMAP.md Queue A item that ports them
-_CLUSTER = "item 8, The cluster plane"
-_UNPORTED = {
-    "parallel_data": _CLUSTER, "parallel_feat": _CLUSTER, "parallel_engine": _CLUSTER,
-    "hosts": _CLUSTER, "cluster_block_latency_ms": _CLUSTER, "cluster_kill_host": _CLUSTER,
-    "coordinator_address": _CLUSTER, "num_processes": _CLUSTER, "process_id": _CLUSTER,
-}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -138,6 +138,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         prog="photon-ml-tpu-torch train-game", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
+    add_distributed_args(p)
     p.add_argument("--train-data-dirs", nargs="+", required=True)
     p.add_argument("--validation-data-dirs", nargs="*", default=[])
     p.add_argument("--train-date-range", default=None,
@@ -330,12 +331,35 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "instead of (or besides) --resident-blocks; the "
                         "tighter budget wins (B // block upload bytes "
                         "blocks)")
+    p.add_argument("--hosts", type=int, default=0, metavar="N",
+                   help="cluster: run the streamed fixed-effect solve "
+                        "data-parallel across N coordinated worker processes "
+                        "on --device. Each full-batch pass partitions the "
+                        "blocks across hosts by gap-balanced assignment and "
+                        "sums the partial (value, grad) sums; a killed "
+                        "host's blocks are reassigned to survivors instead "
+                        "of aborting. Requires --streaming with the default "
+                        "--stream-mode full and exactly one fixed-effect "
+                        "coordinate; random-effect coordinates run in this "
+                        "process")
+    p.add_argument("--cluster-block-latency-ms", type=float, default=0.0, metavar="MS",
+                   help="cluster: emulated per-block latency in each worker "
+                        "(scaling measurements on one box; 0 = off)")
+    p.add_argument("--cluster-kill-host", default=None, metavar="HOST:BLOCKS",
+                   help="cluster chaos drill: worker HOST kills itself after "
+                        "streaming BLOCKS blocks; training must finish anyway "
+                        "with its blocks reassigned (recovery lands in the "
+                        "--progress-out ledger)")
+    p.add_argument("--parallel-data", type=int, default=0,
+                   help="devices on the batch axis of the (data x feat) "
+                        "training grid (0 = single device)")
+    p.add_argument("--parallel-feat", type=int, default=1,
+                   help="devices on the coefficient axis of the grid")
+    p.add_argument("--parallel-engine", default="benes", choices=["benes", "ell", "fused"],
+                   help="sparse engine of each grid tile")
     add_telemetry_args(p)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
-    for flag, item in _UNPORTED.items():
-        p.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True, default=None,
-                       help=f"not ported yet (ROADMAP.md, Queue A {item})")
     args = p.parse_args(argv)
     if args.staleness < 0:
         p.error("--staleness must be >= 0")
@@ -363,17 +387,37 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--resident-blocks/--resident-bytes with --stream-mode "
                 "stochastic require --gap-schedule (the scheduler's gap "
                 "feedback picks the resident set)")
+    if residency_on and args.hosts > 0:
+        p.error("--resident-blocks/--resident-bytes do not compose with "
+                "--hosts (cluster workers own their blocks' device "
+                "placement)")
+    if args.hosts < 0:
+        p.error("--hosts must be >= 0")
+    if args.hosts > 0 and (not args.streaming or args.stream_mode != "full"):
+        p.error(
+            "--hosts requires --streaming with --stream-mode full (the "
+            "distributed pass sums exact per-host partials)"
+        )
+    if args.cluster_kill_host is not None:
+        if args.hosts < 2:
+            p.error("--cluster-kill-host needs --hosts >= 2 (someone must "
+                    "survive to take over the blocks)")
+        try:
+            h, n = args.cluster_kill_host.split(":")
+            int(h), int(n)
+        except ValueError:
+            p.error("--cluster-kill-host must be HOST:BLOCKS, e.g. 1:4")
+    if args.parallel_data < 0 or args.parallel_feat < 1:
+        p.error("--parallel-data must be >= 0 and --parallel-feat >= 1")
+    if args.parallel_data == 0 and args.parallel_feat != 1:
+        p.error(
+            "--parallel-feat requires --parallel-data >= 1 (the grid always "
+            "has a data axis; use --parallel-data 1 for pure coefficient-"
+            "axis sharding)"
+        )
     if args.introspect_port is not None and args.introspect_port < 0:
         p.error("--introspect-port must be >= 0 (0 = ephemeral)")
     return args
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md, Queue A {item})"
-            )
 
 
 def _default_block_cache_dir(train_dirs) -> str:
@@ -392,6 +436,7 @@ def _check_streaming_compatible(args: argparse.Namespace) -> None:
     implementation needs the materialized training GameData (or a second
     full-data pass) fails fast here rather than deep in the fit."""
     conflicts = [
+        (args.parallel_data > 0, "--parallel-data (device-grid layout)"),
         (args.compute_variance, "--compute-variance (Hessian-diagonal pass)"),
         (args.check_data, "--check-data (validates in-memory shards)"),
         (args.auto_tune, "--auto-tune (trial fits need in-memory data)"),
@@ -624,7 +669,6 @@ def write_feature_stats(stats_dir, summary, index_map) -> None:
 def run(args: argparse.Namespace) -> GameFit:
     """Train; returns the selected fit (of the sweep and the tuning trials,
     the best by the first evaluator)."""
-    _refuse_unported(args)
     logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
     timer = Timer()
@@ -634,6 +678,7 @@ def run(args: argparse.Namespace) -> GameFit:
     telemetry = start_telemetry(args, "train_game", emitter=emitter)
     progress = None
     introspect = None
+    cluster: Dict[str, object] = {}
     try:
         if args.progress_out or args.introspect_port is not None:
             progress = ConvergenceTracker(
@@ -646,15 +691,19 @@ def run(args: argparse.Namespace) -> GameFit:
                 varz=lambda: vars(args),
                 health=progress.health,
                 port=args.introspect_port,
-                extra_json={"/progress": progress.progress_json},
+                extra_json={"/progress": progress.progress_json,
+                            "/cluster": progress.cluster_json},
             ).start()
-            logger.info("introspection on http://%s:%d (/progress /metrics /healthz)",
+            logger.info("introspection on http://%s:%d (/progress /cluster /metrics /healthz)",
                         introspect.host, introspect.port)
             if args.introspect_port_file:
                 with open(args.introspect_port_file, "w") as f:
                     f.write(str(introspect.port))
-        return _run(args, logger, device, emitter, timer, progress)
+        return _run(args, logger, device, emitter, timer, progress, cluster,
+                    telemetry is not None)
     finally:
+        if cluster.get("plane") is not None:
+            cluster["plane"].close()
         # the introspection hold runs first, so that /healthz (503 after a
         # divergence abort) and /progress stay readable before teardown
         if introspect is not None:
@@ -666,11 +715,60 @@ def run(args: argparse.Namespace) -> GameFit:
         # listeners flush and close even when the run fails; telemetry
         # finishes after them so that every bridged event is in the ledger
         emitter.clear_listeners()
+        if telemetry is not None and progress is not None and progress.cluster_passes:
+            # per-host lanes (pid = 1 + host) beside this process's spans in
+            # the Chrome trace
+            telemetry.add_trace_events(cluster_lane_events(
+                progress.cluster_passes, origin_unix=telemetry.tracer.origin_unix))
         finish_telemetry(telemetry, phases=dict(timer.durations))
 
 
+def _launch_cluster(args, logger, device, timer, source, coordinates, train_dirs,
+                    cache_dir, telemetry_on: bool):
+    """``--hosts N``: the worker processes over the same files and block
+    plan, on ``device``; their ledgers under ``cluster-workers/`` beside
+    ``--telemetry-out``."""
+    from photon_ml_tpu_torch.parallel.cluster import ClusterPlane
+
+    fe_shards = [cfg.feature_shard for cfg in coordinates.values()
+                 if isinstance(cfg, FixedEffectCoordinateConfiguration)]
+    if len(fe_shards) != 1:
+        raise ValueError(
+            f"--hosts requires exactly one fixed-effect coordinate, config has {len(fe_shards)}"
+        )
+    kill_host = None
+    if args.cluster_kill_host is not None:
+        h, n = args.cluster_kill_host.split(":")
+        kill_host = (int(h), int(n))
+    telemetry_dir = None
+    if args.telemetry_out:
+        telemetry_dir = os.path.join(os.path.dirname(os.path.abspath(args.telemetry_out)),
+                                     "cluster-workers")
+    with timer.time("launch cluster"):
+        plane = ClusterPlane.launch(
+            num_hosts=args.hosts, num_blocks=source.plan.num_blocks, train_dirs=train_dirs,
+            coordinate_config=args.coordinate_config, task=args.task,
+            feature_shard=fe_shards[0], block_rows=args.block_rows,
+            input_columns_names=args.input_columns_names, on_block_error=args.on_block_error,
+            prefetch_depth=args.prefetch_depth,
+            block_cache_dir=os.path.join(cache_dir, "cluster") if cache_dir else None,
+            block_latency_s=(args.cluster_block_latency_ms / 1000.0
+                             if args.cluster_block_latency_ms > 0 else None),
+            kill_host=kill_host, telemetry_dir=telemetry_dir,
+            offheap_indexmap_dir=args.offheap_indexmap_dir, device=device,
+        )
+    if telemetry_on or args.progress_out or args.introspect_port is not None:
+        # skew profiles feed the progress ledger's cluster_pass/host_pass
+        # records and the /cluster route
+        plane.coordinator.enable_telemetry()
+    logger.info("cluster: %d worker host(s) connected on %s:%d", args.hosts,
+                *plane.coordinator.address)
+    return plane
+
+
 def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer: Timer,
-         progress: Optional[ConvergenceTracker]) -> GameFit:
+         progress: Optional[ConvergenceTracker], cluster: dict,
+         telemetry_on: bool = False) -> GameFit:
     t_start = time.perf_counter()
     emitter.send_event(PhotonSetupEvent(params=vars(args)))
     task = TaskType[args.task]
@@ -715,6 +813,9 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
             source.plan.total_rows, source.plan.num_blocks, args.block_rows, device,
             cache_dir or "off", source.decode_workers,
         )
+        if args.hosts > 0:
+            cluster["plane"] = _launch_cluster(args, logger, device, timer, source,
+                                               coordinates, train_dirs, cache_dir, telemetry_on)
     else:
         with timer.time("read training data"):
             data, index_maps, _ = read_game_data(
@@ -807,6 +908,9 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
         compute_variance=False,  # trials skip variances; the real fit opts in
         schedule=args.schedule,
         staleness=args.staleness,
+        parallel=(ParallelConfiguration(n_data=args.parallel_data, n_feat=args.parallel_feat,
+                                        engine=args.parallel_engine)
+                  if args.parallel_data > 0 else None),
     )
     tuned_config: Dict[str, object] = {}
     if args.auto_tune:
@@ -857,6 +961,7 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
                 gap_schedule=args.gap_schedule,
                 resident_blocks=args.resident_blocks,
                 resident_bytes=args.resident_bytes, progress=progress,
+                cluster=cluster.get("plane"),
             )
             all_fits, all_overrides = [fit], [{}]
         elif len(sweep_configs) > 1:
@@ -957,6 +1062,8 @@ def _run(args: argparse.Namespace, logger, device, emitter: EventEmitter, timer:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    # the process group (or the single-process no-op) before any device use
+    initialize_from_args(args)
     try:
         run(args)
     except DivergenceError as e:

@@ -21,8 +21,9 @@ Usage:
 ``--offheap-indexmap-dir`` reads AVRO input through the prebuilt off-heap
 index stores of ``build_index`` (the ``features`` shard).
 
-Refused, naming their ROADMAP.md Queue A item: ``--diagnostic-mode`` other
-than NONE and the multi-host flags.
+Refused, naming its ROADMAP.md Queue A item: ``--diagnostic-mode`` other
+than NONE. ``--coordinator-address --num-processes --process-id`` join a
+multi-process run on ``torch.distributed`` first.
 """
 
 from __future__ import annotations
@@ -67,24 +68,17 @@ from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, read_g
 from photon_ml_tpu_torch.io.libsvm import read_libsvm
 from photon_ml_tpu_torch.normalization import build_normalization_context
 from photon_ml_tpu_torch.ops.data import LabeledData
+from photon_ml_tpu_torch.parallel.multihost import add_distributed_args, initialize_from_args
 from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.types import ConvergenceReason, NormalizationType, TaskType
 from photon_ml_tpu_torch.utils.timer import Timer
-
-# flags of the reference driver whose modules are not ported yet (the
-# cluster plane), with the ROADMAP.md Queue A item that ports them
-_UNPORTED = {
-    "coordinator_address": "The cluster plane",
-    "num_processes": "The cluster plane",
-    "process_id": "The cluster plane",
-}
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="photon-ml-tpu-torch train-glm", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
+    add_distributed_args(p)
     p.add_argument("--training-data-dirs", nargs="+", required=True)
     p.add_argument("--validation-data-dirs", nargs="*", default=[])
     p.add_argument("--task", required=True, choices=[t.name for t in TaskType])
@@ -145,9 +139,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
     add_telemetry_args(p)
-    for flag in _UNPORTED:
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       help=f"not ported yet (ROADMAP.md, Queue A: {_UNPORTED[flag]})")
     return p.parse_args(argv)
 
 
@@ -157,11 +148,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
             f"--diagnostic-mode {args.diagnostic_mode} needs diagnostics/*, which is "
             "not ported yet (ROADMAP.md, Queue A: Also still to port)"
         )
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md, Queue A: {item})"
-            )
 
 
 def _filter_selected_features(data, imap, path: str, logger):
@@ -402,7 +388,10 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    # the process group (or the single-process no-op) before any device use
+    initialize_from_args(args)
+    run(args)
     return 0
 
 

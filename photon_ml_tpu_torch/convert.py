@@ -13,6 +13,12 @@ type) may be given as this package's enums, as the JAX package's (matched
 by name) or as strings. :func:`normalization_context_from_numpy` carries a
 ``NormalizationContext`` across the same way, from its ``factor`` and
 ``shift`` as numpy.
+
+A model trained on a (data x feat) device grid in either package pads
+each random-effect bucket's entity axis to the grid (lanes with no entity
+id); :func:`game_model_from_numpy` trims those lanes, so a grid fit and a
+single-device fit of either package compare, and warm-start one another,
+from the same numpy arrays.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ def game_model_from_numpy(
       ``projector_type`` and ``projection_seed``.
 
     Insertion order of ``coordinates`` is the order scores are summed in.
+    A bucket's rows past its ``entity_ids`` (a grid fit's entity padding)
+    are dropped.
     """
     dev = resolve_device(device)
     task = _task(task)
@@ -86,13 +94,19 @@ def game_model_from_numpy(
             continue
         n_buckets = len(c["coefficients"])
         variances = c.get("variances") or [None] * n_buckets
+        real = [len(ids) for ids in c["entity_ids"]]
+
+        def lanes(arrays, dtype):
+            return [None if a is None else t(np.asarray(a)[:k], dtype)
+                    for a, k in zip(arrays, real)]
+
         models[cid] = RandomEffectModel(
             random_effect_type=c["random_effect_type"],
             task=task,
-            coefficients=[t(w, np.float32) for w in c["coefficients"]],
-            variances=[None if v is None else t(v, np.float32) for v in variances],
-            proj_indices=[t(p, np.int64) for p in c["proj_indices"]],
-            proj_valid=[t(p, np.bool_) for p in c["proj_valid"]],
+            coefficients=lanes(c["coefficients"], np.float32),
+            variances=lanes(variances, np.float32),
+            proj_indices=lanes(c["proj_indices"], np.int64),
+            proj_valid=lanes(c["proj_valid"], np.bool_),
             entity_ids=[[str(e) for e in ids] for ids in c["entity_ids"]],
             entity_to_loc={
                 str(k): (int(b), int(e)) for k, (b, e) in c["entity_to_loc"].items()

@@ -14,6 +14,11 @@ Pearson feature filter and the padded-cell-minimizing bucket plan — is
 copied from the reference unchanged, so the port's buckets equal the
 reference's, entity for entity; the blocks are then placed on the device,
 where one batched solve per bucket takes the reference's ``vmap``.
+
+On a device grid (``estimators.game.ParallelConfiguration``) every
+bucket's entity axis is padded to a multiple of the grid's devices
+(:func:`pad_entities_to_multiple`) and split over them
+(:func:`place_dataset`): each device solves its slice of every bucket.
 """
 
 from __future__ import annotations
@@ -115,6 +120,11 @@ class RandomEffectDataset:
     # with one trailing zero slot for rows no bucket covers: scoring is one
     # gather (the inverse of the sample_pos scatter)
     row_gather: torch.Tensor = dataclasses.field(repr=False, compare=False)
+    # the devices every bucket's entity axis is split over, in slice order
+    # (place_dataset); None = each bucket solved whole where it lives
+    placement: Optional[Tuple[torch.device, ...]] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     @property
     def num_entities(self) -> int:
@@ -623,3 +633,73 @@ def build_random_effect_dataset(
         global_dim=int(global_dim),
         row_gather=put(_build_row_gather(n, host_actives, host_passive_pos)),
     )
+
+
+def pad_entities_to_multiple(dataset: RandomEffectDataset, multiple: int) -> RandomEffectDataset:
+    """Pad every bucket's entity axis to a multiple of ``multiple`` with
+    weight-0 entities that have no samples and no valid feature. Padded
+    lanes carry no entity id, so model extraction and scoring ignore them;
+    padding once at build time keeps shapes stable across updates. The
+    row gather is rebuilt over the padded blocks."""
+    if multiple <= 1:
+        return dataset
+    new_buckets = []
+    padded_any = False
+    for b in dataset.buckets:
+        pad = (-b.num_entities) % multiple
+        if pad == 0:
+            new_buckets.append(b)
+            continue
+        padded_any = True
+
+        def pad0(a: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a, torch.zeros((pad,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                             device=a.device)])
+
+        new_buckets.append(ReBucket(
+            X=pad0(b.X), labels=pad0(b.labels), offsets=pad0(b.offsets),
+            weights=pad0(b.weights), sample_pos=pad0(b.sample_pos),
+            proj_indices=pad0(b.proj_indices), proj_valid=pad0(b.proj_valid),
+        ))
+    if not padded_any:
+        return dataset
+    # the flattened [E*S] blocks grew: the row -> slot gather shifts
+    gather = _build_row_gather(
+        dataset.num_rows,
+        [(b.sample_pos.cpu().numpy(), b.weights.cpu().numpy()) for b in new_buckets],
+        [None if p is None else p.sample_pos.cpu().numpy() for p in dataset.passive],
+    )
+    return dataclasses.replace(
+        dataset, buckets=new_buckets,
+        row_gather=torch.from_numpy(gather).to(dataset.row_gather.device),
+    )
+
+
+def place_dataset(dataset: RandomEffectDataset, mesh, axis_names) -> RandomEffectDataset:
+    """Split every bucket's entity axis over the devices of ``mesh``'s
+    ``axis_names`` (each device solves its slice: independent per-entity
+    solves, no reduction). Every bucket must hold a multiple of that many
+    entities (:func:`pad_entities_to_multiple`). The blocks stay where
+    they are; a slice moves to its device when it is solved or scored (a
+    no-op when the devices are one card). A mesh spanning other ranks
+    solves every entity on this rank's first device."""
+    axes = (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
+    if not mesh.fully_local:
+        return dataclasses.replace(dataset, placement=(mesh.home,))
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    for b in dataset.buckets:
+        if b.num_entities % n:
+            raise ValueError(
+                f"a bucket of {b.num_entities} entities does not split over {n} "
+                "devices; pad it first (pad_entities_to_multiple)"
+            )
+    devices = [mesh.devices[pos] for pos in np.ndindex(mesh.devices.shape)]
+    return dataclasses.replace(dataset, placement=tuple(devices[:n]))
+
+
+def slice_bucket(bucket: ReBucket, lo: int, hi: int, device) -> ReBucket:
+    """Entities [lo, hi) of a bucket on ``device``."""
+    return ReBucket(**{f.name: getattr(bucket, f.name)[lo:hi].to(device)
+                       for f in dataclasses.fields(ReBucket)})

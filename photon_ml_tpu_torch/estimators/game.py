@@ -35,8 +35,15 @@ blocks from a ``streaming.StreamingSource`` through the pinned prefetcher
 (``streaming/*``); random effects train in memory from one streamed setup
 pass.
 
-Not ported (ROADMAP.md, Queue A item 8, The cluster plane): the device
-mesh, the host score plane and cluster streaming.
+``parallel=ParallelConfiguration(n_data, n_feat, engine)`` trains over a
+(data x feat) device grid: each fixed effect through a grid of sparse-engine
+tiles (``parallel/grid_features.py``; margins summed over ``feat``,
+gradients over ``data``), each random effect's entity blocks split over
+every device of the grid. ``score_plane="host"`` keeps the coordinate
+descent's score plane in numpy; it is the plane whenever the process group
+of ``torch.distributed`` has more than one rank, and the schedule is then
+sync. ``fit_streaming(cluster=...)`` runs the streamed fixed-effect solve
+data-parallel across the worker processes of ``parallel/cluster``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import hashlib
 import logging
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch import checkpoint as ckpt
@@ -53,7 +61,7 @@ from photon_ml_tpu_torch.algorithm.coordinate import (
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
-from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+from photon_ml_tpu_torch.algorithm.coordinate_descent import SCORE_PLANES, CoordinateDescent
 from photon_ml_tpu_torch.algorithm.schedule import SCHEDULES
 from photon_ml_tpu_torch.algorithm.factored_random_effect import (
     FactoredRandomEffectCoordinate,
@@ -64,6 +72,8 @@ from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
 from photon_ml_tpu_torch.data.random_effect import (
     RandomEffectDataConfiguration,
     build_random_effect_dataset,
+    pad_entities_to_multiple,
+    place_dataset,
 )
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from photon_ml_tpu_torch.estimators.random_effect import align_warm_start
@@ -77,10 +87,8 @@ from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration
 from photon_ml_tpu_torch.opt.tracking import TransferStats
-from photon_ml_tpu_torch.streaming.coordinate import (
-    CLUSTER_NOT_PORTED,
-    StreamingFixedEffectCoordinate,
-)
+from photon_ml_tpu_torch.parallel.mesh import world
+from photon_ml_tpu_torch.streaming.coordinate import StreamingFixedEffectCoordinate
 from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
 
@@ -103,6 +111,35 @@ def _config_digest(overrides: Dict[str, GlmOptimizationConfiguration]) -> str:
     package's digest of the same map."""
     key = repr(sorted((cid, cfg) for cid, cfg in overrides.items()))
     return hashlib.sha1(key.encode()).hexdigest()[:8]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfiguration:
+    """Layout of GAME training over a (data x feat) device grid (JAX
+    ``ParallelConfiguration``).
+
+    - Fixed-effect coordinates train through the grid-tiled sparse engine
+      (``parallel/grid_features.py``): examples split over ``n_data``
+      devices, coefficients over ``n_feat`` (margins summed over feat,
+      gradients over data) in place of the reference's treeAggregate and
+      broadcast.
+    - Random-effect coordinates split their entity blocks over ALL
+      n_data * n_feat devices (independent per-entity solves).
+
+    ``devices`` (optional, may repeat one device) are the grid's devices
+    in order; by default the visible cards of the estimator's device
+    (``cuda``) or the host (``cpu``). ``engine`` is the tile engine:
+    "benes" | "ell" | "fused"."""
+
+    n_data: int
+    n_feat: int = 1
+    engine: str = "benes"
+    devices: Optional[Tuple[str, ...]] = None
+
+    def build_mesh(self, device: DeviceLike = DEFAULT_DEVICE):
+        from photon_ml_tpu_torch.parallel.grid_features import grid_mesh
+
+        return grid_mesh(self.n_data, self.n_feat, devices=self.devices, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +226,8 @@ class GameEstimator:
         emitter=None,
         schedule: str = "sync",
         staleness: int = 1,
+        parallel: Optional[ParallelConfiguration] = None,
+        score_plane: str = "device",
     ) -> None:
         """``evaluator`` selects the best model (default by task);
         ``extra_evaluators`` are computed and logged per coordinate update
@@ -204,13 +243,21 @@ class GameEstimator:
         ``schedule``: "sync" (default, bitwise-repeatable trajectories) or
         "async" (bounded-staleness pipelined solves, at most ``staleness``
         unreconciled updates behind, and random-effect bucket overlap; each
-        worker on its own CUDA stream on the card)."""
+        worker on its own CUDA stream on the card).
+
+        ``parallel`` trains over a (data x feat) device grid
+        (:class:`ParallelConfiguration`). ``score_plane``: "device"
+        (default) or "host" (the coordinate descent's score plane in numpy;
+        always the plane, and the schedule sync, under a process group of
+        more than one rank)."""
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
         if int(staleness) < 0:
             raise ValueError(f"staleness must be >= 0, got {staleness}")
         if not coordinates:
             raise ValueError("need at least one coordinate configuration")
+        if score_plane not in SCORE_PLANES:
+            raise ValueError(f"score_plane must be one of {SCORE_PLANES}, got {score_plane!r}")
         self.task = task
         self.coordinate_configs = dict(coordinates)
         self.update_order = list(update_order) if update_order else list(coordinates)
@@ -221,6 +268,12 @@ class GameEstimator:
         self.normalization = dict(normalization or {})
         self.intercept_indices = dict(intercept_indices or {})
         self.device = resolve_device(device)
+        self.parallel = parallel
+        self._mesh = parallel.build_mesh(self.device) if parallel is not None else None
+        if self._mesh is not None:
+            # the grid's vectors and reductions live on its home device
+            self.device = self._mesh.home
+        self.score_plane = score_plane
         self.emitter = emitter
         self.schedule = schedule
         self.staleness = int(staleness)
@@ -230,6 +283,21 @@ class GameEstimator:
         self.last_transfer_stats: Optional[TransferStats] = None
         self.last_resolve_transfers: Optional[TransferStats] = None
 
+    def _effective_score_plane(self) -> str:
+        """The device plane holds one process's score arrays; under a
+        process group of more than one rank the host plane runs, its
+        numpy algebra in the same order on every rank."""
+        if world()[1] > 1:
+            return "host"
+        return self.score_plane
+
+    def _effective_schedule(self) -> str:
+        """The async schedule pipelines updates on the device plane; on the
+        host plane (chosen, or forced by several ranks) it is sync."""
+        if self.schedule == "async" and self._effective_score_plane() != "device":
+            return "sync"
+        return self.schedule
+
     def _build_coordinate(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         with span("game/build_coordinate", coordinate=cid, kind=type(cfg).__name__):
             return self._build_coordinate_impl(cid, cfg, data)
@@ -237,6 +305,8 @@ class GameEstimator:
     def _build_coordinate_impl(self, cid: str, cfg: CoordinateConfiguration, data: GameData):
         dev = self.device
         if isinstance(cfg, FixedEffectCoordinateConfiguration):
+            if self.parallel is not None:
+                return self._build_grid_fixed_effect(cfg, data)
             labeled = LabeledData.create(
                 data.sparse_features(cfg.feature_shard, engine=cfg.sparse_engine, device=dev),
                 torch.from_numpy(data.labels).to(dev),
@@ -257,17 +327,68 @@ class GameEstimator:
             offsets=data.offsets, weights=data.weights, device=dev,
         )
         logger.info("[%s] %s", cid, re_ds.to_summary_string())
+        mesh = mesh_axes = None
+        if self.parallel is not None:
+            from photon_ml_tpu_torch.parallel.grid_features import DATA_AXIS, FEAT_AXIS
+
+            mesh, mesh_axes = self._mesh, (DATA_AXIS, FEAT_AXIS)
+            # entity-axis split over every device of the grid, for the
+            # factored coordinate too (its latent datasets derive from these
+            # blocks and inherit the placement)
+            re_ds = place_dataset(
+                pad_entities_to_multiple(re_ds, self.parallel.n_data * self.parallel.n_feat),
+                mesh, mesh_axes,
+            )
         if isinstance(cfg, FactoredRandomEffectCoordinateConfiguration):
             return FactoredRandomEffectCoordinate(
                 dataset=re_ds, task=self.task, re_configuration=cfg.optimizer,
                 matrix_configuration=cfg.matrix_optimizer or cfg.optimizer,
                 mf_configuration=cfg.mf,
                 base_offsets=torch.from_numpy(data.offsets).to(dev),
+                mesh=mesh, mesh_axes=mesh_axes,
             )
         return RandomEffectCoordinate(
             dataset=re_ds, task=self.task, configuration=cfg.optimizer,
             base_offsets=torch.from_numpy(data.offsets).to(dev),
             compute_variances=self.compute_variance,
+            mesh=mesh, mesh_axes=mesh_axes,
+        )
+
+    def _build_grid_fixed_effect(self, cfg: FixedEffectCoordinateConfiguration,
+                                 data: GameData) -> FixedEffectCoordinate:
+        """A fixed effect over the (data x feat) device grid: features tiled
+        through the grid engine, the row arrays padded with weight-0 rows,
+        the normalization context padded on the feature axis. The
+        coordinate trims back to real shapes at its boundary."""
+        from photon_ml_tpu_torch.parallel.grid_features import grid_from_coo
+
+        shard = data.feature_shards[cfg.feature_shard]
+        n, d = data.num_rows, shard.dim
+        gf = grid_from_coo(shard.rows, shard.cols, shard.vals, (n, d), self._mesh,
+                           engine=self.parallel.engine)
+        dev = self.device
+
+        def pad_rows(a) -> torch.Tensor:
+            out = np.zeros(gf.num_rows, dtype=np.float32)
+            out[:n] = np.asarray(a, dtype=np.float32)
+            return torch.from_numpy(out).to(dev)
+
+        norm = self.normalization.get(cfg.feature_shard)
+        if norm is not None and gf.dim != d:
+            pads = {}
+            if norm.factor is not None:
+                pads["factor"] = torch.nn.functional.pad(norm.factor, (0, gf.dim - d), value=1.0)
+            if norm.shift is not None:
+                pads["shift"] = torch.nn.functional.pad(norm.shift, (0, gf.dim - d))
+            norm = dataclasses.replace(norm, **pads)
+        labeled = LabeledData(features=gf, labels=pad_rows(data.labels),
+                              offsets=pad_rows(data.offsets), weights=pad_rows(data.weights),
+                              norm=norm)
+        return FixedEffectCoordinate(
+            data=labeled, task=self.task, configuration=cfg.optimizer,
+            intercept_index=self.intercept_indices.get(cfg.feature_shard),
+            compute_variances=self.compute_variance,
+            num_real_rows=n, num_real_cols=d,
         )
 
     def build_coordinates(self, data: GameData) -> Dict[str, object]:
@@ -312,8 +433,10 @@ class GameEstimator:
                         f"coordinate is now configured as {type(coord).__name__}"
                     )
                     continue
+                # a grid layout pads the coordinate's feature axis;
+                # checkpoints carry real-dim models
                 want = (coord.dim if isinstance(coord, StreamingFixedEffectCoordinate)
-                        else coord.data.dim)
+                        else coord.num_real_cols or coord.data.dim)
                 if model.dim != want:
                     problems.append(
                         f"{cid}: checkpoint dim {model.dim} != data dim {want}"
@@ -452,9 +575,20 @@ class GameEstimator:
         block selection. ``resident_blocks``/``resident_bytes`` cap a
         device-resident set of top-gap blocks whose uploads persist across
         passes; the fit is bitwise the non-resident one, only the uploaded
-        bytes drop. ``cluster`` is not ported (it raises)."""
-        if cluster is not None:
-            raise ValueError(CLUSTER_NOT_PORTED)
+        bytes drop.
+
+        ``cluster`` (a ``parallel.cluster.ClusterPlane`` or a bare
+        ``ClusterCoordinator``) runs the fixed-effect solve data-parallel
+        across worker processes: every streamed pass becomes the cluster's
+        distributed pass over the workers' block shares, while random
+        effects stay in this process. It requires ``mode='full'`` and
+        exactly one fixed-effect coordinate (one cluster drives one block
+        plan), and no residency."""
+        if self.parallel is not None:
+            raise ValueError(
+                "streaming training does not compose with the device-grid "
+                "parallel layout yet (multi-host streaming is roadmap work)"
+            )
         if self.compute_variance:
             raise ValueError(
                 "streaming training cannot compute coefficient variances "
@@ -470,6 +604,17 @@ class GameEstimator:
                     f"streaming coordinate {cid!r}: normalization requires "
                     "a streamed feature-stats pass (not implemented); use "
                     "--normalization-type NONE or train in-memory"
+                )
+        if cluster is not None:
+            if mode != "full":
+                raise ValueError(
+                    "cluster training requires mode='full' (the distributed "
+                    "pass sums exact per-host partials)"
+                )
+            if len(fe_cfgs) != 1:
+                raise ValueError(
+                    "cluster training requires exactly one fixed-effect "
+                    f"coordinate, config has {sorted(fe_cfgs) or 'none'}"
                 )
         re_shards = sorted({
             cfg.feature_shard for cid, cfg in self.coordinate_configs.items()
@@ -506,6 +651,7 @@ class GameEstimator:
                     resident_bytes=resident_bytes,
                     # per-block probes only when a tracker reads them
                     collect_block_stats=progress is not None,
+                    cluster=cluster,
                 )
             else:
                 coordinates[cid] = self._build_coordinate(cid, cfg, data)
@@ -659,7 +805,7 @@ class GameEstimator:
         # coordinates shared between fits follow this fit's schedule
         for coord in coordinates.values():
             if hasattr(coord, "overlap_buckets"):
-                coord.overlap_buckets = 2 if self.schedule == "async" else 0
+                coord.overlap_buckets = 2 if self._effective_schedule() == "async" else 0
 
         cd = CoordinateDescent(
             coordinates,
@@ -671,9 +817,10 @@ class GameEstimator:
             validate=validate,
             validation_better_than=self.evaluator.better_than,
             emitter=self.emitter,
-            schedule=self.schedule,
+            schedule=self._effective_schedule(),
             staleness=self.staleness,
             progress=progress,
+            score_plane=self._effective_score_plane(),
         )
         start_iteration, initial_best, on_iteration_end = 0, None, None
         prior_objectives: List[Tuple[str, float]] = []
@@ -710,7 +857,7 @@ class GameEstimator:
                 )
 
         with span("game/fit", coordinates=len(coordinates), num_rows=data.num_rows,
-                  score_plane="device"):
+                  score_plane=cd.score_plane):
             result = cd.run(
                 self.num_outer_iterations, initial_models=initial_models,
                 start_iteration=start_iteration, initial_best=initial_best,

@@ -22,8 +22,12 @@ while one bucket's solve waits on its host pulls, another bucket's
 launches keep the card busy. ``align_warm_start`` re-lays a model out onto
 another dataset's entities by id (``GameEstimator.resolve_coordinate``).
 
-Not ported: entity axes sharded over several devices (ROADMAP.md, Queue A
-item 8).
+A dataset placed over a device grid (``data.random_effect.place_dataset``)
+solves each bucket one device slice at a time: slice k's entities move to
+device k, its batched solve runs there (K6 once a slice), and the slices'
+results are concatenated back in slice order on the bucket's device, as
+are the scores. Entity solves are independent, so the result is the
+unsplit solve's, lane for lane.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.algorithm.schedule import ScheduleExecutor
-from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket
+from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket, slice_bucket
 from photon_ml_tpu_torch.losses.objective import GlmObjective, make_glm_objective
 from photon_ml_tpu_torch.losses.pointwise import loss_for_task
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
@@ -207,7 +211,8 @@ def train_random_effects(
 
     def warm_start(b: int, bucket: ReBucket) -> torch.Tensor:
         if initial_model is not None:
-            return initial_model.coefficients[b].to(bucket.X.device, torch.float32)
+            return _lanes(initial_model.coefficients[b].to(bucket.X.device, torch.float32),
+                          bucket.num_entities)
         return torch.zeros(
             (bucket.num_entities, bucket.local_dim), dtype=torch.float32,
             device=bucket.X.device,
@@ -216,10 +221,15 @@ def train_random_effects(
     def use_adaptive(bucket: ReBucket) -> bool:
         return adaptive.enabled and bucket.num_entities > adaptive.min_lanes
 
-    def solve_bucket(b: int, bucket: ReBucket, w0: torch.Tensor):
+    def solve_whole(b: int, bucket: ReBucket, w0: torch.Tensor):
         if use_adaptive(bucket):
             return solver.adaptive(bucket, w0, b)
         return solver.oneshot(bucket, w0, b)
+
+    def solve_bucket(b: int, bucket: ReBucket, w0: torch.Tensor):
+        if dataset.placement is None:
+            return solve_whole(b, bucket, w0)
+        return _solve_placed(solve_whole, b, bucket, w0, dataset.placement)
 
     def span_attrs(b: int, bucket: ReBucket) -> dict:
         return dict(bucket=b, mode="adaptive" if use_adaptive(bucket) else "oneshot",
@@ -248,7 +258,7 @@ def train_random_effects(
     coeffs, variances, results = [], [], []
     for res, w, var, stats in outs:
         if stats_out is not None:
-            stats_out.append(stats)
+            stats_out.extend(stats if isinstance(stats, list) else [stats])
         coeffs.append(w)
         variances.append(var)
         results.append(res)
@@ -266,6 +276,54 @@ def train_random_effects(
         projection_seed=dataset.config.seed,
     )
     return model, results
+
+
+def _solve_placed(solve_whole, b: int, bucket: ReBucket, w0: torch.Tensor, devices):
+    """One bucket solved a device slice at a time (``devices`` in slice
+    order), the results concatenated back in that order on the bucket's
+    device; one SolverStats a slice."""
+    home = bucket.X.device
+    per = bucket.num_entities // len(devices)
+    outs = []
+    for k, dev in enumerate(devices):
+        lo, hi = k * per, (k + 1) * per
+        outs.append(solve_whole(b, slice_bucket(bucket, lo, hi, dev), w0[lo:hi].to(dev)))
+
+    def cat(parts):
+        return None if parts[0] is None else torch.cat([p.to(home) for p in parts])
+
+    res = SolveResult(**{
+        f.name: cat([getattr(o[0], f.name) for o in outs])
+        for f in dataclasses.fields(SolveResult)
+    })
+    return res, cat([o[1] for o in outs]), cat([o[2] for o in outs]), [o[3] for o in outs]
+
+
+def _lanes(w: torch.Tensor, num_entities: int) -> torch.Tensor:
+    """A bucket's coefficients [E', D] laid on its ``num_entities`` lanes: a
+    model of the same entities with or without a grid's entity padding
+    (lanes with no entity id hold zeros)."""
+    if w.shape[0] > num_entities:
+        return w[:num_entities]
+    if w.shape[0] < num_entities:
+        return torch.nn.functional.pad(w, (0, 0, 0, num_entities - w.shape[0]))
+    return w
+
+
+def _bucket_scores(bucket: ReBucket, w: torch.Tensor, devices) -> torch.Tensor:
+    """x·w of every active slot of a bucket, flat [E*S]: per device slice
+    on its device when the dataset is placed."""
+    w = _lanes(w, bucket.num_entities)
+    if devices is None:
+        return torch.einsum("esd,ed->es", bucket.X, w).reshape(-1)
+    home = bucket.X.device
+    per = bucket.num_entities // len(devices)
+    parts = []
+    for k, dev in enumerate(devices):
+        lo, hi = k * per, (k + 1) * per
+        parts.append(torch.einsum("esd,ed->es", bucket.X[lo:hi].to(dev),
+                                  w[lo:hi].to(dev)).reshape(-1).to(home))
+    return torch.cat(parts)
 
 
 def align_warm_start(
@@ -340,7 +398,7 @@ def score_random_effects_device(
     slot; uncovered rows read the trailing 0). No per-row entity lookup."""
     parts = []
     for w, bucket, p in zip(model.coefficients, dataset.buckets, dataset.passive):
-        parts.append(torch.einsum("esd,ed->es", bucket.X, w).reshape(-1))
+        parts.append(_bucket_scores(bucket, w, dataset.placement))
         if p is not None:
             parts.append((p.X * w[p.entity_index]).sum(-1))
     flat = torch.cat(parts + [torch.zeros(1, dtype=torch.float32, device=dataset.row_gather.device)])

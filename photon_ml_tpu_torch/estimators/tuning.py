@@ -131,6 +131,8 @@ class GameEstimatorEvaluationFunction:
             normalization=base.normalization,
             intercept_indices=base.intercept_indices,
             device=base.device,
+            parallel=base.parallel,
+            score_plane=base.score_plane,
         )
         coords = None
         if self.coordinates is not None:

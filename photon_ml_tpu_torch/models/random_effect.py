@@ -83,11 +83,14 @@ class RandomEffectModel:
             stride = self.global_dim + 1
             keys, weights = [], []
             base = 0
-            for w, idx, valid in zip(self.coefficients, self.proj_indices, self.proj_valid):
+            for w, idx, valid, ids in zip(self.coefficients, self.proj_indices,
+                                          self.proj_valid, self.entity_ids):
                 e, j = torch.nonzero(valid, as_tuple=True)
                 keys.append((base + e) * stride + idx[e, j].long())
                 weights.append(w[e, j])
-                base += w.shape[0]
+                # the entity_positions numbering: a bucket's lanes past its
+                # ids (a grid's entity padding) hold no valid feature
+                base += len(ids)
             keys_all = torch.cat(keys)
             keys_sorted, order = torch.sort(keys_all, stable=True)
             self._table = (keys_sorted, torch.cat(weights)[order])

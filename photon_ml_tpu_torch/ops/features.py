@@ -91,6 +91,9 @@ class EllFeatures:
     def rmatvec_sq(self, c: torch.Tensor) -> torch.Tensor:
         return self._scatter(self.values * self.values * c[:, None])
 
+    def row_norms_sq(self) -> torch.Tensor:
+        return (self.values * self.values).sum(dim=-1)
+
     def _scatter(self, contrib: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(self.num_cols, dtype=contrib.dtype, device=contrib.device)
         return scatter_add(out, self.indices.reshape(-1), contrib.reshape(-1))

@@ -475,6 +475,16 @@ class FusedSparseFeatures:
     def rmatvec_sq(self, c: torch.Tensor) -> torch.Tensor:
         return self._rmatvec_impl(c, "sq")
 
+    def row_norms_sq(self) -> torch.Tensor:
+        """Σ_col x² of every row: the CSR kernel over the squared values
+        against a vector of ones (exact in either payload)."""
+        if self.row_split is None and self.row_ptr.device.type == "cuda":
+            self.row_split = merge_path_split(self.row_ptr, self.col_idx.numel())
+        kernel = csr_matvec_bf16 if self.payload_dtype == "bfloat16" else csr_matvec_f32
+        ones = torch.ones(self.num_cols_, dtype=torch.float32, device=self.vals.device)
+        return kernel(self.row_ptr, self.col_idx, self.vals * self.vals, ones, self.num_cols_,
+                      self.row_split, self.row_blocks)
+
     def _rmatvec_impl(self, c: torch.Tensor, transform: str) -> torch.Tensor:
         """Xᵀ·c with the stored values elementwise-transformed first
         ("id" / "sq" / "abs" / "nnz", the reference's ``_rmatvec_impl``)."""

@@ -38,6 +38,7 @@ import hashlib
 import os
 import stat
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Optional, Tuple
 
@@ -402,21 +403,25 @@ def build_column_split(build_block, rows, cols, vals, n: int, d: int, t: int, ca
                        plan_cache: Optional[str], device: torch.device) -> ColumnSplitFeatures:
     """Partition COLD entries into ``t`` column blocks and build each with
     ``build_block`` (a :func:`from_coo`-compatible callable); the hot side stays
-    global."""
+    global. The blocks' networks are independent, so they are routed on a
+    thread each (the router is native code that holds no shared state; the
+    plans are the ones a sequential build makes)."""
     d_b = -(-d // t)
     bounds = [min(b * d_b, d) for b in range(t + 1)]
     blk_of = cols // d_b
-    blocks = []
-    for b in range(t):
+
+    def build(b: int):
         width = bounds[b + 1] - bounds[b]
         m = blk_of == b
         if width <= 0 or not m.any():
-            blocks.append(_ZeroColumnsBlock(n, max(width, 0), device))
-            continue
-        blocks.append(build_block(
+            return _ZeroColumnsBlock(n, max(width, 0), device)
+        return build_block(
             rows[m], cols[m] - bounds[b], vals[m], (n, width), plan_cache=plan_cache,
             max_hot_cols=0, kp_cap=cap, col_split=1, device=device,
-        ))
+        )
+
+    with ThreadPoolExecutor(max_workers=max(1, min(t, os.cpu_count() or 1))) as pool:
+        blocks = list(pool.map(build, range(t)))
     return ColumnSplitFeatures(
         blocks=tuple(blocks),
         hot_matrix=None if hot_matrix is None else torch.from_numpy(hot_matrix).to(device),
@@ -438,6 +443,7 @@ def from_coo(
     kp_cap="auto",
     col_split="auto",
     device: DeviceLike = DEFAULT_DEVICE,
+    hot_col_threshold: Optional[int] = None,
 ):
     """Build from COO triplets on ``device`` (host numpy planning + one Benes
     routing per network). Duplicates are coalesced by summation.
@@ -447,7 +453,7 @@ def from_coo(
     ``plan_cache`` (a directory; default :func:`default_plan_cache`).
 
     Columns with degree above max(8, 4x the mean column degree, n/16) go
-    to the dense hot side, at most ``max_hot_cols`` of them (0 disables). ``kp_cap`` ("auto", None/0, or a
+    to the dense hot side (degree above ``hot_col_threshold`` when given), at most ``max_hot_cols`` of them (0 disables). ``kp_cap`` ("auto", None/0, or a
     power of two) bounds the CSC padding KP, spilling over-cap entries;
     ``col_split`` ("auto" or a power of two) may partition the columns into
     independent networks (the result is then a :class:`ColumnSplitFeatures`).
@@ -455,7 +461,7 @@ def from_coo(
     dev = resolve_device(device)
     n, d = shape
     rows, cols, vals, hot_matrix, hot_ids, row_counts, col_counts = prepare_cold_entries(
-        rows, cols, vals, shape, max_nnz_row, max_hot_cols
+        rows, cols, vals, shape, max_nnz_row, max_hot_cols, hot_col_threshold
     )
     nnz = rows.size
     k_needed = int(row_counts.max()) if nnz else 1
@@ -483,7 +489,7 @@ def from_coo(
 
 
 def prepare_cold_entries(rows, cols, vals, shape, max_nnz_row: Optional[int],
-                         max_hot_cols: int):
+                         max_hot_cols: int, hot_col_threshold: Optional[int] = None):
     """Prologue of :func:`from_coo`: coalesce, validate ``max_nnz_row``, split hot
     columns, count degrees. Returns ``(rows, cols, vals, hot_matrix,
     hot_ids, row_counts, col_counts)`` with rows/cols/vals the cold
@@ -491,7 +497,7 @@ def prepare_cold_entries(rows, cols, vals, shape, max_nnz_row: Optional[int],
     n, d = shape
     rows, cols, vals = _coalesce_checked(rows, cols, vals, n, d, max_nnz_row)
     nnz = rows.size
-    hot_ids = select_hot_cols(rows, cols, n, d, max_hot_cols)
+    hot_ids = select_hot_cols(rows, cols, n, d, max_hot_cols, hot_col_threshold)
     hot_matrix = None
     if hot_ids is not None:
         rows, cols, vals, hot_matrix = split_hot_entries(rows, cols, vals, n, d, hot_ids)

@@ -2,8 +2,9 @@
 example blocks through a pinned host→device prefetcher into block-sharded
 solvers on the card.
 
-Port of ``photon_ml_tpu/streaming`` with the same modules and ``__all__``
-(the cluster plane's pieces excepted: ROADMAP.md, Queue A item 8).
+Port of ``photon_ml_tpu/streaming`` with the same modules and ``__all__``;
+a streamed fixed-effect solve may run data-parallel across the worker
+processes of the cluster plane (``parallel/cluster``).
 """
 
 from photon_ml_tpu_torch.streaming.blockcache import (

@@ -12,9 +12,11 @@ and re-streams fixed-shape blocks from disk through a
 * ``score_device`` assembles the global ``[num_rows]`` score plane from
   per-block matvecs written into their row ranges.
 
-The JAX package's cluster plane (``cluster``, ``_solve_cluster``) is not
-ported: a coordinate given one raises (ROADMAP.md, Queue A item 8, The
-cluster plane).
+With ``cluster`` (a ``parallel.cluster.ClusterPlane`` or a bare
+``ClusterCoordinator``) a full-batch solve hands every streamed pass to the
+cluster's distributed pass (``_solve_cluster``): the workers stream their
+block shares, the coordinator sums their partial ``(f, g)`` in float64,
+and the regularization is finalized here, as on one host.
 """
 
 from __future__ import annotations
@@ -45,17 +47,13 @@ from photon_ml_tpu_torch.streaming.prefetch import (
 from photon_ml_tpu_torch.streaming.residency import ResidencyManager
 from photon_ml_tpu_torch.streaming.solver import (
     BlockStatsProbe,
+    StreamPrograms,
     StreamSolveInfo,
     solve_streaming,
     solve_streaming_stochastic,
 )
 from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
-
-CLUSTER_NOT_PORTED = (
-    "cluster training is not ported yet (ROADMAP.md, Queue A item 8, "
-    "The cluster plane)"
-)
 
 # make_glm_objective builds fresh closures per call; the streamed programs
 # are memoized per objective, so same-task coordinates share one instance
@@ -131,8 +129,18 @@ class StreamingFixedEffectCoordinate:
     last_skipped_blocks: Optional[list] = dataclasses.field(
         default=None, repr=False
     )
-    # not ported: a non-None value raises (CLUSTER_NOT_PORTED)
+    # cluster plane: when set (a ClusterPlane or ClusterCoordinator,
+    # parallel/cluster), full-batch solves hand every streamed pass to the
+    # distributed pass: this process streams nothing itself, the workers
+    # stream their block shares and the solver takes the summed (f, g)
+    # through the pass_fn seam. Full-batch only: the stochastic trajectory
+    # depends on the visit order, so no cross-host split preserves it.
     cluster: Optional[object] = dataclasses.field(default=None, repr=False)
+    last_cluster_events: Optional[list] = dataclasses.field(default=None, repr=False)
+    # per-pass skew profiles (coordinator telemetry, when enabled) drained
+    # after each cluster solve for the progress ledger's
+    # cluster_pass/host_pass records
+    last_cluster_passes: Optional[list] = dataclasses.field(default=None, repr=False)
     # HBM residency plane (streaming/residency.py): a nonzero block budget
     # and/or a byte budget keeps the top-gap blocks' device tensors across
     # passes, skipping their upload; the non-resident remainder streams
@@ -156,8 +164,6 @@ class StreamingFixedEffectCoordinate:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        if self.cluster is not None:
-            raise ValueError(CLUSTER_NOT_PORTED)
         if self.mode not in ("full", "stochastic"):
             raise ValueError(
                 f"streaming mode must be 'full' or 'stochastic', got {self.mode!r}"
@@ -172,7 +178,23 @@ class StreamingFixedEffectCoordinate:
                 "gap_schedule requires stochastic streaming mode (full-batch"
                 " mode must visit every block per pass to stay exact)"
             )
+        if self.cluster is not None:
+            if self.mode != "full":
+                raise ValueError(
+                    "cluster training requires full-batch streaming mode: "
+                    "the distributed pass sums exact per-host partials"
+                )
+            if self.cluster.num_blocks != self.source.plan.num_blocks:
+                raise ValueError(
+                    f"cluster planned {self.cluster.num_blocks} blocks but "
+                    f"this source streams {self.source.plan.num_blocks}"
+                )
         if self.resident_blocks or self.resident_bytes is not None:
+            if self.cluster is not None:
+                raise ValueError(
+                    "device residency requires local streaming: cluster "
+                    "workers own their blocks' device placement"
+                )
             if self.mode == "stochastic" and not self.gap_schedule:
                 raise ValueError(
                     "stochastic residency requires gap_schedule — the "
@@ -309,6 +331,7 @@ class StreamingFixedEffectCoordinate:
             # chosen from measured gaps, never statically
             if (self.collect_block_stats or self._residency is not None)
             and self.mode == "full"
+            and self.cluster is None  # the workers report stats instead
             else None
         )
         with span(
@@ -318,7 +341,9 @@ class StreamingFixedEffectCoordinate:
             streaming=self.mode,
             blocks=plan.num_blocks,
         ):
-            if self.mode == "full":
+            if self.cluster is not None:
+                result = self._solve_cluster(w0, residual_scores, info)
+            elif self.mode == "full":
                 result = solve_streaming(
                     self.objective(),
                     w0,
@@ -399,6 +424,63 @@ class StreamingFixedEffectCoordinate:
         return GeneralizedLinearModel(
             coefficients=Coefficients(means=result.w[0]), task=self.task
         )
+
+    def _solve_cluster(self, w0: torch.Tensor, residual_scores: torch.Tensor,
+                       info: StreamSolveInfo):
+        """Full-batch solve with every streamed pass handed to the
+        cluster's distributed pass (``parallel/cluster``).
+
+        The workers return UNregularized partial (f, g) sums, summed in
+        float64 by the coordinator; the regularization is finalized here,
+        as the single-host full pass does, so the L-BFGS trajectory is the
+        single-host one up to the order of the partial sums. The last
+        pass's worker block stats land in ``last_block_stats``, the
+        reassignment and rebalance events in ``last_cluster_events`` and
+        the pass profiles in ``last_cluster_passes``."""
+        programs = StreamPrograms.for_objective(self.objective())
+        self.cluster.set_residual(
+            None if residual_scores is None
+            else residual_scores.detach().to(torch.float32).cpu().numpy()
+        )
+        last_stats: list = []
+
+        def pass_fn(w_at, l2):
+            f_sum, g_sum, _, block_stats = self.cluster.distributed_pass(
+                w_at.detach().cpu().numpy()
+            )
+            info.blocks += len(block_stats)
+            last_stats[:] = block_stats
+            return programs.finalize(
+                torch.tensor(f_sum, dtype=w_at.dtype, device=w_at.device),
+                torch.from_numpy(np.asarray(g_sum)).to(w_at.device, w_at.dtype),
+                w_at,
+                l2,
+            )
+
+        result = solve_streaming(
+            self.objective(), w0, make_blocks=None, configuration=self.configuration,
+            info=info, pass_fn=pass_fn,
+        )
+        if last_stats:
+            self.last_block_stats = [
+                {
+                    "block": st["block"],
+                    "partial_loss": st["partial_loss"],
+                    "partial_grad_norm": st["partial_grad_norm"],
+                    "gap_estimate": st["gap"],
+                    "host": st.get("host", -1),
+                }
+                for st in sorted(last_stats, key=lambda s: s["block"])
+            ]
+        events = self.cluster.drain_events()
+        if events:
+            self.last_cluster_events = events
+        drain_profiles = getattr(self.cluster, "drain_pass_profiles", None)
+        if drain_profiles is not None:
+            profiles = drain_profiles()
+            if profiles:
+                self.last_cluster_passes = profiles
+        return result
 
     def score_device(self, model: GeneralizedLinearModel) -> torch.Tensor:
         plan = self.source.plan

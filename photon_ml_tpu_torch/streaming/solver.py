@@ -272,6 +272,7 @@ def solve_streaming(
     l2_weight: Optional[float] = None,
     info: Optional[StreamSolveInfo] = None,
     probe: Optional[BlockStatsProbe] = None,
+    pass_fn: Optional[Callable] = None,
 ) -> SolveResult:
     """Exact full-batch L-BFGS with the dataset streamed per pass, from
     ``w0`` [d] (its device is the solve's).
@@ -280,12 +281,18 @@ def solve_streaming(
     value-and-grad pass, so the accepted point's gradient is free); with
     all blocks visited per pass the trajectory optimizes the same
     full-batch objective as the in-memory solver and converges to the same
-    optimum within solver tolerance. The JAX package's ``pass_fn`` seam
-    (the cluster plane's distributed pass) is not ported (ROADMAP.md,
-    Queue A item 8, The cluster plane).
+    optimum within solver tolerance.
+
+    ``pass_fn`` replaces the local streamed accumulation with an external
+    one, the cluster plane's distributed pass (``parallel/cluster``):
+    called as ``pass_fn(w, l2)``, it returns the same ``(f_reg, g_reg,
+    ||g_reg||)`` triple as ``StreamPrograms.finalize``, the full-batch
+    regularized value and gradient at ``w``. The trajectory above the pass
+    is then the single-host one up to the order of the per-host partial
+    sums.
     """
-    if make_blocks is None:
-        raise ValueError("solve_streaming needs make_blocks")
+    if make_blocks is None and pass_fn is None:
+        raise ValueError("solve_streaming needs make_blocks or pass_fn")
     cfg = configuration.optimizer_config
     if cfg.optimizer is OptimizerType.TRON:
         raise ValueError(
@@ -307,6 +314,9 @@ def solve_streaming(
     programs = StreamPrograms.for_objective(objective)
 
     def _pass(w_at):
+        if pass_fn is not None:
+            info.passes += 1
+            return pass_fn(w_at, l2)
         return _full_pass(programs, w_at, make_blocks, dim, l2, info, probe)
 
     f, g, g_norm = _pass(w)

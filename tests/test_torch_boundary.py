@@ -63,6 +63,31 @@ def test_no_jax_or_reference_import_in_source(path):
             )
 
 
+def test_cluster_worker_help_loads_no_jax():
+    """The cluster worker's module entry point (what the launcher spawns)
+    parses its flags without importing jax or the JAX package."""
+    script = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['worker', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('photon_ml_tpu_torch.parallel.cluster.worker',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'photon_ml_tpu' or k.startswith('photon_ml_tpu.'))\n"
+        "print(json.dumps({'code': code, 'bad': bad}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert "--coordinator-address" in out.stdout and "--device" in out.stdout
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"code": 0, "bad": []}
+
+
 def test_the_port_never_loads_the_reference_native_libraries(tmp_path):
     """The port builds and loads its own copies of the host C++ libraries
     (build/photon_ml_tpu_torch/), never photon_ml_tpu/native/_*.so: after
@@ -163,6 +188,37 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         ])
     # asked for explicitly, the host is fine
     assert game_model_from_numpy(coords, "LOGISTIC_REGRESSION", device="cpu").device.type == "cpu"
+
+
+def test_parallel_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The grid, the cluster plane and the process group run on cuda unless
+    asked for the CPU; without a card each raises before any work."""
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+        ParallelConfiguration,
+    )
+    from photon_ml_tpu_torch.parallel import cluster, data_parallel_mesh, grid_mesh
+    from photon_ml_tpu_torch.parallel.multihost import initialize_distributed
+    from photon_ml_tpu_torch.types import TaskType
+
+    _no_card(monkeypatch)
+    for call in (
+        lambda: grid_mesh(2, 2),
+        lambda: data_parallel_mesh(),
+        lambda: GameEstimator(TaskType.LOGISTIC_REGRESSION,
+                              {"fixed": FixedEffectCoordinateConfiguration("g")},
+                              parallel=ParallelConfiguration(1, 1)),
+        lambda: cluster.ClusterPlane.launch(
+            num_hosts=1, num_blocks=1, train_dirs=[str(tmp_path)],
+            coordinate_config=str(tmp_path / "c.json"), task="LOGISTIC_REGRESSION",
+            feature_shard="g", block_rows=8),
+        lambda: initialize_distributed("127.0.0.1:1", 2, 0),
+    ):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    # asked for explicitly, the host is fine
+    assert grid_mesh(2, 2, device="cpu").devices.shape == (2, 2)
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -540,3 +540,78 @@ def test_game_data_caches_one_layout_per_card(card):
     first = data.sparse_features("g", engine="benes", device="cuda")
     assert data.sparse_features("g", engine="benes",
                                 device=f"cuda:{torch.cuda.current_device()}") is first
+
+
+def _grid_problem(n=4099, d=3001, k=9, seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k + 1)
+    cols = np.concatenate([rng.integers(1, d, (n, k)), np.zeros((n, 1), np.int64)],
+                          axis=1).reshape(-1)
+    return rows, cols, rng.standard_normal(rows.size).astype(np.float32), (n, d)
+
+
+@pytest.mark.parametrize("engine,kernels", [
+    ("fused", ("csr_matvec_f32", "csc_rmatvec_f32")),
+    ("benes", ("lane_shuffle_f32", "sublane_shuffle_f32")),
+])
+def test_grid_tiles_run_the_kernels(card, engine, kernels):
+    """A (data x feat) grid with every tile on the one card: each tile's
+    map launches its engine's kernels, and the grid's maps equal the same
+    grid's on the CPU (plain versions) and repeat bitwise."""
+    from photon_ml_tpu_torch.parallel.grid_features import grid_from_coo, grid_mesh
+
+    rows, cols, vals, shape = _grid_problem()
+    grid = (2, 2) if engine == "fused" else (2, 1)
+    n_tiles = grid[0] * grid[1]
+    on_card = grid_from_coo(rows, cols, vals, shape,
+                            grid_mesh(*grid, devices=[card] * n_tiles), engine=engine)
+    on_host = grid_from_coo(rows, cols, vals, shape, grid_mesh(*grid, device="cpu"),
+                            engine=engine)
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(on_card.dim, generator=gen)
+    c = torch.randn(on_card.num_rows, generator=gen)
+    before = launches.counts()
+    z = on_card.matvec(w.to(card))
+    g = on_card.rmatvec(c.to(card))
+    after = launches.counts()
+    for name in kernels:
+        assert after[name] - before[name] >= n_tiles, name
+    torch.testing.assert_close(z.cpu(), on_host.matvec(w), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(g.cpu(), on_host.rmatvec(c), rtol=1e-4, atol=1e-4)
+    assert torch.equal(on_card.matvec(w.to(card)), z)
+    assert torch.equal(on_card.rmatvec(c.to(card)), g)
+
+
+def test_placed_random_effect_runs_k6_a_device_slice(card):
+    """A random-effect dataset split over 4 grid positions on the one card:
+    fused_value_grad_batched_f32 runs once a device slice (4 times a
+    solver evaluation) and the model is the unsplit solve's."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration, build_random_effect_dataset, pad_entities_to_multiple,
+        place_dataset)
+    from photon_ml_tpu_torch.estimators.random_effect import train_random_effects
+    from photon_ml_tpu_torch.opt.config import GlmOptimizationConfiguration, OptimizerConfig
+    from photon_ml_tpu_torch.parallel.grid_features import grid_mesh
+    from photon_ml_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(1)
+    n, d, ents = 3000, 12, 101
+    e_of = rng.integers(0, ents, n)
+    rows, cols = np.repeat(np.arange(n), 4), rng.integers(0, d, 4 * n)
+    vals = rng.standard_normal(4 * n).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    ds = build_random_effect_dataset(np.array([f"e{e}" for e in e_of]), rows, cols, vals, d, y,
+                                     RandomEffectDataConfiguration("e"), device=card)
+    placed = place_dataset(pad_entities_to_multiple(ds, 4),
+                           grid_mesh(2, 2, devices=[card] * 4), ("data", "feat"))
+    cfg = GlmOptimizationConfiguration(optimizer_config=OptimizerConfig.lbfgs(max_iterations=20))
+    whole, _ = train_random_effects(ds, TaskType.LOGISTIC_REGRESSION, cfg)
+    before = launches.counts()["fused_value_grad_batched_f32"]
+    split, _ = train_random_effects(placed, TaskType.LOGISTIC_REGRESSION, cfg)
+    assert launches.counts()["fused_value_grad_batched_f32"] - before >= 4
+    for a, b in zip(whole.coefficients, split.coefficients):
+        torch.testing.assert_close(b[: a.shape[0]], a, rtol=0, atol=2e-3)

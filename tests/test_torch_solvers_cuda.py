@@ -172,3 +172,120 @@ def test_factored_update_on_the_card(card):
                                want.projection_matrix.numpy(), rtol=0, atol=2e-3)
     assert torch.equal(got.projection_matrix, again.projection_matrix)
     assert torch.equal(dev.score_device(got), dev.score_device(again))
+
+
+def _write_parts(root, n_files=3, rows=200, d=8, seed=2):
+    """Logistic rows over Avro part files (the port's writer)."""
+    import os
+
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(d)
+    paths = []
+    for f in range(n_files):
+        X = rng.standard_normal((rows, d))
+        y = (rng.random(rows) < 1 / (1 + np.exp(-X @ w))).astype(float)
+        recs = [{"uid": f"r{f}_{i}", "label": float(y[i]), "weight": 1.0,
+                 "features": [("g", str(j), float(X[i, j])) for j in range(d)]}
+                for i in range(rows)]
+        path = os.path.join(str(root), f"part-{f:05d}.avro")
+        write_training_examples(path, recs)
+        paths.append(path)
+    return paths
+
+
+def test_cluster_pass_on_the_card(card, tmp_path):
+    """Two thread-hosted cluster workers on the one card (each on its own
+    stream): a distributed pass equals the same pass of CPU workers, and a
+    2-host fit on the card the CPU's (FE atol 2e-3)."""
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration, GameEstimator)
+    from photon_ml_tpu_torch.io.data_reader import FeatureShardConfiguration, build_index_maps
+    from photon_ml_tpu_torch.parallel import cluster
+    from photon_ml_tpu_torch.streaming import StreamingSource
+    from photon_ml_tpu_torch.types import TaskType
+
+    paths = _write_parts(tmp_path)
+    shards = {"global": FeatureShardConfiguration(("features",), True)}
+    maps = build_index_maps(paths, shards)
+
+    def source():
+        return StreamingSource.open(paths, shards, index_maps=maps, block_rows=128)
+
+    def run(device):
+        coord = cluster.ClusterCoordinator(2, source().plan.num_blocks, heartbeat_timeout_s=60)
+        for h in range(2):
+            cluster.serve_worker_in_thread(cluster.ClusterWorker(
+                h, source(), "global", TaskType.LOGISTIC_REGRESSION, device=device),
+                coord.address)
+        coord.wait_for_workers(60)
+        try:
+            dim = source().plan.shard_dims["global"]
+            f, g, _, _ = coord.distributed_pass(np.linspace(-1, 1, dim).astype(np.float32))
+            fit = GameEstimator(TaskType.LOGISTIC_REGRESSION,
+                                {"fixed": FixedEffectCoordinateConfiguration("global")},
+                                device=device).fit_streaming(source(), cluster=coord)
+        finally:
+            coord.shutdown()
+        return f, g, fit.model.models["fixed"].coefficients.means.cpu().numpy()
+
+    f_c, g_c, w_c = run(card)
+    f_h, g_h, w_h = run("cpu")
+    assert f_c == pytest.approx(f_h, rel=1e-5)
+    np.testing.assert_allclose(g_c, g_h, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(w_c, w_h, atol=2e-3)
+
+
+def test_grid_glmix_fit_on_the_card(card):
+    """A GLMix fit over a 2 x 2 fused grid with every tile on the one card
+    (entity slices too) against the same fit on the CPU (FE atol 5e-3,
+    scores atol 1e-2) and itself (bitwise)."""
+    from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
+    from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration, GameEstimator, ParallelConfiguration,
+        RandomEffectCoordinateConfiguration)
+    from photon_ml_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(4)
+    n, d = 2000, 301
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.concatenate([rng.integers(1, d, (n, 5)), np.zeros((n, 1), np.int64)],
+                          1).reshape(-1)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    margin = np.zeros(n, np.float32)
+    np.add.at(margin, rows, vals * rng.standard_normal(d).astype(np.float32)[cols] * 0.5)
+    users = np.array([f"u{i % 37}" for i in range(n)])
+    labels = (rng.random(n) < 1 / (1 + np.exp(-margin))).astype(np.float32)
+    data = GameData(labels=labels, feature_shards={
+        "g": FeatureShard(rows, cols, vals, d),
+        "u": FeatureShard(np.repeat(np.arange(n), 2), np.tile(np.arange(2), n),
+                          rng.standard_normal(2 * n).astype(np.float32), 2)},
+        id_tags={"userId": users})
+
+    # L2 (lambda 1) keeps every coefficient well determined
+    opt = GlmOptimizationConfiguration(regularization=RegularizationContext(RegularizationType.L2),
+                                       regularization_weight=1.0)
+
+    def fit(device, devices=None):
+        est = GameEstimator(
+            TaskType.LOGISTIC_REGRESSION,
+            {"fixed": FixedEffectCoordinateConfiguration("g", opt),
+             "per_user": RandomEffectCoordinateConfiguration(
+                 "u", RandomEffectDataConfiguration("userId"), opt)},
+            num_outer_iterations=2, device=device,
+            parallel=ParallelConfiguration(2, 2, engine="fused", devices=devices))
+        return est.fit(data)
+
+    on_card = fit("cuda", ["cuda:0"] * 4)
+    again = fit("cuda", ["cuda:0"] * 4)
+    on_host = fit("cpu")
+    w_c = on_card.model.models["fixed"].coefficients.means
+    np.testing.assert_allclose(w_c.cpu().numpy(),
+                               on_host.model.models["fixed"].coefficients.means.numpy(),
+                               atol=5e-3)
+    np.testing.assert_allclose(on_card.model.score(data).cpu().numpy(),
+                               on_host.model.score(data).numpy(), atol=1e-2)
+    assert torch.equal(w_c, again.model.models["fixed"].coefficients.means)
+    assert on_card.objective_history == again.objective_history

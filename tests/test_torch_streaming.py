@@ -596,9 +596,10 @@ def test_fit_streaming_refusals(dataset):
     with pytest.raises(ValueError, match="mode"):
         _estimator("photon_ml_tpu_torch", with_re=False, device="cpu").fit_streaming(
             _open(ts, dataset), mode="minibatch")
-    with pytest.raises(ValueError, match="item 8, The cluster plane"):
+    # the cluster plane trains full-batch only, as in the JAX package
+    with pytest.raises(ValueError, match="cluster training requires mode='full'"):
         _estimator("photon_ml_tpu_torch", with_re=False, device="cpu").fit_streaming(
-            _open(ts, dataset), cluster=object())
+            _open(ts, dataset), mode="stochastic", cluster=object())
     with pytest.raises(ValueError, match="gap_schedule"):
         _estimator("photon_ml_tpu_torch", with_re=False, device="cpu").fit_streaming(
             _open(ts, dataset), gap_schedule=True)

@@ -215,10 +215,19 @@ def test_train_game_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="TRON does not support L1"):
         train_game.run(train_game.parse_args(_train_argv(tmp_path, str(path))))
     config_path = _ratings_config(tmp_path)
-    for flags, item in ((("--parallel-data", "2"), "item 8"), (("--hosts", "2"), "item 8"),
-                        (("--coordinator-address", "localhost:1"), "item 8")):
-        with pytest.raises(NotImplementedError, match=f"{flags[0]} is not ported.*{item}"):
-            train_game.run(train_game.parse_args(_train_argv(tmp_path, config_path, *flags)))
+    # the grid, cluster and multi-process flags are ported: what they
+    # refuse is what the JAX CLI refuses
+    for flags in (("--hosts", "2"), ("--parallel-feat", "2"),
+                  ("--streaming", "--hosts", "2", "--stream-mode", "stochastic"),
+                  ("--streaming", "--hosts", "1", "--cluster-kill-host", "0:1")):
+        with pytest.raises(SystemExit):
+            train_game.parse_args(_train_argv(tmp_path, config_path, *flags))
+    with pytest.raises(ValueError, match="--parallel-data"):
+        train_game.run(train_game.parse_args(_train_argv(
+            tmp_path, config_path, "--streaming", "--parallel-data", "1")))
+    with pytest.raises(ValueError, match="together"):
+        train_game.main(_train_argv(tmp_path, config_path, "--coordinator-address",
+                                    "localhost:1"))
     # a sweep needs validation data to pick its best, as in the JAX CLI
     argv = _train_argv(tmp_path, _sweep_config(tmp_path))
     argv.remove(os.path.join(RATINGS, "test"))
