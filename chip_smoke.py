@@ -35,7 +35,18 @@ exit code is not 0):
                       8}, {1, 31, 32, 4097} groups and 2^17 rows) with
                       identity, reversed and random indices, bitwise against
                       their plain versions, with kernel/plain/torch.gather/
-                      bound times at 2^17 rows; csr_matvec_bf16 (every 7th
+                      bound times at 2^15 and 2^17 rows and the host us of a
+                      K4 launch through its wrapper and as a bare ctypes
+                      call; lane_relayout_f32 (Enter and Leave at 1, 6 and
+                      15 tiles and at a 2^22-slot plan's outer level) and
+                      inner_shuffle_f32 (c in {1, 2, 4, 8} in 1, 3 and 128
+                      blocks and on 31 groups), each stage present or not,
+                      bitwise against their plain versions; whole plans of
+                      routing's structure at 2^22 and 2^24 slots: three
+                      launches, bitwise the stage-by-stage plain plan, each
+                      group and the plan timed against one torch.gather by
+                      the composed index, the host us a plan;
+                      csr_matvec_bf16 (every 7th
                       entry exact, stored as ~col) and csc_rmatvec_bf16 (four
                       transforms) at the full-width shape (2^20 rows, 2^24
                       dims) and a ragged small one, against their plain
@@ -165,8 +176,10 @@ exit code is not 0):
                       timed, with the fit's launches; a 2 x 1 Benes grid at
                       that width over 16 (2^16 rows, 2^20 columns) against
                       the fused fit of its rows, lane_shuffle_f32 and
-                      sublane_shuffle_f32 at a tile network's stages
-                      (bitwise); and a 2 x 2 grid of distinct cards refused
+                      sublane_shuffle_f32 at a tile network's stages, its
+                      plan's groups and the whole plan (bitwise, timed;
+                      the plan's kernels launched by the fit); and a 2 x 2
+                      grid of distinct cards refused
                       on a one-card machine ("need 4 devices, have 1") by
                       the estimator and train_game.
 11. train_glm_full_width
@@ -223,15 +236,17 @@ exit code is not 0):
                       engine built with a fresh plan cache (cold routing
                       timed, the layout the planner chose, device bytes),
                       the Benes and fused summaries of the FE shard against
-                      each other, the fit through the shuffle kernels
-                      against the same fit through their plain versions
-                      (bitwise) and against itself (bitwise), the fused-
-                      engine fit under the same normalization (objective
-                      rtol 1e-4, AUC 1e-4), each shuffle kernel at the
-                      plan's own stage shapes (bitwise, with kernel/plain/
-                      torch.gather/bound times), Benes vs fused matvec and
-                      rmatvec times, and the device idle share of one FE
-                      solve.
+                      each other, the fit through the plan kernels (every
+                      kernel its compiled plans launch, launched) against
+                      the same fit through their plain versions (bitwise)
+                      and against itself (bitwise), the fused-engine fit
+                      under the same normalization (objective rtol 1e-4,
+                      AUC 1e-4), the standalone shuffles at the plan's
+                      stage shapes and its groups at theirs (bitwise, with
+                      kernel/plain/torch.gather/bound times), the whole
+                      plan against the stage-by-stage plain plan (bitwise)
+                      and one gather, Benes vs fused matvec and rmatvec
+                      times, and the device idle share of one FE solve.
 15. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
@@ -399,7 +414,9 @@ ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "train_async_full_width", "train_sweep_tuning_full_width",
               "train_telemetry_full_width", "train_game_cli", "train_glm_cli")
 KERNELS = ("csr_matvec_f32", "csc_rmatvec_f32", "fused_value_grad_batched_f32")
-SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32")
+# every kernel of ops/csrc/permute.cu: the standalone stages and the two
+# kernels a compiled plan launches
+SHUFFLES = ("lane_shuffle_f32", "sublane_shuffle_f32", "lane_relayout_f32", "inner_shuffle_f32")
 BF16_KERNELS = ("csr_matvec_bf16", "csc_rmatvec_bf16")
 BLOCKED = "fused_value_grad_f32"
 KERNEL_REPLACES = {
@@ -411,6 +428,11 @@ KERNEL_REPLACES = {
                                     "(fused_value_grad_single, _single_kernel :140)",
     "lane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:96 (_lane_shuffle_pallas)",
     "sublane_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:129 (_sublane_shuffle_pallas)",
+    "lane_relayout_f32": "photon_ml_tpu/ops/permute_net.py:96 (_lane_shuffle_pallas) twice and "
+                         "the Enter/Leave relayout between them (apply_plan :192-197)",
+    "inner_shuffle_f32": "photon_ml_tpu/ops/permute_net.py:96 (_lane_shuffle_pallas), :129 "
+                         "(_sublane_shuffle_pallas), :96 again, inside Enter/Leave (apply_plan "
+                         ":192-197)",
     "csr_matvec_bf16": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), :466 "
                        "(_base_call), :421 (_ascend_call); matvec, bfloat16 payload",
     "csc_rmatvec_bf16": "photon_ml_tpu/ops/fused_perm.py:325 (_descend_call), :466 "
@@ -424,6 +446,8 @@ KERNEL_SOURCE = {
     "fused_value_grad_batched_f32": "photon_ml_tpu_torch/ops/csrc/value_grad.cu",
     "lane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
     "sublane_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
+    "lane_relayout_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
+    "inner_shuffle_f32": "photon_ml_tpu_torch/ops/csrc/permute.cu",
     "csr_matvec_bf16": "photon_ml_tpu_torch/ops/csrc/spmv.cu",
     "csc_rmatvec_bf16": "photon_ml_tpu_torch/ops/csrc/spmv_t.cu",
     "fused_value_grad_f32": "photon_ml_tpu_torch/ops/csrc/value_grad.cu",
@@ -547,11 +571,12 @@ def csc_bound_ms(n: int, nnz: int, dim: int) -> tuple:
     return _bound(8 * (dim + 1) + 8 * nnz + 4 * n + 4 * dim, 2 * nnz)
 
 
-def shuffle_bound_ms(m: int) -> tuple:
-    """Least time for one lane or sublane shuffle of [m, 128] f32: v read
-    once (4 B), its int8 index read once (1 B), out written once (4 B) an
-    element; no arithmetic."""
-    return _bound(9 * 128 * m, 0)
+def shuffle_bound_ms(m: int, stages: int = 1) -> tuple:
+    """Least time for one pass over [m, 128] f32 that applies ``stages``
+    shuffle stages (a lane or sublane shuffle 1, lane_relayout_f32 up to 2,
+    inner_shuffle_f32 up to 3): v read once (4 B), each stage's int8 index
+    read once (1 B), out written once (4 B) an element; no arithmetic."""
+    return _bound((8 + stages) * 128 * m, 0)
 
 
 def value_grad_bound_ms(E: int, s: int, d: int) -> tuple:
@@ -919,10 +944,36 @@ def shuffle_times(v: torch.Tensor, idx: torch.Tensor, rows: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn``: n calls enqueued back to back on
+    the host clock, the card running behind them, over n."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
+
+
+def launch_host_us(v: torch.Tensor, idx: torch.Tensor) -> dict:
+    """Host us a launch of lane_shuffle_f32 on v, idx: through its wrapper,
+    and as a bare ctypes call with its pointers and stream prepared once."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    lib = permute_net._library()
+    out = torch.empty_like(v)
+    args = (v.data_ptr(), idx.data_ptr(), out.data_ptr(), v.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    return {"m": v.shape[0], "wrapper_us": host_us(lambda: permute_net.lane_shuffle_f32(v, idx)),
+            "bare_ctypes_us": host_us(lambda: lib.lane_shuffle_f32(*args))}
+
+
 def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
     """One shuffle kernel (lane: rows_set (0,); sublane: (2, 4, 8)) against
     its plain version, bitwise, with identity, reversed and random indices;
-    then its times at 2^17 rows."""
+    then its times at 2^15 and 2^17 rows."""
     from photon_ml_tpu_torch.ops import permute_net
 
     cases = []
@@ -946,13 +997,206 @@ def _check_shuffle_kernel(rows_set, gen, dev) -> tuple:
                 cases.append(case)
                 if not case["ok"]:
                     raise AssertionError(f"shuffle kernel differs from its plain version: {case}")
-    m = 1 << 17
-    v = torch.randn(m, 128, generator=gen, device=dev)
-    times = [shuffle_times(v, _shuffle_indices("random", m, 128 if r == 0 else r, gen, dev), r)
-             for r in rows_set]
-    if not all(t["bitwise_equal"] for t in times):
-        raise AssertionError(f"shuffle kernel differs from its plain version: {times}")
-    return {"cases": cases, "times_at_2^17_rows": times}, 0.0
+    result = {"cases": cases}
+    for log_m in (15, 17):
+        m = 1 << log_m
+        v = torch.randn(m, 128, generator=gen, device=dev)
+        times = [shuffle_times(v, _shuffle_indices("random", m, 128 if r == 0 else r, gen, dev),
+                               r) for r in rows_set]
+        if not all(t["bitwise_equal"] for t in times):
+            raise AssertionError(f"shuffle kernel differs from its plain version: {times}")
+        result[f"times_at_2^{log_m}_rows"] = times
+        if rows_set == (0,):
+            result[f"host_us_at_2^{log_m}_rows"] = launch_host_us(
+                v, _shuffle_indices("random", m, 128, gen, dev))
+    return result, 0.0
+
+
+def _random_stage(m: int, hi: int, gen, dev, present: bool = True):
+    return torch.randint(0, hi, (m, 128), generator=gen, device=dev).to(torch.int8) \
+        if present else None
+
+
+def _check_relayout_kernel(gen, dev) -> tuple:
+    """lane_relayout_f32 against its plain version, bitwise: Enter and
+    Leave at odd tile counts (1, 6, 15 tiles) and at the outer level of a
+    2^22-slot plan, with both lane stages, the first alone, the second
+    alone."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    cases = []
+    for relayout in (("enter", 1, 128), ("leave", 3, 256), ("enter", 5, 384),
+                     ("leave", 1, 1 << 15), ("enter", 1, 1 << 15)):
+        m = relayout[1] * relayout[2]
+        v = torch.randn(m, 128, generator=gen, device=dev)
+        for first, second in ((True, True), (True, False), (False, True)):
+            a = _random_stage(m, 128, gen, dev, first)
+            b = _random_stage(m, 128, gen, dev, second)
+            out = permute_net.lane_relayout_f32(v, a, b, relayout)
+            torch.cuda.synchronize()
+            case = {"relayout": list(relayout), "first": first, "second": second,
+                    "ok": torch.equal(out, permute_net.lane_relayout_plain(v, a, b, relayout))}
+            cases.append(case)
+            if not case["ok"]:
+                raise AssertionError(f"lane_relayout_f32 differs from its plain version: {case}")
+    return {"cases": cases}, 0.0
+
+
+def _check_inner_kernel(gen, dev) -> tuple:
+    """inner_shuffle_f32 against its plain version, bitwise: c in {1, 2, 4,
+    8} inside Enter/Leave of 1, 3 and 128 blocks and on 31 groups of whole
+    rows; all three stages, the sublane stage alone, the lane stages
+    alone."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    cases = []
+    for rows in (1, 2, 4, 8):
+        for blocks in (0, 1, 3, 128):
+            m = blocks * rows * 128 if blocks else 31 * rows
+            v = torch.randn(m, 128, generator=gen, device=dev)
+            for which in ("all", "sublane", "lanes"):
+                if rows == 1 and which == "sublane":
+                    continue
+                a = _random_stage(m, 128, gen, dev, which != "sublane")
+                sub = _random_stage(m, rows, gen, dev, rows > 1 and which != "lanes")
+                b = _random_stage(m, 128, gen, dev, which != "sublane")
+                out = permute_net.inner_shuffle_f32(v, a, sub, b, rows, blocks)
+                torch.cuda.synchronize()
+                case = {"rows": rows, "blocks": blocks, "stages": which,
+                        "ok": torch.equal(out, permute_net.inner_shuffle_plain(
+                            v, a, sub, b, rows, blocks))}
+                cases.append(case)
+                if not case["ok"]:
+                    raise AssertionError(f"inner_shuffle_f32 differs from its plain version: "
+                                         f"{case}")
+    return {"cases": cases}, 0.0
+
+
+def structured_plan(size: int, seed: int):
+    """A plan with routing's stage structure for ``size`` slots (c 128^(m+1))
+    and seeded random stage indices: the shapes and access pattern the
+    kernels see in a routed plan, without the host routing of a real
+    permutation (tens of seconds at 2^24 slots)."""
+    from photon_ml_tpu_torch.ops import routing
+
+    rng = np.random.default_rng(seed)
+    stages = []
+
+    def level(blocks: int, rows: int) -> None:
+        m = blocks * rows
+        stages.append(routing.LaneShuffle(rng.integers(0, 128, (m, 128), dtype=np.int32)))
+        if rows <= routing.MAX_SUBLANES:
+            stages.append(routing.SublaneShuffle(
+                rng.integers(0, rows, (m, 128), dtype=np.int32), rows))
+        else:
+            stages.append(routing.Enter(blocks, rows))
+            level(blocks * 128, rows // 128)
+            stages.append(routing.Leave(blocks, rows))
+        stages.append(routing.LaneShuffle(rng.integers(0, 128, (m, 128), dtype=np.int32)))
+
+    level(1, size // 128)
+    return routing.PermPlan(size=size, stages=stages)
+
+
+def composed_index(fn, m: int) -> torch.Tensor:
+    """int64 [m 128]: the source slot of each output slot of the movement
+    ``fn`` (f32 [m, 128] -> [m, 128]); slot numbers up to 2^24 are exact
+    in f32."""
+    if m * 128 > 1 << 24:
+        raise ValueError(f"{m * 128} slots: f32 slot numbers are exact to 2^24")
+    pos = torch.arange(m * 128, device="cuda", dtype=torch.float32).reshape(m, 128)
+    return fn(pos).reshape(-1).long()
+
+
+def group_stages(g) -> int:
+    return sum(t is not None for t in (g.a, g.s, g.b))
+
+
+def group_times(g, v: torch.Tensor) -> dict:
+    """Kernel, plain version and library (one torch.gather of the slots by
+    the group's composed int64 index, made beforehand) ms of one compiled
+    group of a plan on v, and its bound; the kernel's output checked
+    bitwise against the plain version's."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    m = v.shape[0]
+    if g.kernel == "lane_relayout_f32":
+        kernel = lambda: permute_net.lane_relayout_f32(v, g.a, g.b, g.relayout)  # noqa: E731
+        plain = lambda: permute_net.lane_relayout_plain(v, g.a, g.b, g.relayout)  # noqa: E731
+    elif g.kernel == "inner_shuffle_f32":
+        blocks = g.relayout[1] if g.relayout else 0
+        kernel = lambda: permute_net.inner_shuffle_f32(  # noqa: E731
+            v, g.a, g.s, g.b, g.rows, blocks)
+        plain = lambda: permute_net.inner_shuffle_plain(  # noqa: E731
+            v, g.a, g.s, g.b, g.rows, blocks)
+    else:
+        kernel = lambda: permute_net.lane_shuffle_f32(v, g.a)  # noqa: E731
+        plain = lambda: permute_net.lane_shuffle_plain(v, g.a)  # noqa: E731
+    index = composed_index(lambda p: permute_net._group_plain(g, p), m)
+    flat = v.reshape(-1)
+    library = lambda: torch.gather(flat, 0, index)  # noqa: E731
+    equal = torch.equal(kernel(), plain()) and torch.equal(kernel().reshape(-1), library())
+    ms = cuda_ms({"kernel": kernel, "plain": plain, "library": library})
+    bound_ms, bound_by = shuffle_bound_ms(m, group_stages(g))
+    return {"m": m, "relayout": g.relayout, "rows": g.rows, "stages": group_stages(g),
+            "bitwise_equal": equal, **kernel_times(ms), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def plan_times(dplan, gen) -> dict:
+    """One whole plan on the card: its launches, apply_plan bitwise against
+    the stage-by-stage plain plan, and the ms of apply_plan (kernel), the
+    grouped plain plan (plain) and one torch.gather of the slots by the
+    plan's composed int64 index (library), its bound (each group's pass),
+    and the host us a call of apply_plan."""
+    from photon_ml_tpu_torch.ops import launches, permute_net
+
+    m = dplan.size // 128
+    x = torch.randn(dplan.size, generator=gen, device="cuda")
+    launches.reset()
+    out = permute_net.apply_plan(dplan, x)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launches.counts().items() if n}
+    index = composed_index(lambda p: permute_net.plan_plain(dplan, p), m)
+    library = lambda: torch.gather(x, 0, index)  # noqa: E731
+    equal = (torch.equal(out, permute_net.plan_stages_plain(dplan, x.reshape(m, 128)).reshape(-1))
+             and torch.equal(out, library()))
+    ms = cuda_ms({"kernel": lambda: permute_net.apply_plan(dplan, x),
+                  "plain": lambda: permute_net.plan_plain(dplan, x.reshape(m, 128)),
+                  "library": library})
+    bound_ms, bound_by = _bound(sum((8 + group_stages(g)) * 128 * m for g in dplan.groups), 0)
+    # the stage-by-stage plan: 9 B a slot a shuffle (a sublane stage of
+    # single rows moves nothing), 8 B a relayout copy
+    stage_bytes = 128 * m * sum(8 if k[0] in ("enter", "leave") else
+                                9 if k[0] == "lane" or k[1] > 1 else 0 for k in dplan.kinds)
+    return {"size": dplan.size, "groups": [[g.kernel, g.relayout, g.rows] for g in dplan.groups],
+            "launches": counts, "bitwise_equal_to_stage_by_stage": equal, **kernel_times(ms),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "stage_by_stage_bound_ms": _bound(stage_bytes, 0)[0],
+            "host_us": host_us(lambda: permute_net.apply_plan(dplan, x), n=100)}
+
+
+def _check_plans(gen, dev, seed: int) -> dict:
+    """Plans of routing's structure at 2^22 slots (the Benes grid's tiles)
+    and 2^24 (train_benes_full_width's networks), seeded random indices:
+    three launches each, bitwise the stage-by-stage plain plan, each group
+    timed at its shape, the whole plan against one gather."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    out = {}
+    for log_size in (22, 24):
+        dplan = permute_net.device_plan(structured_plan(1 << log_size, seed + log_size), dev)
+        v = torch.randn(dplan.size // 128, 128, generator=gen, device=dev)
+        entry = {"plan": plan_times(dplan, gen),
+                 "groups": [group_times(g, v) for g in dplan.groups]}
+        bad = [g for g in entry["groups"] if not g["bitwise_equal"]]
+        if (bad or not entry["plan"]["bitwise_equal_to_stage_by_stage"]
+                or sum(entry["plan"]["launches"].values()) != 3):
+            raise AssertionError(f"the plan of 2^{log_size} slots: {entry}")
+        out[f"2^{log_size}"] = entry
+        del dplan, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def _check_csr_bf16_kernel(gen, dev) -> tuple:
@@ -1178,6 +1422,8 @@ def phase_kernel(seed: int) -> dict:
         ("fused_value_grad_batched_f32", _check_value_grad_kernel),
         ("lane_shuffle_f32", lambda g, d: _check_shuffle_kernel((0,), g, d)),
         ("sublane_shuffle_f32", lambda g, d: _check_shuffle_kernel((2, 4, 8), g, d)),
+        ("lane_relayout_f32", _check_relayout_kernel),
+        ("inner_shuffle_f32", _check_inner_kernel),
         ("csr_matvec_bf16", _check_csr_bf16_kernel),
         ("csc_rmatvec_bf16", _check_csc_bf16_kernel),
         (BLOCKED, _check_blocked_value_grad_kernel),
@@ -1186,6 +1432,7 @@ def phase_kernel(seed: int) -> dict:
         torch.cuda.empty_cache()
     results["fused_value_grad_batched_f32_invariance"] = _check_value_grad_invariance(gen, dev)
     results["lone_dense_route"] = _time_lone_dense_route(gen, dev)
+    results["plans"] = _check_plans(gen, dev, seed)
     emit("kernel", tolerance="vs float64: atol = 1e-5 * max(1, sum of |terms|); vs plain: "
          "that + terms * 2^-24 * max(1, sum of |terms|), elementwise; shuffles: bitwise; "
          "bf16 kernels: the float64 sum of the same rounded terms",
@@ -1931,7 +2178,10 @@ class plain_versions:
     """Within the block, the named kernel wrappers (default: every kernel of
     the port) compute their plain PyTorch versions on the card instead of
     launching their kernels (a comparison run; the package has no such
-    switch)."""
+    switch). A compiled plan launches lane_shuffle_f32, lane_relayout_f32
+    and inner_shuffle_f32 from one C call (permute_net.plan_f32): naming any
+    of them also runs every plan through its groups' plain versions
+    (permute_net.plan_plain)."""
 
     def __init__(self, kernels=KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)):
         self.kernels = kernels
@@ -1939,35 +2189,62 @@ class plain_versions:
     def __enter__(self):
         from photon_ml_tpu_torch.ops import fused_perm, pallas_kernels, permute_net
 
+        plan = (permute_net, "plan_f32", permute_net.plan_plain)
         plain = {
-            "csr_matvec_f32": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, split=None,
-                               blocks=1: fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w,
-                                                                     blocks)),
-            "csc_rmatvec_f32": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
-                                transform="id", split=None: fused_perm.csc_rmatvec_plain(
-                                    col_ptr, row_idx, vals, c, transform)),
-            "fused_value_grad_batched_f32": (pallas_kernels,
-                                             pallas_kernels.fused_value_grad_plain),
-            "lane_shuffle_f32": (permute_net, permute_net.lane_shuffle_plain),
-            "sublane_shuffle_f32": (permute_net, permute_net.sublane_shuffle_plain),
-            "csr_matvec_bf16": (fused_perm, lambda row_ptr, col_idx, vals, w, dim, split=None,
-                                blocks=1: fused_perm.csr_matvec_bf16_plain(
-                                    row_ptr, col_idx, vals, w, blocks)),
-            "csc_rmatvec_bf16": (fused_perm, lambda col_ptr, row_idx, vals, c, n,
-                                 transform="id", split=None: fused_perm.csc_rmatvec_bf16_plain(
-                                     col_ptr, row_idx, vals, c, transform)),
-            "fused_value_grad_f32": (pallas_kernels, pallas_kernels.fused_value_grad_plain),
+            "csr_matvec_f32": [(fused_perm, "csr_matvec_f32",
+                                lambda row_ptr, col_idx, vals, w, dim, split=None, blocks=1:
+                                fused_perm.csr_matvec_plain(row_ptr, col_idx, vals, w, blocks))],
+            "csc_rmatvec_f32": [(fused_perm, "csc_rmatvec_f32",
+                                 lambda col_ptr, row_idx, vals, c, n, transform="id", split=None:
+                                 fused_perm.csc_rmatvec_plain(col_ptr, row_idx, vals, c,
+                                                              transform))],
+            "fused_value_grad_batched_f32": [(pallas_kernels, "fused_value_grad_batched_f32",
+                                              pallas_kernels.fused_value_grad_plain)],
+            "lane_shuffle_f32": [(permute_net, "lane_shuffle_f32",
+                                  permute_net.lane_shuffle_plain), plan],
+            "sublane_shuffle_f32": [(permute_net, "sublane_shuffle_f32",
+                                     permute_net.sublane_shuffle_plain)],
+            "lane_relayout_f32": [(permute_net, "lane_relayout_f32",
+                                   permute_net.lane_relayout_plain), plan],
+            "inner_shuffle_f32": [(permute_net, "inner_shuffle_f32",
+                                   permute_net.inner_shuffle_plain), plan],
+            "csr_matvec_bf16": [(fused_perm, "csr_matvec_bf16",
+                                 lambda row_ptr, col_idx, vals, w, dim, split=None, blocks=1:
+                                 fused_perm.csr_matvec_bf16_plain(row_ptr, col_idx, vals, w,
+                                                                  blocks))],
+            "csc_rmatvec_bf16": [(fused_perm, "csc_rmatvec_bf16",
+                                  lambda col_ptr, row_idx, vals, c, n, transform="id",
+                                  split=None: fused_perm.csc_rmatvec_bf16_plain(
+                                      col_ptr, row_idx, vals, c, transform))],
+            "fused_value_grad_f32": [(pallas_kernels, "fused_value_grad_f32",
+                                      pallas_kernels.fused_value_grad_plain)],
         }
-        self._saved = []
+        self._saved = {}
         for name in self.kernels:
-            module, fn = plain[name]
-            self._saved.append((module, name, getattr(module, name)))
-            setattr(module, name, fn)
+            for module, attr, fn in plain[name]:
+                if (module, attr) not in self._saved:
+                    self._saved[module, attr] = getattr(module, attr)
+                    setattr(module, attr, fn)
         return self
 
     def __exit__(self, *exc):
-        for module, name, fn in self._saved:
-            setattr(module, name, fn)
+        for (module, attr), fn in self._saved.items():
+            setattr(module, attr, fn)
+
+
+def plan_kernels(feats) -> list:
+    """The kernels the compiled plans of a Benes engine launch (every
+    block's plan and inverse plan; a grid's every tile)."""
+    from photon_ml_tpu_torch.ops import sparse_perm
+
+    found, todo = set(), [feats]
+    while todo:
+        f = todo.pop()
+        if isinstance(f, sparse_perm.BenesSparseFeatures):
+            found |= {g.kernel for p in (f.plan, f.plan_inv) for g in p.groups}
+        todo.extend(getattr(f, "blocks", ()))
+        todo.extend(t for row in getattr(f, "shards", ()) for t in row if t is not None)
+    return sorted(found)
 
 
 def _device_events(prof) -> list:
@@ -3034,18 +3311,25 @@ def phase_train_grid_full_width(seed: int) -> dict:
     sub_kind, sub_idx = next((k, i) for k, i in stages if k[0] == "sublane" and k[1] > 1)
     shuffles = {"lane_shuffle_f32": shuffle_times(v, lane_idx, 0),
                 "sublane_shuffle_f32": shuffle_times(v, sub_idx, sub_kind[1])}
+    for g in plan.groups:
+        if g.kernel not in shuffles:
+            shuffles[g.kernel] = group_times(g, v)
+    bpath = plan_kernels(bcoords["fixed"].data.features)
     for name, k in shuffles.items():
         k["launches"] = bcounts[name]
-        if not k["bitwise_equal"] or bcounts[name] < 1:
+        if not k["bitwise_equal"] or (name in bpath and bcounts[name] < 1):
             failures.append(f"{name} at the Benes tile: launches {bcounts[name]}, "
                             f"bitwise {k['bitwise_equal']}")
+    bplan = plan_times(plan, gen)
+    if not bplan["bitwise_equal_to_stage_by_stage"]:
+        failures.append(f"the Benes tile's plan differs from its stage-by-stage plan: {bplan}")
     # the path's launches: the fused grid's fit, the Benes grid's shuffles
     result["launches_by_kernel"] = {**counts, **{k: bcounts[k] for k in SHUFFLES}}
     bgf = bcoords["fixed"].data.features
     result["benes"] = {"rows": n_b, "fe_dim": fe_dim_b + 1,
                        "padded_shape": [bgf.num_rows, bgf.dim],
                        "launches": {k: bcounts[k] for k in SHUFFLES + KERNELS},
-                       "kernels": shuffles}
+                       "path_kernels": bpath, "kernels": shuffles, "plan": bplan}
 
     # a grid of 4 distinct cards on a one-card machine is refused, by the
     # estimator and the CLI, as the JAX package refuses it
@@ -3403,7 +3687,8 @@ def phase_train_benes_full_width(seed: int) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = launches.counts()
-    missing = [k for k in SHUFFLES + ("fused_value_grad_batched_f32",) if counts[k] < 1]
+    path = plan_kernels(feats) + ["fused_value_grad_batched_f32"]
+    missing = [k for k in path if counts[k] < 1]
     if missing:
         raise AssertionError(f"the Benes fit did not launch {missing}: {counts}")
 
@@ -3452,10 +3737,17 @@ def phase_train_benes_full_width(seed: int) -> dict:
         "lane_shuffle_f32": shuffle_times(v, lane_idx, 0),
         "sublane_shuffle_f32": shuffle_times(v, sub_idx, sub_kind[1]),
     }
+    # the plan's own launches: each group at its shape, the whole plan
+    for g in plan.groups:
+        if g.kernel not in kernels:
+            kernels[g.kernel] = group_times(g, v)
     for name, k in kernels.items():
         if not k["bitwise_equal"]:
             raise AssertionError(f"{name} differs from its plain version at the plan's shapes")
         k["launches"] = counts[name]
+    whole_plan = plan_times(plan, gen)
+    if not whole_plan["bitwise_equal_to_stage_by_stage"]:
+        raise AssertionError(f"the plan differs from its stage-by-stage plain plan: {whole_plan}")
 
     # one map of each engine at the same data
     w = fit.model.models["fixed"].coefficients.means
@@ -3485,7 +3777,8 @@ def phase_train_benes_full_width(seed: int) -> dict:
         "fused_validation_auc": fused_fit.validation_metric, "auc_diff_vs_fused": auc_diff,
         "bitwise_equal_to_plain_and_to_itself": True,
         "launches": counts, "launches_per_benes_matvec": per_matvec,
-        "kernels": kernels, "engine_ms": engines, "fe_solve_profile": fe_solve,
+        "kernels": kernels, "plan": whole_plan, "path_kernels": path,
+        "engine_ms": engines, "fe_solve_profile": fe_solve,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit("train_benes_full_width", **result)
@@ -3607,7 +3900,9 @@ def phase_train_game_cli(seed: int) -> dict:
     for run in ("cuda", "cuda_streaming"):
         if result[f"{run}_launches"]["fused_value_grad_batched_f32"] < 1:
             raise AssertionError(f"train_game {run} did not launch the RE kernel: {result}")
-    missing = [k for k in SHUFFLES if result["cuda_std_benes_launches"][k] < 1
+    # every compiled plan launches inner_shuffle_f32 once (its other groups
+    # follow the plan's size)
+    missing = [k for k in ("inner_shuffle_f32",) if result["cuda_std_benes_launches"][k] < 1
                or result["score_game_launches_cuda_std_benes"][k] < 1]
     if missing:
         raise AssertionError(f"the standardized Benes run did not launch {missing}: {result}")

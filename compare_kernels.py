@@ -1,19 +1,20 @@
 """Time the port's redesigned kernels against another commit's, in turns, on
 one NVIDIA card.
 
-    git archive <commit> | tar -x -C build/parent
+    git archive <commit> photon_ml_tpu_torch/ops | tar -x -C build/parent
     python3 compare_kernels.py --parent build/parent [--seed 0] [--rounds 2]
     python3 compare_kernels.py --blocks 1,2,3,5,8
 
 
-Builds the other checkout's ``value_grad.cu``, ``spmv.cu`` and
-``spmv_t.cu`` with nvcc into separately named libraries under
+Builds the other checkout's ``value_grad.cu``, ``spmv.cu``, ``spmv_t.cu``
+and ``permute.cu`` with nvcc into separately named libraries under
 ``build/compare/``, binds them by their C signatures at that commit (the
 batched value+gradient and the CSR matvec before their redesign; the CSC
-rmatvec's signature is unchanged), and times each against this checkout's
-kernel on the same inputs with chip_smoke.cuda_ms (one call between two
-events, and 32 back-to-back calls over 32: device time), the two taking
-turns "parent, change, change, parent" in each of ``--rounds`` rounds:
+rmatvec's and the two shuffles' signatures are unchanged), and times each
+against this checkout's kernel on the same inputs with chip_smoke.cuda_ms
+(one call between two events, and 32 back-to-back calls over 32: device
+time), the two taking turns "parent, change, change, parent" in each of
+``--rounds`` rounds:
 
 - fused_value_grad_batched_f32 at the random-effect buckets of
   chip_smoke's train_full_width, [65,536, 38, 16] and [16,384, 96, 16]
@@ -25,7 +26,16 @@ turns "parent, change, change, parent" in each of ``--rounds`` rounds:
   one's column blocks, the other's row-major CSR);
 - the bf16 engine's matvec: this one's single csr_matvec_bf16 pass over
   both entry sets against the other's two passes (csr_matvec_bf16 on the
-  rounded set, csr_matvec_f32 on the exact set) and their sum.
+  rounded set, csr_matvec_f32 on the exact set) and their sum;
+- lane_shuffle_f32 at [2^15, 128] and [2^17, 128], sublane_shuffle_f32 at
+  [2^15, 128] (R = 2) and [2^17, 128] (R = 8), each through the other
+  checkout's ``ops/permute_net.py`` wrapper (loaded from its file, bound to
+  its library) and this one's, and as bare ctypes calls with pointers made
+  once (the device time alone), outputs bitwise;
+- a whole plan of routing's structure (chip_smoke.structured_plan) at
+  2^22 and 2^24 slots through the other checkout's ``apply_plan`` (its
+  stages one at a time) and this one's (three launches), outputs
+  bitwise.
 
 The outputs of the two are compared (the CSC rmatvec bitwise: its
 arithmetic did not change; the others within chip_smoke's tolerance).
@@ -59,7 +69,11 @@ PARENT_SIGNATURES = {
     "csr_matvec_bf16": [C_PTR] * 6 + [C_I64, C_I64, C_PTR],
     "csc_rmatvec_f32": [C_PTR] * 5 + [C_I64, C_I64, C_INT, C_PTR, C_I64, C_I64] + [C_PTR] * 3,
     "csc_rmatvec_bf16": [C_PTR] * 5 + [C_I64, C_I64, C_INT, C_PTR, C_I64, C_I64] + [C_PTR] * 3,
+    "lane_shuffle_f32": [C_PTR] * 3 + [C_I64, C_PTR],
+    "sublane_shuffle_f32": [C_PTR] * 3 + [C_I64, C_INT, C_PTR],
 }
+LIBRARY_OF = {"fused": "value_grad", "csr": "spmv", "csc": "spmv_t", "lane": "permute",
+              "sublane": "permute"}
 
 
 def build_parent(parent: str) -> dict:
@@ -70,7 +84,7 @@ def build_parent(parent: str) -> dict:
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "compare")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ("value_grad", "spmv", "spmv_t"):
+    for name in ("value_grad", "spmv", "spmv_t", "permute"):
         lib = os.path.join(out_dir, f"lib{name}-parent.so")
         cmd = [cudalib.find_nvcc(), *cudalib.NVCC_FLAGS, "-I", csrc, "-o", lib,
                os.path.join(csrc, f"{name}.cu")]
@@ -84,12 +98,81 @@ def build_parent(parent: str) -> dict:
         libs[name] = ctypes.CDLL(lib)
     fns = {}
     for entry, argtypes in PARENT_SIGNATURES.items():
-        lib = libs["value_grad" if entry.startswith("fused") else
-                   "spmv" if entry.startswith("csr") else "spmv_t"]
-        fn = getattr(lib, entry)
+        fn = getattr(libs[LIBRARY_OF[entry.split("_")[0]]], entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[entry] = fn
+    libs["permute"].permute_error_string.argtypes = [C_INT]
+    libs["permute"].permute_error_string.restype = ctypes.c_char_p
+    fns["permute_library"] = libs["permute"]
     return fns
+
+
+def parent_permute_net(parent: str, lib: ctypes.CDLL):
+    """The other checkout's ``ops/permute_net.py``, loaded from its file as
+    a module of its own and bound to its own kernel library."""
+    import importlib.util
+
+    path = os.path.join(parent, "photon_ml_tpu_torch", "ops", "permute_net.py")
+    spec = importlib.util.spec_from_file_location("parent_permute_net", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    module._library = lambda: lib
+    return module
+
+
+def compare_shuffles(parent: dict, parent_pn, gen, rounds: int) -> list:
+    """The standalone shuffles and whole plans, the other checkout's
+    against this one's, outputs bitwise."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    out = []
+    for m, rows in ((1 << 15, 0), (1 << 17, 0), (1 << 15, 2), (1 << 17, 8)):
+        v = torch.randn(m, 128, generator=gen, device="cuda")
+        idx = torch.randint(0, rows or 128, (m, 128), generator=gen, device="cuda").to(
+            torch.int8)
+        dst = torch.empty_like(v)
+        st = _stream()
+        if rows == 0:
+            name = "lane_shuffle_f32"
+            old, new = (lambda: parent_pn.lane_shuffle_f32(v, idx),
+                        lambda: permute_net.lane_shuffle_f32(v, idx))
+            args = (v.data_ptr(), idx.data_ptr(), dst.data_ptr(), m)
+        else:
+            name = "sublane_shuffle_f32"
+            old, new = (lambda: parent_pn.sublane_shuffle_f32(v, idx, rows),
+                        lambda: permute_net.sublane_shuffle_f32(v, idx, rows))
+            args = (v.data_ptr(), idx.data_ptr(), dst.data_ptr(), m, rows)
+        fn_old, fn_new = parent[name], getattr(permute_net._library(), name)
+        entry = {"kernel": name, "m": m, "rows": rows,
+                 "bitwise_equal": bool(torch.equal(old(), new())),
+                 "bound_ms": chip_smoke.shuffle_bound_ms(m)[0],
+                 "turns": turns({"parent": old, "change": new,
+                                 "parent_bare": lambda: fn_old(*args, st),
+                                 "change_bare": lambda: fn_new(*args, st)}, rounds)}
+        if not entry["bitwise_equal"]:
+            raise AssertionError(f"{name} changed its output: {entry}")
+        out.append(entry)
+        print(json.dumps(entry), flush=True)
+    for log_size in (22, 24):
+        plan = chip_smoke.structured_plan(1 << log_size, log_size)
+        old_plan = parent_pn.device_plan(plan, "cuda")
+        new_plan = permute_net.device_plan(plan, "cuda")
+        x = torch.randn(1 << log_size, generator=gen, device="cuda")
+        old = lambda: parent_pn.apply_plan(old_plan, x)  # noqa: E731
+        new = lambda: permute_net.apply_plan(new_plan, x)  # noqa: E731
+        entry = {"kernel": "apply_plan", "size": 1 << log_size,
+                 "bitwise_equal": bool(torch.equal(old(), new())),
+                 "host_us": {"parent": chip_smoke.host_us(old, n=50),
+                             "change": chip_smoke.host_us(new, n=50)},
+                 "turns": turns({"parent": old, "change": new}, rounds)}
+        if not entry["bitwise_equal"]:
+            raise AssertionError(f"the plan changed its output: {entry}")
+        out.append(entry)
+        print(json.dumps(entry), flush=True)
+        del old_plan, new_plan, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _stream() -> int:
@@ -210,6 +293,8 @@ def main(argv=None) -> int:
     p.add_argument("--blocks", help="comma list of column-block counts to time instead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--shuffles-only", action="store_true",
+                   help="with --parent: only the shuffles and whole plans")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: no card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -230,7 +315,11 @@ def main(argv=None) -> int:
     if not args.parent:
         p.error("give --parent (or --blocks)")
     parent = build_parent(args.parent)
-    out = []
+    out = compare_shuffles(parent, parent_permute_net(args.parent, parent["permute_library"]),
+                           gen, args.rounds)
+    if args.shuffles_only:
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return 0
 
     for E, s, d in ((65_536, 38, 16), (16_384, 96, 16)):
         inputs = chip_smoke._value_grad_inputs(E, s, d, gen, dev)

@@ -102,8 +102,9 @@ class GameData:
         - "fused" — CSR with the hand-written ``csr_matvec_f32`` kernel
           (counterpart of the reference's fused Benes engine).
         - "benes" — the stage-by-stage Benes permutation engine
-          (``ops/sparse_perm.py``: the ``lane_shuffle_f32`` and
-          ``sublane_shuffle_f32`` kernels on the card); its routing plans
+          (``ops/sparse_perm.py``: each plan's compiled groups,
+          ``lane_relayout_f32`` and ``inner_shuffle_f32``, on the card);
+          its routing plans
           are cached in ``sparse_perm.default_plan_cache()``.
         - "auto"  — "fused" on ``cuda`` for a shard with at least 2^20
           nonzeros, else "ell" (the reference's rule).

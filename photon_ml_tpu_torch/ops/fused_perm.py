@@ -501,6 +501,7 @@ def from_coo(
     device: DeviceLike = DEFAULT_DEVICE, *, max_nnz_row: Optional[int] = None,
     hot_col_threshold: Optional[int] = None, max_hot_cols: int = 128,
     kp_cap="auto", col_split="auto", size_floor: int = 0,
+    partition: Optional[sparse_perm.PayloadPartition] = None,
 ) -> FusedSparseFeatures:
     """CSR and CSC layouts of COO triplets on ``device``; duplicate
     (row, col) entries are coalesced by summation, as every reference
@@ -510,7 +511,10 @@ def from_coo(
     entries the reference routes through its network round on entry). The
     layout arguments are the reference fused builder's and decide only
     which entries round (``sparse_perm.fused_payload_partition``): with
-    float32 they change nothing."""
+    float32 they change nothing. A bfloat16 grid tile passes its
+    ``partition`` instead (``sparse_perm.grid_payload_partitions``: the
+    decision is the grid's, over every tile), which replaces the triplets
+    and the layout arguments."""
     if payload_dtype not in PAYLOAD_DTYPES:
         raise ValueError(
             f"payload_dtype={payload_dtype!r}: the fused engine takes {PAYLOAD_DTYPES}"
@@ -522,7 +526,7 @@ def from_coo(
     if payload_dtype == "float32":
         rows, cols, vals, _ = coalesce_coo(rows, cols, vals, n, d)
         return _compressed(rows, cols, vals, n, d, dev)
-    part = sparse_perm.fused_payload_partition(
+    part = partition if partition is not None else sparse_perm.fused_payload_partition(
         rows, cols, vals, (n, d), max_nnz_row=max_nnz_row,
         hot_col_threshold=hot_col_threshold, max_hot_cols=max_hot_cols,
         kp_cap=kp_cap, col_split=col_split, size_floor=size_floor,

@@ -259,14 +259,17 @@ def plan_column_layout(
     kp_full: int,
     row_block_k: Optional[Callable[[int], int]] = None,
     size_floor: int = 0,
+    spill_scale: float = 1.0,
 ):
     """Jointly pick (kp_cap, n_col_blocks) minimizing total cost in routed
     slots, over-cap (spilled) entries priced at ``SPILL_SLOT_COST`` slots
     each. Candidates: every power-of-two cap whose spill stays under nnz/8,
     crossed with block counts {1, 2, 4, ..., 16}; ``row_block_k(t)``
     gives the per-block row group size of a t-way split; every network has
-    at least ``size_floor`` slots. Returns ``(cap_or_None, n_blocks)``; a
-    multi-block layout must beat the plain one by >= 2x in total cost."""
+    at least ``size_floor`` slots. ``spill_scale`` prices the spill in one
+    network's units where ``col_counts`` span several (a grid's tiles:
+    1/tiles). Returns ``(cap_or_None, n_blocks)``; a multi-block layout
+    must beat the plain one by >= 2x in total cost."""
     nnz = int(col_counts.sum())
     s_plain = routing.valid_size(max(n * K, d * kp_full, size_floor, 1))
     if not nnz or (kp_full <= 1 and d <= 1):
@@ -282,7 +285,7 @@ def plan_column_layout(
     for p in cands:
         spill = 0 if p >= kp_full else int(np.maximum(col_counts - p, 0).sum())
         if spill <= max_spill:
-            caps.append((p, spill * SPILL_SLOT_COST))
+            caps.append((p, spill * SPILL_SLOT_COST * spill_scale))
     best = (None, 1, s_plain)
     for cap, spill_cost in caps:
         t = 1
@@ -381,13 +384,13 @@ def _best_split(n: int, d: int, K: int, kp_eff: int, size_floor: int = 0) -> int
 
 
 def resolve_layout(kp_cap, col_split, col_counts, n, d, K, kp_full, row_block_k=None,
-                   size_floor: int = 0):
+                   size_floor: int = 0, spill_scale: float = 1.0):
     """Normalize (kp_cap, col_split) arguments to an effective
     ``(cap_or_None, n_blocks)`` layout. "auto"/"auto" runs the joint
     planner; manual values are validated and used as they are."""
     if kp_cap == "auto" and col_split == "auto":
         return plan_column_layout(col_counts, n, d, K, kp_full, row_block_k=row_block_k,
-                                  size_floor=size_floor)
+                                  size_floor=size_floor, spill_scale=spill_scale)
     cap = resolve_kp_cap(kp_cap, col_counts, n, d, K, kp_full, size_floor)
     if col_split == "auto":
         t = _best_split(n, d, K, cap or kp_full, size_floor)
@@ -673,6 +676,70 @@ def fused_payload_partition(rows, cols, vals, shape, max_nnz_row: Optional[int] 
                     spilled[cold[m[spill_mask(r[m], bc, counts_b, cap_b)]]] = True
             caps = tuple(block_caps)
     return PayloadPartition(rows, cols, vals, hot, spilled, hot_ids, tuple(bounds), caps)
+
+
+def grid_payload_partitions(entries, n_dd: int, n_df: int, n_loc: int, d_loc: int,
+                            hot_col_threshold: Optional[int] = None, max_hot_cols: int = 128,
+                            kp_cap="auto", col_split="auto") -> dict:
+    """The :class:`PayloadPartition` of every tile of an (n_dd x n_df) grid
+    of fused tiles, by the one layout the reference grid lays over all
+    tiles (``photon_ml_tpu/parallel/grid_features.py`` ``grid_from_coo``):
+    each tile's own hot columns; power-of-two K and KP, the largest over
+    the tiles' cold entries; :func:`resolve_layout` over the degrees of
+    every tile (row blocks sized over every tile, the spill priced per
+    tile); then that cap applied to each tile, or to each column block of
+    each tile. ``entries(dd, df)`` gives a tile's (rows, cols, vals) in
+    tile coordinates. Returns ``{(dd, df): PayloadPartition}``."""
+    tiles = {}
+    for dd in range(n_dd):
+        for df in range(n_df):
+            tr, tc, tv = _coalesce_checked(*entries(dd, df), n_loc, d_loc, None)
+            hot_ids = select_hot_cols(tr, tc, n_loc, d_loc, max_hot_cols, hot_col_threshold)
+            hot = np.zeros(tr.size, dtype=bool)
+            if hot_ids is not None:
+                is_hot_col = np.zeros(d_loc, dtype=bool)
+                is_hot_col[hot_ids] = True
+                hot = is_hot_col[tc]
+            cold = np.flatnonzero(~hot)
+            tiles[dd, df] = (tr, tc, tv, hot_ids, hot, cold)
+    K, KP = 1, 1
+    counts = {}
+    for key, (tr, tc, _, _, _, cold) in tiles.items():
+        counts[key] = np.bincount(tc[cold], minlength=d_loc)
+        if cold.size:
+            K = max(K, int(np.bincount(tr[cold]).max()))
+            KP = max(KP, int(counts[key].max()))
+    K, KP = next_pow2(K), next_pow2(KP)
+    cap, t = None, 1
+    if kp_cap or col_split != 1:
+        def row_block_k(blocks: int) -> int:
+            d_b = -(-d_loc // blocks)
+            k_max = 1
+            for tr, tc, _, _, _, cold in tiles.values():
+                if cold.size:
+                    _, cnts = np.unique(tr[cold] * blocks + tc[cold] // d_b, return_counts=True)
+                    k_max = max(k_max, int(cnts.max()))
+            return next_pow2(k_max)
+
+        cap, t = resolve_layout(kp_cap, col_split,
+                                np.concatenate([counts[key] for key in sorted(counts)]),
+                                n_loc, d_loc, K, KP, row_block_k=row_block_k,
+                                spill_scale=1.0 / len(tiles))
+    d_b = -(-d_loc // t)
+    bounds = tuple(min(b * d_b, d_loc) for b in range(t + 1))
+    out = {}
+    for key, (tr, tc, tv, hot_ids, hot, cold) in tiles.items():
+        spilled = np.zeros(tr.size, dtype=bool)
+        if cap is not None:
+            r, c = tr[cold], tc[cold]
+            for b in range(t):
+                m = np.flatnonzero(c // d_b == b)
+                bc = c[m] - b * d_b
+                counts_b = np.bincount(bc, minlength=d_b)
+                if m.size and counts_b.max() > cap:
+                    spilled[cold[m[spill_mask(r[m], bc, counts_b, cap)]]] = True
+        out[key] = PayloadPartition(tr, tc, tv, hot, spilled, hot_ids, bounds, (cap,) * t)
+    return out
 
 
 def build_slot_perm(rows, cols, n: int, d: int, K: int, KP: int, S: int,

@@ -24,14 +24,17 @@ so the result is bitwise that of one process.
 
 Tile engines: ``fused`` (``ops/fused_perm.py``: ``csr_matvec_f32`` and
 ``csc_rmatvec_f32`` on the card, the bf16 payload by ``payload_dtype``),
-``benes`` (``ops/sparse_perm.py``: ``lane_shuffle_f32`` and
-``sublane_shuffle_f32``) and ``ell`` (``ops/features.EllFeatures`` with a
+``benes`` (``ops/sparse_perm.py``: ``lane_relayout_f32`` and
+``inner_shuffle_f32``) and ``ell`` (``ops/features.EllFeatures`` with a
 dense hot side, :class:`_EllWithHot`). The JAX package runs every tile in
 one ``shard_map`` program, so its tiles must share shapes and it pins one
 layout over the whole grid; a tile here is called on its own, so each
 ``fused`` or ``benes`` tile gets the single-device builder's own layout
 planning over its entries (the same linear map; only the order of the
-floating-point additions differs). The padded shapes follow the JAX
+floating-point additions differs). What that layout decides for a
+``fused`` tile is only which entries a bfloat16 payload rounds, so a
+bfloat16 tile takes the JAX grid's decision over every tile instead
+(``sparse_perm.grid_payload_partitions``) and rounds the same entries. The padded shapes follow the JAX
 package exactly: rows to a multiple of n_data, columns of n_feat, and a
 1 x 1 grid delegates to the single-device builder unpadded.
 """
@@ -284,19 +287,31 @@ def grid_from_coo(
         for dd, df in mesh.local_positions():
             shards[dd][df] = tiles[dd, df]
     else:
+        if engine == "fused" and payload_dtype != "float32":
+            # which entries round is the grid's one decision over every
+            # tile, as in the JAX grid (a host pass over the degrees)
+            from photon_ml_tpu_torch.ops.sparse_perm import grid_payload_partitions
+
+            layout["partitions"] = grid_payload_partitions(
+                entries, n_dd, n_df, n_loc, d_loc, hot_col_threshold, max_hot_cols, kp_cap,
+                col_split)
         # only this process's tiles are built (their routing is the
         # expensive step)
         for dd, df in mesh.local_positions():
             tr, tc, tv = entries(dd, df)
             shards[dd][df] = _single_device_tile(engine, tr, tc, tv, (n_loc, d_loc),
-                                                 mesh.devices[dd, df], payload_dtype, layout)
+                                                 mesh.devices[dd, df], payload_dtype, layout,
+                                                 (dd, df))
     return GridShardedFeatures(shards=shards, mesh=mesh, num_rows_=n_loc * n_dd,
                                num_cols_=d_loc * n_df)
 
 
-def _single_device_tile(engine, rows, cols, vals, shape, device, payload_dtype, layout):
+def _single_device_tile(engine, rows, cols, vals, shape, device, payload_dtype, layout,
+                        position=(0, 0)):
     """One tile through the single-device builder of ``engine``; a tile
-    with no entries is an exact zero map."""
+    with no entries is an exact zero map. A bfloat16 fused tile of a grid
+    rounds the entries of its grid-wide partition (``layout["partitions"]``
+    at ``position``)."""
     from photon_ml_tpu_torch.ops import fused_perm, sparse_perm
 
     if rows.size == 0:
@@ -312,6 +327,7 @@ def _single_device_tile(engine, rows, cols, vals, shape, device, payload_dtype, 
         rows, cols, vals, shape, payload_dtype=payload_dtype, device=device,
         hot_col_threshold=layout["hot_col_threshold"], max_hot_cols=layout["max_hot_cols"],
         kp_cap=layout["kp_cap"], col_split=layout["col_split"],
+        partition=layout.get("partitions", {}).get(position),
     )
 
 

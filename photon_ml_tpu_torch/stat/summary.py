@@ -11,7 +11,7 @@ feature layout's own maps:
   min and max by ``scatter_reduce_`` (``amin``/``amax``);
 - Benes (and each block of a column split): the sums are the engine's
   transformed rmatvecs; min and max route the live-row mask to CSC slot
-  order through the ``lane_shuffle_f32``/``sublane_shuffle_f32`` kernels
+  order through the plan kernels (``ops/permute_net.py``)
   and reduce per column there;
 - the fused engine: ``abs``/``nnz`` through the ``csc_rmatvec_f32``
   transforms; min and max a segmented reduction over its CSC values with

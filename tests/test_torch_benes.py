@@ -164,3 +164,30 @@ def test_game_data_benes_engine_equals_jax():
     jf = jax_game_data(labels, shards, {}).sparse_features("global", engine="benes")
     _assert_same_layout(tf, jf)
     _assert_maps_equal(tf, jf, seed=13)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_maps_through_the_compiled_plans_equal_stage_by_stage(case, monkeypatch):
+    """The engine's four maps run each plan as compiled groups; run stage
+    by stage instead, they are bitwise the same (the groups only move
+    values)."""
+    from photon_ml_tpu_torch.ops import permute_net
+
+    coo_kw, build_kw = CASES[case]
+    rows, cols, vals, shape = _coo(len(case) + 100, **coo_kw)
+    tf = sparse_perm.from_coo(rows, cols, vals, shape, plan_cache="", device="cpu", **build_kw)
+    rng = np.random.default_rng(len(case))
+    w = torch.from_numpy(rng.standard_normal(shape[1]).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal(shape[0]).astype(np.float32))
+
+    def maps():
+        return [tf.matvec(w), tf.rmatvec(c), tf.rmatvec_sq(c), tf.row_norms_sq()]
+
+    grouped = maps()
+    monkeypatch.setattr(permute_net, "plan_plain", permute_net.plan_stages_plain)
+    for got, want in zip(maps(), grouped):
+        assert torch.equal(got, want)
+    kernels = {g.kernel for b in getattr(tf, "blocks", (tf,))
+               if isinstance(b, sparse_perm.BenesSparseFeatures)
+               for p in (b.plan, b.plan_inv) for g in p.groups}
+    assert permute_net.INNER_KERNEL in kernels

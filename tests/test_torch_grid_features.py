@@ -194,3 +194,88 @@ def test_solvers_on_a_grid_match_one_device(rng, optimizer):
     w_g = res_g.model.coefficients.means.numpy()
     np.testing.assert_allclose(w_g[:d], w_s, atol=2e-3)
     np.testing.assert_allclose(w_g[d:], 0.0, atol=1e-5)
+
+
+def _bf16_problem(seed, n, d, k):
+    """``k`` random columns a row and a column 3 in every row (a hot column
+    of each tile that holds it), values of that column in [1, 2)."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
+    cols = np.concatenate([rng.integers(0, d, n * k), np.full(n, 3)])
+    vals = np.concatenate([rng.standard_normal(n * k),
+                           1.0 + rng.random(n)]).astype(np.float32)
+    return rows, cols, vals, (n, d)
+
+
+def _jax_tile_rounded(tile, tr, tc, d_loc):
+    """The entries of one JAX grid tile that its network rounds: the tile's
+    entries less its hot columns (the real ones: a tile without hot columns
+    pads the common hot side with zero columns) and its spill (padded with
+    zero values to one length over the tiles)."""
+    split = hasattr(tile, "blocks")
+    blocks, bounds = (tile.blocks, tuple(tile.col_bounds)) if split else ((tile,), (0, d_loc))
+    exact = set()
+    if tile.hot_matrix is not None:
+        hm, hc = np.asarray(tile.hot_matrix), np.asarray(tile.hot_cols)
+        real = {int(c) for j, c in enumerate(hc) if np.any(hm[:, j] != 0)}
+        exact |= {(r, c) for r, c in zip(tr.tolist(), tc.tolist()) if c in real}
+    for b, blk in enumerate(blocks):
+        if getattr(blk, "spill_rows", None) is not None:
+            keep = np.asarray(blk.spill_vals) != 0
+            exact |= set(zip(np.asarray(blk.spill_rows)[keep].tolist(),
+                             (np.asarray(blk.spill_cols)[keep] + bounds[b]).tolist()))
+    return set(zip(tr.tolist(), tc.tolist())) - exact
+
+
+@pytest.mark.parametrize("n,d,k,own_differs,spills", [
+    (512, 4000, 8, True, False),    # one tile's own planner spills what the grid routes
+    (2048, 70000, 16, False, True),  # the grid's cap spills on every tile
+])
+def test_bf16_fused_tiles_round_the_jax_grids_entries(n, d, k, own_differs, spills):
+    """A 2 x 2 grid of bfloat16 fused tiles rounds, tile by tile, the
+    entries the JAX grid's one layout over all tiles routes (its common hot
+    side, KP cap and per-block spill), and its matvec and rmatvec agree with
+    the JAX grid's within the bf16 gate, 1e-4 of each output's sum of
+    |terms| (``bench.py``'s quality gate is 1e-4 relative)."""
+    import jax
+    import jax.numpy as jnp
+
+    from photon_ml_tpu.parallel import grid_features as jg
+    from photon_ml_tpu_torch.ops import fused_perm, sparse_perm
+
+    rows, cols, vals, shape = _bf16_problem(7, n, d, k)
+    jmesh = jg.grid_mesh(2, 2)
+    jgf = jg.grid_from_coo(rows, cols, vals, shape, jmesh, engine="fused",
+                           payload_dtype="bfloat16", plan_cache="")
+    gf = grid_from_coo(rows, cols, vals, shape, grid_mesh(2, 2, device="cpu"), engine="fused",
+                       payload_dtype="bfloat16")
+    n_loc, d_loc = gf.num_rows // 2, gf.dim // 2
+    spilled, differs = 0, False
+    for dd in range(2):
+        for df in range(2):
+            m = (rows // n_loc == dd) & (cols // d_loc == df)
+            tr, tc = rows[m] - dd * n_loc, cols[m] - df * d_loc
+            want = _jax_tile_rounded(jax.tree.map(lambda a: np.asarray(a)[dd, df], jgf.shards),
+                                     tr, tc, d_loc)
+            tile = gf.shards[dd][df]
+            r = fused_perm.csr_rows_of_nonzeros(tile.row_ptr, tile.row_blocks).numpy()
+            c = tile.col_idx.numpy()
+            assert set(zip(r[c >= 0].tolist(), c[c >= 0].tolist())) == want, (dd, df)
+            spilled += tile.layout["spilled_entries"]
+            own = sparse_perm.fused_payload_partition(tr, tc, vals[m], (n_loc, d_loc))
+            differs |= set(zip(own.rows[own.payload].tolist(),
+                               own.cols[own.payload].tolist())) != want
+    assert differs == own_differs and (spilled > 0) == spills
+
+    rng = np.random.default_rng(8)
+    w = (rng.standard_normal(gf.dim) * 3).astype(np.float32)
+    c = (rng.standard_normal(gf.num_rows) * 3).astype(np.float32)
+    z = gf.matvec(torch.from_numpy(w)).numpy()
+    g = gf.rmatvec(torch.from_numpy(c)).numpy()
+    jz = np.asarray(jgf.matvec(jg.shard_vector_feat(jnp.asarray(w), jmesh)))
+    jgr = np.asarray(jgf.rmatvec(jg.shard_vector_data(jnp.asarray(c), jmesh)))
+    terms = np.abs(vals).astype(np.float64)
+    z_scale = np.maximum(np.bincount(rows, terms * np.abs(w[cols]), minlength=n), 1.0)
+    g_scale = np.maximum(np.bincount(cols, terms * np.abs(c[rows]), minlength=d), 1.0)
+    assert (np.abs(z[:n] - jz[:n]) <= 1e-4 * z_scale).all()
+    assert (np.abs(g[:d] - jgr[:d]) <= 1e-4 * g_scale).all()

@@ -4,9 +4,11 @@ several test workers may share one card): csr_matvec_f32, csc_rmatvec_f32
 (also on skewed columns that stress its merge-path split),
 their bf16-payload twins csr_matvec_bf16 and csc_rmatvec_bf16,
 fused_value_grad_batched_f32 (also at the latent widths of a factored
-coordinate), the blocked fused_value_grad_f32, and the two
-shuffles of a Benes plan, lane_shuffle_f32 and sublane_shuffle_f32
-(bitwise: they move values without arithmetic).
+coordinate), the blocked fused_value_grad_f32, the two
+shuffles of a Benes plan, lane_shuffle_f32 and sublane_shuffle_f32, and the
+kernels of a compiled plan, lane_relayout_f32 and inner_shuffle_f32, and
+whole plans through apply_plan (bitwise: they move values without
+arithmetic).
 
 Run on a machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Without one, every test here skips.
@@ -495,6 +497,114 @@ def test_sublane_shuffle_f32_equals_plain_bitwise(card, groups, rows, kind):
     assert torch.equal(out, permute_net.sublane_shuffle_plain(v, idx, rows))
 
 
+def _stages(m, hi, gen, dev, present=True):
+    """[m, 128] int8 stage indices in [0, hi) on the card (None when not
+    present: the stage is absent)."""
+    if not present:
+        return None
+    return torch.randint(0, hi, (m, 128), generator=gen, device=dev).to(torch.int8)
+
+
+@pytest.mark.parametrize("stages", ["both", "first", "second"])
+@pytest.mark.parametrize("relayout", [("enter", 1, 128), ("leave", 3, 256), ("enter", 5, 384),
+                                      ("leave", 1, 1 << 15)])
+def test_lane_relayout_f32_equals_plain_bitwise(card, relayout, stages):
+    """Odd tile counts (1, 6, 15 tiles of 128 rows) and a 2^22-slot
+    plan's outer level; either lane stage absent."""
+    m = relayout[1] * relayout[2]
+    gen = torch.Generator(device=card).manual_seed(m)
+    v = torch.randn(m, 128, generator=gen, device=card)
+    a = _stages(m, 128, gen, card, stages != "second")
+    b = _stages(m, 128, gen, card, stages != "first")
+    before = launches.counts()[permute_net.RELAYOUT_KERNEL]
+    out = permute_net.lane_relayout_f32(v, a, b, relayout)
+    torch.cuda.synchronize()
+    assert launches.counts()[permute_net.RELAYOUT_KERNEL] == before + 1
+    assert torch.equal(out, permute_net.lane_relayout_plain(v, a, b, relayout))
+
+
+@pytest.mark.parametrize("stages", ["all", "sublane", "lanes"])
+@pytest.mark.parametrize("blocks", [0, 1, 3, 128])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_inner_shuffle_f32_equals_plain_bitwise(card, rows, blocks, stages):
+    """Enter(blocks, rows 128) .. Leave at 1, 3 and 128 blocks (the
+    2^(21..24)-slot plans' innermost level), and groups of whole rows (31
+    groups, no relayout); each stage present or not."""
+    if rows == 1 and stages == "sublane":
+        pytest.skip("a group of one row has no sublane stage")
+    m = blocks * rows * 128 if blocks else 31 * rows
+    gen = torch.Generator(device=card).manual_seed(m + rows)
+    v = torch.randn(m, 128, generator=gen, device=card)
+    a = _stages(m, 128, gen, card, stages != "sublane")
+    s = _stages(m, rows, gen, card, rows > 1 and stages != "lanes")
+    b = _stages(m, 128, gen, card, stages != "sublane")
+    before = launches.counts()[permute_net.INNER_KERNEL]
+    out = permute_net.inner_shuffle_f32(v, a, s, b, rows, blocks)
+    torch.cuda.synchronize()
+    assert launches.counts()[permute_net.INNER_KERNEL] == before + 1
+    assert torch.equal(out, permute_net.inner_shuffle_plain(v, a, s, b, rows, blocks))
+
+
+def _structured_plan(size, rng):
+    """A plan with routing's stage structure for ``size`` slots (c 128^(m+1))
+    and seeded random stage indices: what the kernels see, without the
+    host routing of a real permutation."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.ops import routing
+
+    stages = []
+
+    def level(blocks, rows):
+        m = blocks * rows
+        stages.append(routing.LaneShuffle(rng.integers(0, 128, (m, 128)).astype(np.int32)))
+        if rows <= routing.MAX_SUBLANES:
+            stages.append(routing.SublaneShuffle(
+                rng.integers(0, rows, (m, 128)).astype(np.int32), rows))
+        else:
+            stages.append(routing.Enter(blocks, rows))
+            level(blocks * 128, rows // 128)
+            stages.append(routing.Leave(blocks, rows))
+        stages.append(routing.LaneShuffle(rng.integers(0, 128, (m, 128)).astype(np.int32)))
+
+    level(1, size // 128)
+    return routing.PermPlan(size=size, stages=stages)
+
+
+@pytest.mark.parametrize("size", [1 << 22, 1 << 24, 8 * 128 * 128, 128])
+def test_apply_plan_runs_three_launches_bitwise(card, size):
+    """A whole plan on the card equals the stage-by-stage plain plan
+    bitwise; a plan of c 128^3 slots (2^22: the Benes grid's tiles; 2^24:
+    train_benes_full_width's networks) takes three launches, one of c 128^2
+    slots three, one of c 128 one."""
+    import numpy as np
+
+    dplan = permute_net.device_plan(_structured_plan(size, np.random.default_rng(size)), card)
+    gen = torch.Generator(device=card).manual_seed(size)
+    x = torch.randn(size, generator=gen, device=card)
+    launches.reset()
+    got = permute_net.apply_plan(dplan, x)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    want = {1 << 22: {"lane_relayout_f32": 2, "inner_shuffle_f32": 1},
+            1 << 24: {"lane_relayout_f32": 2, "inner_shuffle_f32": 1},
+            8 * 128 * 128: {"lane_shuffle_f32": 2, "inner_shuffle_f32": 1},
+            128: {"inner_shuffle_f32": 1}}[size]
+    assert {k: n for k, n in counts.items() if n} == want
+    assert torch.equal(got, permute_net.plan_stages_plain(dplan, x.reshape(-1, 128)).reshape(-1))
+
+
+def test_plan_kernels_refuse_what_does_not_fit(card):
+    v = torch.zeros(256, 128, device=card)
+    idx = torch.zeros(256, 128, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="does not fit"):
+        permute_net.lane_relayout_f32(v, idx, None, ("enter", 3, 128))
+    with pytest.raises(ValueError, match="do not fit"):
+        permute_net.inner_shuffle_f32(v, idx, None, None, 2, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        permute_net.lane_shuffle_f32(v.reshape(-1)[1:1 + 255 * 128].view(255, 128), idx[:255])
+
+
 def test_benes_engine_runs_its_plans_through_the_kernels(card, monkeypatch):
     """The engine's maps launch the shuffle kernels, agree with the same
     engine on the host, and equal the same maps through the plain versions
@@ -518,12 +628,11 @@ def test_benes_engine_runs_its_plans_through_the_kernels(card, monkeypatch):
                                     **layout)
         launches.reset()
         z, g = f.matvec(w.to(card)), f.rmatvec(c.to(card))
-        assert launches.counts()[permute_net.LANE_KERNEL] > 0
+        assert launches.counts()[permute_net.INNER_KERNEL] > 0
         np.testing.assert_allclose(z.cpu().numpy(), host.matvec(w).numpy(), atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(g.cpu().numpy(), host.rmatvec(c).numpy(), atol=1e-5, rtol=1e-5)
         with monkeypatch.context() as mp:
-            mp.setattr(permute_net, "lane_shuffle_f32", permute_net.lane_shuffle_plain)
-            mp.setattr(permute_net, "sublane_shuffle_f32", permute_net.sublane_shuffle_plain)
+            mp.setattr(permute_net, "plan_f32", permute_net.plan_plain)
             assert torch.equal(f.matvec(w.to(card)), z) and torch.equal(f.rmatvec(c.to(card)), g)
 
 
@@ -554,7 +663,7 @@ def _grid_problem(n=4099, d=3001, k=9, seed=3):
 
 @pytest.mark.parametrize("engine,kernels", [
     ("fused", ("csr_matvec_f32", "csc_rmatvec_f32")),
-    ("benes", ("lane_shuffle_f32", "sublane_shuffle_f32")),
+    ("benes", ("inner_shuffle_f32",)),
 ])
 def test_grid_tiles_run_the_kernels(card, engine, kernels):
     """A (data x feat) grid with every tile on the one card: each tile's
