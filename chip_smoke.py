@@ -82,7 +82,49 @@ exit code is not 0):
                       the fixture read natively and through the Python
                       codec, called directly, in turns (read_native_s,
                       read_python_s).
-6. read_score_full_width
+6. serve_full_width
+                    — online serving of score_full_width's model (make_glmix:
+                      FE 2^24 x 16 nonzeros, per-user 65,536 and per-item
+                      16,384 entities at RE width 4,096, ~3% unseen), its
+                      16,384 rows (one entry a (row, column)) replayed as
+                      requests. The artifact is packed, saved, loaded back
+                      and compared bitwise in a spawned process at nice 19
+                      from the end of phase 2 on. Modes: (a) sharded, 4
+                      shards, buckets 1-32 (a batch of each first, as a
+                      server warms up), continuous batching with a 2 ms
+                      deadline; (b) sealed; (c) cached, 4,096 rows a
+                      coordinate; (d) 16,384 device rows a coordinate with
+                      the admission thread running, over the longest
+                      prefix whose tail fits the headroom, then drain() and
+                      a second replay. Gates: every score against
+                      GameModel.score of the same rows on the card
+                      (csr_matvec_f32 launched; rtol 2e-4, atol 1e-5 x
+                      max(1, sum |terms|)), each result's cold coordinates
+                      left out (unknown entities, and in (d) rows not yet
+                      admitted); (b), (c) and two sealed replays bitwise a
+                      full-table scorer's; (d) after drain equal to (a);
+                      compile_count at most the number of buckets; no port
+                      kernel launched by the replays. Prints p50/p99,
+                      requests/s and batch fill of (a)-(d), score_batch at
+                      buckets 1 and 32 (ms, device_ms), featurize host us,
+                      launches per batch (torch.profiler), a replay's
+                      device idle share, the admission step us, table
+                      bytes and peak memory.
+7. serve_game_cli   — photon_ml_tpu_torch.cli.serve_game on cuda and on cpu
+                      over an Avro fixture and model (write_cli_fixture,
+                      4,096 rows): pack with --export-artifact-dir, then
+                      serve from --artifact-dir with --slo-latency-ms,
+                      --overload-control, --request-sample-rate 1,
+                      --tenants a,b and --introspect-port 0 (/healthz,
+                      /varz, /metrics, /requests read during an
+                      --introspect-hold, ended by /quitquitquit); cuda and
+                      cpu agree in request and compile counts, their
+                      replayed scores within rtol 2e-4, atol 1e-5. On
+                      cuda: --auto-tune persists a tuned config that the
+                      next boot applies; --cache-capacity 64, --sealed,
+                      --scorers 2; --watch-deltas exits non-zero naming
+                      Queue A item 9b.
+8. read_score_full_width
                     — the data of score_full_width at a quarter of its
                       depth (make_glmix at 2^18 rows x 2^24 dims x 16
                       nonzeros, per-user and per-item REs) written as 8
@@ -101,7 +143,7 @@ exit code is not 0):
                       1e-5), with the
                       write, build, read and score seconds, the read's
                       rows/s, peak RSS and csr_matvec_f32 launches.
-7. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
+9. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
                       full width (FE 2^20 rows x 2^24 dims x 16 nonzeros +
                       an intercept; per-user RE 65,536 x 16, per-item
                       16,384 x 16), one outer iteration fixed -> per_user ->
@@ -115,7 +157,7 @@ exit code is not 0):
                       L2-flushed time of each redesigned kernel, each kernel
                       against its plain version at those shapes, and the
                       device idle share of one random-effect solve.
-8. train_streaming_full_width
+10. train_streaming_full_width
                     — fit_streaming at the width of train_full_width: its
                       training rows written as 16 Avro part files of
                       65,536 rows by worker processes, off-heap stores built
@@ -128,7 +170,7 @@ exit code is not 0):
                       reference. Gates: the streamed full-batch (f, g) at
                       w = 0 and at the in-memory FE w equal to the
                       in-memory objective (f rtol 1e-4, g within 1e-4
-                      max|g|); fit_streaming cold, warm, warm bitwise
+                      max|g|); fit_streaming cold and warm bitwise
                       equal, a warm fit with no decode; against the
                       in-memory fit, the final objective within rtol 1e-4,
                       the FE coefficients within 2e-3 and held-out AUC
@@ -142,17 +184,17 @@ exit code is not 0):
                       bitwise equal. With open, fit and decode, stall,
                       transfer, hidden-upload seconds, hide ratio, h2d
                       bytes, peak device memory and peak RSS.
-9. train_cluster_full_width
+11. train_cluster_full_width
                     — the cluster path, train_game --streaming --hosts
                       2 at that width: ClusterPlane.launch of two worker
                       processes on the card (each its own CUDA context,
                       stream, pinned ring and block-cache subdirectory)
-                      over phase 8's part files and stores, launched with
+                      over phase 10's part files and stores, launched with
                       the drill's plane in the background (nice 19) during
-                      phase 8's resident and stochastic fits; a cold and a
+                      phase 10's resident and stochastic fits; a cold and a
                       warm fit_streaming(cluster=...) (the warm one under
                       torch.profiler: the coordinator's device idle share)
-                      held against phase 8's single-host streamed fit
+                      held against phase 10's single-host streamed fit
                       (final objective rtol 1e-4, FE coefficients atol
                       2e-3, AUC 1e-3; whether the two are bitwise equal
                       is recorded: the warm fit's partitions follow the
@@ -163,7 +205,7 @@ exit code is not 0):
                       bytes a reply and a pass message, busy, allreduce
                       wait and fold seconds from the pass profiles, each
                       worker's allocator peak, the card's memory in use.
-10. train_grid_full_width
+12. train_grid_full_width
                     — the grid path: train_full_width's fit on a 2 x 2 grid of
                       fused tiles with devices [cuda:0] * 4 (the per-user
                       and per-item entity blocks split over the 4
@@ -182,7 +224,7 @@ exit code is not 0):
                       grid of distinct cards refused
                       on a one-card machine ("need 4 devices, have 1") by
                       the estimator and train_game.
-11. train_glm_full_width
+13. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
                       + an intercept; fused engine), labels of each task from
@@ -202,7 +244,7 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-12. train_tron_full_width
+14. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -210,7 +252,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-13. fe_bf16_full_width
+15. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -227,7 +269,7 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-14. train_benes_full_width
+16. train_benes_full_width
                     — training data of that width at a quarter of its
                       depth (2^18 rows, 2^16 held out: cold routing of
                       2^20 rows took 75-160 s) with the fixed effect on the
@@ -247,7 +289,7 @@ exit code is not 0):
                       plan against the stage-by-stage plain plan (bitwise)
                       and one gather, Benes vs fused matvec and rmatvec
                       times, and the device idle share of one FE solve.
-15. train_full_game_full_width
+17. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
@@ -265,7 +307,7 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-16. train_async_full_width
+18. train_async_full_width
                     — the train_full_width fit with per_user in 4 buckets
                       and per_item in 2, 1 outer iteration, on the sync
                       schedule and on schedule="async" (a CUDA stream a
@@ -279,7 +321,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-17. train_sweep_tuning_full_width
+19. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -288,8 +330,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-18. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 16
+20. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 18
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -308,7 +350,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-19. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+21. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -329,11 +371,14 @@ exit code is not 0):
                       rows, one block cache) on cuda and cpu: RMSE < 0.45,
                       equal to 1e-4, within 1e-3 of the in-memory cuda
                       fit (the JAX package's streaming gate on this
-                      fixture), K6 launched on cuda. Then, on cuda and cpu,
-                      --streaming --hosts 2 (worker processes on that
-                      device), the same with --cluster-kill-host 1:4, and
+                      fixture), K6 launched on cuda. Then, on cuda,
+                      --streaming --hosts 2 (worker processes on the card)
+                      and the same with --cluster-kill-host 1:4 (their cpu
+                      runs are left to tests/test_torch_cluster.py, to
+                      keep the script's time), and on cuda and cpu
                       --parallel-data 1 --parallel-feat 1: RMSE within 1e-4
-                      of the single-host streamed and in-memory runs. Then,
+                      of the single-host streamed and in-memory runs on the
+                      same device. Then,
                       on cuda and cpu: a
                       regularization_weights sweep on per_user with
                       --model-output-mode ALL (the same best lambda,
@@ -355,7 +400,7 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-20. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+22. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -406,7 +451,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
-              "read_score_full_width",
+              "serve_full_width", "serve_game_cli", "read_score_full_width",
               "train_full_width", "train_streaming_full_width",
               "train_cluster_full_width", "train_grid_full_width",
               "train_glm_full_width", "train_tron_full_width",
@@ -1697,7 +1742,18 @@ def _python_codec_read(fn, *args, **kwargs):
         data_reader._read_game_data_native, data_reader._build_index_maps_native = saved
 
 
-def phase_score_game_cli(seed: int, n: int = 65_536) -> dict:
+SCORE_CLI_ROWS = 65_536
+
+
+def _cli_fixture_job(job) -> dict:
+    """score_game_cli's fixture (write_cli_fixture), in a process of its own."""
+    seed, out = job
+    t0 = time.perf_counter()
+    write_cli_fixture(out, seed, n=SCORE_CLI_ROWS)
+    return {"fixture_s": time.perf_counter() - t0}
+
+
+def phase_score_game_cli(seed: int) -> dict:
     import importlib
 
     from photon_ml_tpu_torch.cli import build_index, score_game
@@ -1707,14 +1763,18 @@ def phase_score_game_cli(seed: int, n: int = 65_536) -> dict:
     from photon_ml_tpu_torch.io.scores_io import load_scores
     from photon_ml_tpu_torch.ops import launches
 
+    n = SCORE_CLI_ROWS
+    # the dataset and model, written in the background from the end of build
+    prep = _cli_fixture_prep(seed)
+    info = prep.wait()
+    fixture = prep.dir
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        t0 = time.perf_counter()
-        write_cli_fixture(root, seed, n=n)
-        fixture_s = time.perf_counter() - t0
-        result = {"rows": n, "fixture_s": fixture_s}
+        result = {"rows": n, "fixture_s": info["fixture_s"],
+                  "fixture_waited_s": info["prep_waited_s"]}
         t0 = time.perf_counter()
         build_index.main([
-            "--data-dirs", os.path.join(root, "data"), "--output-dir", os.path.join(root, "idx"),
+            "--data-dirs", os.path.join(fixture, "data"),
+            "--output-dir", os.path.join(root, "idx"),
             "--feature-shard", "global=features", "--feature-shard", "per_user=userFeatures",
             "--feature-shard", "per_item=itemFeatures"])
         result["build_index_s"] = time.perf_counter() - t0
@@ -1732,8 +1792,8 @@ def phase_score_game_cli(seed: int, n: int = 65_536) -> dict:
                     "--log-file", log_file, "--event-listeners", "chip_smoke.ScoringEvents"))):
             out = os.path.join(root, f"scores_{run}")
             argv = [
-                "--data-dirs", os.path.join(root, "data"),
-                "--model-dir", os.path.join(root, "model"),
+                "--data-dirs", os.path.join(fixture, "data"),
+                "--model-dir", os.path.join(fixture, "model"),
                 "--output-dir", out, "--evaluator", "AUC", "--device", device, *extra,
             ]
             launches.reset()
@@ -1769,12 +1829,12 @@ def phase_score_game_cli(seed: int, n: int = 65_536) -> dict:
         result["offheap_max_abs_diff"] = float(np.abs(offheap - plain).max())
 
         # the fixture's read, natively and through the Python codec, in turns
-        _, maps = load_game_model(os.path.join(root, "model"), device="cpu")
+        _, maps = load_game_model(os.path.join(fixture, "model"), device="cpu")
         configs = {sid: data_reader.FeatureShardConfiguration([bag], add_intercept=icpt)
                    for sid, bag, icpt in (("global", "features", True),
                                           ("per_user", "userFeatures", False),
                                           ("per_item", "itemFeatures", False))}
-        read = functools.partial(data_reader.read_game_data, [os.path.join(root, "data")],
+        read = functools.partial(data_reader.read_game_data, [os.path.join(fixture, "data")],
                                  configs, maps, id_tags=["userId", "itemId"])
         native_s, python_s = [], []
         for turn in ("native", "python", "native"):
@@ -2722,10 +2782,9 @@ def phase_train_streaming_full_width(seed: int) -> dict:
     if min(result["launches"].values()) < 1:
         failures.append(f"the streamed fit did not launch {result['launches']}")
     warm, result["warm"] = stream_fit()
-    warm2, result["warm_again"] = stream_fit()
-    result["cold_warm_warm_bitwise"] = _same_fit(cold, warm) and _same_fit(warm, warm2)
-    if not result["cold_warm_warm_bitwise"]:
-        failures.append("cold, warm and warm fits differ")
+    result["cold_warm_bitwise"] = _same_fit(cold, warm)
+    if not result["cold_warm_bitwise"]:
+        failures.append("the cold and warm fits differ")
     if result["warm"]["cache_hit_blocks"] < result["warm"]["blocks"]:
         failures.append(f"a warm fit decoded: {result['warm']}")
     # the streamed fit lands where the in-memory fit lands: final
@@ -3853,11 +3912,12 @@ def phase_train_game_cli(seed: int) -> dict:
                 # out of core: blocks of 512 rows, one block cache for both
                 ("cuda_streaming", "cuda", "auto", stream),
                 ("cpu_streaming", "cpu", "auto", stream),
-                # the cluster plane: two worker processes on the device, and
-                # the chaos drill; a 1 x 1 device grid
-                ("cuda_hosts2", "cuda", "auto", hosts), ("cpu_hosts2", "cpu", "auto", hosts),
+                # the cluster plane: two worker processes on the card, and
+                # the chaos drill (on cuda only: their cpu runs, each about
+                # 10 s of worker start-up, are tests/test_torch_cluster.py's);
+                # a 1 x 1 device grid
+                ("cuda_hosts2", "cuda", "auto", hosts),
                 ("cuda_hosts2_kill", "cuda", "auto", hosts + kill),
-                ("cpu_hosts2_kill", "cpu", "auto", hosts + kill),
                 ("cuda_grid_1x1", "cuda", "auto", grid), ("cpu_grid_1x1", "cpu", "auto", grid))
         for run, device, engine, extra in runs:
             config = (ratings_config(root, fe_only_tron=True) if engine == "tron"
@@ -3920,8 +3980,10 @@ def phase_train_game_cli(seed: int) -> dict:
         if abs(result[f"{a}_rmse"] - result[f"{b}_rmse"]) > 1e-4:
             raise AssertionError(f"RMSE of {a} and {b} differ: {result}")
     # the cluster and grid runs against the single-host CLI's on their device
-    for run, base in (("hosts2", "streaming"), ("hosts2_kill", "streaming"), ("grid_1x1", "")):
-        for dev in ("cuda", "cpu"):
+    for run, base, devices in (("hosts2", "streaming", ("cuda",)),
+                               ("hosts2_kill", "streaming", ("cuda",)),
+                               ("grid_1x1", "", ("cuda", "cpu"))):
+        for dev in devices:
             other = f"{dev}_{base}" if base else dev
             if abs(result[f"{dev}_{run}_rmse"] - result[f"{other}_rmse"]) > 1e-4:
                 raise AssertionError(f"RMSE of {dev}_{run} is off {other}: {result}")
@@ -5384,12 +5446,614 @@ def phase_train_glm_cli(seed: int) -> dict:
     return result
 
 
+# serve_full_width: the rows replayed as requests and the model's widths
+# (those of score_full_width's model: FE 2^24, per-user 65,536 x 4,096,
+# per-item 16,384 x 4,096)
+SERVE = {"n": 16_384, "fe_dim": 1 << 24, "fe_k": 16, "n_users": 65_536, "n_items": 16_384}
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_BUDGET_ROWS = 16_384
+
+
+def _serve_pack_job(job) -> dict:
+    """serve_full_width's artifact, in a process of its own: make_glmix's
+    model packed with pack_game_model, saved with save_artifact, loaded
+    back with load_artifact, and every table and entity index compared
+    with the packed one (bitwise)."""
+    seed, out = job
+    from photon_ml_tpu_torch.convert import game_model_from_numpy
+    from photon_ml_tpu_torch.serving import load_artifact, pack_game_model, save_artifact
+    from photon_ml_tpu_torch.types import TaskType
+
+    info = {}
+    t0 = time.perf_counter()
+    _, coords = make_glmix(seed, **SERVE)
+    model = game_model_from_numpy(coords, TaskType.LOGISTIC_REGRESSION, device="cpu")
+    del coords
+    t1 = time.perf_counter()
+    packed = pack_game_model(model)
+    del model
+    t2 = time.perf_counter()
+    save_artifact(packed, out)
+    t3 = time.perf_counter()
+    loaded = load_artifact(out)
+    info.update(model_s=t1 - t0, pack_s=t2 - t1, save_s=t3 - t2)
+    same = {}
+    for cid, table in packed.tables.items():
+        back = loaded.tables[cid]
+        ok = np.array_equal(np.asarray(table.weights).view(np.uint32),
+                            np.asarray(back.weights).view(np.uint32))
+        if table.is_random_effect:
+            ids = [name for name, _ in sorted(table.entity_index.items(), key=lambda kv: kv[1])]
+            ok = ok and np.array_equal(back.entity_index.get_indices(ids), np.arange(len(ids)))
+        same[cid] = bool(ok)
+    info["round_trip_bitwise"] = same
+    info["artifact_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    info["peak_rss_gb"] = _peak_rss_gb()["self"]
+    return info
+
+
+class SpawnPrep:
+    """Files a phase reads, made in the background while earlier phases run:
+    one spawned process runs ``job((seed, dir))``, started from a thread at
+    the lowest CPU priority (nice 19), which the process inherits. ``wait``
+    joins it and returns the job's report; ``close`` removes the files."""
+
+    def __init__(self, prefix: str, job, seed: int, subdir: str):
+        self.tmp = tempfile.TemporaryDirectory(prefix=prefix)
+        self.dir = os.path.join(self.tmp.name, subdir)
+        self.info, self.error = {}, None
+        self.thread = threading.Thread(target=self._run, args=(job, seed),
+                                       name=f"{prefix}prep")
+        self.thread.start()
+
+    def _run(self, job, seed: int) -> None:
+        import multiprocessing
+
+        try:
+            try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+            except OSError:
+                pass
+            t0 = time.perf_counter()
+            with multiprocessing.get_context("spawn").Pool(1) as pool:
+                self.info = pool.apply(job, ((seed, self.dir),))
+            self.info["prep_s"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised by wait() on the phase's thread
+            self.error = e
+
+    def wait(self) -> dict:
+        t0 = time.perf_counter()
+        self.thread.join()
+        self.info["prep_waited_s"] = time.perf_counter() - t0
+        if self.error is not None:
+            raise RuntimeError(f"preparing {self.dir} failed") from self.error
+        return self.info
+
+    def close(self) -> None:
+        self.thread.join()
+        self.tmp.cleanup()
+
+
+_SPAWN_PREPS: dict = {}
+
+
+def _serve_prep(seed: int) -> SpawnPrep:
+    """serve_full_width's artifact (_serve_pack_job)."""
+    if ("serve", seed) not in _SPAWN_PREPS:
+        _SPAWN_PREPS["serve", seed] = SpawnPrep(
+            "chip_smoke_serve_", _serve_pack_job, seed, "artifact")
+    return _SPAWN_PREPS["serve", seed]
+
+
+def _cli_fixture_prep(seed: int) -> SpawnPrep:
+    """score_game_cli's Avro dataset and model (_cli_fixture_job)."""
+    if ("score_cli", seed) not in _SPAWN_PREPS:
+        _SPAWN_PREPS["score_cli", seed] = SpawnPrep(
+            "chip_smoke_cli_", _cli_fixture_job, seed, "fixture")
+    return _SPAWN_PREPS["score_cli", seed]
+
+
+def _unique_entries(data) -> None:
+    """Keep one entry per (row, column) of each shard, the last, as a
+    ScoreRequest's features dict keeps it: then GameModel.score of the
+    rows and the served requests sum the same terms."""
+    from photon_ml_tpu_torch.data.game_data import FeatureShard
+
+    for name, sh in list(data.feature_shards.items()):
+        key = sh.rows.astype(np.int64) * sh.dim + sh.cols
+        _, last = np.unique(key[::-1], return_index=True)
+        keep = np.sort(len(key) - 1 - last)
+        data.feature_shards[name] = FeatureShard(sh.rows[keep], sh.cols[keep], sh.vals[keep],
+                                                 sh.dim)
+
+
+def _serve_terms(data, artifact) -> tuple:
+    """Per row: sum of |term| over every coordinate's nonzeros (the
+    tolerance's scale), from the packed tables on the host."""
+    abs_sum = np.zeros(data.num_rows)
+    for cid, table in artifact.tables.items():
+        sh = data.feature_shards[table.feature_shard]
+        w = np.asarray(table.weights)
+        if table.is_random_effect:
+            ids = np.asarray(data.id_tags[table.random_effect_type]).astype(str)
+            erow = table.entity_index.get_indices(list(ids))[sh.rows]
+            known = erow >= 0
+            term = np.zeros(len(sh.rows))
+            term[known] = sh.vals[known] * w[erow[known], sh.cols[known]]
+        else:
+            term = sh.vals * w[sh.cols]
+        np.add.at(abs_sum, sh.rows, np.abs(term))
+    return abs_sum
+
+
+def _check_served(results, expected: np.ndarray, abs_sum: np.ndarray, what: str) -> float:
+    """Each result's score against its expected margin: rtol 2e-4 and atol
+    1e-5 x max(1, sum |terms|). Returns the largest |difference|."""
+    got = np.array([r.score for r in results])
+    diff = np.abs(got - expected)
+    ok = np.isfinite(got) & (diff <= 2e-4 * np.abs(expected) + 1e-5 * np.maximum(1.0, abs_sum))
+    if got.shape != expected.shape or not ok.all():
+        bad = int(np.argmin(ok))
+        raise AssertionError(f"{what}: {int((~ok).sum())} scores off, e.g. row {bad}: "
+                             f"{got[bad]} vs {expected[bad]}")
+    return float(diff.max())
+
+
+def _pageable_upload(device, arrays):
+    """``serving.scorer.upload`` with a pageable host buffer and a blocking
+    copy: the other arm of ``_upload_ab``."""
+    from photon_ml_tpu_torch.serving.scorer import _TORCH_DTYPE
+
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    starts, at = [], 0
+    for a in arrays:
+        starts.append(at)
+        at += -(-a.nbytes // 8) * 8
+    buf = np.empty(at, dtype=np.uint8)
+    for a, s in zip(arrays, starts):
+        buf[s:s + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    return [dev[s:s + a.nbytes].view(_TORCH_DTYPE[a.dtype.str]).view(a.shape)
+            for a, s in zip(arrays, starts)]
+
+
+def _upload_ab(sharded, requests, want) -> dict:
+    """Sealed replays of ``requests`` with the scorer's uploads (pinned,
+    queued) and with ``_pageable_upload``, in turns (pageable, pageable,
+    pinned; the (b) replay before them was pinned): latency p50/p99, rate
+    and the stages' p50 of each. Every replay scores bitwise ``want``."""
+    from photon_ml_tpu_torch.serving import RequestPlane, replay_requests
+    from photon_ml_tpu_torch.serving import sharded as sharded_module
+
+    pinned = sharded_module.upload
+    out = []
+    try:
+        for arm in ("pageable", "pageable", "pinned"):
+            sharded_module.upload = _pageable_upload if arm == "pageable" else pinned
+            plane = RequestPlane(sample_rate=1, seed=0)
+            res, snap = replay_requests(sharded, requests, bucket_sizes=SERVE_BUCKETS,
+                                        plane=plane)
+            if [r.score for r in res] != [r.score for r in want]:
+                raise AssertionError(f"the {arm} upload's sealed replay differs from (b)")
+            stages = snap.get("request_plane", {}).get("stages") or {}
+            out.append({"arm": arm, "latency_p50_s": snap["latency_p50_s"],
+                        "latency_p99_s": snap["latency_p99_s"],
+                        "requests_per_s": snap["requests_per_s"],
+                        "stage_p50_s": {k: v["p50_s"] for k, v in stages.items()}})
+    finally:
+        sharded_module.upload = pinned
+    return {"turns": out}
+
+
+def _replay_summary(snap: dict) -> dict:
+    keys = ("num_requests", "num_batches", "latency_p50_s", "latency_p99_s",
+            "queue_wait_p99_s", "requests_per_s", "replay_requests_per_s",
+            "batch_fill_ratio", "xla_compiles")
+    return {k: snap.get(k) for k in keys}
+
+
+def _launch_count(fn, calls: int = 8) -> dict:
+    """Device activity of one call of ``fn`` under torch.profiler: kernels
+    and copies (memcpy / memset) it put on the card, over ``calls`` calls
+    after two warm-up steps (a profile of a single call lost some of its
+    events to the tracer's start), divided by ``calls``; the kernels'
+    names with their count a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=calls, repeat=1),
+                 on_trace_ready=lambda p: names.extend(
+                     # the steps' own marks sit on the device track too
+                     n for n, _, _ in _device_events(p) if not n.startswith("ProfilerStep"))
+                 ) as prof:
+        for _ in range(2 + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    copies = [n for n in names if "memcpy" in n.lower() or "memset" in n.lower()]
+    kernels = [n[:60] for n in names if "memcpy" not in n.lower() and "memset" not in n.lower()]
+    return {"kernels": len(kernels) / calls, "copies": len(copies) / calls,
+            "kernel_names": {k: kernels.count(k) / calls for k in sorted(set(kernels))},
+            "copy_names": {c: copies.count(c) / calls for c in sorted(set(copies))}}
+
+
+def _tail_prefix(requests, artifact, routing, cids) -> int:
+    """The longest prefix of ``requests`` whose entities beyond each
+    coordinate's resident base fit its admission headroom: after a drain,
+    every known entity of the prefix is resident."""
+    seen = {cid: set() for cid in cids}
+    for i, req in enumerate(requests):
+        for cid in cids:
+            table = artifact.tables[cid]
+            eid = req.entity_ids.get(table.random_effect_type)
+            if eid is None:
+                continue
+            row = table.entity_index.get_index(eid)
+            coord = routing[cid]
+            if row >= coord.base_rows:
+                seen[cid].add(row)
+                if len(seen[cid]) > coord.device_rows - coord.base_rows:
+                    return i
+    return len(requests)
+
+
+def phase_serve_full_width(seed: int) -> dict:
+    """Online serving of score_full_width's model (see the module doc)."""
+    from photon_ml_tpu_torch.convert import game_model_from_numpy
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.serving import (
+        AdmissionController, GameScorer, RequestPlane, ShardedGameScorer, load_artifact,
+        max_nnz_of, replay_requests, requests_from_game_data)
+    from photon_ml_tpu_torch.serving.scorer import featurize_requests
+    from photon_ml_tpu_torch.types import TaskType
+
+    torch.cuda.reset_peak_memory_stats()
+    prep = _serve_prep(seed)
+    result = {"rows": SERVE["n"], "buckets": list(SERVE_BUCKETS), "prep": prep.wait()}
+    if not all(result["prep"]["round_trip_bitwise"].values()):
+        raise AssertionError(f"artifact round trip not bitwise: {result['prep']}")
+    t0 = time.perf_counter()
+    data, coords = make_glmix(seed, **SERVE)
+    _unique_entries(data)
+    # the offline path of score_full_width: the fused engine's CSR kernel
+    # (at 16,384 rows "auto" would pick the plain ELL layout)
+    coords["fixed"]["sparse_engine"] = "fused"
+    model = game_model_from_numpy(coords, TaskType.LOGISTIC_REGRESSION, device="cuda")
+    del coords
+    artifact = load_artifact(prep.dir)
+    requests = requests_from_game_data(data, artifact)
+    nnz = max_nnz_of(requests)
+    abs_sum = _serve_terms(data, artifact)
+    result["setup_s"] = time.perf_counter() - t0
+    result["max_nnz"] = nnz
+
+    # the reference: GameModel.score of the same rows on the card, the
+    # fixed effect through csr_matvec_f32
+    launches.reset()
+    terms = {cid: model.score_coordinate(cid, data).double().cpu().numpy()
+             for cid in model.models}
+    torch.cuda.synchronize()
+    result["reference_launches"] = {k: v for k, v in launches.counts().items() if v}
+    if result["reference_launches"].get("csr_matvec_f32", 0) < 1:
+        raise AssertionError(f"GameModel.score launched no csr_matvec_f32: "
+                             f"{result['reference_launches']}")
+    reference = sum(terms.values()) + data.offsets
+    del model
+
+    def expected(results) -> np.ndarray:
+        """The reference with each result's cold coordinates left out."""
+        out = reference.copy()
+        for i, r in enumerate(results):
+            for cid in r.cold_coordinates:
+                out[i] -= terms[cid][i]
+        return out
+
+    modes, launches_seen = {}, {}
+    launches.reset()
+    # (a) the default: sharded, 4 shards, continuous batching, 2 ms deadline
+    sharded = ShardedGameScorer(artifact, max_nnz=nnz, num_shards=4, device="cuda")
+    adm_a = AdmissionController([sharded], admit_batch=64)
+    sharded.attach_admission(adm_a)
+    adm_a.warmup()
+    # a batch of every bucket before traffic, as a server warms up: the
+    # card's first launches of the score's kernels are in these, not in
+    # the replay's tail
+    warm_ms = {}
+    for b in SERVE_BUCKETS:
+        t0 = time.perf_counter()
+        sharded.score_batch(requests[:b], b)
+        warm_ms[b] = (time.perf_counter() - t0) * 1e3
+    result["warmup_batch_ms"] = warm_ms
+    res_a, snap = replay_requests([sharded], requests, bucket_sizes=SERVE_BUCKETS,
+                                  continuous=True, max_wait_s=0.002, admission=adm_a)
+    modes["a_sharded_continuous"] = {**_replay_summary(snap),
+                                     "max_abs_err": _check_served(res_a, reference, abs_sum, "(a)")}
+    cold_a = [r.cold_coordinates for r in res_a]
+    unknown = {cid: np.asarray(artifact.tables[cid].entity_index.get_indices(
+        list(np.asarray(data.id_tags[artifact.tables[cid].random_effect_type]).astype(str))))
+        < 0 for cid in terms if cid != "fixed"}
+    want_cold = [tuple(c for c in sorted(unknown) if unknown[c][i]) for i in range(len(res_a))]
+    if cold_a != want_cold:
+        raise AssertionError("(a): cold coordinates are not exactly the unknown entities")
+    result["table_bytes"] = sharded.table_bytes()
+
+    # (b) sealed, the same scorer, with every request's stages sampled
+    plane = RequestPlane(sample_rate=1, seed=0)
+    res_b, snap = replay_requests(sharded, requests, bucket_sizes=SERVE_BUCKETS, plane=plane)
+    res_b2, _ = replay_requests(sharded, requests, bucket_sizes=SERVE_BUCKETS)
+    full_table = GameScorer(artifact, max_nnz=nnz, device="cuda")
+    res_full, _ = replay_requests(full_table, requests, bucket_sizes=SERVE_BUCKETS)
+    modes["b_sharded_sealed"] = {**_replay_summary(snap),
+                                 "max_abs_err": _check_served(res_b, reference, abs_sum, "(b)"),
+                                 "stages": snap.get("request_plane", {}).get("stages")}
+    if [r.score for r in res_b] != [r.score for r in res_b2]:
+        raise AssertionError("two sealed replays differ")
+    if [r.score for r in res_b] != [r.score for r in res_full]:
+        raise AssertionError("sealed sharded scores differ from the full table's (atol 0)")
+    del full_table
+    # the sealed replay with the batch's copies from pinned memory, queued
+    # (the scorer's), against pageable blocking copies, in turns after (b)
+    result["upload_ab"] = _upload_ab(sharded, requests, res_b)
+
+    # (c) cached: an LRU of 4,096 rows a coordinate in front of the host tables
+    cached = GameScorer(artifact, max_nnz=nnz, cache_capacity=4096, device="cuda")
+    res_c, snap = replay_requests(cached, requests, bucket_sizes=SERVE_BUCKETS)
+    modes["c_cached_sealed"] = {**_replay_summary(snap),
+                                "cache_hit_rate": snap.get("cache_hit_rate"),
+                                "max_abs_err": _check_served(res_c, reference, abs_sum, "(c)")}
+    if [r.score for r in res_c] != [r.score for r in res_full]:
+        raise AssertionError("cached scores differ from the full table's (atol 0)")
+    compile_counts = {"a_b": sharded.compile_count, "c": cached.compile_count}
+    del cached
+
+    # (d) 16,384 device rows a coordinate: the cold tail admitted by the
+    # background thread while serving, over the longest prefix whose tail
+    # fits the headroom; a second replay after drain() equals (a)
+    budget = ShardedGameScorer(artifact, max_nnz=nnz, num_shards=4, device="cuda",
+                               device_budget_rows=SERVE_BUDGET_ROWS)
+    adm_d = AdmissionController([budget], admit_batch=64)
+    budget.attach_admission(adm_d)
+    adm_d.warmup()
+    re_cids = [cid for cid in terms if cid != "fixed"]
+    prefix = _tail_prefix(requests, artifact, budget.routing, re_cids)
+    res_d, snap = replay_requests([budget], requests[:prefix], bucket_sizes=SERVE_BUCKETS,
+                                  continuous=True, max_wait_s=0.002, admission=adm_d)
+    exp_d = expected(res_d)
+    deferred = sum(1 for r, w in zip(res_d, want_cold) if r.cold_coordinates != w)
+    adm_d.drain()
+    res_d2, snap2 = replay_requests([budget], requests[:prefix], bucket_sizes=SERVE_BUCKETS,
+                                    continuous=True, max_wait_s=0.002, admission=adm_d)
+    if [r.cold_coordinates for r in res_d2] != cold_a[:prefix]:
+        raise AssertionError("(d) after drain: a known entity is still not resident")
+    modes["d_budget_continuous"] = {
+        **_replay_summary(snap), "prefix_rows": prefix,
+        "served_before_admission": deferred,
+        "max_abs_err": _check_served(res_d, exp_d[:prefix], abs_sum[:prefix], "(d)"),
+        "after_drain": {**_replay_summary(snap2), "max_abs_err_vs_a": _check_served(
+            res_d2, np.array([r.score for r in res_a[:prefix]]), abs_sum[:prefix],
+            "(d) after drain vs (a)")},
+        "admission": snap2.get("admission"),
+    }
+    if deferred == 0:
+        raise AssertionError("(d): no request was served before its rows were admitted")
+    compile_counts["d"] = budget.compile_count
+    launches_seen = {k: v for k, v in launches.counts().items() if v}
+    if launches_seen:
+        raise AssertionError(f"the serving replays launched port kernels: {launches_seen}")
+    if max(compile_counts.values()) > len(SERVE_BUCKETS):
+        raise AssertionError(f"compile counts {compile_counts} over {len(SERVE_BUCKETS)}")
+    result.update(modes=modes, compile_counts=compile_counts)
+
+    # one admission step: 64 tail rows, evicting as many (host us, card synced)
+    tail = np.arange(SERVE["n_users"] - 64 * 11, SERVE["n_users"])
+    step_us = []
+    for i in range(11):
+        adm_d.note_deferred("per_userId", tail[64 * i:64 * (i + 1)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adm_d.step()
+        torch.cuda.synchronize()
+        step_us.append((time.perf_counter() - t0) * 1e6)
+    result["admission_step_us_median"] = statistics.median(step_us[1:])
+    result["admission_steps"] = adm_d.steps
+    del budget
+
+    # one batch at buckets 1 and 32: per call (events around it, the host
+    # work inside) and 32 back to back; featurize alone on the host
+    ms = cuda_ms({f"bucket_{b}": (lambda b=b: sharded.score_batch(requests[:b], b))
+                  for b in (1, 32)}, reps=20, rounds=4, batch=32)
+    result["score_batch"] = {f"bucket_{b}": {"ms": ms[f"bucket_{b}"],
+                                             "device_ms": ms[f"bucket_{b}_device"]}
+                             for b in (1, 32)}
+    result["featurize_host_us"] = {
+        f"bucket_{b}": host_us(lambda b=b: featurize_requests(
+            requests[:b], b, b, sharded._shard_nnz, sharded._shard_dim), n=200)
+        for b in (1, 32)}
+    result["launches_per_batch"] = {
+        f"bucket_{b}": _launch_count(lambda b=b: sharded.score_batch(requests[:b], b))
+        for b in (1, 32)}
+    result["replay_profile"] = profile_device_idle(lambda: replay_requests(
+        sharded, requests[:4096], bucket_sizes=SERVE_BUCKETS))
+    result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result["card"] = nvidia_smi()
+    emit("serve_full_width", **result)
+    return result
+
+
+class captured_replays:
+    """Inside: every replay_requests call (the one the serve_game CLI makes
+    included) keeps its results in ``runs``."""
+
+    def __enter__(self):
+        import photon_ml_tpu_torch.serving as serving
+
+        self.runs = []
+        self._serving, self._real = serving, serving.replay_requests
+
+        def replay(*args, **kwargs):
+            results, snap = self._real(*args, **kwargs)
+            self.runs.append(results)
+            return results, snap
+
+        serving.replay_requests = replay
+        return self
+
+    def __exit__(self, *exc):
+        self._serving.replay_requests = self._real
+
+
+def _http_get(port: int, path: str) -> tuple:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _serve_with_introspection(serve_game, argv: list, root: str) -> dict:
+    """One serve_game run held open after its replay: /healthz, /varz,
+    /metrics and /requests read from the port it wrote, then
+    /quitquitquit."""
+    port_file = os.path.join(root, "port")
+    if os.path.exists(port_file):
+        os.remove(port_file)
+    out = {}
+    run = threading.Thread(target=lambda: out.setdefault("snapshot", serve_game.run(
+        serve_game.parse_args(argv + ["--introspect-port", "0", "--introspect-port-file",
+                                      port_file, "--introspect-hold", "120"]))))
+    run.start()
+    try:
+        deadline = time.monotonic() + 300
+        while not (os.path.exists(port_file) and open(port_file).read()):
+            if time.monotonic() > deadline or not run.is_alive():
+                raise AssertionError("serve_game wrote no introspection port")
+            time.sleep(0.01)
+        port = int(open(port_file).read())
+        while True:
+            status, body = _http_get(port, "/healthz")
+            if json.loads(body)["phase"] == "drained" or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        out["healthz"] = json.loads(body)
+        out["varz"] = json.loads(_http_get(port, "/varz")[1])
+        out["metrics_lines"] = len(_http_get(port, "/metrics")[1].splitlines())
+        out["requests_route"] = _http_get(port, "/requests")[0]
+        _http_get(port, "/quitquitquit")
+    finally:
+        run.join(timeout=300)
+    if run.is_alive() or "snapshot" not in out:
+        raise AssertionError("serve_game did not finish after /quitquitquit")
+    if not out["healthz"]["healthy"] or out["healthz"]["phase"] != "drained":
+        raise AssertionError(f"/healthz: {out['healthz']}")
+    return out
+
+
+def phase_serve_game_cli(seed: int, n: int = 4096) -> dict:
+    """The serve_game CLI on cuda and on cpu (see the module doc)."""
+    from photon_ml_tpu_torch.cli import serve_game
+    from photon_ml_tpu_torch.serving import load_tuned_config
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_cli_") as root:
+        t0 = time.perf_counter()
+        write_cli_fixture(root, seed, n=n, n_users=1024, n_items=256)
+        result = {"rows": n, "fixture_s": time.perf_counter() - t0}
+        data = os.path.join(root, "data")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            art = os.path.join(root, f"artifact_{device}")
+            t0 = time.perf_counter()
+            with captured_replays() as cap:
+                export = serve_game.run(serve_game.parse_args([
+                    "--model-dir", os.path.join(root, "model"), "--data-dirs", data,
+                    "--export-artifact-dir", art, "--max-requests", "2048",
+                    "--device", device]))
+                live = _serve_with_introspection(serve_game, [
+                    "--artifact-dir", art, "--data-dirs", data, "--max-requests", "2048",
+                    "--slo-latency-ms", "1000", "--overload-control",
+                    "--request-sample-rate", "1", "--tenants", "a,b", "--device", device],
+                    root)
+            runs[device] = {"export": export, "live": live, "scores": cap.runs,
+                            "seconds": time.perf_counter() - t0}
+        cu, cpu = runs["cuda"], runs["cpu"]
+        for field in ("num_requests", "xla_compiles"):
+            for a, b in ((cu["export"], cpu["export"]),
+                         (cu["live"]["snapshot"], cpu["live"]["snapshot"])):
+                if a[field] != b[field]:
+                    raise AssertionError(f"serve_game {field}: cuda {a[field]} cpu {b[field]}")
+        # each device replayed twice (the export run and the live run): a
+        # capture that caught fewer compares nothing
+        if not len(cu["scores"]) == len(cpu["scores"]) >= 2:
+            raise AssertionError(f"serve_game replays captured: cuda {len(cu['scores'])}, "
+                                 f"cpu {len(cpu['scores'])}, want 2 each")
+        max_diff = 0.0
+        for a, b in zip(cu["scores"], cpu["scores"]):
+            sa, sb = np.array([r.score for r in a]), np.array([r.score for r in b])
+            if sa.shape != sb.shape or [r.request_id for r in a] != [r.request_id for r in b]:
+                raise AssertionError("serve_game cuda and cpu replayed different requests")
+            if not np.allclose(sa, sb, rtol=2e-4, atol=1e-5):
+                raise AssertionError(f"serve_game cuda and cpu scores differ by "
+                                     f"{float(np.abs(sa - sb).max())}")
+            max_diff = max(max_diff, float(np.abs(sa - sb).max()))
+        result.update({
+            "cuda_s": cu["seconds"], "cpu_s": cpu["seconds"], "max_score_diff": max_diff,
+            "replays_compared": len(cu["scores"]),
+            "requests": cu["export"]["num_requests"],
+            "compile_count": cu["export"]["xla_compiles"],
+            "live_tenants": cu["live"]["varz"].get("tenants"),
+            "live_slo": cu["live"]["snapshot"].get("slo", {}).get("burn_rate"),
+            "metrics_lines": cu["live"]["metrics_lines"],
+            "artifact_entries": sorted(os.listdir(os.path.join(root, "artifact_cuda"))),
+        })
+        art = os.path.join(root, "artifact_cuda")
+        # --auto-tune persists a tuned config that the next boot applies
+        tuned_run = serve_game.run(serve_game.parse_args([
+            "--artifact-dir", art, "--data-dirs", data, "--max-requests", "512",
+            "--auto-tune", "--auto-tune-warmup", "128", "--device", "cuda"]))
+        tuned = load_tuned_config(art)
+        boot = serve_game.run(serve_game.parse_args([
+            "--artifact-dir", art, "--data-dirs", data, "--max-requests", "256",
+            "--device", "cuda"]))
+        want_buckets = tuned.get("serving.bucket_sizes") if tuned else None
+        if tuned is None or "auto_tune" not in tuned_run or (
+                want_buckets and boot["bucket_sizes"] != [int(b) for b in want_buckets]):
+            raise AssertionError(f"auto-tune: tuned {tuned}, boot buckets {boot['bucket_sizes']}")
+        result["auto_tune"] = {"tuned_config": tuned, "boot_bucket_sizes": boot["bucket_sizes"]}
+        modes = {}
+        for name, flags in (("cached", ["--cache-capacity", "64"]), ("sealed", ["--sealed"]),
+                            ("scorers_2", ["--scorers", "2"])):
+            snap = serve_game.run(serve_game.parse_args([
+                "--artifact-dir", art, "--data-dirs", data, "--max-requests", "1024",
+                "--bucket-sizes", "1,2,4,8,16,32", "--device", "cuda", *flags]))
+            modes[name] = {"serving_mode": snap["serving_mode"],
+                           "num_scorers": snap["num_scorers"],
+                           "num_requests": snap["num_requests"],
+                           "latency_p99_s": snap["latency_p99_s"]}
+            if snap["num_requests"] != 1024 or snap["xla_compiles"] > 6:
+                raise AssertionError(f"serve_game {name}: {snap}")
+        result["modes"] = modes
+        # refused with a message: SystemExit(str) exits the process with 1
+        try:
+            serve_game.main(["--artifact-dir", art, "--data-dirs", data,
+                             "--watch-deltas", os.path.join(root, "deltas")])
+            refused = None
+        except SystemExit as e:
+            refused = e.code
+        if not isinstance(refused, str) or "item 9b" not in refused:
+            raise AssertionError(f"--watch-deltas not refused: {refused!r}")
+        result["watch_deltas_refused"] = refused
+    emit("serve_game_cli", **result)
+    return result
+
+
 PHASES = {
     "env": lambda seed: phase_env(),
     "build": lambda seed: phase_build(),
     "kernel": phase_kernel,
     "score_full_width": phase_score_full_width,
     "score_game_cli": phase_score_game_cli,
+    "serve_full_width": phase_serve_full_width,
+    "serve_game_cli": phase_serve_game_cli,
     "read_score_full_width": phase_read_score_full_width,
     "train_full_width": phase_train_full_width,
     "train_streaming_full_width": phase_train_streaming_full_width,
@@ -5434,6 +6098,10 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 results[name] = PHASES[name](args.seed)
                 phase_seconds[name] = time.perf_counter() - t0
+            if name == "build" and "score_game_cli" in phases:
+                _cli_fixture_prep(args.seed)  # its files, made in the background
+            if name == "build" and "serve_full_width" in phases:
+                _serve_prep(args.seed)  # its artifact, made in the background
             if name == "build" and "read_score_full_width" in phases:
                 # its Avro files and stores, made while the phases before it run
                 _read_score_prep(args.seed)
@@ -5450,6 +6118,8 @@ def main(argv=None) -> int:
         # the cluster workers started in the background end, whatever failed
         for launch in _PLANE_LAUNCHES:
             launch.close()
+        for prep in _SPAWN_PREPS.values():
+            prep.close()
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
 
     # launches and times from the phase that runs each kernel: the training
@@ -5480,11 +6150,15 @@ def main(argv=None) -> int:
         "library_ms": train.get(name, {}).get("library_ms"),
         "library_device_ms": train.get(name, {}).get("library_device_ms"),
         "flushed_ms": train.get(name, {}).get("flushed_ms"),
-        # each later path's own count, set to 0 just before it ran
+        # each later path's own count, set to 0 just before it ran; the
+        # serving phase only where its reference scoring launched the kernel
+        # (its serving replays launch none of the table's kernels)
         "launches_by_path": {
-            path: results[path]["launches_by_kernel"].get(name)
-            for path in ("train_cluster_full_width", "train_grid_full_width")
-            if path in results},
+            **{path: results[path]["launches_by_kernel"].get(name)
+               for path in ("train_cluster_full_width", "train_grid_full_width")
+               if path in results},
+            **{"serve_full_width": n for n in [results.get("serve_full_width", {}).get(
+                "reference_launches", {}).get(name, 0)] if n}},
     } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

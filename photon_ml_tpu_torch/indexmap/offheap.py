@@ -229,6 +229,20 @@ def _build_partition_python(
         f.write(blob)
 
 
+def build_partition(path: str, names: Sequence[bytes], indices: np.ndarray) -> None:
+    """One PHIX partition holding ``names`` at the given ``indices`` (kept
+    as given, unlike :func:`build_offheap_index_map`, which numbers keys
+    itself): the native ``phix_build``; ``_build_partition_python`` is its
+    plain version (byte-equal files)."""
+    lib = _load_native()
+    blob, offs, lens = _pack_keys(names)
+    idx = np.ascontiguousarray(indices, dtype=np.uint32)
+    rc = lib.phix_build(str(path).encode(), blob, _ptr(offs),
+                        _ptr(np.ascontiguousarray(lens)), _ptr(idx), len(names))
+    if rc != 0:
+        raise OSError(f"phix_build failed with code {rc} for {path}")
+
+
 class _PythonPartition:
     """Plain version of the native reader: mmap reader of one PHIX
     partition."""
