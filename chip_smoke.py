@@ -110,7 +110,54 @@ exit code is not 0):
                       launches per batch (torch.profiler), a replay's
                       device idle share, the admission step us, table
                       bytes and peak memory.
-7. serve_game_cli   — photon_ml_tpu_torch.cli.serve_game on cuda and on cpu
+7. nearline_full_width
+                    — the nearline loop on serve_full_width's model and
+                      artifact (its background process also hashes the
+                      artifact's fingerprint, the chain's root): 65,536
+                      fresh events (FE 16 nonzeros over 2^24 dims plus an
+                      intercept column: over 2^20 nonzeros, the fused
+                      engine; per_user and per_item 16 nonzeros; entities
+                      Zipf(1.3) as bench.py _build_serving_workload draws
+                      them, ~1 % new ids; labels from the model). (a)
+                      incremental_update (one FE refresh, the random
+                      effects capped at 256 samples an entity in 4
+                      buckets) on cuda: launches of csr_matvec_f32,
+                      csc_rmatvec_f32 and fused_value_grad_batched_f32
+                      each > 0, against the same update through the plain
+                      versions (rows and FE atol 2e-3, objective rtol
+                      1e-4, the same touched and new entities) and itself
+                      bitwise. (e) a VariantRegistry over a sharded scorer
+                      of 4 shards with headroom 1.0, on the first 4,096
+                      requests: v1 diverged by the update's delta scores
+                      as GameModel.score of the merged model, base and the
+                      undiverged v2 bitwise the plain path, rolling back
+                      v1 leaves a diverged v2 bitwise; score_batch at bucket 32 plain and per
+                      variant. (b) the delta swapped by HotSwapManager
+                      into a second scorer built the same way (a base
+                      swap appends its new entities where a registry's
+                      overlay rows lie, so it never follows one on a
+                      scorer; the reference's CLI refuses --variants
+                      with --watch-deltas) in the middle of a continuous
+                      replay of 16,384 requests, a feeder thread keeping
+                      batches in flight until the swap returns: scores
+                      before it as the old model's, after it as the
+                      merged model's, those in flight a mix of old and
+                      new coordinates, no new signature; blackout_s (the
+                      reference's accounting: the artifact and FE
+                      installs whole, the row updates' flip windows),
+                      swap seconds, regrowths, and each batch's
+                      score_batch seconds (count, p50, p99, max) before
+                      the swap, overlapping its hooks, in the rest of its
+                      wall and after it: the stall the request path saw.
+                      (c)
+                      the delta's rows negated and scaled by 8: the AUC
+                      gate on 4,096 labelled rows rolls it back, the
+                      tables bitwise. (f) the tenant_isolation,
+                      ramped_rollout and nearline_loop scenarios over the
+                      second scorer (per-tenant p50/p99, sheds, SLO verdicts).
+                      (d) compact of a chain of two deltas, in a spawned
+                      process during (b)-(f): bitwise the chain applied.
+8. serve_game_cli   — photon_ml_tpu_torch.cli.serve_game on cuda and on cpu
                       over an Avro fixture and model (write_cli_fixture,
                       4,096 rows): pack with --export-artifact-dir, then
                       serve from --artifact-dir with --slo-latency-ms,
@@ -122,9 +169,17 @@ exit code is not 0):
                       replayed scores within rtol 2e-4, atol 1e-5. On
                       cuda: --auto-tune persists a tuned config that the
                       next boot applies; --cache-capacity 64, --sealed,
-                      --scorers 2; --watch-deltas exits non-zero naming
-                      Queue A item 9b.
-8. read_score_full_width
+                      --scorers 2. Then update_game on cuda and on cpu
+                      (two chained deltas over the cuda export, the second
+                      with a FE refresh and --compact-into: equal counts),
+                      serve_game --watch-deltas on the cuda chain (the
+                      same swaps, scores within rtol 2e-4) and serve_game
+                      --variants a,b --variant-ramp 10 --tenants t1,t2
+                      --tenant-rate --tenant-burst --slo-latency-ms (the
+                      same router decisions, quota verdicts and results,
+                      the scores by request id within rtol 2e-4, atol
+                      1e-5).
+9. read_score_full_width
                     — the data of score_full_width at a quarter of its
                       depth (make_glmix at 2^18 rows x 2^24 dims x 16
                       nonzeros, per-user and per-item REs) written as 8
@@ -143,7 +198,7 @@ exit code is not 0):
                       1e-5), with the
                       write, build, read and score seconds, the read's
                       rows/s, peak RSS and csr_matvec_f32 launches.
-9. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
+10. train_full_width — GameEstimator.fit of a GLMix logistic model at the same
                       full width (FE 2^20 rows x 2^24 dims x 16 nonzeros +
                       an intercept; per-user RE 65,536 x 16, per-item
                       16,384 x 16), one outer iteration fixed -> per_user ->
@@ -157,7 +212,7 @@ exit code is not 0):
                       L2-flushed time of each redesigned kernel, each kernel
                       against its plain version at those shapes, and the
                       device idle share of one random-effect solve.
-10. train_streaming_full_width
+11. train_streaming_full_width
                     — fit_streaming at the width of train_full_width: its
                       training rows written as 16 Avro part files of
                       65,536 rows by worker processes, off-heap stores built
@@ -184,17 +239,17 @@ exit code is not 0):
                       bitwise equal. With open, fit and decode, stall,
                       transfer, hidden-upload seconds, hide ratio, h2d
                       bytes, peak device memory and peak RSS.
-11. train_cluster_full_width
+12. train_cluster_full_width
                     — the cluster path, train_game --streaming --hosts
                       2 at that width: ClusterPlane.launch of two worker
                       processes on the card (each its own CUDA context,
                       stream, pinned ring and block-cache subdirectory)
-                      over phase 10's part files and stores, launched with
+                      over phase 11's part files and stores, launched with
                       the drill's plane in the background (nice 19) during
-                      phase 10's resident and stochastic fits; a cold and a
+                      phase 11's resident and stochastic fits; a cold and a
                       warm fit_streaming(cluster=...) (the warm one under
                       torch.profiler: the coordinator's device idle share)
-                      held against phase 10's single-host streamed fit
+                      held against phase 11's single-host streamed fit
                       (final objective rtol 1e-4, FE coefficients atol
                       2e-3, AUC 1e-3; whether the two are bitwise equal
                       is recorded: the warm fit's partitions follow the
@@ -205,7 +260,7 @@ exit code is not 0):
                       bytes a reply and a pass message, busy, allreduce
                       wait and fold seconds from the pass profiles, each
                       worker's allocator peak, the card's memory in use.
-12. train_grid_full_width
+13. train_grid_full_width
                     — the grid path: train_full_width's fit on a 2 x 2 grid of
                       fused tiles with devices [cuda:0] * 4 (the per-user
                       and per-item entity blocks split over the 4
@@ -224,7 +279,7 @@ exit code is not 0):
                       grid of distinct cards refused
                       on a one-card machine ("need 4 devices, have 1") by
                       the estimator and train_game.
-13. train_glm_full_width
+14. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
                       + an intercept; fused engine), labels of each task from
@@ -244,7 +299,7 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-14. train_tron_full_width
+15. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -252,7 +307,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-15. fe_bf16_full_width
+16. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -269,7 +324,7 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-16. train_benes_full_width
+17. train_benes_full_width
                     — training data of that width at a quarter of its
                       depth (2^18 rows, 2^16 held out: cold routing of
                       2^20 rows took 75-160 s) with the fixed effect on the
@@ -289,7 +344,7 @@ exit code is not 0):
                       plan against the stage-by-stage plain plan (bitwise)
                       and one gather, Benes vs fused matvec and rmatvec
                       times, and the device idle share of one FE solve.
-17. train_full_game_full_width
+18. train_full_game_full_width
                     — the train_full_width GLMix fit plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
@@ -307,7 +362,7 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-18. train_async_full_width
+19. train_async_full_width
                     — the train_full_width fit with per_user in 4 buckets
                       and per_item in 2, 1 outer iteration, on the sync
                       schedule and on schedule="async" (a CUDA stream a
@@ -321,7 +376,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-19. train_sweep_tuning_full_width
+20. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -330,8 +385,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-20. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 18
+21. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 19
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -350,7 +405,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-21. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+22. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -400,7 +455,7 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-22. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+23. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
@@ -451,7 +506,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
-              "serve_full_width", "serve_game_cli", "read_score_full_width",
+              "serve_full_width", "nearline_full_width", "serve_game_cli", "read_score_full_width",
               "train_full_width", "train_streaming_full_width",
               "train_cluster_full_width", "train_grid_full_width",
               "train_glm_full_width", "train_tron_full_width",
@@ -5487,6 +5542,12 @@ def _serve_pack_job(job) -> dict:
             ok = ok and np.array_equal(back.entity_index.get_indices(ids), np.arange(len(ids)))
         same[cid] = bool(ok)
     info["round_trip_bitwise"] = same
+    # the root of nearline_full_width's delta chain, hashed here, off its path
+    from photon_ml_tpu_torch.incremental import fingerprint_dir
+
+    t4 = time.perf_counter()
+    info["fingerprint"] = fingerprint_dir(out)
+    info["fingerprint_s"] = time.perf_counter() - t4
     info["artifact_bytes"] = sum(
         os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
     info["peak_rss_gb"] = _peak_rss_gb()["self"]
@@ -5884,24 +5945,34 @@ def phase_serve_full_width(seed: int) -> dict:
 
 class captured_replays:
     """Inside: every replay_requests call (the one the serve_game CLI makes
-    included) keeps its results in ``runs``."""
+    included) keeps its results in ``runs``, every TenancyPlane.replay
+    (serve_game --variants) its results in ``tenancy_runs``."""
 
     def __enter__(self):
         import photon_ml_tpu_torch.serving as serving
+        from photon_ml_tpu_torch.serving.tenancy import TenancyPlane
 
-        self.runs = []
+        self.runs, self.tenancy_runs = [], []
         self._serving, self._real = serving, serving.replay_requests
+        self._plane, self._real_tenancy = TenancyPlane, TenancyPlane.replay
 
         def replay(*args, **kwargs):
             results, snap = self._real(*args, **kwargs)
             self.runs.append(results)
             return results, snap
 
+        def tenancy_replay(plane, *args, **kwargs):
+            results = self._real_tenancy(plane, *args, **kwargs)
+            self.tenancy_runs.append(results)
+            return results
+
         serving.replay_requests = replay
+        TenancyPlane.replay = tenancy_replay
         return self
 
     def __exit__(self, *exc):
         self._serving.replay_requests = self._real
+        self._plane.replay = self._real_tenancy
 
 
 def _http_get(port: int, path: str) -> tuple:
@@ -6032,17 +6103,777 @@ def phase_serve_game_cli(seed: int, n: int = 4096) -> dict:
             if snap["num_requests"] != 1024 or snap["xla_compiles"] > 6:
                 raise AssertionError(f"serve_game {name}: {snap}")
         result["modes"] = modes
-        # refused with a message: SystemExit(str) exits the process with 1
-        try:
-            serve_game.main(["--artifact-dir", art, "--data-dirs", data,
-                             "--watch-deltas", os.path.join(root, "deltas")])
-            refused = None
-        except SystemExit as e:
-            refused = e.code
-        if not isinstance(refused, str) or "item 9b" not in refused:
-            raise AssertionError(f"--watch-deltas not refused: {refused!r}")
-        result["watch_deltas_refused"] = refused
+        result["nearline"] = _nearline_cli(root, art, data)
     emit("serve_game_cli", **result)
+    return result
+
+
+def _cli_fixture_config(root: str) -> str:
+    """write_cli_fixture's coordinates as an update_game config: FE +
+    per_userId + per_itemId, L-BFGS 10 iterations, L2 lambda 1."""
+    opt = {"optimizer": "LBFGS", "max_iterations": 10, "regularization": "L2",
+           "regularization_weight": 1.0}
+    cfg = {
+        "feature_shards": {
+            "global": {"feature_bags": ["features"], "add_intercept": True},
+            "per_user": {"feature_bags": ["userFeatures"], "add_intercept": False},
+            "per_item": {"feature_bags": ["itemFeatures"], "add_intercept": False},
+        },
+        "coordinates": {
+            "fixed": {"type": "fixed", "feature_shard": "global", "optimizer": opt},
+            "per_userId": {"type": "random", "feature_shard": "per_user",
+                           "random_effect_type": "userId", "optimizer": opt},
+            "per_itemId": {"type": "random", "feature_shard": "per_item",
+                           "random_effect_type": "itemId", "optimizer": opt},
+        },
+        "update_order": ["fixed", "per_userId", "per_itemId"],
+    }
+    path = os.path.join(root, "update_game.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _compare_replays(cuda_runs: list, cpu_runs: list, what: str) -> float:
+    """The same number (>= 1) of replays on each device, of the same
+    requests, scores within rtol 2e-4, atol 1e-5; the largest difference."""
+    if not len(cuda_runs) == len(cpu_runs) >= 1:
+        raise AssertionError(f"{what}: replays captured: cuda {len(cuda_runs)}, "
+                             f"cpu {len(cpu_runs)}")
+    worst = 0.0
+    for a, b in zip(cuda_runs, cpu_runs):
+        sa, sb = np.array([r.score for r in a]), np.array([r.score for r in b])
+        if sa.shape != sb.shape or [r.request_id for r in a] != [r.request_id for r in b]:
+            raise AssertionError(f"{what}: cuda and cpu replayed different requests")
+        if not np.allclose(sa, sb, rtol=2e-4, atol=1e-5):
+            raise AssertionError(f"{what}: cuda and cpu scores differ by "
+                                 f"{float(np.abs(sa - sb).max())}")
+        worst = max(worst, float(np.abs(sa - sb).max()))
+    return worst
+
+
+def _nearline_cli(root: str, art: str, data: str) -> dict:
+    """update_game on cuda and cpu (two chained deltas over the exported
+    artifact ``art``, then --compact-into), serve_game --watch-deltas
+    picking up the cuda chain, and serve_game --variants with tenants and
+    quotas, each on cuda and cpu: equal counts, scores within rtol 2e-4."""
+    from photon_ml_tpu_torch.cli import serve_game, update_game
+    from photon_ml_tpu_torch.incremental import fingerprint_dir
+
+    cfg = _cli_fixture_config(root)
+    base_fp = fingerprint_dir(art)
+    out, updates = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        deltas = os.path.join(root, f"deltas_{device}")
+        argv = ["--base-artifact-dir", art, "--model-dir", os.path.join(root, "model"),
+                "--coordinate-config", cfg, "--events-data-dirs", data,
+                "--output-dir", deltas, "--device", device]
+        compacted = os.path.join(root, f"compacted_{device}")
+        runs = [update_game.run(update_game.parse_args(argv)),
+                update_game.run(update_game.parse_args(
+                    argv + ["--refresh-fixed-iterations", "1", "--compact-into", compacted]))]
+        if ([r["generation"] for r in runs] != [1, 2] or runs[0]["base_fingerprint"] != base_fp
+                or runs[1]["base_fingerprint"] != runs[0]["fingerprint"]
+                or runs[1]["compacted_fingerprint"] != fingerprint_dir(compacted)
+                or runs[1]["fixed_effects_refreshed"] != ["fixed"]):
+            raise AssertionError(f"update_game on {device}: {runs}")
+        updates[device] = runs
+        out[f"update_{device}_s"] = time.perf_counter() - t0
+    keys = ("rows_updated", "num_events", "touched_entities", "new_entities")
+    for a, b in zip(updates["cuda"], updates["cpu"]):
+        if {k: a[k] for k in keys} != {k: b[k] for k in keys}:
+            raise AssertionError(f"update_game cuda {a} cpu {b}")
+    out["update_game"] = {k: updates["cuda"][0][k] for k in keys}
+    watched, variant = {}, {}
+    for device in ("cuda", "cpu"):
+        with captured_replays() as cap:
+            snap = serve_game.run(serve_game.parse_args([
+                "--artifact-dir", art, "--data-dirs", data, "--max-requests", "2048",
+                "--watch-deltas", os.path.join(root, "deltas_cuda"), "--watch-chunk", "512",
+                "--device", device]))
+        watched[device] = (snap, cap.runs)
+        with captured_replays() as cap:
+            snap = serve_game.run(serve_game.parse_args([
+                "--artifact-dir", art, "--data-dirs", data, "--max-requests", "2048",
+                "--variants", "a,b", "--variant-ramp", "10", "--tenants", "t1,t2",
+                "--tenant-rate", "0.001", "--tenant-burst", "600", "--slo-latency-ms", "1000",
+                "--device", device]))
+        variant[device] = (snap, cap.tenancy_runs)
+    (wcu, runs_cu), (wcpu, runs_cpu) = watched["cuda"], watched["cpu"]
+    swaps = [[(r["generation"], r["rolled_back"], r["rows_updated"]) for r in w["swap_reports"]]
+             for w in (wcu, wcpu)]
+    if swaps[0] != swaps[1] or [g for g, _, _ in swaps[0]] != [1, 2] or any(
+            rb for _, rb, _ in swaps[0]):
+        raise AssertionError(f"serve_game --watch-deltas swaps: cuda {swaps[0]} cpu {swaps[1]}")
+    for field in ("num_requests", "xla_compiles"):
+        if wcu[field] != wcpu[field]:
+            raise AssertionError(f"serve_game --watch-deltas {field}: cuda {wcu[field]} "
+                                 f"cpu {wcpu[field]}")
+    out["watch_deltas"] = {"swaps": swaps[0], "num_requests": wcu["num_requests"],
+                           "blackout_s": [r["blackout_s"] for r in wcu["swap_reports"]],
+                           "max_score_diff": _compare_replays(runs_cu, runs_cpu,
+                                                              "--watch-deltas")}
+    (vcu, served_cu), (vcpu, served_cpu) = variant["cuda"], variant["cpu"]
+    for field in ("num_results", "serving_mode"):
+        if vcu[field] != vcpu[field]:
+            raise AssertionError(f"serve_game --variants {field}: cuda {vcu[field]} "
+                                 f"cpu {vcpu[field]}")
+    tc, tp = vcu["tenancy"], vcpu["tenancy"]
+    if (tc["router"] != tp["router"] or tc["variants"] != tp["variants"]
+            or tc["quota"] != tp["quota"] or vcu["serving_mode"] != "sharded-tenancy"):
+        raise AssertionError(f"serve_game --variants: cuda {tc} cpu {tp}")
+    # the tenancy plane's results come in completion order: compared by id
+    by_id = [[sorted(r, key=lambda x: x.request_id) for r in runs]
+             for runs in (served_cu, served_cpu)]
+    if not (len(by_id[0]) == 1 and len(by_id[0][0]) == vcu["num_results"] > 0):
+        raise AssertionError(f"serve_game --variants: captured {[len(r) for r in by_id[0]]} "
+                             f"replays, want one of {vcu['num_results']} results")
+    out["variants"] = {"num_results": vcu["num_results"], "router": tc["router"],
+                       "max_score_diff": _compare_replays(*by_id, "--variants"),
+                       "quota": tc["quota"], "latency_p99_s": vcu.get("latency_p99_s"),
+                       "tenants": {t: d["slo"]["verdict"] for t, d in tc.get("tenants", {}).items()}}
+    return out
+
+
+# nearline_full_width: the events batch (bench.py _build_serving_workload
+# :803 draws entities Zipf(1.3)), the RE data configuration's active cap and
+# buckets (the reference's activeCap bounds a Zipf head entity's samples),
+# and the sizes of the replay, the gate and the scenarios
+NEARLINE = {"events": 65_536, "fe_k": 16, "re_k": 16, "new": 0.01, "zipf": 1.3,
+            "active_cap": 256, "re_buckets": 4, "requests": 16_384, "gate_rows": 4_096,
+            "headroom": 1.0, "scenario_phases": 8}
+
+
+def make_nearline_events(seed: int, coords: dict, model, n: int, fe_dim: int, device: str):
+    """A fresh events batch for ``coords``' model: FE ``fe_k`` distinct
+    columns in [1, fe_dim) plus column 0 at 1.0 (an intercept) a row, each
+    random effect ``re_k`` nonzeros (12 inside the entity's projected
+    space, 4 anywhere), entities Zipf(1.3) over the model's ids with about 1 %
+    new ids, labels drawn from the model's own probabilities (scored on
+    ``device``)."""
+    from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
+
+    cfg = NEARLINE
+    rng = np.random.default_rng(seed + 16)
+    fe_k, re_k = cfg["fe_k"], cfg["re_k"]
+    fe_cols = np.sort(1 + _distinct_cols(rng, n, fe_k, fe_dim - 1), axis=1)
+    fe_cols = np.concatenate([np.zeros((n, 1), np.int64), fe_cols], axis=1)
+    fe_vals = np.concatenate([np.ones((n, 1), np.float32),
+                              rng.standard_normal((n, fe_k), dtype=np.float32)], axis=1)
+    shards = {"global": FeatureShard(np.repeat(np.arange(n, dtype=np.int64), fe_k + 1),
+                                     fe_cols.reshape(-1), fe_vals.reshape(-1), fe_dim)}
+    id_tags = {}
+    for re_type, shard, prefix in (("userId", "per_user", "u"), ("itemId", "per_item", "i")):
+        c = coords[f"per_{re_type}"]
+        pidx, count, re_dim = c["proj_indices"][0], len(c["entity_ids"][0]), c["global_dim"]
+        ent = (rng.zipf(cfg["zipf"], n) - 1) % count
+        new = rng.random(n) < cfg["new"]
+        id_tags[re_type] = np.where(new, np.char.add(f"new_{prefix}", ent.astype(str)),
+                                    np.char.add(prefix, ent.astype(str)))
+        inside = re_k - 4
+        # the first re_local - 2 slots of every entity's space are valid
+        slots = np.argsort(rng.random((n, pidx.shape[1] - 2)), axis=1)[:, :inside]
+        cols = np.concatenate([pidx[ent[:, None], slots],
+                               rng.integers(0, re_dim, (n, 4))], axis=1)
+        shards[shard] = FeatureShard(np.repeat(np.arange(n, dtype=np.int64), re_k),
+                                     cols.reshape(-1).astype(np.int64),
+                                     rng.standard_normal(n * re_k, dtype=np.float32), re_dim)
+    data = GameData(labels=np.zeros(n, np.float32), feature_shards=shards, id_tags=id_tags)
+    _unique_entries(data)
+    margin = model.score(data).double().cpu().numpy()
+    data.labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
+    return data
+
+
+def _nearline_estimator(device: str):
+    """FE + per_userId + per_itemId (the serving model's coordinate ids),
+    L-BFGS 10 iterations, L2 lambda 1; each random effect capped at
+    NEARLINE["active_cap"] active samples an entity, in 4 size buckets."""
+    from photon_ml_tpu_torch.data.random_effect import RandomEffectDataConfiguration
+    from photon_ml_tpu_torch.estimators.game import (
+        FixedEffectCoordinateConfiguration as FE,
+        GameEstimator,
+        RandomEffectCoordinateConfiguration as RE,
+    )
+    from photon_ml_tpu_torch.opt.config import (
+        GlmOptimizationConfiguration, OptimizerConfig, RegularizationContext,
+    )
+    from photon_ml_tpu_torch.types import RegularizationType, TaskType
+
+    opt = GlmOptimizationConfiguration(
+        optimizer_config=OptimizerConfig(max_iterations=10),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0,
+    )
+
+    def re(t):
+        return RandomEffectDataConfiguration(t, active_data_upper_bound=NEARLINE["active_cap"],
+                                             num_buckets=NEARLINE["re_buckets"])
+
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FE("global", opt), "per_userId": RE("per_user", re("userId"), opt),
+         "per_itemId": RE("per_item", re("itemId"), opt)},
+        update_order=["fixed", "per_userId", "per_itemId"], num_outer_iterations=1,
+        device=device)
+
+
+class timed_resolves:
+    """Inside: every ``resolve_coordinate`` of ``estimator`` is timed (the
+    card synced at its end) into ``seconds``, (coordinate, s) in order."""
+
+    def __init__(self, estimator, sync):
+        self.estimator, self.sync, self.seconds = estimator, sync, []
+
+    def __enter__(self):
+        real = self.estimator.resolve_coordinate
+
+        def timed(cid, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(cid, *args, **kwargs)
+            self.sync()
+            self.seconds.append((cid, time.perf_counter() - t0))
+            return out
+
+        self.estimator.resolve_coordinate = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.estimator.resolve_coordinate
+
+
+def _update_rows(update) -> dict:
+    """cid -> (sorted entity ids, their coefficient dicts' sorted keys and
+    values as arrays)."""
+    out = {}
+    for cid, rows in update.re_updates.items():
+        ids = sorted(rows)
+        keys = [np.array(sorted(rows[e]), dtype=np.int64) for e in ids]
+        vals = [np.array([rows[e][k] for k in sorted(rows[e])], dtype=np.float64) for e in ids]
+        out[cid] = (ids, keys, vals)
+    return out
+
+
+def _logistic_objective(model, data) -> float:
+    from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
+
+    z = model.score(data).double()
+    y = torch.from_numpy(data.labels).to(z.device).double()
+    return float(LogisticLoss.value(z, y).sum())
+
+
+def _same_update(a, b, atol: float) -> dict:
+    """Touched and new sets equal; FE vectors and re-solved rows within
+    ``atol`` (atol 0: bitwise). Returns the largest differences."""
+    if a.touched_entities != b.touched_entities or a.new_entities != b.new_entities:
+        raise AssertionError("updates touched different entities")
+    if sorted(a.fe_updates) != sorted(b.fe_updates):
+        raise AssertionError("updates refreshed different fixed effects")
+    out = {}
+    for cid in a.fe_updates:
+        d = np.abs(a.fe_updates[cid].astype(np.float64) - b.fe_updates[cid])
+        out[cid] = float(d.max())
+    ra, rb = _update_rows(a), _update_rows(b)
+    for cid in ra:
+        ids, keys, vals = ra[cid]
+        ids_b, keys_b, vals_b = rb[cid]
+        if ids != ids_b or not all(np.array_equal(x, y) for x, y in zip(keys, keys_b)):
+            raise AssertionError(f"{cid}: re-solved rows differ in their entities or features")
+        out[cid] = float(max((np.abs(x - y).max() for x, y in zip(vals, vals_b) if x.size),
+                             default=0.0))
+    bad = {k: v for k, v in out.items() if not v <= atol}
+    if bad:
+        raise AssertionError(f"updates differ beyond atol {atol}: {bad}")
+    return out
+
+
+def _score_all(scorer, requests, bucket: int = 32) -> list:
+    out = []
+    for i in range(0, len(requests), bucket):
+        out.extend(scorer.score_batch(requests[i:i + bucket], bucket_size=bucket))
+    return out
+
+
+def _scores_of(results) -> list:
+    return [r.score for r in results]
+
+
+def _table_snapshot(scorer) -> dict:
+    """Every device table of a sharded scorer (FE vectors, both halves of
+    each RE table), copied on the device."""
+    out = {cid: w.clone() for cid, w in scorer._fe_params.items()}
+    for cid, p in scorer._providers.items():
+        for i, t in enumerate(p._tables):
+            out[f"{cid}/{i}"] = t.clone()
+    return out
+
+
+def _same_tables(scorer, snap: dict) -> bool:
+    now = _table_snapshot(scorer)
+    return sorted(now) == sorted(snap) and all(
+        now[k].shape == snap[k].shape and torch.equal(now[k].view(torch.int32),
+                                                      snap[k].view(torch.int32))
+        for k in snap)
+
+
+def _compact_job(job) -> dict:
+    """Step (d), in a process of its own: ``compact`` of the chain over the
+    base artifact, against the base with the chain applied in memory, table
+    for table and bitwise, entity indexes equal."""
+    (base_dir, delta_dirs, out_dir), _ = job
+    from photon_ml_tpu_torch.incremental import apply_delta, compact, fingerprint_dir, load_delta
+    from photon_ml_tpu_torch.serving import load_artifact
+
+    t0 = time.perf_counter()
+    fp = compact(base_dir, delta_dirs, out_dir)
+    compact_s = time.perf_counter() - t0
+    folded = load_artifact(base_dir, mmap=False)
+    for d in delta_dirs:
+        folded = apply_delta(folded, load_delta(d))
+    back = load_artifact(out_dir)
+    same = {}
+    for cid, table in folded.tables.items():
+        got = back.tables[cid]
+        ok = np.array_equal(np.asarray(got.weights).view(np.uint32),
+                            np.asarray(table.weights).view(np.uint32))
+        if table.is_random_effect:
+            names = [table.entity_index.get_feature_name(i) for i in range(len(table.entity_index))]
+            ok = ok and np.array_equal(got.entity_index.get_indices(names),
+                                       table.entity_index.get_indices(names))
+        same[cid] = bool(ok)
+    return {"compact_s": compact_s, "fingerprint": fp,
+            "fingerprint_matches": fp == fingerprint_dir(out_dir), "bitwise": same,
+            "check_s": time.perf_counter() - t0 - compact_s}
+
+
+class _LatencyLog:
+    """A tenant's SLO tracker that also keeps every latency it observes,
+    for the tenant's p50 / p99."""
+
+    def __init__(self, slo):
+        self.slo, self.latencies = slo, []
+
+    def observe_many(self, latencies, **kwargs) -> None:
+        self.latencies.extend(latencies)
+        self.slo.observe_many(latencies, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.slo, name)
+
+    def percentiles(self) -> dict:
+        if not self.latencies:
+            return {"latency_p50_s": None, "latency_p99_s": None}
+        p50, p99 = np.percentile(self.latencies, [50, 99])
+        return {"latency_p50_s": float(p50), "latency_p99_s": float(p99)}
+
+
+def _timed_call(fn, log: list):
+    """``fn``, appending the (start, end) of each call to ``log`` on the
+    host's clock."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append((t0, time.perf_counter()))
+    return call
+
+
+def _batch_seconds(spans: list) -> dict:
+    """Count, p50, p99 and max of the seconds of (start, end) spans."""
+    if not spans:
+        return {"batches": 0, "p50_s": None, "p99_s": None, "max_s": None}
+    s = np.array([b - a for a, b in spans])
+    p50, p99 = np.percentile(s, [50, 99])
+    return {"batches": len(s), "p50_s": float(p50), "p99_s": float(p99), "max_s": float(s.max())}
+
+
+def _combination_close(got: np.ndarray, old: dict, new: dict, offsets: np.ndarray,
+                       abs_sum: np.ndarray) -> np.ndarray:
+    """Per row, whether ``got`` is within the serving tolerance of a sum of
+    each coordinate's term from the old or the new model (a batch routed
+    while a swap's hooks run one after another reads each coordinate whole,
+    old or new)."""
+    import itertools
+
+    cids = sorted(old)
+    ok = np.zeros(got.shape, dtype=bool)
+    for pick in itertools.product((0, 1), repeat=len(cids)):
+        cand = offsets + sum((new if p else old)[c] for c, p in zip(cids, pick))
+        ok |= np.abs(got - cand) <= 2e-4 * np.abs(cand) + 1e-5 * np.maximum(1.0, abs_sum)
+    return ok
+
+
+def phase_nearline_full_width(seed: int) -> dict:
+    """The nearline loop on serve_full_width's model (see the module doc)."""
+    from photon_ml_tpu_torch.convert import game_model_from_numpy
+    from photon_ml_tpu_torch.incremental import (
+        DeltaArtifact, apply_delta, build_delta, delta_dir_name, fingerprint_dir,
+        incremental_update, rebase_delta, save_delta)
+    from photon_ml_tpu_torch.ops import launches
+    from photon_ml_tpu_torch.serving import (
+        DEFAULT_TENANTS, ContinuousBatcher, HotSwapManager, RequestPlane, ServingMetrics,
+        ShardedGameScorer, TenancyPlane, TenantBudget, TenantQuota, ValidationGate,
+        VariantRegistry, VariantRouter, build_scenario, build_tenant_slos, load_artifact,
+        make_nearline_fn, max_nnz_of, requests_from_game_data, run_scenario)
+    from photon_ml_tpu_torch.telemetry.metrics import MetricsRegistry
+    from photon_ml_tpu_torch.types import TaskType
+
+    device, sync = "cuda", torch.cuda.synchronize
+    prep, serve, cfg = _serve_prep(seed), SERVE, NEARLINE
+    t_phase = time.perf_counter()
+    info = prep.wait()
+    result = {"prep": {k: info.get(k) for k in ("prep_s", "prep_waited_s", "fingerprint")}}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_nearline_")
+    compact_prep = None
+    try:
+        t0 = time.perf_counter()
+        _, coords = make_glmix(seed, **serve)
+        model = game_model_from_numpy(coords, TaskType.LOGISTIC_REGRESSION, device=device)
+        events = make_nearline_events(seed, coords, model, cfg["events"], serve["fe_dim"], device)
+        del coords
+        artifact = load_artifact(prep.dir)
+        fp0 = info.get("fingerprint") or fingerprint_dir(prep.dir)
+        result["setup_s"] = time.perf_counter() - t0
+        result["events"] = {"rows": events.num_rows,
+                            "nnz": {k: int(v.rows.size) for k, v in events.feature_shards.items()}}
+
+        # (a) the update on the card, its launches and seconds a coordinate
+        estimator = _nearline_estimator(device)
+        launches.reset()
+        with timed_resolves(estimator, sync) as timer:
+            t0 = time.perf_counter()
+            update = incremental_update(estimator, model, events, refresh_fixed_iterations=1)
+            sync()
+            update_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launches.counts().items() if v}
+        result["launches_by_kernel"] = counts
+        if any(counts.get(k, 0) < 1 for k in KERNELS):
+            raise AssertionError(f"the update did not launch every kernel of its path: {counts}")
+        merged = update.game_model(estimator)
+        objective = _logistic_objective(merged, events)
+        launches.reset()
+        with plain_versions():
+            plain = incremental_update(estimator, model, events, refresh_fixed_iterations=1)
+            sync()
+        if any(launches.counts()[k] for k in KERNELS):
+            raise AssertionError(f"the plain update launched kernels: {launches.counts()}")
+        plain_objective = _logistic_objective(plain.game_model(estimator), events)
+        obj_rel = abs(objective - plain_objective) / abs(objective)
+        if not obj_rel <= 1e-4:
+            raise AssertionError(f"update objective {objective} vs plain {plain_objective}")
+        diffs = _same_update(update, plain, 2e-3)
+        again = incremental_update(estimator, model, events, refresh_fixed_iterations=1)
+        sync()
+        _same_update(update, again, 0.0)
+        del plain, again
+        result["update"] = {
+            "seconds": update_s, "seconds_per_resolve": timer.seconds,
+            "touched": {c: len(v) for c, v in update.touched_entities.items()},
+            "new": {c: len(v) for c, v in update.new_entities.items()},
+            "objective": objective, "plain_objective": plain_objective,
+            "objective_rel_diff_vs_plain": obj_rel, "max_abs_diff_vs_plain": diffs,
+            "solver_stats": {c: [dataclasses.asdict(s) for s in v]
+                             for c, v in update.solver_stats.items()},
+        }
+        pool = {c: list(update.touched_entities[c]) for c in update.touched_entities}
+
+        # the deltas: d1 the update, d2 half of d1's rows scaled by 0.5 (a
+        # second good link of the chain), chained to the served artifact
+        d1 = build_delta(update.re_updates, artifact, fe_updates=update.fe_updates,
+                         base_fingerprint=fp0, generation=1, created_at_unix=time.time())
+        t0 = time.perf_counter()
+        d1 = save_delta(d1, os.path.join(tmp.name, "deltas", delta_dir_name(1)))
+        result["publish_s"] = time.perf_counter() - t0
+        d2 = DeltaArtifact(
+            base_fingerprint=d1.fingerprint, generation=2,
+            re_rows={c: (ids[::2], rows[::2] * np.float32(0.5))
+                     for c, (ids, rows) in d1.re_rows.items()})
+        d2 = save_delta(d2, os.path.join(tmp.name, "deltas", delta_dir_name(2)))
+        delta_dirs = [os.path.join(tmp.name, "deltas", delta_dir_name(g)) for g in (1, 2)]
+        # (d) runs in the background from here: compact the chain and check it
+        compact_prep = SpawnPrep("chip_smoke_compact_", _compact_job,
+                                 (prep.dir, delta_dirs, os.path.join(tmp.name, "compacted")),
+                                 "unused")
+
+        # the references: GameModel.score of the old and the merged model, per
+        # coordinate, on the card
+        n_req = cfg["requests"]
+        requests = requests_from_game_data(events, artifact, max_requests=n_req)
+        old_terms = {c: model.score_coordinate(c, events).double().cpu().numpy()[:n_req]
+                     for c in model.models}
+        new_terms = {c: merged.score_coordinate(c, events).double().cpu().numpy()[:n_req]
+                     for c in merged.models}
+        offsets = np.asarray(events.offsets, dtype=np.float64)[:n_req]
+        old_ref = sum(old_terms.values()) + offsets
+        new_ref = sum(new_terms.values()) + offsets
+        folded = apply_delta(artifact, d1)
+        abs_old = _serve_terms(events, artifact)[:n_req]
+        abs_new = _serve_terms(events, folded)[:n_req]
+        del model
+
+        # the live scorer: 4 shards, headroom for new and overlay rows, every
+        # bucket warmed
+        nnz = max_nnz_of(requests)
+
+        def live_scorer():
+            s = ShardedGameScorer(artifact, max_nnz=nnz, num_shards=4, device=device,
+                                  headroom_fraction=cfg["headroom"])
+            for b in SERVE_BUCKETS:
+                s.score_batch(requests[:b], b)
+            return s
+
+        t0 = time.perf_counter()
+        scorer = live_scorer()
+        result["scorer_build_s"] = time.perf_counter() - t0
+        compiles = scorer.compile_count
+        # (e) scores the first gate_rows requests (each check a full pass)
+        e_req = requests[:cfg["gate_rows"]]
+        e_n = len(e_req)
+        plain_scores = _score_all(scorer, e_req)
+        result["plain_max_abs_err"] = _check_served(plain_scores, old_ref[:e_n], abs_old[:e_n],
+                                                    "plain")
+
+        # (e) variants over the same scorer: base, v1 diverged by d1, v2 at 10 %
+        reg = VariantRegistry(scorer, base_fingerprint=fp0)
+        router = VariantRouter(seed=seed)
+        for v in ("v1", "v2"):
+            reg.add_variant(v)
+            router.set_ramp(v, 10.0)
+        router.route_many("default", [r.request_id for r in requests])
+        rep_v1 = reg.apply_delta("v1", d1)
+        v1 = _score_all(reg.scorer("v1"), e_req)
+        variants = {
+            "shares": router.shares(), "v1_blackout_s": rep_v1.blackout_s,
+            "v1_overlay_rows": rep_v1.new_overlay_rows,
+            "v1_max_abs_err": _check_served(v1, new_ref[:e_n], abs_new[:e_n], "(e) v1"),
+        }
+        if any(r.cold_coordinates for r in v1):
+            raise AssertionError("(e): v1 served a touched entity cold")
+        if _scores_of(_score_all(reg.scorer("base"), e_req)) != _scores_of(plain_scores):
+            raise AssertionError("(e): the base variant is not bitwise the plain path")
+        if _scores_of(_score_all(reg.scorer("v2"), e_req)) != _scores_of(plain_scores):
+            raise AssertionError("(e): the undiverged variant is not bitwise the base")
+        reg.apply_delta("v2", rebase_delta(d2, reg.state("v2").fingerprint))
+        v2 = _scores_of(_score_all(reg.scorer("v2"), e_req))
+        if v2 == _scores_of(plain_scores):
+            raise AssertionError("(e): v2's delta changed no score")
+        reg.rollback("v1")
+        if _scores_of(_score_all(reg.scorer("v2"), e_req)) != v2:
+            raise AssertionError("(e): rolling back v1 moved v2")
+        if _scores_of(_score_all(reg.scorer("v1"), e_req)) != _scores_of(plain_scores):
+            raise AssertionError("(e): v1 rolled back is not bitwise the base")
+        if _scores_of(_score_all(scorer, e_req)) != _scores_of(plain_scores):
+            raise AssertionError("(e): the variants moved the plain path")
+        reg.rollback("v2")
+        reg.apply_delta("v1", d1)  # diverged again, for the score times
+        b32 = requests[:32]
+        ms = cuda_ms({"plain": lambda: scorer.score_batch(b32, 32),
+                      "v1": lambda: reg.scorer("v1").score_batch(b32, 32),
+                      "v2": lambda: reg.scorer("v2").score_batch(b32, 32)},
+                     reps=20, rounds=4, batch=32)
+        variants["score_batch_32"] = {k: {"ms": ms[k], "device_ms": ms[f"{k}_device"]}
+                                      for k in ("plain", "v1", "v2")}
+        reg.rollback("v1")
+        variants["compile_count"] = scorer.compile_count
+        if scorer.compile_count != compiles:
+            raise AssertionError(f"(e): compile count {compiles} -> {scorer.compile_count}")
+        result["variants"] = variants
+
+        # (b), (c) and (f) on a second live scorer of the same artifact: a
+        # registry's overlay rows lie past the base row range, where a base
+        # swap appends its new entities (the reference's layout; its CLI
+        # refuses --variants with --watch-deltas), so a base swap never
+        # follows a registry on one scorer
+        del reg, router, scorer
+        torch.cuda.empty_cache()
+        scorer = live_scorer()
+        compiles = scorer.compile_count
+
+        # (b) d1 swapped into the live scorer in the middle of a continuous
+        # replay: a feeder thread keeps batches in flight (requests
+        # [half, flight) over and over) until the swap returns; every batch
+        # and every swap hook is timed on the host's clock
+        manager = HotSwapManager(scorer, fingerprint=fp0, metrics=ServingMetrics())
+        half = n_req // 2
+        flight = half + min(4096, n_req // 4)
+        batches, hooks = [], []
+        timed = ("score_batch", "set_artifact", "update_fixed_effect",
+                 "update_random_effect_rows", "rebind_random_effect")
+        for name in timed:
+            setattr(scorer, name, _timed_call(getattr(scorer, name),
+                                              batches if name == "score_batch" else hooks))
+        batcher = ContinuousBatcher([scorer], bucket_sizes=SERVE_BUCKETS,
+                                    max_wait_s=0.002).start()
+        try:
+            h1 = []
+            for i in range(0, half, 32):
+                h1.extend(batcher.submit_many(requests[i:i + 32]))
+            batcher.flush()
+            before = [h.result(timeout=120) for h in h1]
+            n_before = len(batches)
+            fed, swapped = [], threading.Event()
+
+            def feed():
+                while not swapped.is_set():
+                    for i in range(half, flight, 32):
+                        fed.append((i, batcher.submit_many(requests[i:i + 32])))
+                        if swapped.is_set():
+                            break
+
+            feeder = threading.Thread(target=feed, name="chip-smoke-feeder")
+            feeder.start()
+            try:
+                time.sleep(0.05)  # batches flowing before the swap begins
+                t0 = time.perf_counter()
+                report = manager.apply_delta(delta_dirs[0])
+                t1 = time.perf_counter()
+            finally:
+                swapped.set()
+                feeder.join()
+            batcher.flush()
+            during_idx = np.concatenate([np.arange(i, i + len(hs)) for i, hs in fed])
+            during = [h.result(timeout=120) for _, hs in fed for h in hs]
+            n_during = len(batches)
+            h3 = []
+            for i in range(flight, n_req, 32):
+                h3.extend(batcher.submit_many(requests[i:i + 32]))
+            batcher.flush()
+            after = [h.result(timeout=120) for h in h3]
+        finally:
+            batcher.stop()
+            for name in timed:
+                delattr(scorer, name)
+        swap_s = t1 - t0
+        in_flight_ok = _combination_close(
+            np.array(_scores_of(during)), {c: v[during_idx] for c, v in old_terms.items()},
+            {c: v[during_idx] for c, v in new_terms.items()}, offsets[during_idx],
+            np.maximum(abs_old, abs_new)[during_idx])
+        if not in_flight_ok.all():
+            bad = during_idx[~in_flight_ok]
+            new_ids = sum(any(str(e).startswith("new_") for e in requests[i].entity_ids.values())
+                          for i in bad)
+            raise AssertionError(f"(b): {bad.size} scores in flight during the swap ({new_ids} "
+                                 "of them with a new entity) match no mix of old and new "
+                                 "coordinates")
+        # what the request path saw: each batch's score_batch seconds, for the
+        # batches before the swap, those that overlapped its hooks (the
+        # critical section, cs0 to cs1), the rest of its wall and after it
+        cs0, cs1 = min(a for a, _ in hooks), max(b for _, b in hooks)
+        windows = {"before": batches[:n_before], "critical_section": [], "rest_of_swap": [],
+                   "after": batches[n_during:]}
+        for a, b in batches[n_before:n_during]:
+            if a < cs1 and b > cs0:
+                windows["critical_section"].append((a, b))
+            elif a < t1 and b > t0:
+                windows["rest_of_swap"].append((a, b))
+        stall = {k: _batch_seconds(v) for k, v in windows.items()}
+        swap = {
+            "before_max_abs_err": _check_served(before, old_ref[:half], abs_old[:half],
+                                                "(b) before"),
+            "after_max_abs_err": _check_served(after, new_ref[flight:], abs_new[flight:],
+                                               "(b) after"),
+            "in_flight": len(during), "blackout_s": report.blackout_s, "swap_s": swap_s,
+            "critical_section_s": cs1 - cs0, "batch_seconds": stall,
+            "rows_updated": report.rows_updated, "regrew": list(report.regrew),
+            "compiles_added": report.compiles_added, "generation": report.generation,
+        }
+        if report.rolled_back or report.compiles_added or scorer.compile_count != compiles:
+            raise AssertionError(f"(b): {report}, compile count {scorer.compile_count}")
+        result["swap"] = swap
+
+        # (c) a bad delta: the touched rows negated and scaled by 8; the AUC
+        # gate on gate_rows labelled rows rejects it, the rollback is bitwise
+        gate_n = cfg["gate_rows"]
+        manager.gate = ValidationGate(requests[:gate_n], events.labels[:gate_n],
+                                      max_auc_regression=0.01, bucket_size=32)
+        bad = DeltaArtifact(base_fingerprint=manager.fingerprint, generation=2,
+                            re_rows={c: (ids, rows * np.float32(-8.0))
+                                     for c, (ids, rows) in d1.re_rows.items()})
+        snap = _table_snapshot(scorer)
+        t0 = time.perf_counter()
+        bad_report = manager.apply_delta(bad)
+        gated_s = time.perf_counter() - t0
+        if not bad_report.rolled_back or not _same_tables(scorer, snap):
+            raise AssertionError(f"(c): the bad delta was not rolled back bitwise: {bad_report}")
+        del snap
+        result["gate"] = {"baseline_auc": bad_report.baseline_metric,
+                          "candidate_auc": bad_report.validation_metric,
+                          "rolled_back": True, "seconds": gated_s,
+                          "generation": manager.generation}
+
+        # (f) the tenancy scenarios over the same scorer
+        scenarios = {}
+        for name in ("tenant_isolation", "ramped_rollout", "nearline_loop"):
+            registry = VariantRegistry(scorer, base_fingerprint=manager.fingerprint)
+            registry.add_variant("candidate")
+            if name == "ramped_rollout":
+                registry.apply_delta("candidate",
+                                     rebase_delta(d2, registry.state("candidate").fingerprint))
+            mreg = MetricsRegistry()
+            slos = {t: _LatencyLog(slo) for t, slo in build_tenant_slos(
+                DEFAULT_TENANTS, registry=mreg, latency_threshold_s=0.05).items()}
+            plane = RequestPlane(sample_rate=16, seed=seed, tenant_slos=slos)
+            metrics = ServingMetrics()
+            quota = None
+            if name == "tenant_isolation":
+                share = n_req // len(DEFAULT_TENANTS)
+                quota = TenantQuota({t: TenantBudget(rate=1.0, burst=share + 512)
+                                     for t in DEFAULT_TENANTS})
+            tenancy = TenancyPlane(registry, router=VariantRouter(seed=seed), plane=plane,
+                                   quota=quota, metrics=metrics, metrics_registry=mreg,
+                                   bucket_sizes=SERVE_BUCKETS)
+            nearline = None
+            if name == "nearline_loop":
+                tenancy.router.set_ramp("candidate", 50.0)
+                watch = os.path.join(tmp.name, "variant_deltas")
+                nearline = make_nearline_fn(registry, ["candidate"], pool, rows_per_delta=8,
+                                            seed=seed, watch_dir=watch)
+            scenario = build_scenario(name, requests, seed=seed,
+                                      num_phases=cfg["scenario_phases"], pause_s=0.0)
+            t0 = time.perf_counter()
+            doc = run_scenario(scenario, [scorer], SERVE_BUCKETS, metrics, plane=plane,
+                               tenancy=tenancy, nearline_fn=nearline)
+            wall = time.perf_counter() - t0
+            shed = sum((doc.get("tenant_shed") or {}).values())
+            if doc["num_requests"] != scenario.num_requests - shed:
+                raise AssertionError(f"({name}): served {doc['num_requests']} of "
+                                     f"{scenario.num_requests}, {shed} shed")
+            if name == "tenant_isolation" and not (doc.get("flood_shed_ok")
+                                                   and doc["tenant_shed"].get("alpha", 0) > 0):
+                raise AssertionError(f"(tenant_isolation): the flood was not shed on its "
+                                     f"tenant alone: {doc.get('tenant_shed')}")
+            if name == "nearline_loop" and not doc.get("nearline", {}).get("deltas_applied"):
+                raise AssertionError(f"(nearline_loop): no delta applied: {doc.get('nearline')}")
+            scenarios[name] = {
+                "seconds": wall, "num_requests": doc["num_requests"],
+                "requests_per_s": doc["requests_per_s"],
+                "latency_p50_s": doc.get("latency_p50_s"), "latency_p99_s": doc.get("latency_p99_s"),
+                "tenants": {t: {"requests": d["requests"], "errors": d["errors"],
+                                "slo_verdict": d["slo_verdict"], **slos[t].percentiles()}
+                            for t, d in doc["tenants"].items()},
+                "tenant_shed": doc.get("tenant_shed"), "isolation_ok": doc.get("isolation_ok"),
+                "variant_shares": doc.get("variant_shares"), "nearline": doc.get("nearline"),
+            }
+        result["scenarios"] = scenarios
+        if scorer.compile_count != compiles:
+            raise AssertionError(f"compile count {compiles} -> {scorer.compile_count}")
+
+        # (d) the compacted chain, checked in the background
+        compacted = compact_prep.wait()
+        if not (all(compacted["bitwise"].values()) and compacted["fingerprint_matches"]):
+            raise AssertionError(f"(d): compact differs from the chain applied: {compacted}")
+        result["compact"] = compacted
+        result["regrowths"] = swap["regrew"]
+        result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result["card"] = nvidia_smi()
+        result["seconds"] = time.perf_counter() - t_phase
+    finally:
+        if compact_prep is not None:
+            compact_prep.close()
+        tmp.cleanup()
+    emit("nearline_full_width", **result)
     return result
 
 
@@ -6053,6 +6884,7 @@ PHASES = {
     "score_full_width": phase_score_full_width,
     "score_game_cli": phase_score_game_cli,
     "serve_full_width": phase_serve_full_width,
+    "nearline_full_width": phase_nearline_full_width,
     "serve_game_cli": phase_serve_game_cli,
     "read_score_full_width": phase_read_score_full_width,
     "train_full_width": phase_train_full_width,
@@ -6100,7 +6932,7 @@ def main(argv=None) -> int:
                 phase_seconds[name] = time.perf_counter() - t0
             if name == "build" and "score_game_cli" in phases:
                 _cli_fixture_prep(args.seed)  # its files, made in the background
-            if name == "build" and "serve_full_width" in phases:
+            if name == "build" and {"serve_full_width", "nearline_full_width"} & set(phases):
                 _serve_prep(args.seed)  # its artifact, made in the background
             if name == "build" and "read_score_full_width" in phases:
                 # its Avro files and stores, made while the phases before it run
@@ -6158,7 +6990,10 @@ def main(argv=None) -> int:
                for path in ("train_cluster_full_width", "train_grid_full_width")
                if path in results},
             **{"serve_full_width": n for n in [results.get("serve_full_width", {}).get(
-                "reference_launches", {}).get(name, 0)] if n}},
+                "reference_launches", {}).get(name, 0)] if n},
+            # the nearline update's own count (incremental_update alone)
+            **{"nearline_full_width": n for n in [results.get("nearline_full_width", {}).get(
+                "launches_by_kernel", {}).get(name, 0)] if n}},
     } for name in KERNELS + SHUFFLES + BF16_KERNELS + (BLOCKED,)]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,8 @@ request stream against it.
 
 Port of ``photon_ml_tpu/cli/serve_game.py``: the single-tenant path, with
 the same flags and report, on ``--device`` (default ``cuda``; ``cpu`` only
-when asked). ``--watch-deltas`` / ``--watch-chunk`` (the nearline loop,
-ROADMAP.md Queue A item 9b) and ``--variants``, ``--variant-ramp``,
-``--variant-seed``, ``--tenant-rate``, ``--tenant-burst`` (the variant
-plane, item 9c) are refused, naming their item.
+when asked): every flag of the JAX CLI, the nearline loop's
+``--watch-deltas`` and the variant plane's ``--variants`` included.
 
 The offline CLI (``score_game``) reloads the Avro model and scores a
 static dataset in one pass; this CLI exercises the *online* path: the
@@ -30,6 +28,12 @@ Usage:
     # serve from a previously exported artifact
     python -m photon_ml_tpu_torch.cli.serve_game \
         --artifact-dir out/artifact --data-dirs data/test
+
+    # additionally hot-swap nearline deltas (update_game output) into the
+    # live scorer between request chunks — no restart, no new signature
+    python -m photon_ml_tpu_torch.cli.serve_game \
+        --artifact-dir out/artifact --data-dirs data/test \
+        --watch-deltas out/deltas
 
     # the same on the host
     python -m photon_ml_tpu_torch.cli.serve_game \
@@ -112,11 +116,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-requests", type=int, default=None,
                    help="replay at most this many rows")
     p.add_argument("--watch-deltas", default=None,
-                   help="not ported yet: the nearline loop (ROADMAP.md "
-                        "Queue A item 9b)")
-    p.add_argument("--watch-chunk", type=int, default=None,
-                   help="not ported yet: the nearline loop (ROADMAP.md "
-                        "Queue A item 9b)")
+                   help="directory of nearline delta artifacts "
+                        "(update_game output); polled between request "
+                        "chunks and hot-swapped into the live scorer")
+    p.add_argument("--watch-chunk", type=int, default=256,
+                   help="requests replayed between delta polls "
+                        "(with --watch-deltas; default 256)")
     p.add_argument("--max-nnz", type=int, default=None,
                    help="padded nonzeros per shard (default: tight "
                         "power-of-two fit to the request stream)")
@@ -200,16 +205,26 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "series in /metrics, per-tenant burn in /healthz "
                         "and /varz)")
     p.add_argument("--variants", default=None,
-                   help="not ported yet: the variant plane (ROADMAP.md "
-                        "Queue A item 9c)")
+                   help="comma-separated candidate variant names: serve "
+                        "through the full tenancy plane (quota -> seeded "
+                        "router -> one per-variant batcher over the shared "
+                        "sharded scorer) instead of the plain replay path; "
+                        "each variant starts undiverged from the base "
+                        "(sharded mode only)")
     p.add_argument("--variant-ramp", type=float, default=None,
-                   help="not ported yet (item 9c)")
-    p.add_argument("--variant-seed", type=int, default=None,
-                   help="not ported yet (item 9c)")
+                   help="percent of traffic routed to EACH --variants "
+                        "entry (default: an even split with the base, "
+                        "100/(n+1)); ramps must sum to <= 100")
+    p.add_argument("--variant-seed", type=int, default=0,
+                   help="router hash seed: the same (tenant, request id, "
+                        "seed) always routes identically (default 0)")
     p.add_argument("--tenant-rate", type=float, default=None,
-                   help="not ported yet (item 9c)")
+                   help="with --tenants and --variants: per-tenant token "
+                        "refill rate (requests/s) for quota admission; "
+                        "over-budget tenants shed alone")
     p.add_argument("--tenant-burst", type=float, default=None,
-                   help="not ported yet (item 9c)")
+                   help="per-tenant token bucket burst capacity (with "
+                        "--tenant-rate; default: the rate)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to serve on: 'cuda' (default) or 'cpu'")
     add_telemetry_args(p)
@@ -387,32 +402,101 @@ def _auto_tune_serving(args, artifact, requests, active, logger, device):
     return dict(winner.config), result.to_dict()
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """The flags of the nearline loop and of the variant plane name the
-    ROADMAP.md item that ports them."""
-    nearline = [f for f, v in (("--watch-deltas", args.watch_deltas),
-                               ("--watch-chunk", args.watch_chunk)) if v is not None]
-    if nearline:
-        raise SystemExit(
-            f"{' / '.join(nearline)}: the nearline loop (hot swap of delta "
-            "artifacts) is not ported yet — ROADMAP.md Queue A item 9b"
+def _serve_tenancy(
+    args, logger, active, tenants, scorers, admission, bucket_sizes,
+    requests, metrics, plane,
+) -> dict:
+    """Replay through the full tenancy plane: per-tenant quota admission,
+    seeded variant routing, and one sealed batcher per variant over the
+    shared sharded scorer. Every ``--variants`` entry starts undiverged
+    (bitwise the base) — this is the rollout topology; deltas diverge
+    variants later via the registry. Returns the metrics snapshot with a
+    ``tenancy`` status block (variants, router ramps, quota, tenant SLOs)."""
+    import time as _time
+
+    from photon_ml_tpu_torch.serving import (
+        TenancyPlane,
+        TenantBudget,
+        TenantQuota,
+        VariantRegistry,
+        VariantRouter,
+    )
+    from photon_ml_tpu_torch.telemetry.metrics import get_registry
+
+    registry = VariantRegistry(scorers[0])
+    router = VariantRouter(seed=active["variant_seed"])
+    names = active["variants"]
+    ramp = (
+        active["variant_ramp"]
+        if active["variant_ramp"] is not None
+        else 100.0 / (len(names) + 1)
+    )
+    for name in names:
+        registry.add_variant(name)
+        router.set_ramp(name, ramp)
+    quota = None
+    if tenants and args.tenant_rate is not None:
+        burst = (
+            args.tenant_burst
+            if args.tenant_burst is not None
+            else args.tenant_rate
         )
-    variant = [f for f, v in (("--variants", args.variants),
-                              ("--variant-ramp", args.variant_ramp),
-                              ("--variant-seed", args.variant_seed),
-                              ("--tenant-rate", args.tenant_rate),
-                              ("--tenant-burst", args.tenant_burst)) if v is not None]
-    if variant:
-        raise SystemExit(
-            f"{' / '.join(variant)}: the variant plane (multi-tenancy) is not "
-            "ported yet — ROADMAP.md Queue A item 9c"
-        )
+        quota = TenantQuota({
+            t: TenantBudget(rate=args.tenant_rate, burst=burst)
+            for t in tenants
+        })
+    tenancy = TenancyPlane(
+        registry,
+        router=router,
+        plane=plane,
+        quota=quota,
+        metrics=metrics,
+        bucket_sizes=tuple(bucket_sizes),
+        max_wait_s=active["batch_deadline_ms"] / 1e3,
+        metrics_registry=get_registry(),
+    )
+    logger.info(
+        "tenancy plane: base + %d variant(s) at %.1f%% each%s",
+        len(names), ramp, ", per-tenant quota" if quota is not None else "",
+    )
+    started_admission = False
+    if admission is not None and admission._thread is None:
+        admission.start()
+        started_admission = True
+    try:
+        t0 = _time.perf_counter()
+        results = tenancy.replay(requests, poll_every=64)
+        wall = _time.perf_counter() - t0
+    finally:
+        if started_admission:
+            admission.stop()
+    lead = scorers[0]
+    residency = None
+    if hasattr(lead, "residency_stats"):
+        residency = lead.residency_stats() or None
+    snapshot = metrics.snapshot(
+        cache_stats=lead.cache_stats() or None,
+        compile_count=lead.compile_count,
+        residency=residency,
+        admission=admission.stats() if admission is not None else None,
+    )
+    snapshot["replay_wall_seconds"] = round(wall, 6)
+    if wall > 0:
+        snapshot["replay_requests_per_s"] = round(len(requests) / wall, 3)
+    snapshot["num_results"] = len(results)
+    if plane is not None:
+        report = plane.live_report()
+        slo_doc = report.pop("slo", None)
+        snapshot["request_plane"] = report
+        if slo_doc is not None:
+            snapshot["slo"] = slo_doc
+    snapshot["tenancy"] = tenancy.status()
+    return snapshot
 
 
 def run(args: argparse.Namespace) -> Optional[dict]:
     from photon_ml_tpu_torch.event import EventEmitter
 
-    _refuse_unported(args)
     device = resolve_device(args.device)
     logger = setup_logger(args.log_file)
     timer = Timer()
@@ -520,6 +604,25 @@ def _run_serving(args, logger, timer, emitter, device, telemetry=None) -> Option
     active["overload_control"] = overload is not None
     active["tenants"] = tenants or None
 
+    variants = [
+        v.strip() for v in (args.variants or "").split(",") if v.strip()
+    ]
+    if variants:
+        if active["mode"] == "cached":
+            raise SystemExit(
+                "--variants needs variant views over the sharded scorer; "
+                "drop --cache-capacity"
+            )
+        if args.watch_deltas or args.auto_tune:
+            raise SystemExit(
+                "--variants replaces the plain replay path; it is not "
+                "combinable with --watch-deltas or --auto-tune (apply "
+                "per-variant deltas through the variant registry instead)"
+            )
+    active["variants"] = variants or None
+    active["variant_ramp"] = args.variant_ramp
+    active["variant_seed"] = args.variant_seed
+
     if args.export_artifact_dir:
         from photon_ml_tpu_torch.serving import save_artifact
 
@@ -527,17 +630,21 @@ def _run_serving(args, logger, timer, emitter, device, telemetry=None) -> Option
             save_artifact(artifact, args.export_artifact_dir)
         logger.info("exported serving artifact to %s", args.export_artifact_dir)
 
-    state = {"admission": None, "phase": "starting"}
+    state = {"manager": None, "admission": None, "phase": "starting"}
     introspect = None
     if args.introspect_port is not None:
         from photon_ml_tpu_torch.serving import IntrospectionServer
 
         def _health():
+            manager = state["manager"]
             doc = {
                 "healthy": True,
                 "phase": state["phase"],
                 "model_id": model_id,
+                "watching_deltas": bool(args.watch_deltas),
             }
+            if manager is not None:
+                doc["swap_generation"] = manager.generation
             # degraded modes: a dead supervised daemon (admission past its
             # restart cap) flips /healthz to 503 with the reason, while
             # serving itself keeps answering (cold entities score FE-only)
@@ -732,6 +839,7 @@ def _serve_stream(
                 artifact,
                 max_nnz=nnz,
                 cache_capacity=active["cache_capacity"],
+                growth_headroom=bool(args.watch_deltas),
                 device=device,
             )]
         else:
@@ -776,20 +884,81 @@ def _serve_stream(
         from photon_ml_tpu_torch.serving import ServingMetrics
 
         metrics = ServingMetrics()
-        with timer.time("replay"):
-            results, snapshot = replay_requests(
-                scorers if continuous else scorers[0], requests,
-                bucket_sizes=bucket_sizes,
-                metrics=metrics,
-                emitter=emitter,
-                model_id=model_id,
-                continuous=continuous,
-                max_wait_s=active["batch_deadline_ms"] / 1e3,
-                max_queue=active["max_queue"],
-                admission=admission,
-                plane=plane,
-                overload=overload,
-            )
+        manager = None
+        if active.get("variants"):
+            if len(scorers) > 1:
+                logger.warning(
+                    "--variants serves through ONE shared scorer; ignoring "
+                    "%d extra replica(s)", len(scorers) - 1,
+                )
+                scorers = scorers[:1]
+            active["mode"] = "sharded-tenancy"
+            if overload is not None:
+                logger.warning(
+                    "--overload-control drives the plain replay batcher; "
+                    "it is ignored on the tenancy path"
+                )
+            with timer.time("replay"):
+                snapshot = _serve_tenancy(
+                    args, logger, active, tenants, scorers, admission,
+                    bucket_sizes, requests, metrics, plane,
+                )
+        else:
+            if args.watch_deltas:
+                from photon_ml_tpu_torch.incremental import fingerprint_dir
+                from photon_ml_tpu_torch.serving import (
+                    CoordinatedHotSwap,
+                    HotSwapManager,
+                )
+
+                fingerprint = (
+                    fingerprint_dir(args.artifact_dir)
+                    if args.artifact_dir else None
+                )
+                managers = [
+                    HotSwapManager(
+                        s,
+                        fingerprint=fingerprint,
+                        # only the lead manager records swap metrics/events;
+                        # replica swaps are the same delta fanned out
+                        metrics=metrics if i == 0 else None,
+                        emitter=emitter if i == 0 else None,
+                        model_id=model_id,
+                    )
+                    for i, s in enumerate(scorers)
+                ]
+                manager = (
+                    managers[0] if len(managers) == 1
+                    else CoordinatedHotSwap(managers)
+                )
+                state["manager"] = manager
+                logger.info(
+                    "watching %s for delta artifacts (poll every %d "
+                    "requests)", args.watch_deltas, args.watch_chunk,
+                )
+            with timer.time("replay"):
+                results, snapshot = replay_requests(
+                    scorers if continuous else scorers[0], requests,
+                    bucket_sizes=bucket_sizes,
+                    metrics=metrics,
+                    emitter=emitter,
+                    model_id=model_id,
+                    swap_manager=manager,
+                    watch_dir=args.watch_deltas,
+                    poll_every=args.watch_chunk,
+                    continuous=continuous,
+                    max_wait_s=active["batch_deadline_ms"] / 1e3,
+                    max_queue=active["max_queue"],
+                    admission=admission,
+                    plane=plane,
+                    overload=overload,
+                )
+            if manager is not None:
+                logger.info(
+                    "served through generation %d (%d swap(s))",
+                    manager.generation,
+                    len(snapshot.get("swap_reports", [])),
+                )
 
         snapshot["model_id"] = model_id
         snapshot["bucket_sizes"] = list(bucket_sizes)

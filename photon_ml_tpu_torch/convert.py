@@ -12,7 +12,9 @@ fitted models with the reference's. Enum-valued fields (task, projector
 type) may be given as this package's enums, as the JAX package's (matched
 by name) or as strings. :func:`normalization_context_from_numpy` carries a
 ``NormalizationContext`` across the same way, from its ``factor`` and
-``shift`` as numpy.
+``shift`` as numpy. :func:`delta_from_numpy` / :func:`delta_to_numpy` carry
+a nearline delta's numbers (``incremental.DeltaArtifact``) across the same
+way; on disk the two packages' delta directories are byte-equal already.
 
 A model trained on a (data x feat) device grid in either package pads
 each random-effect bucket's entity axis to the grid (lanes with no entity
@@ -164,3 +166,41 @@ def normalization_context_from_numpy(
         return None if a is None else torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return NormalizationContext(factor=t(factor), shift=t(shift))
+
+
+def delta_from_numpy(delta):
+    """The port's :class:`~photon_ml_tpu_torch.incremental.DeltaArtifact`
+    from a delta's numbers: a mapping with the fields of
+    :func:`delta_to_numpy`, or any object carrying them as attributes (the
+    JAX package's ``DeltaArtifact``). Rows and FE vectors are copied as
+    float32 numpy, entity ids as strings, in the given order."""
+    from photon_ml_tpu_torch.incremental.delta import DeltaArtifact
+
+    get = delta.__getitem__ if isinstance(delta, Mapping) else delta.__getattribute__
+    return DeltaArtifact(
+        base_fingerprint=get("base_fingerprint"),
+        generation=int(get("generation")),
+        re_rows={
+            cid: ([str(e) for e in ids], np.array(rows, dtype=np.float32))
+            for cid, (ids, rows) in get("re_rows").items()
+        },
+        fe_updates={cid: np.array(w, dtype=np.float32)
+                    for cid, w in get("fe_updates").items()},
+        created_at_unix=float(get("created_at_unix")),
+        fingerprint=get("fingerprint"),
+    )
+
+
+def delta_to_numpy(delta) -> Dict[str, Any]:
+    """A delta's numbers as a dict of plain values and numpy arrays (the
+    input of :func:`delta_from_numpy`)."""
+    return {
+        "base_fingerprint": delta.base_fingerprint,
+        "generation": int(delta.generation),
+        "re_rows": {cid: (list(ids), np.array(rows, dtype=np.float32))
+                    for cid, (ids, rows) in delta.re_rows.items()},
+        "fe_updates": {cid: np.array(w, dtype=np.float32)
+                       for cid, w in delta.fe_updates.items()},
+        "created_at_unix": float(delta.created_at_unix),
+        "fingerprint": delta.fingerprint,
+    }

@@ -558,6 +558,8 @@ class ShardedGameScorer:
     # ------------------------------------------------------ hot-swap hooks
 
     def set_artifact(self, artifact: ServingArtifact) -> None:
+        """Flip the artifact reference (entity indexes) under
+        ``write_lock``."""
         structure_check(self, artifact)
         # grow every RE coordinate's routing BEFORE the new entity indexes
         # go live: a concurrent score_batch may resolve candidate-only
@@ -568,11 +570,17 @@ class ShardedGameScorer:
             routing = self._routing[cid]
             if n_new > routing.n_rows:
                 routing.grow(n_new)
-        self._artifact = artifact
+        with self.write_lock:
+            self._artifact = artifact
 
     def update_fixed_effect(self, cid: str, weights: np.ndarray) -> None:
+        """Replace one FE vector: the new tensor is built off the request
+        path and installed under ``write_lock``."""
+        staged = dict(self._fe_params)
         with device_stream(self.device):
-            replace_fixed_effect(self._fe_params, cid, weights)
+            replace_fixed_effect(staged, cid, weights)
+        with self.write_lock:
+            self._fe_params[cid] = staged[cid]
 
     def update_random_effect_rows(
         self, cid: str, rows: np.ndarray, values: np.ndarray
@@ -655,8 +663,15 @@ class ShardedGameScorer:
         requests: Sequence[ScoreRequest],
         bucket_size: Optional[int] = None,
         stages: Optional[dict] = None,
+        view: Optional[Tuple[ServingArtifact, Dict[str, torch.Tensor]]] = None,
     ) -> List[ScoreResult]:
-        """Score one bucket."""
+        """Score one bucket. ``view`` is the multi-model hook: an
+        ``(artifact, fe_params)`` pair that overrides WHICH entity indexes
+        resolve rows and WHICH fixed-effect tensors the batch reads — same
+        shapes, so no new score signature, and the same shared RE tables.
+        The tenancy plane's ``VariantRegistry`` builds one view per
+        variant; ``view=None`` is the plain single-model path, bitwise
+        unchanged."""
         n = len(requests)
         bucket = int(bucket_size) if bucket_size is not None else n
         if n == 0:
@@ -664,7 +679,7 @@ class ShardedGameScorer:
         if n > bucket:
             raise ValueError(f"{n} requests do not fit bucket size {bucket}")
         with span("serve/score_batch", n=n, bucket=bucket):
-            return self._score_batch_impl(requests, n, bucket, stages)
+            return self._score_batch_impl(requests, n, bucket, stages, view)
 
     def _score_batch_impl(
         self,
@@ -672,6 +687,7 @@ class ShardedGameScorer:
         n: int,
         bucket: int,
         stages: Optional[dict] = None,
+        view: Optional[Tuple[ServingArtifact, Dict[str, torch.Tensor]]] = None,
     ) -> List[ScoreResult]:
         with span("serve/featurize", n=n):
             shards, offsets = self._featurize(requests, bucket)
@@ -698,15 +714,20 @@ class ShardedGameScorer:
         # it nothing waits for the device: the route arrays' copy is
         # queued like the gathers.
         with self.write_lock, device_stream(self.device):
+            # the artifact and FE tensors are read under the lock: a swap
+            # installs them under it too
+            artifact, fe_params = (
+                (self._artifact, self._fe_params) if view is None else view
+            )
             route_arrays, cold, sdelta_rows = self._route(
-                requests, n, bucket, shards
+                requests, n, bucket, shards, artifact
             )
             if stages is not None:
                 # the "route" stage includes any write_lock wait
                 stages["route_done"] = time.perf_counter()
             out = self._gather_score(
                 bucket, order, feats, upload(self.device, route_arrays),
-                list(sdelta_rows),
+                list(sdelta_rows), fe_params,
             )
             if stages is not None:
                 # the copies and launches are asynchronous: this boundary
@@ -732,17 +753,18 @@ class ShardedGameScorer:
             for i, req in enumerate(requests)
         ]
 
-    def _route(self, requests, n: int, bucket: int, shards):
-        """Host routing of one batch: per RE coordinate the ``[bucket]``
-        shard and slot arrays (pads and FE-only rows at shard 0's cold
-        slot), each request's cold coordinates, and the rows whose measured
-        score deltas the importance plane wants."""
+    def _route(self, requests, n: int, bucket: int, shards, artifact):
+        """Host routing of one batch through ``artifact``'s entity indexes:
+        per RE coordinate the ``[bucket]`` shard and slot arrays (pads and
+        FE-only rows at shard 0's cold slot), each request's cold
+        coordinates, and the rows whose measured score deltas the
+        importance plane wants."""
         route_arrays: List[np.ndarray] = []
         cold: Dict[int, List[str]] = {}
         sdelta_rows: Dict[str, np.ndarray] = {}
         with span("serve/route", n=n):
             for cid, feature_shard, re_type in self._re_specs:
-                table = self._artifact.tables[cid]
+                table = artifact.tables[cid]
                 entity_rows = entity_rows_of(requests, n, bucket, re_type, table)
                 routing = self._routing[cid]
                 cid_shards, cid_slots, deferred = routing.route(
@@ -777,13 +799,13 @@ class ShardedGameScorer:
         return route_arrays, cold, sdelta_rows
 
     def _gather_score(self, bucket, order, feats, routed,
-                      delta_cids) -> List[torch.Tensor]:
+                      delta_cids, fe_params) -> List[torch.Tensor]:
         """Issue one uploaded batch's score on the device: ``[z, mean]``
         plus, per coordinate in ``delta_cids``, ``|RE term|`` (the
         request's measured ``|score - fe_only_score|`` for it). ``feats``
         is ``[offsets, values per shard..., indices per shard...]`` in
         ``order``; ``routed`` the ``(shard, slot)`` arrays per RE
-        coordinate."""
+        coordinate; ``fe_params`` the FE tensors the batch reads."""
         k = len(order)
         vals = dict(zip(order, feats[1:1 + k]))
         idx = dict(zip(order, feats[1 + k:1 + 2 * k]))
@@ -792,7 +814,7 @@ class ShardedGameScorer:
         with span("serve/gather_score", bucket=bucket):
             z = feats[0]
             for cid, shard in self._fe_specs:
-                z = z + (vals[shard] * self._fe_params[cid][idx[shard]]).sum(dim=1)
+                z = z + (vals[shard] * fe_params[cid][idx[shard]]).sum(dim=1)
             terms = {}
             for j, ((cid, shard, _), table) in enumerate(zip(self._re_specs, tables)):
                 sh = routed[2 * j][:, None]

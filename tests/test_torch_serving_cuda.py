@@ -10,7 +10,8 @@ thread seen by the next gather.
   table's ``data_ptr``.
 - An admission step run on a background thread publishes rows that the
   next batch on the scoring thread gathers (its score equals full
-  residency bitwise).
+  residency bitwise); so does a hot swap's delta, and a variant view of
+  it scores the same.
 
 Run on a machine with a card: ``python -m pytest --noconftest
 tests/test_torch_serving_cuda.py``. Without one, every test here skips.
@@ -124,3 +125,42 @@ def test_admission_on_another_thread_is_seen_by_the_next_gather(card):
     want = full.score_batch(reqs, bucket_size=32)
     assert _scores(again).tolist() == _scores(want).tolist()
     assert [r.cold_coordinates for r in again] == [r.cold_coordinates for r in want]
+
+
+def test_hot_swap_on_another_thread_is_seen_by_the_next_gather(card):
+    """A delta applied by a HotSwapManager on a background thread (rows
+    rewritten in place, one new entity, a new FE vector) is what the next
+    batch on the scoring thread gathers: its scores equal a scorer built
+    from the folded artifact, bitwise; a variant view of the same delta
+    scores the same."""
+    import photon_ml_tpu_torch.incremental as TI
+
+    art, reqs = _artifact(), _requests(64, seed=4)
+    rng = np.random.default_rng(1)
+    rows = {f"u{e}": {int(j): float(v) for j, v in zip(rng.integers(0, D_RE, 4),
+                                                        rng.standard_normal(4))}
+            for e in list(range(0, 40, 3)) + [N_ENT + 1]}
+    delta = TI.build_delta({"per_user": rows}, art,
+                           fe_updates={"fixed": rng.standard_normal(D_FE).astype(np.float32)})
+    scorer = T.ShardedGameScorer(art, max_nnz=MAX_NNZ, num_shards=4, device="cuda")
+    registry = T.VariantRegistry(T.ShardedGameScorer(art, max_nnz=MAX_NNZ, num_shards=4,
+                                                     device="cuda"))
+    registry.add_variant("v")
+    before = scorer.score_batch(reqs, bucket_size=64)
+    compiles = scorer.compile_count
+    manager = T.HotSwapManager(scorer)
+    reports = []
+    worker = threading.Thread(target=lambda: reports.append(manager.apply_delta(delta)))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and reports[0].generation == 1
+    after = scorer.score_batch(reqs, bucket_size=64)
+    folded = T.ShardedGameScorer(TI.apply_delta(art, delta), max_nnz=MAX_NNZ, num_shards=4,
+                                 device="cuda")
+    want = folded.score_batch(reqs, bucket_size=64)
+    assert _scores(after).tolist() == _scores(want).tolist()
+    assert _scores(after).tolist() != _scores(before).tolist()
+    assert scorer.compile_count == compiles
+    registry.apply_delta("v", delta)
+    variant = registry.scorer("v").score_batch(reqs, bucket_size=64)
+    assert _scores(variant).tolist() == _scores(want).tolist()
