@@ -299,7 +299,33 @@ exit code is not 0):
                       evaluations, launches, and device busy ms and idle
                       share (the run without tracking: tracked coefficients
                       would take 16-101 copies of w).
-15. train_tron_full_width
+15. train_glm_diagnostics_full_width
+                    — cli.train_glm's diagnose stage (_diagnose), each part
+                      through the kernels, through the plain versions and
+                      through the kernels again (bitwise the first: the
+                      report's arguments and model-diagnostic.html):
+                      (i) --diagnostic-mode ALL after (a) of phase 14 on
+                      its data (2^20 rows x (2^24 + 1) dims, fused engine,
+                      the best lambda by held-out AUC): the learning curves
+                      {} by the reference's rows <= dims rule, 6 bootstrap
+                      fits at the best lambda, Hosmer-Lemeshow, Kendall tau
+                      on 2,000 items, both importances over 2^24 + 1
+                      coefficients (a positional index map: no dict of 2^24
+                      names); (ii) --diagnostic-mode TRAIN at 2^20 rows x
+                      (2^16 + 1) dims, 16 nonzeros + an intercept, lambda 1:
+                      9 learning-curve portions (each over 2^20 nonzeros,
+                      the fused engine) and the bootstrap. Gates, kernels
+                      against plain: metrics rtol 1e-4 (AUC 1e-4), bootstrap
+                      metric summaries rtol 1e-3 (std within 1e-3 of the
+                      mean), zero crossings within 0.1 %, HL the same bins
+                      and chi^2 rtol 1e-3, tau-alpha 1e-3, the same top-25
+                      importance indices (values rtol 1e-3), curve values
+                      rtol 1e-3; csr_matvec_f32 and csc_rmatvec_f32
+                      launched by the stage. Prints the stage's seconds
+                      (sub-data, sub-fits, scoring, statistics and report),
+                      launches, device idle share (the repeat run, under
+                      torch.profiler) and peak memory.
+16. train_tron_full_width
                     — one outer iteration of the train_full_width GLMix fit
                       with the fixed effect and per_user on TRON (L2 lambda
                       1) and per_item on OWL-QN (elastic net alpha 0.5,
@@ -307,7 +333,7 @@ exit code is not 0):
                       (objective rtol 1e-4, AUC 1e-4), with the batched
                       value+gradient's launches, each coordinate's seconds
                       and idle share, the solver trackers and stats.
-16. fe_bf16_full_width
+17. fe_bf16_full_width
                     — the fixed-effect shard of train_full_width (2^20 rows
                       x (2^24 + 1) dims, 16 nonzeros a row + an intercept)
                       on the fused engine built twice, float32 and bfloat16
@@ -324,14 +350,17 @@ exit code is not 0):
                       shapes, csr_matvec_bf16 also with a sequential col_idx
                       and L2-flushed, and the device idle share of one bf16
                       solve.
-17. train_benes_full_width
+18. train_benes_full_width
                     — training data of that width at a quarter of its
                       depth (2^18 rows, 2^16 held out: cold routing of
                       2^20 rows took 75-160 s) with the fixed effect on the
                       stage-by-stage Benes engine (sparse_engine "benes")
                       under STANDARDIZATION (intercept column 2^24): the
-                      engine built with a fresh plan cache (cold routing
-                      timed, the layout the planner chose, device bytes),
+                      plans routed cold into a fresh plan cache by a
+                      spawned process at nice 19 from the end of phase 2 on
+                      (its routing seconds), the engine built on the card
+                      from that cache (the layout the planner chose,
+                      device bytes),
                       the Benes and fused summaries of the FE shard against
                       each other, the fit through the plan kernels (every
                       kernel its compiled plans launch, launched) against
@@ -344,8 +373,9 @@ exit code is not 0):
                       plan against the stage-by-stage plain plan (bitwise)
                       and one gather, Benes vs fused matvec and rmatvec
                       times, and the device idle share of one FE solve.
-18. train_full_game_full_width
-                    — the train_full_width GLMix fit plus the user-item-mf
+19. train_full_game_full_width
+                    — the train_full_width GLMix fit at half its depth
+                      (ASYNC_DEPTH: 2^19 rows, 2^17 held out) plus the user-item-mf
                       factored coordinate of examples/game.json.example (the
                       per_item shard's 4,096 columns over userId, k = 8, 2
                       MF iterations, L-BFGS 10 iterations, lambda 1, one
@@ -362,8 +392,10 @@ exit code is not 0):
                       an accumulating index_put_ of the same terms; bucket
                       shapes and device bytes;
                       the device idle share of one MF update.
-19. train_async_full_width
-                    — the train_full_width fit with per_user in 4 buckets
+20. train_async_full_width
+                    — the train_full_width fit at half its depth
+                      (ASYNC_DEPTH: 2^19 rows, 2^17 held out; the widths
+                      the same) with per_user in 4 buckets
                       and per_item in 2, 1 outer iteration, on the sync
                       schedule and on schedule="async" (a CUDA stream a
                       worker; bucket overlap two at a time): staleness 0
@@ -376,7 +408,7 @@ exit code is not 0):
                       seconds, each update's seconds, launches, peak memory,
                       and the card's busy ms (the union of its events on
                       every stream) and idle share under torch.profiler.
-20. train_sweep_tuning_full_width
+21. train_sweep_tuning_full_width
                     — on the same coordinates (built once): fit_multiple
                       over per_user lambda in {10, 1, 0.1} (1 outer
                       iteration, warm-started), select_best_fit against the
@@ -385,8 +417,8 @@ exit code is not 0):
                       vectors equal the Sobol draws tests/test_torch_tuning.py
                       pins; resolve_coordinate("per_user") on the held-out
                       rows bitwise the same update by hand; seconds of each.
-21. train_telemetry_full_width
-                    — on the same coordinates, the sync fit of phase 19
+22. train_telemetry_full_width
+                    — on the same coordinates, the sync fit of phase 20
                       (2 outer iterations): (a) tracing off; (b) traced
                       (run ledger and Chrome trace), with a
                       ConvergenceTracker and the memory gauges; in turns a,
@@ -405,7 +437,7 @@ exit code is not 0):
                       resumed from a 1-iteration checkpoint: InjectedFault,
                       that generation intact, then a resume bitwise the
                       uninterrupted fit.
-22. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
+23. train_game_cli  — photon_ml_tpu_torch.cli.train_game on the committed
                       ratings fixture (LINEAR_REGRESSION, FE + per_user +
                       per_movie, 2 outer iterations, RMSE), on cuda and on
                       cpu: RMSE < 0.45 on both and equal to 1e-4, two cuda
@@ -455,15 +487,19 @@ exit code is not 0):
                       config whose per_user has an adaptive block:
                       auto-tune.json with the JAX CLI's keys, RMSE within
                       0.005 of the golden 0.388473.
-23. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
+24. train_glm_cli   — photon_ml_tpu_torch.cli.train_glm with the three
                       invocations of examples/BASELINE_CONFIGS.md on small
                       fixtures the phase writes (Avro by write_cli_fixture,
                       LibSVM from the seed), on cuda and on cpu: the same
                       selection, metrics and model-file coefficients to
                       1e-4; configuration (a) on cuda with --telemetry-out
                       and --trace-out (valid files, the phases as spans,
-                      every output bitwise the plain run's); and (a) once
-                      more through ``python -m`` in a process of its own.
+                      every output bitwise the plain run's); (a) with
+                      --diagnostic-mode ALL and --telemetry-out on cuda and
+                      on cpu (the same chapters in order, metrics to 1e-4,
+                      model-diagnostic.html written, a diagnose span); and
+                      (a) once more through ``python -m`` in a process of
+                      its own.
 
 Every kernel, plain version and library call that a phase times gets two
 figures (cuda_ms): "ms", one call between two CUDA events, and
@@ -509,7 +545,8 @@ ALL_PHASES = ("env", "build", "kernel", "score_full_width", "score_game_cli",
               "serve_full_width", "nearline_full_width", "serve_game_cli", "read_score_full_width",
               "train_full_width", "train_streaming_full_width",
               "train_cluster_full_width", "train_grid_full_width",
-              "train_glm_full_width", "train_tron_full_width",
+              "train_glm_full_width", "train_glm_diagnostics_full_width",
+              "train_tron_full_width",
               "fe_bf16_full_width", "train_benes_full_width", "train_full_game_full_width",
               "train_async_full_width", "train_sweep_tuning_full_width",
               "train_telemetry_full_width", "train_game_cli", "train_glm_cli")
@@ -2383,10 +2420,13 @@ def profile_device_idle(fn) -> dict:
     union of its device events' intervals (the device-side events alone: a
     host operator also reports the device time of what it launched; work
     overlapped on several streams counts once), their plain sum, the idle
-    share of the call's wall time, and the top device consumers."""
+    share of the call's wall time, and the top device consumers. The
+    profiler records the device alone: host operators would add their own
+    recording to the wall (seconds in a long host-bound call) and are not
+    read."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3730,6 +3770,39 @@ def _summaries_agree(a, b) -> dict:
 BENES_DEPTH = (1 << 18, 1 << 16)  # rows, held-out: full width, a quarter of the depth
 
 
+def _benes_data(seed: int):
+    n, n_val = BENES_DEPTH
+    return make_glmix_training(seed, n, n_val, 1 << 24, 16, 65_536, 16_384)
+
+
+def _benes_route_job(job) -> dict:
+    """In a spawned process (nice 19): the phase's training and held-out FE
+    shards routed cold into the empty plan cache ``dir`` (the engines built
+    on the host; plans do not depend on the device), with the seconds of
+    each build and of its routing."""
+    seed, plan_dir = job
+    os.environ["PHOTON_ML_TPU_TORCH_PLAN_CACHE"] = plan_dir
+    train, val = _benes_data(seed)
+    build = {}
+    for name, data in (("train", train), ("validation", val)):
+        with routing_seconds() as rs:
+            t0 = time.perf_counter()
+            data.sparse_features("global", engine="benes", device="cpu")
+            total = time.perf_counter() - t0
+        build[name] = {"rows": data.num_rows, "build_s": total, "routing_s": rs.seconds,
+                       "routing_thread_s": rs.thread_seconds, "plans": rs.plans}
+    return {"cold": build}
+
+
+def _benes_prep(seed: int) -> SpawnPrep:
+    """train_benes_full_width's routing plans, routed cold in the background
+    (_benes_route_job) from the end of the build phase on."""
+    if ("benes", seed) not in _SPAWN_PREPS:
+        _SPAWN_PREPS["benes", seed] = SpawnPrep(
+            "chip_smoke_benes_", _benes_route_job, seed, "plans")
+    return _SPAWN_PREPS["benes", seed]
+
+
 def phase_train_benes_full_width(seed: int) -> dict:
     from photon_ml_tpu_torch.normalization import build_normalization_context
     from photon_ml_tpu_torch.ops import launches, sparse_perm
@@ -3739,24 +3812,30 @@ def phase_train_benes_full_width(seed: int) -> dict:
 
     n, n_val, fe_dim, fe_k = BENES_DEPTH[0], BENES_DEPTH[1], 1 << 24, 16
     t0 = time.perf_counter()
-    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, 65_536, 16_384)
+    train, val = _benes_data(seed)
     data_s = time.perf_counter() - t0
 
-    # the engines, routed cold: a fresh, empty plan cache
-    plan_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    # the engines: routed cold into an empty plan cache by a background
+    # process (its seconds under "cold"), then built here on the card from
+    # that cache
+    prep = _benes_prep(seed)
+    cold = prep.wait()
+    plan_dir = prep.dir
     saved_env = os.environ.get("PHOTON_ML_TPU_TORCH_PLAN_CACHE")
     os.environ["PHOTON_ML_TPU_TORCH_PLAN_CACHE"] = plan_dir
     try:
-        build = {}
+        build = {"cold": cold["cold"], "prep_s": cold["prep_s"],
+                 "prep_waited_s": cold["prep_waited_s"]}
         for name, data in (("train", train), ("validation", val)):
             with routing_seconds() as rs:
                 t0 = time.perf_counter()
                 feats_of = data.sparse_features("global", engine="benes", device="cuda")
                 torch.cuda.synchronize()
                 total = time.perf_counter() - t0
-            build[name] = {"rows": data.num_rows, "build_s": total, "routing_s": rs.seconds,
-                           "routing_thread_s": rs.thread_seconds,
-                           "rest_of_build_s": total - rs.seconds, "plans": rs.plans,
+            # every plan comes from the cache: its lookups' wall and count
+            build[name] = {"rows": data.num_rows, "build_s": total,
+                           "plan_cache_s": rs.seconds, "plans": rs.plans,
+                           "rest_of_build_s": total - rs.seconds,
                            "layout": benes_layout(feats_of),
                            "host_peak_rss_gb_so_far": resource.getrusage(
                                resource.RUSAGE_SELF).ru_maxrss / 2**20}
@@ -3765,7 +3844,7 @@ def phase_train_benes_full_width(seed: int) -> dict:
             os.environ.pop("PHOTON_ML_TPU_TORCH_PLAN_CACHE", None)
         else:
             os.environ["PHOTON_ML_TPU_TORCH_PLAN_CACHE"] = saved_env
-        shutil.rmtree(plan_dir, ignore_errors=True)
+        prep.close()
     emit("train_benes_full_width", engine_build=build)  # before the checks that may fail
     feats = train.sparse_features("global", engine="benes", device="cuda")
     t0 = time.perf_counter()
@@ -4383,6 +4462,10 @@ class solve_log:
 
 
 FULL_WIDTH = (1 << 20, 1 << 18, 1 << 24, 16, 65_536, 16_384)  # rows, held-out, dims, nnz, E
+# rows and held-out rows of the full-GAME, async, sweep and telemetry
+# phases: the full width at half the depth (the script's time limit; the
+# buckets keep their counts)
+ASYNC_DEPTH = (FULL_WIDTH[0] // 2, FULL_WIDTH[1] // 2)
 
 
 def glm_task_labels(data, w_true: np.ndarray, rng) -> dict:
@@ -4566,6 +4649,350 @@ def phase_train_glm_full_width(seed: int) -> dict:
     result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # each configuration's line is above
     emit("train_glm_full_width", **{k: v for k, v in result.items() if k != "configurations"})
+    return result
+
+
+def positional_index_map(dim: int):
+    """An index map with feature ``f<i>`` at column i and the intercept in
+    the last column: the length and the names ``_diagnose`` asks of one,
+    without a dict of 2^24 + 1 names."""
+    from photon_ml_tpu_torch.indexmap import INTERCEPT_KEY, IndexMap
+
+    class Positional(IndexMap):
+        def get_index(self, name: str) -> int:
+            if name == INTERCEPT_KEY:
+                return dim - 1
+            i = int(name[1:]) if name[:1] == "f" and name[1:].isdigit() else -1
+            return i if 0 <= i < dim - 1 else -1
+
+        def get_feature_name(self, index: int):
+            index = int(index)
+            if not 0 <= index < dim:
+                return None
+            return INTERCEPT_KEY if index == dim - 1 else f"f{index}"
+
+        def __len__(self) -> int:
+            return dim
+
+    return Positional()
+
+
+def make_glm_rows(seed: int, n: int, dim: int, k: int):
+    """A logistic GameData of ``n`` rows, ``k`` distinct features out of
+    ``dim`` a row plus an intercept (column ``dim``), labels from a seeded
+    coefficient vector; the shard is named "features", as train_glm's."""
+    from photon_ml_tpu_torch.data.game_data import FeatureShard, GameData
+
+    rng = np.random.default_rng(seed)
+    cols = np.sort(_distinct_cols(rng, n, k, dim), axis=1)
+    cols = np.concatenate([cols, np.full((n, 1), dim)], axis=1)
+    vals = np.concatenate([rng.standard_normal((n, k), dtype=np.float32) / np.sqrt(k),
+                           np.ones((n, 1), np.float32)], axis=1)
+    w = rng.standard_normal(dim + 1, dtype=np.float32)
+    z = (vals * w[cols]).sum(axis=1)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    shard = FeatureShard(np.repeat(np.arange(n, dtype=np.int64), k + 1),
+                         cols.reshape(-1).astype(np.int64), vals.reshape(-1), dim + 1)
+    return GameData(labels=y, feature_shards={"features": shard}, id_tags={})
+
+
+def _report_bits(x):
+    """A diagnosis (build_diagnostic_document's arguments) as nested
+    builtins for a bitwise comparison: floats by their bits, arrays and the
+    bootstrap's column-wise summaries by their bytes."""
+    from photon_ml_tpu_torch.diagnostics.bootstrap import CoefficientSummaries
+
+    if isinstance(x, CoefficientSummaries):
+        return tuple(getattr(x, f).tobytes() for f in
+                     ("min", "max", "mean", "std", "q1", "median", "q3"))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return tuple((f.name, _report_bits(getattr(x, f.name))) for f in dataclasses.fields(x))
+    if isinstance(x, np.ndarray):
+        return (x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, (float, np.floating)):
+        return np.float64(x).tobytes()
+    if isinstance(x, dict):
+        return tuple((_report_bits(k), _report_bits(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return tuple(_report_bits(v) for v in x)
+    return x
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / |b| over matching values (0 where both are 0; NaN
+    equal to NaN)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    both_nan = np.isnan(a) & np.isnan(b)
+    d = np.where(both_nan, 0.0, np.abs(a - b)) / np.maximum(np.abs(b), 1e-300)
+    d = np.where((a == b) | both_nan, 0.0, d)
+    return float(d.max()) if d.size else 0.0
+
+
+def diagnosis_gates(k: dict, p: dict) -> dict:
+    """A diagnosis through the kernels (``k``) against the same through the
+    plain versions (``p``), both build_diagnostic_document's arguments: each
+    quantity's difference and whether it holds its bound."""
+    out, ok = {}, True
+    if p["metrics"]:
+        auc = "Area under ROC"
+        out["metrics_max_rel"] = max([_rel(k["metrics"][m], v) for m, v in p["metrics"].items()
+                                      if m != auc] or [0.0])
+        out["auc_abs"] = abs(k["metrics"].get(auc, 0.0) - p["metrics"].get(auc, 0.0))
+        ok &= list(k["metrics"]) == list(p["metrics"]) and out["metrics_max_rel"] <= 1e-4
+        ok &= out["auc_abs"] <= 1e-4
+    if p["bootstrap"] is not None:
+        kb, pb = k["bootstrap"], p["bootstrap"]
+        rel = 0.0
+        for m, ps in pb.metric_summaries.items():
+            ks = kb.metric_summaries[m]
+            for f in ("min", "max", "mean", "q1", "median", "q3"):
+                rel = max(rel, _rel(getattr(ks, f), getattr(ps, f)))
+            # the spread, a difference of the values, to their error
+            rel = max(rel, abs(ks.std - ps.std) / max(abs(ps.mean), 1e-300))
+        zk, zp = len(kb.zero_crossing_indices), len(pb.zero_crossing_indices)
+        out.update(bootstrap_summaries_max_rel=rel, zero_crossings=zk,
+                   plain_zero_crossings=zp, coefficients=len(kb.coefficient_summaries))
+        ok &= rel <= 1e-3 and abs(zk - zp) <= 1e-3 * max(zp, 1)
+    if p["hosmer_lemeshow"] is not None:
+        kh, ph = k["hosmer_lemeshow"], p["hosmer_lemeshow"]
+        out.update(hl_bins=len(kh.bins), plain_hl_bins=len(ph.bins),
+                   hl_chi_squared=kh.chi_squared,
+                   hl_chi_squared_rel=_rel(kh.chi_squared, ph.chi_squared))
+        ok &= len(kh.bins) == len(ph.bins) and out["hl_chi_squared_rel"] <= 1e-3
+    if p["independence"] is not None:
+        out["tau_alpha"] = k["independence"].tau_alpha
+        out["tau_alpha_abs"] = abs(k["independence"].tau_alpha - p["independence"].tau_alpha)
+        ok &= out["tau_alpha_abs"] <= 1e-3
+    for key in ("importance", "importance_variance"):
+        if p[key] is not None:
+            ki = [r[2] for r in k[key].ranked_features]
+            pi = [r[2] for r in p[key].ranked_features]
+            rel = _rel([r[3] for r in k[key].ranked_features], [r[3] for r in p[key].ranked_features])
+            out[f"{key}_top25_same"] = ki == pi
+            out[f"{key}_top25_max_rel"] = rel
+            ok &= ki == pi and rel <= 1e-3
+    portions, rel = 0, 0.0
+    ok &= list(k["fitting"] or {}) == list(p["fitting"] or {})
+    for lam, rep in (p["fitting"] or {}).items():
+        for name, (por, tr, te) in rep.metrics.items():
+            kpor, ktr, kte = k["fitting"][lam].metrics[name]
+            ok &= kpor == por
+            portions = max(portions, len(por))
+            rel = max(rel, _rel(ktr, tr), _rel(kte, te))
+    out.update(curve_portions=portions, curves_max_rel=rel)
+    ok &= rel <= 1e-3
+    out["within_bounds"] = bool(ok)
+    return out
+
+
+class diagnose_split:
+    """Within the block, the seconds of cli.train_glm._diagnose's parts, each
+    call ended by a device sync: "sub_data" (GameData.take_rows and the
+    sub-data's LabeledData with its device layout), "sub_fits" (train_glm)
+    and "scoring" (GeneralizedLinearModel.compute_score outside a fit)."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.cli import train_glm as cli
+        from photon_ml_tpu_torch.data.game_data import GameData
+        from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+
+        self.seconds = {"sub_data": 0.0, "sub_fits": 0.0, "scoring": 0.0}
+        self._saved = [(cli, "train_glm", cli.train_glm), (cli, "_labeled", cli._labeled),
+                       (GameData, "take_rows", GameData.take_rows),
+                       (GeneralizedLinearModel, "compute_score",
+                        GeneralizedLinearModel.compute_score)]
+        fitting = []
+
+        def timed(key, fn, inside_fit=False):
+            def wrapper(*args, **kwargs):
+                if fitting and not inside_fit:
+                    return fn(*args, **kwargs)
+                if inside_fit:
+                    fitting.append(True)
+                t0 = time.perf_counter()
+                try:
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    return out
+                finally:
+                    if inside_fit:
+                        fitting.pop()
+                    self.seconds[key] += time.perf_counter() - t0
+            return wrapper
+
+        for (owner, name, fn), key in zip(self._saved, ("sub_fits", "sub_data", "sub_data",
+                                                          "scoring")):
+            setattr(owner, name, timed(key, fn, inside_fit=key == "sub_fits"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _diagnose_run(args, task, data, labeled, fits, best_lambda, imap, intercept, cfg,
+                  val_data=None, plain=False, profile=False) -> dict:
+    """One call of cli.train_glm._diagnose on cuda (through the plain
+    versions with ``plain``; under torch.profiler with ``profile``): its
+    seconds and their split, the launches, the report's arguments and
+    model-diagnostic.html's bytes."""
+    import contextlib
+    import logging
+
+    from photon_ml_tpu_torch.cli import train_glm as cli
+    from photon_ml_tpu_torch.diagnostics import report
+    from photon_ml_tpu_torch.ops import launches
+
+    captured, out = {}, {}
+    build = report.build_diagnostic_document
+
+    def capture(*a, **kw):
+        captured.update(kw, title=a[0])
+        return build(*a, **kw)
+
+    def call():
+        t0 = time.perf_counter()
+        out["path"] = cli._diagnose(
+            args, task, data, labeled, fits, best_lambda, imap, intercept, cfg,
+            logging.getLogger("chip_smoke"), torch.device("cuda"), val_data=val_data,
+            metric_name="AUC")
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+
+    report.build_diagnostic_document = capture
+    try:
+        # the diagnose stage's own counts: set to 0 just before, read just after
+        launches.reset()
+        with plain_versions() if plain else contextlib.nullcontext(), diagnose_split() as split:
+            idle = profile_device_idle(call) if profile else None
+            if not profile:
+                call()
+        counts = launches.counts()
+    finally:
+        report.build_diagnostic_document = build
+    with open(out["path"], "rb") as f:
+        html = f.read()
+    parts = dict(split.seconds)
+    parts["statistics_and_report"] = out["seconds"] - sum(parts.values())
+    return {"seconds": out["seconds"], "split_s": parts, "launches": counts,
+            "report": captured, "html": html, "idle": idle}
+
+
+def _diagnose_part(name: str, mode: str, root: str, task, data, labeled, fits, best_lambda,
+                   imap, intercept, cfg, val_data=None) -> dict:
+    """A diagnosis through the kernels, through the plain versions and
+    through the kernels again (under torch.profiler: the idle share), with
+    the gates between the first two and the third bitwise the first."""
+    runs = {}
+    for tag, plain, profile in (("kernels", False, False), ("plain", True, False),
+                                ("again", False, True)):
+        args = argparse.Namespace(diagnostic_mode=mode, output_dir=os.path.join(root, name, tag))
+        runs[tag] = _diagnose_run(args, task, data, labeled, fits, best_lambda, imap, intercept,
+                                  cfg, val_data=val_data, plain=plain, profile=profile)
+    k, p, a = runs["kernels"], runs["plain"], runs["again"]
+    gates = diagnosis_gates(k["report"], p["report"])
+    path = ("csr_matvec_f32", "csc_rmatvec_f32")
+    entry = {
+        "mode": mode, "rows": data.num_rows, "dims": len(imap), "best_lambda": best_lambda,
+        "seconds": k["seconds"], "split_s": k["split_s"], "plain_seconds": p["seconds"],
+        "plain_split_s": p["split_s"], "again_seconds_profiled": a["seconds"],
+        "launches": {n: k["launches"][n] for n in path},
+        "plain_launches": {n: p["launches"][n] for n in path},
+        "device_idle": a["idle"], "html_bytes": len(k["html"]),
+        "chapters": re.findall(rb"<h2>(.*?)</h2>", k["html"]),
+        "repeat_bitwise": (_report_bits(k["report"]) == _report_bits(a["report"])
+                           and k["html"] == a["html"]),
+        "plain_html_equal": k["html"] == p["html"],
+        "metrics": k["report"]["metrics"], **gates,
+    }
+    entry["chapters"] = [c.decode() for c in entry["chapters"]]
+    entry["launched"] = all(entry["launches"][n] > 0 for n in path) and not any(
+        entry["plain_launches"].values())
+    entry["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return entry
+
+
+def phase_train_glm_diagnostics_full_width(seed: int) -> dict:
+    from photon_ml_tpu_torch.cli import train_glm as cli
+    from photon_ml_tpu_torch.data.game_data import GameData
+    from photon_ml_tpu_torch.estimators.model_training import train_glm
+    from photon_ml_tpu_torch.evaluation.evaluators import default_evaluator
+    from photon_ml_tpu_torch.ops import fused_perm
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    dev = torch.device("cuda")
+    cfg = glm_configurations()["a_logistic_lbfgs_sweep"]
+    result = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as root:
+        # (i) phase 14's rows and labels (its draws, in its order), ALL
+        t0 = time.perf_counter()
+        n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
+        train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+        rng = np.random.default_rng(seed + 1)
+        w_true = rng.standard_normal(fe_dim + 1)
+        labels = {"train": glm_task_labels(train, w_true, rng)[task.name],
+                  "val": glm_task_labels(val, w_true, rng)[task.name]}
+        data, vdata = (GameData(labels=labels[part], id_tags={},
+                                feature_shards={"features": d.feature_shards["global"]})
+                       for part, d in (("train", train), ("val", val)))
+        labeled = cli._labeled(data, dev)
+        if not isinstance(labeled.features, fused_perm.FusedSparseFeatures):
+            raise AssertionError(f"auto engine picked {type(labeled.features).__name__}")
+        fits = train_glm(labeled, task, cfg["configuration"],
+                         regularization_weights=cfg["weights"], intercept_index=fe_dim)
+        evaluator = default_evaluator(task)
+        vfeats = vdata.sparse_features("features", engine="auto", device=dev)
+        voff = torch.from_numpy(vdata.offsets).to(dev)
+        auc = {f.regularization_weight: evaluator.evaluate(
+            f.model.compute_score(vfeats) + voff, vdata.labels, vdata.weights) for f in fits}
+        best = None
+        for lam, m in auc.items():
+            if best is None or evaluator.better_than(m, auc[best]):
+                best = lam
+        setup_s = time.perf_counter() - t0
+        part = _diagnose_part("full_width_all", "ALL", root, task, data, labeled, fits, best,
+                              positional_index_map(fe_dim + 1), fe_dim, cfg["configuration"],
+                              val_data=vdata)
+        part.update(setup_s=setup_s, validation_auc=auc)
+        part["curves_empty"] = part["curve_portions"] == 0 and not any(
+            "Fitting" in c for c in part["chapters"])
+        emit("train_glm_diagnostics_full_width", part="i_full_width_all", **part)
+        result["i_full_width_all"] = part
+        del data, vdata, labeled, fits, vfeats
+        torch.cuda.empty_cache()
+
+        # (ii) more rows than columns: the learning curves, TRAIN
+        t0 = time.perf_counter()
+        dim = 1 << 16
+        data = make_glm_rows(seed + 2, n, dim, fe_k)
+        labeled = cli._labeled(data, dev)
+        fits = train_glm(labeled, task, cfg["configuration"], regularization_weights=[1.0],
+                         intercept_index=dim)
+        setup_s = time.perf_counter() - t0
+        part = _diagnose_part("learning_curves_train", "TRAIN", root, task, data, labeled,
+                              fits, 1.0, positional_index_map(dim + 1), dim, cfg["configuration"])
+        part["setup_s"] = setup_s
+        emit("train_glm_diagnostics_full_width", part="ii_learning_curves_train", **part)
+        result["ii_learning_curves_train"] = part
+        del data, labeled, fits
+        torch.cuda.empty_cache()
+
+    i, ii = result["i_full_width_all"], result["ii_learning_curves_train"]
+    result["launches_by_kernel"] = {
+        name: i["launches"][name] + ii["launches"][name]
+        for name in ("csr_matvec_f32", "csc_rmatvec_f32")}
+    failed = [key for key, part in result.items() if key != "launches_by_kernel" and not (
+        part["within_bounds"] and part["repeat_bitwise"] and part["launched"])]
+    if not i["curves_empty"]:
+        failed.append("i: learning curves at 2^24 + 1 dims (the reference's rule gives none)")
+    if ii["curve_portions"] != 9:
+        failed.append(f"ii: {ii['curve_portions']} learning-curve portions, not 9")
+    emit("train_glm_diagnostics_full_width", launches_by_kernel=result["launches_by_kernel"],
+         seconds=i["seconds"] + ii["seconds"], peak_mem_gb=ii["peak_mem_gb"])
+    if failed:
+        raise AssertionError(f"train_glm_diagnostics_full_width fails {failed} (lines above)")
     return result
 
 
@@ -4755,8 +5182,8 @@ def phase_train_full_game_full_width(seed: int) -> dict:
     from photon_ml_tpu_torch.losses.pointwise import LogisticLoss
     from photon_ml_tpu_torch.ops import launches, pallas_kernels
 
-    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
-    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    _, _, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, val = make_glmix_training(seed, *ASYNC_DEPTH, fe_dim, fe_k, users, items)
     estimator = _full_game_estimator("cuda")
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -4896,11 +5323,11 @@ def _async_estimator(schedule: str = "sync", staleness: int = 1, outer: int = 2)
 
 @functools.lru_cache(maxsize=1)
 def _async_setup(seed: int):
-    """The full-width data and its coordinates, built once for the async,
-    sweep and tuning phases: (train, validation, coordinates, build
-    seconds)."""
-    n, n_val, fe_dim, fe_k, users, items = FULL_WIDTH
-    train, val = make_glmix_training(seed, n, n_val, fe_dim, fe_k, users, items)
+    """The full-width data at ASYNC_DEPTH and its coordinates, built once
+    for the async, sweep and telemetry phases: (train, validation,
+    coordinates, build seconds)."""
+    _, _, fe_dim, fe_k, users, items = FULL_WIDTH
+    train, val = make_glmix_training(seed, *ASYNC_DEPTH, fe_dim, fe_k, users, items)
     t0 = time.perf_counter()
     coords = _async_estimator().build_coordinates(train)
     torch.cuda.synchronize()
@@ -5381,6 +5808,13 @@ def _output_file(path: str):
         return f.read()
 
 
+# the chapters of --diagnostic-mode ALL with a validation set and more rows
+# than features (the JAX package's build_diagnostic_document order)
+DIAGNOSIS_CHAPTERS = ["1. Model metrics", "2. Fitting analysis (learning curves)",
+                      "3. Bootstrap analysis", "4. Hosmer-Lemeshow calibration",
+                      "5. Prediction-error independence", "6. Feature importance"]
+
+
 def phase_train_glm_cli(seed: int) -> dict:
     from photon_ml_tpu_torch.cli import train_glm
     from photon_ml_tpu_torch.ops import launches
@@ -5478,6 +5912,48 @@ def phase_train_glm_cli(seed: int) -> dict:
                                "files_differing_from_plain": differ}
         if differ or not {"preprocess", "train", "validate", "output"} <= set(phases):
             raise AssertionError(f"train_glm with telemetry: {result['telemetry']}")
+        # (a) with --diagnostic-mode ALL on cuda and cpu: the same chapters
+        # in order, metrics to 1e-4, the report written, a diagnose span
+        from photon_ml_tpu_torch.diagnostics import report
+
+        diagnoses = {}
+        build = report.build_diagnostic_document
+        for device in ("cuda", "cpu"):
+            out = os.path.join(root, f"a_diagnose_{device}")
+            ledger_path = os.path.join(root, f"diagnose_{device}.jsonl")
+            captured = {}
+
+            def capture(*a, **kw):
+                captured.update(kw)
+                return build(*a, **kw)
+
+            report.build_diagnostic_document = capture
+            try:
+                t0 = time.perf_counter()
+                train_glm.run(train_glm.parse_args(invocations["a_logistic_lbfgs_sweep"] + [
+                    "--output-dir", out, "--device", device, "--diagnostic-mode", "ALL",
+                    "--telemetry-out", ledger_path]))
+                seconds = time.perf_counter() - t0
+            finally:
+                report.build_diagnostic_document = build
+            html = os.path.join(out, "model-diagnostic.html")
+            diagnoses[device] = {
+                "seconds": seconds, "metrics": captured["metrics"],
+                "chapters": re.findall(r"<h2>(.*?)</h2>", open(html).read()),
+                "spans": sorted({r["name"] for r in validate_ledger(ledger_path)
+                                 if r["type"] == "span"}),
+            }
+        cu, cpu = diagnoses["cuda"], diagnoses["cpu"]
+        metric_diff = max(abs(cu["metrics"][k] - cpu["metrics"][k]) for k in cpu["metrics"])
+        result["diagnostic_mode_all"] = {
+            "cuda_s": cu["seconds"], "cpu_s": cpu["seconds"], "chapters": cu["chapters"],
+            "cpu_chapters": cpu["chapters"], "max_metric_diff": metric_diff,
+            "spans": cu["spans"], "cpu_spans": cpu["spans"]}
+        if not (cu["chapters"] == cpu["chapters"] == DIAGNOSIS_CHAPTERS
+                and metric_diff <= 1e-4 and "diagnose" in cu["spans"]
+                and "diagnose" in cpu["spans"]):
+            raise AssertionError(f"train_glm --diagnostic-mode ALL: "
+                                 f"{result['diagnostic_mode_all']}")
         # the module's own entry point, in a process of its own (started
         # with the in-process runs, above)
         try:
@@ -6892,6 +7368,7 @@ PHASES = {
     "train_cluster_full_width": phase_train_cluster_full_width,
     "train_grid_full_width": phase_train_grid_full_width,
     "train_glm_full_width": phase_train_glm_full_width,
+    "train_glm_diagnostics_full_width": phase_train_glm_diagnostics_full_width,
     "train_tron_full_width": phase_train_tron_full_width,
     "fe_bf16_full_width": phase_fe_bf16_full_width,
     "train_benes_full_width": phase_train_benes_full_width,
@@ -6934,6 +7411,8 @@ def main(argv=None) -> int:
                 _cli_fixture_prep(args.seed)  # its files, made in the background
             if name == "build" and {"serve_full_width", "nearline_full_width"} & set(phases):
                 _serve_prep(args.seed)  # its artifact, made in the background
+            if name == "build" and "train_benes_full_width" in phases:
+                _benes_prep(args.seed)  # its routing, cold, in the background
             if name == "build" and "read_score_full_width" in phases:
                 # its Avro files and stores, made while the phases before it run
                 _read_score_prep(args.seed)
@@ -6989,6 +7468,10 @@ def main(argv=None) -> int:
             **{path: results[path]["launches_by_kernel"].get(name)
                for path in ("train_cluster_full_width", "train_grid_full_width")
                if path in results},
+            # train_glm's diagnose stage (both parts of its phase)
+            **{"train_glm_diagnostics_full_width": n for n in [results.get(
+                "train_glm_diagnostics_full_width", {}).get("launches_by_kernel", {}).get(
+                    name, 0)] if n},
             **{"serve_full_width": n for n in [results.get("serve_full_width", {}).get(
                 "reference_launches", {}).get(name, 0)] if n},
             # the nearline update's own count (incremental_update alone)

@@ -6,8 +6,10 @@ feature statistics and normalization) → train (the λ sweep, warm-started,
 ModelTraining.scala:106, by L-BFGS, TRON or OWL-QN, with box constraints) →
 validate (the task's default metric per λ; the best λ, ModelSelection.scala:29)
 → output (``model-lambda-<λ>.txt`` per λ, ``best-model.avro``,
-``selection.json``). Training runs on ``--device`` (default ``cuda``; ``cpu``
-only when asked).
+``selection.json``) → diagnose (``--diagnostic-mode TRAIN|VALIDATE|ALL``:
+``model-diagnostic.html``; the learning curves' and the bootstrap's sub-fits
+and every scoring run on the device, the statistics are host numpy).
+Training runs on ``--device`` (default ``cuda``; ``cpu`` only when asked).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.train_glm \\
@@ -21,8 +23,7 @@ Usage:
 ``--offheap-indexmap-dir`` reads AVRO input through the prebuilt off-heap
 index stores of ``build_index`` (the ``features`` shard).
 
-Refused, naming its ROADMAP.md Queue A item: ``--diagnostic-mode`` other
-than NONE. ``--coordinator-address --num-processes --process-id`` join a
+``--coordinator-address --num-processes --process-id`` join a
 multi-process run on ``torch.distributed`` first.
 """
 
@@ -34,6 +35,7 @@ import json
 import os
 import sys
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -133,21 +135,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "--event-listeners, Params.scala:186)")
     p.add_argument("--diagnostic-mode", default="NONE",
                    choices=["NONE", "TRAIN", "VALIDATE", "ALL"],
-                   help="not ported yet: only NONE (ROADMAP.md, Queue A: "
-                        "Also still to port, diagnostics/*)")
+                   help="writes model-diagnostic.html (reference Driver "
+                        "diagnose stage, DiagnosticMode.scala): TRAIN runs "
+                        "the training-data diagnostics (learning curves + "
+                        "bootstrap), VALIDATE the held-out diagnostics "
+                        "(Hosmer-Lemeshow, error independence, feature "
+                        "importance), ALL both")
     p.add_argument("--log-file", default=None)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
     add_telemetry_args(p)
     return p.parse_args(argv)
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.diagnostic_mode != "NONE":
-        raise NotImplementedError(
-            f"--diagnostic-mode {args.diagnostic_mode} needs diagnostics/*, which is "
-            "not ported yet (ROADMAP.md, Queue A: Also still to port)"
-        )
 
 
 def _filter_selected_features(data, imap, path: str, logger):
@@ -210,7 +208,6 @@ def _write_model_text(path: str, w, variances, index_map) -> None:
 
 
 def run(args: argparse.Namespace) -> dict:
-    _refuse_unported(args)
     logger = setup_logger(args.log_file)
     device = resolve_device(args.device)
     emitter = EventEmitter()
@@ -323,7 +320,9 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
     # (reference Driver.validate + ModelSelection.selectBestModel)
     evaluator = default_evaluator(task)
     metrics: Dict[float, float] = {}
+    per_iter_metrics: Dict[float, List[float]] = {}
     best_lambda = fits[0].regularization_weight
+    vdata = None
     if args.validation_data_dirs:
         with timer.time("validate"):
             vdata, _ = _read(
@@ -342,10 +341,14 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
                 metrics[fit.regularization_weight] = metric(fit.model)
                 logger.info("lambda=%g %s=%.6f", fit.regularization_weight, evaluator.name,
                             metrics[fit.regularization_weight])
+                curve = []
                 for i, tm in enumerate(fit.tracked_models or ()):
                     # the metric-vs-iteration curve (reference validatePerIteration)
+                    curve.append(metric(tm))
                     logger.info("lambda=%g iteration=%d %s=%.6f", fit.regularization_weight,
-                                i, evaluator.name, metric(tm))
+                                i, evaluator.name, curve[-1])
+                if curve:
+                    per_iter_metrics[fit.regularization_weight] = curve
         best_lambda = None
         for lam, m in metrics.items():
             # NaN never wins (reference Evaluator.betterThan)
@@ -378,6 +381,14 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
                 "metrics": {str(k): v for k, v in metrics.items()},
                 "evaluator": evaluator.name,
             }, f, indent=2)
+    if args.diagnostic_mode != "NONE":
+        with timer.time("diagnose"):
+            _diagnose(
+                args, task, data, labeled, fits, best_lambda, imap, intercept_index,
+                configuration, logger, device, val_data=vdata,
+                metric_vs_iteration=per_iter_metrics or None, metric_name=evaluator.name,
+                box_constraints=box_constraints,
+            )
 
     emitter.send_event(TrainingFinishEvent(
         task=task.name, wall_seconds=time.perf_counter() - t_start
@@ -385,6 +396,131 @@ def _run(args, logger, device, emitter: EventEmitter, timer: Timer) -> dict:
     for name, seconds in timer.durations.items():
         logger.info("timing %-12s %.3fs", name, seconds)
     return {"best_lambda": best_lambda, "metrics": metrics, "fits": fits}
+
+
+def _diagnose(
+    args, task, data, labeled, fits, best_lambda, imap, intercept_index,
+    configuration, logger, device, val_data=None, metric_vs_iteration=None,
+    metric_name="metric", box_constraints=None,
+) -> str:
+    """Reference Driver diagnose() stage (Driver.scala:612-638), as the JAX
+    CLI runs it: TRAIN|ALL the training-data diagnostics (FittingDiagnostic
+    learning curves, BootstrapTrainingDiagnostic), VALIDATE|ALL the
+    held-out ones (Hosmer-Lemeshow, prediction-error independence, mean and
+    variance feature importance), on the validation set when one was given,
+    else the training set. The sub-fits and the scoring run on ``device``.
+
+    A row subset's data and device layout are built once while the caller
+    holds its index array: the learning curves score the holdout after
+    every portion and each portion's rows right after fitting them.
+    Returns the report's path."""
+    from photon_ml_tpu_torch.diagnostics import (
+        bootstrap_training,
+        evaluate_metrics,
+        expected_magnitude_importance,
+        fitting_diagnostic,
+        hosmer_lemeshow_diagnostic,
+        prediction_error_independence,
+        variance_importance,
+    )
+    from photon_ml_tpu_torch.diagnostics.evaluation import _sigmoid
+    from photon_ml_tpu_torch.diagnostics.report import (
+        build_diagnostic_document,
+        write_diagnostic_report,
+    )
+
+    do_train = args.diagnostic_mode in ("TRAIN", "ALL")
+    do_validate = args.diagnostic_mode in ("VALIDATE", "ALL")
+    lambdas = [f.regularization_weight for f in fits]
+    best = next(f for f in fits if f.regularization_weight == best_lambda)
+
+    def score(model, gdata) -> np.ndarray:
+        # f32 margins plus f32 offsets, as the reference's scores
+        feats = gdata.sparse_features("features", engine="auto", device=device)
+        return model.compute_score(feats).cpu().numpy() + gdata.offsets
+
+    ddata = val_data if val_data is not None else data
+    scores = score(best.model, ddata)
+    metrics = evaluate_metrics(scores, ddata.labels, task, ddata.weights)
+
+    subs: Dict[int, tuple] = {}
+
+    def rows_of(idx):
+        hit = subs.get(id(idx))
+        if hit is not None and hit[0]() is idx:
+            return hit[1]
+        sub = data.take_rows(idx)
+        sub_labeled = _labeled(sub, device, norm=labeled.norm)
+        key = id(idx)
+        subs[key] = (weakref.ref(idx, lambda _: subs.pop(key, None)), (sub, sub_labeled))
+        return sub, sub_labeled
+
+    def sub_fits(idx, weights):
+        sub, sub_labeled = rows_of(idx)
+        # the diagnosed model's normalization: the regularizer acts in the
+        # normalized space, so dropping it would bootstrap another estimator
+        return sub, train_glm(
+            sub_labeled, task, configuration, regularization_weights=weights,
+            intercept_index=intercept_index, box_constraints=box_constraints,
+        )
+
+    fitting = None
+    bootstrap = None
+    if do_train:
+        def fit_portion(idx, warm):
+            # ignores ``warm`` (cold fits a portion), as the reference does
+            _, sub_fit = sub_fits(idx, lambdas)
+            return {f.regularization_weight: f.model for f in sub_fit}
+
+        def eval_rows(model, idx):
+            sub = rows_of(idx)[0]
+            return evaluate_metrics(score(model, sub), sub.labels, task, sub.weights)
+
+        fitting = fitting_diagnostic(fit_portion, eval_rows, data.num_rows, len(imap), seed=0)
+
+        def boot_train(idx):
+            sub, sub_fit = sub_fits(idx, [best_lambda])
+            model = sub_fit[0].model
+            return (
+                model.coefficients.means.cpu().numpy(),
+                evaluate_metrics(score(model, sub), sub.labels, task, sub.weights),
+            )
+
+        bootstrap = bootstrap_training(boot_train, data.num_rows, num_samples=6, seed=0)
+    subs.clear()
+
+    hl = None
+    independence = None
+    importance = None
+    importance_var = None
+    if do_validate:
+        if task is TaskType.LOGISTIC_REGRESSION:
+            hl = hosmer_lemeshow_diagnostic(_sigmoid(scores), ddata.labels, len(imap))
+        independence = prediction_error_independence(scores, ddata.labels, max_items=2000)
+        # the importance scales (E|x|, Var x) come from the training
+        # summary, as the reference's preprocessing-stage summary
+        summary = summarize(labeled)
+        means = best.model.coefficients.means.cpu().numpy()
+        importance = expected_magnitude_importance(
+            means, mean_abs=summary.mean_abs.cpu().numpy(), index_map=imap)
+        importance_var = variance_importance(
+            means, variance=summary.variance.cpu().numpy(), index_map=imap)
+
+    doc = build_diagnostic_document(
+        f"Model diagnostics (lambda = {best_lambda:g})",
+        metrics=metrics,
+        fitting=fitting,
+        bootstrap=bootstrap,
+        hosmer_lemeshow=hl,
+        independence=independence,
+        importance=importance,
+        importance_variance=importance_var,
+        metric_vs_iteration=metric_vs_iteration,
+        metric_name=metric_name,
+    )
+    out = write_diagnostic_report(args.output_dir, doc)
+    logger.info("diagnostic report: %s", out)
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:

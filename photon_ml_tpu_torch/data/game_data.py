@@ -44,6 +44,59 @@ class FeatureShard:
             dim=self.dim,
         )
 
+    def take_rows(self, indices: np.ndarray) -> "FeatureShard":
+        """Gather rows by index, allowing repeats (bootstrap resampling);
+        output row r holds the nonzeros of input row indices[r], in their
+        stored order (an index naming no stored row gives none). The
+        shard's stable row order and row offsets are computed once and kept:
+        the learning curves and the bootstrap gather from one shard many
+        times, and an offset lookup a row replaces two binary searches. The
+        gather goes by blocks of :data:`GATHER_ROWS` output rows, so that
+        its positions stay in cache."""
+        indices = np.asarray(indices, dtype=np.int64)
+        order, row_ptr = self._row_index()
+        inside = (indices >= 0) & (indices < row_ptr.size - 1)
+        safe = np.where(inside, indices, 0)
+        starts = row_ptr[safe]
+        counts = np.where(inside, row_ptr[safe + 1] - starts, 0)
+        ends = np.cumsum(counts)
+        total = int(ends[-1]) if ends.size else 0
+        # output entry t of a run that starts at output offset o and at
+        # stored position p sits at stored position t - o + p
+        itype = np.int32 if self.rows.size < (1 << 31) else np.int64
+        shift = (starts - (ends - counts)).astype(itype)
+        rows = np.repeat(np.arange(len(indices), dtype=np.int64), counts)
+        cols = np.empty(total, dtype=self.cols.dtype)
+        vals = np.empty(total, dtype=self.vals.dtype)
+        for a in range(0, len(indices), self.GATHER_ROWS):
+            b = min(a + self.GATHER_ROWS, len(indices))
+            lo, hi = (int(ends[a - 1]) if a else 0), int(ends[b - 1])
+            pos = np.repeat(shift[a:b], counts[a:b])
+            pos += np.arange(lo, hi, dtype=itype)
+            nz = pos if order is None else order[pos]
+            np.take(self.cols, nz, out=cols[lo:hi], mode="clip")
+            np.take(self.vals, nz, out=vals[lo:hi], mode="clip")
+        return FeatureShard(rows=rows, cols=cols, vals=vals, dim=self.dim)
+
+    # output rows a block of take_rows' gather
+    GATHER_ROWS = 1 << 12
+
+    def _row_index(self):
+        """(the stable argsort of ``rows``, or None when they are already in
+        order; the offsets of each row's run in that order, [max row + 2]),
+        cached while ``rows`` is the same array."""
+        cached = self.__dict__.get("_row_index_cache")
+        if cached is None or cached[0] is not self.rows:
+            rows = np.asarray(self.rows, dtype=np.int64)
+            in_order = rows.size < 2 or bool(np.all(rows[1:] >= rows[:-1]))
+            order = None if in_order else np.argsort(rows, kind="stable")
+            row_ptr = np.zeros(int(rows.max()) + 2 if rows.size else 1, dtype=np.int64)
+            if rows.size:
+                np.cumsum(np.bincount(rows), out=row_ptr[1:])
+            cached = (self.rows, order, row_ptr)
+            self.__dict__["_row_index_cache"] = cached
+        return cached[1], cached[2]
+
 
 @dataclasses.dataclass
 class GameData:
@@ -89,6 +142,17 @@ class GameData:
             id_tags={t: np.asarray(v)[row_mask] for t, v in self.id_tags.items()},
             offsets=self.offsets[row_mask],
             weights=self.weights[row_mask],
+        )
+
+    def take_rows(self, indices: np.ndarray) -> "GameData":
+        """Gather rows by index with repeats allowed (bootstrap resamples)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        return GameData(
+            labels=self.labels[indices],
+            feature_shards={sid: s.take_rows(indices) for sid, s in self.feature_shards.items()},
+            id_tags={t: np.asarray(v)[indices] for t, v in self.id_tags.items()},
+            offsets=self.offsets[indices],
+            weights=self.weights[indices],
         )
 
     def sparse_features(

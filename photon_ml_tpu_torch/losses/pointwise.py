@@ -12,9 +12,9 @@ from __future__ import annotations
 from typing import Type
 
 import torch
-import torch.nn.functional as F
 
 from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.utils.math_utils import log1p_exp
 
 
 class PointwiseLoss:
@@ -41,7 +41,7 @@ class LogisticLoss(PointwiseLoss):
 
     @staticmethod
     def value(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return F.softplus(z) - y * z
+        return log1p_exp(z) - y * z
 
     @staticmethod
     def d1(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

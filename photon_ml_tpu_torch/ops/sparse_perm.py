@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import stat
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -49,6 +48,7 @@ from photon_ml_tpu_torch.device import DEFAULT_DEVICE, DeviceLike, resolve_devic
 from photon_ml_tpu_torch.ops import routing
 from photon_ml_tpu_torch.ops.features import coalesce_coo, scatter_add
 from photon_ml_tpu_torch.ops.permute_net import DevicePlan, apply_plan, device_plan
+from photon_ml_tpu_torch.utils.cachedir import per_uid_cache_dir
 from photon_ml_tpu_torch.utils.nativesort import lexsort_pairs
 
 
@@ -911,13 +911,4 @@ def default_plan_cache() -> Optional[str]:
     env = os.environ.get("PHOTON_ML_TPU_TORCH_PLAN_CACHE")
     if env is not None:
         return env or None
-    uid = os.getuid() if hasattr(os, "getuid") else 0
-    path = os.path.join(tempfile.gettempdir(), f"photon_ml_tpu_torch_plan_cache_{uid}")
-    try:
-        os.makedirs(path, mode=0o700, exist_ok=True)
-        st = os.stat(path)
-    except OSError:
-        return None
-    if st.st_uid != uid or st.st_mode & (stat.S_IWGRP | stat.S_IWOTH):
-        return None  # a directory planted by someone else is never trusted
-    return path
+    return per_uid_cache_dir("photon_ml_tpu_torch_plan_cache")

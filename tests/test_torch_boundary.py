@@ -24,6 +24,18 @@ def _port_files():
     return sorted(PORT.rglob("*.py"))
 
 
+def test_every_jax_module_has_a_port_file():
+    """The two packages' file lists pair up: each module of the JAX package
+    has a file at the same relative path in the port (which adds its own:
+    the device rule, the model carriers, launch counts, the CUDA loader)."""
+    jax_files = {p.relative_to(REPO / "photon_ml_tpu")
+                 for p in (REPO / "photon_ml_tpu").rglob("*.py")}
+    port_files = {p.relative_to(PORT) for p in _port_files()}
+    assert sorted(map(str, jax_files - port_files)) == []
+    assert sorted(map(str, port_files - jax_files)) == [
+        "convert.py", "device.py", "ops/launches.py", "utils/cudalib.py"]
+
+
 def test_import_pulls_in_no_jax_in_a_fresh_process():
     # tests/conftest.py imports jax in this process, hence a subprocess
     script = (
