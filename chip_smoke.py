@@ -104,12 +104,20 @@ exit code is not 0):
                       admitted); (b), (c) and two sealed replays bitwise a
                       full-table scorer's; (d) after drain equal to (a);
                       compile_count at most the number of buckets; no port
-                      kernel launched by the replays. Prints p50/p99,
-                      requests/s and batch fill of (a)-(d), score_batch at
-                      buckets 1 and 32 (ms, device_ms), featurize host us,
-                      launches per batch (torch.profiler), a replay's
-                      device idle share, the admission step us, table
-                      bytes and peak memory.
+                      kernel launched by the replays. Then (a) again on a
+                      serving mesh of 4 positions on cuda:0 (each table's 4
+                      shards split into 4 blocks, a SplitTable), its
+                      continuous replay's p50/p99 beside (a)'s, every score
+                      checked as above and a sealed replay of the first
+                      4,096 rows bitwise (b)'s; a mesh naming a card the
+                      machine lacks refused. Prints p50/p99,
+                      requests/s and batch fill of (a)-(d), the upload A/B
+                      (pinned against pageable copies, the first 8,192
+                      rows), score_batch at buckets 1 and 32 (ms,
+                      device_ms), featurize host us, launches per batch
+                      (torch.profiler), the device idle share of a replay
+                      of 2,048 rows, the admission step us, table bytes
+                      and peak memory.
 7. nearline_full_width
                     — the nearline loop on serve_full_width's model and
                       artifact (its background process also hashes the
@@ -278,7 +286,17 @@ exit code is not 0):
                       the plan's kernels launched by the fit); and a 2 x 2
                       grid of distinct cards refused
                       on a one-card machine ("need 4 devices, have 1") by
-                      the estimator and train_game.
+                      the estimator and train_game. The layout check
+                      (grid_layout_check), on the repeat fit and on a TRON
+                      solve of the grid's fixed effect (5 iterations,
+                      against the same solve on one device, objective rtol
+                      1e-4): every state an FE solver step returns holds
+                      its vectors (w, gradient, s/y rings) as feat blocks
+                      of d_loc, block j on feat column j's device, and no
+                      tensor with a d_pad dimension is made while the
+                      solve runs (a torch dispatch mode sees every one);
+                      the per-user and per-item slices placed once, each
+                      a PlacedBucket slice on its position's device.
 14. train_glm_full_width
                     — estimators.model_training.train_glm on that fit's FE
                       shard (2^20 rows x (2^24 + 1) dims, 16 nonzeros a row
@@ -522,6 +540,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -3333,6 +3352,138 @@ def _slice_value_grad_checks(bucket, gen) -> tuple:
     return checks, times
 
 
+class grid_layout_check:
+    """Inside, on a grid: every state an FE solver step returns while
+    estimators.model_training's solve runs over grid features is checked,
+    field by field (each vector a BlockVector of feat blocks of d_loc, block
+    j on feat column j's device; no plain tensor with a d_pad dimension),
+    and a torch dispatch mode sees every tensor that solve makes (none with
+    a d_pad dimension). The solver state is hooked, not the logs."""
+
+    STEPS = (("lbfgs", "_lbfgs_step"), ("tron", "_tron_step"), ("owlqn", "_owlqn_step"))
+
+    def __init__(self, gf):
+        from photon_ml_tpu_torch.parallel.grid_features import FEAT_AXIS
+        from photon_ml_tpu_torch.parallel.mesh import block_devices
+
+        self.gf = gf
+        self.want = {k: str(d) for k, d in block_devices(gf.mesh, FEAT_AXIS).items()}
+        self.solves, self.steps, self.fields = 0, 0, set()
+        self.bad, self.whole = [], []
+        self._saved = []
+
+    def _check(self, state) -> None:
+        from photon_ml_tpu_torch.parallel.mesh import BlockVector
+
+        self.steps += 1
+        d_pad, d_loc = self.gf.dim, self.gf.d_loc
+        for name, value in vars(state).items():
+            if isinstance(value, torch.Tensor):
+                if d_pad in value.shape:
+                    self.bad.append((name, "whole", list(value.shape)))
+            elif isinstance(value, BlockVector):
+                self.fields.add(name)
+                got = {k: str(b.device) for k, b in value.blocks.items()}
+                if (value.axis != "feat" or got != self.want
+                        or any(b.shape[-1] != d_loc for b in value.blocks.values())):
+                    self.bad.append((name, value.axis, {k: [list(b.shape), str(b.device)]
+                                                        for k, b in value.blocks.items()}))
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        from photon_ml_tpu_torch.estimators import model_training
+        from photon_ml_tpu_torch.opt import lbfgs, owlqn, tron
+        from photon_ml_tpu_torch.parallel.grid_features import GridShardedFeatures
+
+        check, d_pad = self, self.gf.dim
+
+        class whole(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_flatten(out)[0]:
+                    if isinstance(t, torch.Tensor) and d_pad in t.shape:
+                        check.whole.append((str(func), list(t.shape)))
+                return out
+
+        modules = {"lbfgs": lbfgs, "tron": tron, "owlqn": owlqn}
+        for mod, name in self.STEPS:
+            step = getattr(modules[mod], name)
+
+            def checked(*args, _step=step, **kwargs):
+                state = _step(*args, **kwargs)
+                if check.solving:
+                    check._check(state)
+                return state
+
+            self._saved.append((modules[mod], name, step))
+            setattr(modules[mod], name, checked)
+        real_solve = model_training.solve
+        self.solving = False
+
+        def solve(objective, w0, data, *args, **kwargs):
+            if not isinstance(data.features, GridShardedFeatures):
+                return real_solve(objective, w0, data, *args, **kwargs)
+            check.solves += 1
+            check.solving = True
+            try:
+                with whole():
+                    return real_solve(objective, w0, data, *args, **kwargs)
+            finally:
+                check.solving = False
+
+        self._saved.append((model_training, "solve", real_solve))
+        model_training.solve = solve
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+
+    @property
+    def ok(self) -> bool:
+        return (self.solves > 0 and self.steps > 0 and not self.bad and not self.whole
+                and {"w", "g"} <= self.fields)
+
+    def summary(self) -> dict:
+        return {"solves": self.solves, "steps": self.steps, "d_pad": self.gf.dim,
+                "d_loc": self.gf.d_loc, "block_devices": self.want,
+                "block_fields": sorted(self.fields), "bad_fields": self.bad[:8],
+                "whole_tensors": len(self.whole), "whole_examples": self.whole[:8],
+                "ok": self.ok}
+
+
+def _grid_tron_layout(grid_fe, single_fe, gf) -> dict:
+    """A TRON solve (5 iterations, L2 lambda 1) of the grid's fixed effect
+    under the layout check, against the same solve of the single-device
+    fixed effect: objective rtol 1e-4."""
+    from photon_ml_tpu_torch.estimators.model_training import train_glm
+    from photon_ml_tpu_torch.opt.config import (
+        GlmOptimizationConfiguration, OptimizerConfig, OptimizerType, RegularizationContext)
+    from photon_ml_tpu_torch.types import RegularizationType, TaskType
+
+    cfg = GlmOptimizationConfiguration(
+        optimizer_config=OptimizerConfig(optimizer=OptimizerType.TRON, max_iterations=5),
+        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0)
+    task = TaskType.LOGISTIC_REGRESSION
+    with grid_layout_check(gf) as layout:
+        t0 = time.perf_counter()
+        grid = train_glm(grid_fe.data, task, cfg)[0]
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = train_glm(single_fe.data, task, cfg)[0]
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    value, ref = float(grid.result.value[0]), float(one.result.value[0])
+    rel = abs(value - ref) / abs(ref)
+    return {**layout.summary(), "objective": value, "single_device_objective": ref,
+            "objective_rel": rel, "iterations": int(grid.result.iterations[0]),
+            "solve_s": grid_s, "single_device_solve_s": one_s,
+            "ok": layout.ok and rel <= 1e-4}
+
+
 def phase_train_grid_full_width(seed: int) -> dict:
     """The grid path: train_full_width's GLMix fit on a 2 x 2 grid of fused tiles
     (every tile on the one card) with the per-user and per-item entity
@@ -3341,7 +3492,6 @@ def phase_train_grid_full_width(seed: int) -> dict:
     kernels at the tile and slice shapes; a 2 x 1 Benes grid at 2^16 rows;
     the one-card refusal of a 2 x 2 grid of distinct cards."""
     from photon_ml_tpu_torch.cli import train_game
-    from photon_ml_tpu_torch.data.random_effect import slice_bucket
     from photon_ml_tpu_torch.estimators.game import ParallelConfiguration
     from photon_ml_tpu_torch.ops import launches
 
@@ -3361,6 +3511,7 @@ def phase_train_grid_full_width(seed: int) -> dict:
     result["tile_shape"] = [gf.n_loc, gf.d_loc]
 
     # the main path: counts set to 0 just before, read just after
+    result["allocated_before_fit_gb"] = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
     t0 = time.perf_counter()
@@ -3372,13 +3523,30 @@ def phase_train_grid_full_width(seed: int) -> dict:
     result["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if min(result["launches"].values()) < 1:
         failures.append(f"the grid fit did not launch {result['launches']}")
-    t0 = time.perf_counter()
-    again = estimator.fit(train, val, coordinates=coords)
-    torch.cuda.synchronize()
-    result["fit_again_s"] = time.perf_counter() - t0
+    # the repeat, under the layout check (its dispatch mode costs the FE
+    # solve some host time: fit_again_s is not the fit's time)
+    with grid_layout_check(gf) as layout:
+        t0 = time.perf_counter()
+        again = estimator.fit(train, val, coordinates=coords)
+        torch.cuda.synchronize()
+        result["fit_again_s"] = time.perf_counter() - t0
     result["bitwise_repeat"] = _same_fit(fit, again)
     if not result["bitwise_repeat"]:
         failures.append("two grid fits differ")
+    result["layout_fit"] = layout.summary()
+    if not (layout.ok and {"s_hist", "y_hist"} <= layout.fields):
+        failures.append(f"the grid fit's FE state is not in feat blocks: {layout.summary()}")
+    placed = {}
+    for cid in ("per_user", "per_item"):
+        for b, bucket in enumerate(coords[cid].dataset.buckets):
+            placed[f"{cid}/{b}"] = [[list(sl.X.shape), str(sl.X.device)]
+                                    for _, sl in bucket.local()]
+            if len(bucket.local()) != n_dev or bucket.per_slice * n_dev != bucket.num_entities:
+                failures.append(f"{cid} bucket {b} is not in {n_dev} placed slices")
+    result["re_slices"] = placed
+    result["tron_layout"] = _grid_tron_layout(coords["fixed"], mem["coords"]["fixed"], gf)
+    if not result["tron_layout"]["ok"]:
+        failures.append(f"the grid TRON solve: {result['tron_layout']}")
 
     def against(a, b, data=val) -> dict:
         obj_a, obj_b = a.objective_history[-1][1], b.objective_history[-1][1]
@@ -3417,10 +3585,9 @@ def phase_train_grid_full_width(seed: int) -> dict:
     checks, kernels = _fused_tile_checks(
         tile, w_pad[: gf.d_loc].contiguous(),
         torch.randn(gf.n_loc, generator=gen, device="cuda"))
-    bucket = coords["per_user"].dataset.buckets[0]
-    per = bucket.num_entities // n_dev
-    result["slice_shape"] = [per] + list(bucket.X.shape[1:])
-    vg_checks, vg_times = _slice_value_grad_checks(slice_bucket(bucket, 0, per, "cuda"), gen)
+    slice0 = coords["per_user"].dataset.buckets[0].slices[0]
+    result["slice_shape"] = list(slice0.X.shape)
+    vg_checks, vg_times = _slice_value_grad_checks(slice0, gen)
     checks["fused_value_grad_batched_f32"] = vg_checks
     kernels["fused_value_grad_batched_f32"] = vg_times
     for k in KERNELS:
@@ -6236,6 +6403,56 @@ def _tail_prefix(requests, artifact, routing, cids) -> int:
     return len(requests)
 
 
+def _split_table_replays(artifact, nnz, requests, reference, abs_sum, cold_a, res_b) -> tuple:
+    """Mode (a) on a serving mesh of 4 positions on cuda:0: every RE table's
+    4 shards split into 4 blocks (a SplitTable each half). Its continuous
+    replay (scores against GameModel.score, the cold coordinates (a)'s), a
+    sealed replay bitwise (b)'s, and a mesh naming a card this machine
+    lacks refused. Returns (the mode's summary, its compile count).
+    Ends with a garbage collection: a scorer and its admission controller
+    hold each other, and the tables would outlive the phase until one."""
+    from photon_ml_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh
+    from photon_ml_tpu_torch.serving import (
+        AdmissionController, ShardedGameScorer, replay_requests)
+
+    mesh = data_parallel_mesh(devices=["cuda:0"] * 4)
+    split = ShardedGameScorer(artifact, max_nnz=nnz, num_shards=4, device="cuda", mesh=mesh)
+    blocks = {cid: [[list(b.shape), str(b.device)] for b in p.table.blocks]
+              for cid, p in split._providers.items() if p.split}
+    if len(blocks) != len(split._providers):
+        raise AssertionError(f"(a) split: not every table split over the mesh: {blocks}")
+    adm = AdmissionController([split], admit_batch=64)
+    split.attach_admission(adm)
+    adm.warmup()
+    for b in SERVE_BUCKETS:
+        split.score_batch(requests[:b], b)
+    res, snap = replay_requests([split], requests, bucket_sizes=SERVE_BUCKETS,
+                                continuous=True, max_wait_s=0.002, admission=adm)
+    summary = {**_replay_summary(snap), "blocks": blocks, "table_bytes": split.table_bytes(),
+               "max_abs_err": _check_served(res, reference, abs_sum, "(a) split")}
+    if [r.cold_coordinates for r in res] != cold_a:
+        raise AssertionError("(a) split: cold coordinates differ from (a)'s")
+    head = SERVE["n"] // 4  # every block's rows, in a quarter of the replay's time
+    sealed, _ = replay_requests(split, requests[:head], bucket_sizes=SERVE_BUCKETS)
+    summary["sealed_bitwise_one_table"] = ([r.score for r in sealed]
+                                           == [r.score for r in res_b[:head]])
+    if not summary["sealed_bitwise_one_table"]:
+        raise AssertionError("(a) split: sealed scores differ from the one table's (atol 0)")
+    missing = f"cuda:{torch.cuda.device_count()}"
+    try:
+        ShardedGameScorer(artifact, max_nnz=nnz, num_shards=4,
+                          mesh=Mesh(["cuda:0", missing], ("data",)))
+        summary["refusal"] = "not refused"
+    except ValueError as e:
+        summary["refusal"] = str(e)
+    if f"names {missing}" not in summary["refusal"]:
+        raise AssertionError(f"a mesh naming {missing}: {summary['refusal']}")
+    count = split.compile_count
+    del split, adm
+    gc.collect()
+    return summary, count
+
+
 def phase_serve_full_width(seed: int) -> dict:
     """Online serving of score_full_width's model (see the module doc)."""
     from photon_ml_tpu_torch.convert import game_model_from_numpy
@@ -6332,7 +6549,16 @@ def phase_serve_full_width(seed: int) -> dict:
     del full_table
     # the sealed replay with the batch's copies from pinned memory, queued
     # (the scorer's), against pageable blocking copies, in turns after (b)
-    result["upload_ab"] = _upload_ab(sharded, requests, res_b)
+    # on the first half of the rows: the split table's replays below took
+    # the other half's time
+    t0 = time.perf_counter()
+    result["upload_ab"] = _upload_ab(sharded, requests[:SERVE["n"] // 2],
+                                     res_b[:SERVE["n"] // 2])
+    result["upload_ab_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    modes["a_split_mesh4_continuous"], split_counts = _split_table_replays(
+        artifact, nnz, requests, reference, abs_sum, cold_a, res_b)
+    result["split_table_s"] = time.perf_counter() - t0
 
     # (c) cached: an LRU of 4,096 rows a coordinate in front of the host tables
     cached = GameScorer(artifact, max_nnz=nnz, cache_capacity=4096, device="cuda")
@@ -6342,7 +6568,8 @@ def phase_serve_full_width(seed: int) -> dict:
                                 "max_abs_err": _check_served(res_c, reference, abs_sum, "(c)")}
     if [r.score for r in res_c] != [r.score for r in res_full]:
         raise AssertionError("cached scores differ from the full table's (atol 0)")
-    compile_counts = {"a_b": sharded.compile_count, "c": cached.compile_count}
+    compile_counts = {"a_b": sharded.compile_count, "c": cached.compile_count,
+                      "a_split": split_counts}
     del cached
 
     # (d) 16,384 device rows a coordinate: the cold tail admitted by the
@@ -6412,7 +6639,7 @@ def phase_serve_full_width(seed: int) -> dict:
         f"bucket_{b}": _launch_count(lambda b=b: sharded.score_batch(requests[:b], b))
         for b in (1, 32)}
     result["replay_profile"] = profile_device_idle(lambda: replay_requests(
-        sharded, requests[:4096], bucket_sizes=SERVE_BUCKETS))
+        sharded, requests[:2048], bucket_sizes=SERVE_BUCKETS))
     result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     result["card"] = nvidia_smi()
     emit("serve_full_width", **result)

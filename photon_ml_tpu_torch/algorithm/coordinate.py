@@ -24,10 +24,14 @@ a random effect's bucket solves.
 
 On a (data x feat) device grid (``estimators.game.ParallelConfiguration``)
 a fixed effect trains over ``parallel.GridShardedFeatures``, whose rows and
-columns are padded to the grid: the coordinate speaks real shapes at its
-boundary (models of ``num_real_cols`` coefficients, ``num_real_rows``
-scores). A random effect given a ``mesh`` solves each bucket's entities
-split over every device of the mesh (``data.random_effect.place_dataset``).
+columns are padded to the grid, with its row arrays as data blocks and
+its solve vector as feat blocks (``parallel.mesh.BlockVector``): the
+coordinate keeps the padded solve vector in those blocks between outer
+iterations (the JAX ``_w_padded_cache``), scores from it, and speaks real
+shapes at its boundary (models of ``num_real_cols`` coefficients,
+``num_real_rows`` scores), the only place a whole vector is made. A
+random effect given a ``mesh`` solves each bucket's entity slices where
+``data.random_effect.place_dataset`` put them.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset
@@ -56,6 +61,11 @@ from photon_ml_tpu_torch.opt.tracking import (
 from photon_ml_tpu_torch.sampler import down_sampler_for
 from photon_ml_tpu_torch.telemetry.span import span
 from photon_ml_tpu_torch.types import TaskType
+
+
+def _host(x) -> np.ndarray:
+    """A row array (a tensor or a grid's data blocks) on the host."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x.full("cpu").numpy()
 
 
 @dataclasses.dataclass
@@ -86,8 +96,8 @@ class FixedEffectCoordinate:
         default=None, repr=False
     )
     # (model, padded solve vector) of the model last returned: warm starts
-    # and scoring of that model reuse the padded vector. Keyed by identity
-    # through the strong reference.
+    # and scoring of that model reuse the padded vector (on a grid, its
+    # feat blocks). Keyed by identity through the strong reference.
     _w_padded_cache: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False)
     _sampled_weights: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False
@@ -101,12 +111,18 @@ class FixedEffectCoordinate:
         if rate >= 1.0:
             return self.data.weights
         if self._sampled_weights is None:
-            weights = down_sampler_for(self.task, rate).sample_weights(
-                self.data.labels.cpu().numpy(), self.data.weights.cpu().numpy(),
+            weights = torch.from_numpy(down_sampler_for(self.task, rate).sample_weights(
+                _host(self.data.labels), _host(self.data.weights),
                 seed=self.down_sampling_seed,
-            )
-            self._sampled_weights = torch.from_numpy(weights).to(self.data.weights.device)
+            ))
+            grid = self._grid()
+            self._sampled_weights = (grid.data_vector(weights) if grid is not None
+                                     else weights.to(self.data.weights.device))
         return self._sampled_weights
+
+    def _grid(self):
+        """The grid features, or None off a grid."""
+        return self.data.features if self.num_real_cols is not None else None
 
     def update_model_device(
         self, model: Optional[GeneralizedLinearModel], residual_scores: torch.Tensor
@@ -119,20 +135,23 @@ class FixedEffectCoordinate:
             if residual_scores.shape[0] < n_pad:
                 residual_scores = torch.nn.functional.pad(
                     residual_scores, (0, n_pad - residual_scores.shape[0]))
+            grid = self._grid()
+            if grid is not None:
+                residual_scores = grid.data_vector(residual_scores)
             data = dataclasses.replace(
                 self.data, offsets=self.data.offsets + residual_scores, weights=self._weights()
             )
             fit = train_glm(
                 data, self.task, self.configuration, initial_model=self._pad_model(model),
                 compute_variances=self.compute_variances, intercept_index=self.intercept_index,
+                model_dim=self.num_real_cols,
             )[0]
             self.last_tracker = FixedEffectOptimizationTracker(
                 states=OptimizationStatesTracker.from_result(fit.result)
             )
-            trimmed = self._trim_model(fit.model)
-            if self.num_real_cols is not None:
-                self._w_padded_cache = (trimmed, fit.model.coefficients.means)
-            return trimmed
+            if grid is not None:
+                self._w_padded_cache = (fit.model, fit.blocks)
+            return fit.model
 
     def _pad_model(self, model: Optional[GeneralizedLinearModel]):
         """A warm start of real [d] coefficients in the padded [d_pad]
@@ -141,33 +160,26 @@ class FixedEffectCoordinate:
             return model
         return dataclasses.replace(model, coefficients=Coefficients(means=self._padded_w(model)))
 
-    def _trim_model(self, model: GeneralizedLinearModel) -> GeneralizedLinearModel:
-        if self.num_real_cols is None:
-            return model
-        d = self.num_real_cols
-        coef = model.coefficients
-        if coef.means.shape[0] == d:
-            return model
-        return dataclasses.replace(model, coefficients=Coefficients(
-            means=coef.means[:d],
-            variances=None if coef.variances is None else coef.variances[:d],
-        ))
-
-    def _padded_w(self, model: GeneralizedLinearModel) -> torch.Tensor:
-        """The [d_pad] solve-space vector of ``model``, cached by identity."""
+    def _padded_w(self, model: GeneralizedLinearModel):
+        """The padded solve-space vector of ``model`` as feat blocks, cached
+        by identity: the blocks of the model this coordinate returned, or,
+        for a model from elsewhere (a warm start, a checkpoint), its
+        coefficients padded once and placed."""
         cached = self._w_padded_cache
         if cached is not None and cached[0] is model:
             return cached[1]
         w = model.coefficients.means
-        if self.num_real_cols is not None and w.shape[0] < self.data.dim:
-            w = torch.nn.functional.pad(w, (0, self.data.dim - w.shape[0]))
+        if self.num_real_cols is not None:
+            if w.shape[0] < self.data.dim:
+                w = torch.nn.functional.pad(w, (0, self.data.dim - w.shape[0]))
+            w = self._grid().feat_vector(w)
         self._w_padded_cache = (model, w)
         return w
 
     def score_device(self, model: GeneralizedLinearModel) -> torch.Tensor:
         scores = self.data.features.matvec(self._padded_w(model))
         if self.num_real_rows is not None:
-            scores = scores[: self.num_real_rows]
+            scores = scores.full(length=self.num_real_rows)
         return scores
 
 

@@ -34,7 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset
+from photon_ml_tpu_torch.data.random_effect import PlacedBucket, RandomEffectDataset, ReBucket
 from photon_ml_tpu_torch.estimators.random_effect import (
     score_random_effects_device,
     train_random_effects,
@@ -141,18 +141,21 @@ class KronFeatures:
     def matvec(self, w: torch.Tensor) -> torch.Tensor:
         """z[e, s] = x[e, s] · (B[pidx[e]] @ v[e]): the [E, D] per-entity
         coefficients first, then one batched product with x (no [E, S, D, k]
-        temporary)."""
+        temporary). A block on another device than w's (a placed slice)
+        computes there."""
         B = w.reshape(self.d_global, self.k)
         outs = []
         for x, pidx, v in zip(self.xs, self.pidxs, self.latents):
-            w_e = torch.bmm(B[pidx], v.unsqueeze(-1))  # [E, D, 1]
-            outs.append(torch.bmm(x, w_e).reshape(-1))
+            w_e = torch.bmm(B.to(x.device)[pidx], v.unsqueeze(-1))  # [E, D, 1]
+            outs.append(torch.bmm(x, w_e).reshape(-1).to(w.device))
         return torch.cat(outs)
 
     def segments(self) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(global columns, segment plan), made at the first call."""
         if self._segments is None:
-            cols, order = torch.sort(torch.cat([p.reshape(-1) for p in self.pidxs]), stable=True)
+            home = self.xs[0].device
+            cols, order = torch.sort(
+                torch.cat([p.reshape(-1).to(home) for p in self.pidxs]), stable=True)
             uniq, lengths = torch.unique_consecutive(cols, return_counts=True)
             self._segments = (uniq, segment_plan(order, lengths))
         return self._segments
@@ -167,15 +170,15 @@ class KronFeatures:
         start = 0
         for x, v in zip(self.xs, self.latents):
             e_n, s_n = x.shape[0], x.shape[1]
-            cb = c[start:start + e_n * s_n].reshape(e_n, 1, s_n)
+            cb = c[start:start + e_n * s_n].reshape(e_n, 1, s_n).to(x.device)
             start += e_n * s_n
             if square:
                 x, v = x * x, v * v
             g = torch.bmm(cb, x).squeeze(1)  # [E, D]
-            contribs.append((g.unsqueeze(-1) * v.unsqueeze(1)).reshape(-1, self.k))
+            contribs.append((g.unsqueeze(-1) * v.unsqueeze(1)).reshape(-1, self.k).to(c.device))
         cols, plan = self.segments()
         out = torch.zeros(self.d_global, self.k, dtype=c.dtype, device=c.device)
-        out[cols] = segment_sums(torch.cat(contribs), plan)
+        out[cols.to(c.device)] = segment_sums(torch.cat(contribs), [p.to(c.device) for p in plan])
         return out.reshape(-1)
 
     def rmatvec(self, c: torch.Tensor) -> torch.Tensor:
@@ -187,10 +190,11 @@ class KronFeatures:
     def row_norms_sq(self) -> torch.Tensor:
         """‖kron(v_e, x_es)‖² = ‖x_es‖²·‖v_e‖²."""
         outs = []
+        home = self.xs[0].device
         for x, v in zip(self.xs, self.latents):
             xn = (x * x).sum(-1)
             vn = (v * v).sum(-1)
-            outs.append((xn * vn.unsqueeze(-1)).reshape(-1))
+            outs.append((xn * vn.unsqueeze(-1)).reshape(-1).to(home))
         return torch.cat(outs)
 
 
@@ -238,20 +242,34 @@ def _latent_dataset(dataset: RandomEffectDataset, B: torch.Tensor) -> RandomEffe
 
     The returned dataset's "global" space is the k-dimensional latent space
     (identity projection, ``global_dim`` = k), so the latent model trained
-    on it exports {latent axis: factor} maps."""
+    on it exports {latent axis: factor} maps. A placed bucket's slices are
+    projected where they live."""
     k = int(B.shape[1])
-    new_buckets, new_passive = [], []
-    for bucket, p in zip(dataset.buckets, dataset.passive):
-        Bg = B[bucket.proj_indices]  # [E, D, k]; padding columns have x == 0
+
+    def latent(bucket: ReBucket) -> ReBucket:
+        dev = bucket.home
+        Bg = B.to(dev)[bucket.proj_indices]  # [E, D, k]; padding columns have x == 0
         e_n = bucket.num_entities
-        new_buckets.append(dataclasses.replace(
+        return dataclasses.replace(
             bucket,
             X=torch.bmm(bucket.X, Bg),
-            proj_indices=torch.arange(k, device=B.device).expand(e_n, k).contiguous(),
-            proj_valid=torch.ones(e_n, k, dtype=torch.bool, device=B.device),
-        ))
+            proj_indices=torch.arange(k, device=dev).expand(e_n, k).contiguous(),
+            proj_valid=torch.ones(e_n, k, dtype=torch.bool, device=dev),
+        )
+
+    new_buckets, new_passive = [], []
+    for bucket, p in zip(dataset.buckets, dataset.passive):
+        if isinstance(bucket, PlacedBucket):
+            e_n, home = bucket.num_entities, bucket.home
+            new_buckets.append(dataclasses.replace(
+                bucket, slices=[None if sl is None else latent(sl) for sl in bucket.slices],
+                proj_indices=torch.arange(k, device=home).expand(e_n, k).contiguous(),
+                proj_valid=torch.ones(e_n, k, dtype=torch.bool, device=home)))
+        else:
+            new_buckets.append(latent(bucket))
         if p is not None:
-            Xp = torch.bmm(p.X.unsqueeze(1), Bg[p.entity_index]).squeeze(1)
+            Bp = B[bucket.proj_indices[p.entity_index]]  # [P, D, k]
+            Xp = torch.bmm(p.X.unsqueeze(1), Bp).squeeze(1)
             new_passive.append(dataclasses.replace(p, X=Xp))
         else:
             new_passive.append(None)
@@ -284,7 +302,7 @@ class FactoredRandomEffectCoordinate:
         default_factory=list, repr=False
     )
     # a device mesh (the dataset placed over it by GameEstimator): the
-    # latent solves inherit the placement, a device slice at a time
+    # latent datasets derive from the placed slices where they live
     mesh: Optional[object] = None
     mesh_axes: Optional[tuple] = None
 
@@ -348,20 +366,29 @@ class FactoredRandomEffectCoordinate:
     def kron_data(
         self, ds: RandomEffectDataset, latent_model: RandomEffectModel
     ) -> LabeledData:
-        """Step (b)'s problem: every bucket's rows over :class:`KronFeatures`."""
+        """Step (b)'s problem: every bucket's rows over :class:`KronFeatures`
+        (a placed bucket's slices where they live, in slice order)."""
+        parts = []  # (block, its latent factors)
+        for b, v in zip(ds.buckets, latent_model.coefficients):
+            if isinstance(b, PlacedBucket):
+                per = b.per_slice
+                parts += [(sl, v[k * per:(k + 1) * per].to(sl.home)) for k, sl in b.local()]
+            else:
+                parts.append((b, v))
         feats = KronFeatures(
-            xs=[b.X for b in ds.buckets],
-            pidxs=[b.proj_indices for b in ds.buckets],
-            latents=list(latent_model.coefficients),
+            xs=[b.X for b, _ in parts],
+            pidxs=[b.proj_indices for b, _ in parts],
+            latents=[v for _, v in parts],
             d_global=ds.global_dim,
             k=self.mf_configuration.num_latent_factors,
         )
-        return LabeledData(
-            features=feats,
-            labels=torch.cat([b.labels.reshape(-1) for b in ds.buckets]),
-            offsets=torch.cat([b.offsets.reshape(-1) for b in ds.buckets]),
-            weights=torch.cat([b.weights.reshape(-1) for b in ds.buckets]),
-        )
+        dev = self.device
+
+        def rows(name):
+            return torch.cat([getattr(b, name).reshape(-1).to(dev) for b, _ in parts])
+
+        return LabeledData(features=feats, labels=rows("labels"), offsets=rows("offsets"),
+                           weights=rows("weights"))
 
     def _solve_matrix(
         self, ds: RandomEffectDataset, latent_model: RandomEffectModel, B: torch.Tensor

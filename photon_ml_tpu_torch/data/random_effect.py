@@ -16,9 +16,11 @@ reference's, entity for entity; the blocks are then placed on the device,
 where one batched solve per bucket takes the reference's ``vmap``.
 
 On a device grid (``estimators.game.ParallelConfiguration``) every
-bucket's entity axis is padded to a multiple of the grid's devices
-(:func:`pad_entities_to_multiple`) and split over them
-(:func:`place_dataset`): each device solves its slice of every bucket.
+bucket's entity axis is padded to a multiple of the grid's positions
+(:func:`pad_entities_to_multiple`) and split over them once, at build
+(:func:`place_dataset`, a :class:`PlacedBucket` a bucket): each slice
+lives on its position's device and is solved and scored there. On a mesh
+that spans ranks a rank holds only the slices of its own positions.
 """
 
 from __future__ import annotations
@@ -94,6 +96,72 @@ class ReBucket:
     def local_dim(self) -> int:
         return self.X.shape[2]
 
+    @property
+    def home(self) -> torch.device:
+        return self.X.device
+
+    @property
+    def active_samples(self) -> int:
+        return int((self.weights > 0).sum())
+
+    @property
+    def cells(self) -> int:
+        return self.weights.numel()
+
+
+@dataclasses.dataclass
+class PlacedBucket:
+    """A bucket whose entity axis is split over a device mesh
+    (:func:`place_dataset`): slice k, entities [k·per, (k+1)·per), is a
+    :class:`ReBucket` on the device of mesh position ``positions[k]``,
+    moved there once; None where another rank owns that position. The
+    projection arrays stay whole on the home device (the coordinate's
+    model carries them)."""
+
+    slices: List[Optional[ReBucket]]
+    mesh: object                # parallel.mesh.Mesh
+    positions: List[tuple]      # slice k's mesh position
+    proj_indices: torch.Tensor  # [E, D] int64, whole, on home
+    proj_valid: torch.Tensor    # [E, D] bool, whole, on home
+    max_samples: int
+    active_samples: int         # cells of weight > 0, over every slice
+    cells: int                  # cells, over every slice
+
+    @property
+    def num_entities(self) -> int:
+        return self.proj_indices.shape[0]
+
+    @property
+    def local_dim(self) -> int:
+        return self.proj_indices.shape[1]
+
+    @property
+    def per_slice(self) -> int:
+        return self.num_entities // len(self.slices)
+
+    @property
+    def home(self) -> torch.device:
+        return self.proj_indices.device
+
+    def local(self) -> List[Tuple[int, ReBucket]]:
+        """(slice index, slice) of the slices this process holds."""
+        return [(k, sl) for k, sl in enumerate(self.slices) if sl is not None]
+
+    def gather(self, parts: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """Per-slice tensors (this process's slices, each with ``per_slice``
+        leading rows) concatenated in slice order on the home device; the
+        slices of other ranks arrive by ``all_gather_blocks``, a collective
+        every rank calls in the same order."""
+        home = self.home
+        vals = {k: p.to(home) for k, p in parts.items()}
+        if len(vals) < len(self.slices):
+            from photon_ml_tpu_torch.parallel.mesh import all_gather_blocks
+
+            got = all_gather_blocks({self.positions[k]: v for k, v in vals.items()},
+                                    self.positions, self.mesh, next(iter(vals.values())))
+            vals = {k: got[pos] for k, pos in enumerate(self.positions)}
+        return torch.cat([vals[k] for k in range(len(self.slices))])
+
 
 @dataclasses.dataclass
 class RePassiveRows:
@@ -109,7 +177,7 @@ class RandomEffectDataset:
     """All buckets of one random-effect coordinate + host-side id maps."""
 
     config: RandomEffectDataConfiguration
-    buckets: List[ReBucket]
+    buckets: List[ReBucket]                    # or PlacedBucket (place_dataset)
     passive: List[Optional[RePassiveRows]]     # parallel to buckets
     entity_ids: List[List[str]]                # per bucket, per entity row
     entity_to_loc: Dict[str, Tuple[int, int]]  # id -> (bucket, row)
@@ -120,11 +188,6 @@ class RandomEffectDataset:
     # with one trailing zero slot for rows no bucket covers: scoring is one
     # gather (the inverse of the sample_pos scatter)
     row_gather: torch.Tensor = dataclasses.field(repr=False, compare=False)
-    # the devices every bucket's entity axis is split over, in slice order
-    # (place_dataset); None = each bucket solved whole where it lives
-    placement: Optional[Tuple[torch.device, ...]] = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
 
     @property
     def num_entities(self) -> int:
@@ -134,8 +197,8 @@ class RandomEffectDataset:
         """Reference RandomEffectDataSet.toSummaryString
         (RandomEffectDataSet.scala:204-228): active/passive sample counts
         plus this layout's padding accounting."""
-        active = sum(int((b.weights > 0).sum()) for b in self.buckets)
-        cells = sum(b.weights.numel() for b in self.buckets)
+        active = sum(b.active_samples for b in self.buckets)
+        cells = sum(b.cells for b in self.buckets)
         passive = sum(0 if p is None else p.sample_pos.numel() for p in self.passive)
         pad = cells / active if active else float("nan")
         return (
@@ -149,14 +212,21 @@ class RandomEffectDataset:
         """Regroup a full-data offset vector on the device into the
         entity-grouped [E, S] blocks: ``sample_pos`` is the row -> (bucket,
         lane, slot) map from build time, so this is one gather per bucket,
-        masked to the active slots (padding keeps offset 0)."""
+        masked to the active slots (padding keeps offset 0); a placed
+        bucket's slices each gather on their own device."""
+        on: Dict[torch.device, torch.Tensor] = {}
+
+        def regroup(b: ReBucket) -> ReBucket:
+            dev = b.weights.device
+            if dev not in on:
+                on[dev] = offsets.to(dev)
+            return dataclasses.replace(b, offsets=torch.where(
+                b.weights > 0, on[dev][b.sample_pos], torch.zeros_like(b.offsets)))
+
         new_buckets = [
-            dataclasses.replace(
-                b,
-                offsets=torch.where(
-                    b.weights > 0, offsets[b.sample_pos], torch.zeros_like(b.offsets)
-                ),
-            )
+            dataclasses.replace(b, slices=[None if sl is None else regroup(sl)
+                                           for sl in b.slices])
+            if isinstance(b, PlacedBucket) else regroup(b)
             for b in self.buckets
         ]
         return dataclasses.replace(self, buckets=new_buckets)
@@ -675,17 +745,18 @@ def pad_entities_to_multiple(dataset: RandomEffectDataset, multiple: int) -> Ran
     )
 
 
-def place_dataset(dataset: RandomEffectDataset, mesh, axis_names) -> RandomEffectDataset:
-    """Split every bucket's entity axis over the devices of ``mesh``'s
-    ``axis_names`` (each device solves its slice: independent per-entity
-    solves, no reduction). Every bucket must hold a multiple of that many
-    entities (:func:`pad_entities_to_multiple`). The blocks stay where
-    they are; a slice moves to its device when it is solved or scored (a
-    no-op when the devices are one card). A mesh spanning other ranks
-    solves every entity on this rank's first device."""
+def place_dataset(dataset: RandomEffectDataset, mesh, axis_names,
+                  owned_only: bool = True) -> RandomEffectDataset:
+    """Split every bucket's entity axis over the positions of ``mesh``'s
+    ``axis_names``, once: slice k moves to the device of position k and is
+    solved and scored there (independent per-entity solves, no reduction),
+    as the JAX package puts the entity axis ``P(axes)``. Every bucket must
+    hold a multiple of that many entities (:func:`pad_entities_to_multiple`).
+    The projection arrays, passive rows and row gather move to the mesh's
+    home device. On a mesh that spans ranks a rank keeps only the slices of
+    its own positions (``owned_only=False`` keeps every slice, the others on
+    this rank's home device)."""
     axes = (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
-    if not mesh.fully_local:
-        return dataclasses.replace(dataset, placement=(mesh.home,))
     n = 1
     for a in axes:
         n *= mesh.shape[a]
@@ -695,8 +766,27 @@ def place_dataset(dataset: RandomEffectDataset, mesh, axis_names) -> RandomEffec
                 f"a bucket of {b.num_entities} entities does not split over {n} "
                 "devices; pad it first (pad_entities_to_multiple)"
             )
-    devices = [mesh.devices[pos] for pos in np.ndindex(mesh.devices.shape)]
-    return dataclasses.replace(dataset, placement=tuple(devices[:n]))
+    home = mesh.home
+    positions = list(np.ndindex(mesh.devices.shape))[:n]
+    buckets = []
+    for b in dataset.buckets:
+        per = b.num_entities // n
+        slices = []
+        for k, pos in enumerate(positions):
+            if mesh.is_local(pos):
+                slices.append(slice_bucket(b, k * per, (k + 1) * per, mesh.devices[pos]))
+            else:
+                slices.append(None if owned_only else slice_bucket(b, k * per, (k + 1) * per,
+                                                                   home))
+        buckets.append(PlacedBucket(
+            slices=slices, mesh=mesh, positions=positions,
+            proj_indices=b.proj_indices.to(home), proj_valid=b.proj_valid.to(home),
+            max_samples=b.max_samples, active_samples=b.active_samples, cells=b.cells))
+    passive = [None if p is None else RePassiveRows(
+        X=p.X.to(home), entity_index=p.entity_index.to(home), sample_pos=p.sample_pos.to(home))
+        for p in dataset.passive]
+    return dataclasses.replace(dataset, buckets=buckets, passive=passive,
+                               row_gather=dataset.row_gather.to(home))
 
 
 def slice_bucket(bucket: ReBucket, lo: int, hi: int, device) -> ReBucket:

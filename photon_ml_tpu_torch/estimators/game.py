@@ -271,7 +271,8 @@ class GameEstimator:
         self.parallel = parallel
         self._mesh = parallel.build_mesh(self.device) if parallel is not None else None
         if self._mesh is not None:
-            # the grid's vectors and reductions live on its home device
+            # the score plane and the reductions' scalars live on the
+            # grid's home device; the grid FE's vectors stay in blocks
             self.device = self._mesh.home
         self.score_plane = score_plane
         self.emitter = emitter
@@ -320,11 +321,14 @@ class GameEstimator:
                 compute_variances=self.compute_variance,
             )
         shard = data.feature_shards[cfg.feature_shard]
+        factored = isinstance(cfg, FactoredRandomEffectCoordinateConfiguration)
         re_ds = build_random_effect_dataset(
             data.id_tags[cfg.data.random_effect_type],
             shard.rows, shard.cols, shard.vals, shard.dim,
             data.labels, cfg.data,
-            offsets=data.offsets, weights=data.weights, device=dev,
+            offsets=data.offsets, weights=data.weights,
+            # on a grid the blocks go to their devices slice by slice
+            device="cpu" if self.parallel is not None else dev,
         )
         logger.info("[%s] %s", cid, re_ds.to_summary_string())
         mesh = mesh_axes = None
@@ -332,14 +336,16 @@ class GameEstimator:
             from photon_ml_tpu_torch.parallel.grid_features import DATA_AXIS, FEAT_AXIS
 
             mesh, mesh_axes = self._mesh, (DATA_AXIS, FEAT_AXIS)
-            # entity-axis split over every device of the grid, for the
+            # entity-axis split over every device of the grid, once, for the
             # factored coordinate too (its latent datasets derive from these
-            # blocks and inherit the placement)
+            # slices where they live); a rank keeps its own positions'
+            # slices, save for a factored coordinate, whose projection solve
+            # runs over every row
             re_ds = place_dataset(
                 pad_entities_to_multiple(re_ds, self.parallel.n_data * self.parallel.n_feat),
-                mesh, mesh_axes,
+                mesh, mesh_axes, owned_only=not factored,
             )
-        if isinstance(cfg, FactoredRandomEffectCoordinateConfiguration):
+        if factored:
             return FactoredRandomEffectCoordinate(
                 dataset=re_ds, task=self.task, re_configuration=cfg.optimizer,
                 matrix_configuration=cfg.matrix_optimizer or cfg.optimizer,
@@ -357,29 +363,31 @@ class GameEstimator:
     def _build_grid_fixed_effect(self, cfg: FixedEffectCoordinateConfiguration,
                                  data: GameData) -> FixedEffectCoordinate:
         """A fixed effect over the (data x feat) device grid: features tiled
-        through the grid engine, the row arrays padded with weight-0 rows,
-        the normalization context padded on the feature axis. The
-        coordinate trims back to real shapes at its boundary."""
+        through the grid engine, the row arrays padded with weight-0 rows
+        and placed as data blocks (``shard_vector_data``), the
+        normalization context padded on the feature axis and placed as
+        feat blocks. The coordinate trims back to real shapes at its
+        boundary."""
         from photon_ml_tpu_torch.parallel.grid_features import grid_from_coo
 
         shard = data.feature_shards[cfg.feature_shard]
         n, d = data.num_rows, shard.dim
         gf = grid_from_coo(shard.rows, shard.cols, shard.vals, (n, d), self._mesh,
                            engine=self.parallel.engine)
-        dev = self.device
 
-        def pad_rows(a) -> torch.Tensor:
+        def pad_rows(a):
             out = np.zeros(gf.num_rows, dtype=np.float32)
             out[:n] = np.asarray(a, dtype=np.float32)
-            return torch.from_numpy(out).to(dev)
+            return gf.data_vector(torch.from_numpy(out))
 
         norm = self.normalization.get(cfg.feature_shard)
-        if norm is not None and gf.dim != d:
+        if norm is not None:
             pads = {}
             if norm.factor is not None:
-                pads["factor"] = torch.nn.functional.pad(norm.factor, (0, gf.dim - d), value=1.0)
+                pads["factor"] = gf.feat_vector(
+                    torch.nn.functional.pad(norm.factor, (0, gf.dim - d), value=1.0))
             if norm.shift is not None:
-                pads["shift"] = torch.nn.functional.pad(norm.shift, (0, gf.dim - d))
+                pads["shift"] = gf.feat_vector(torch.nn.functional.pad(norm.shift, (0, gf.dim - d)))
             norm = dataclasses.replace(norm, **pads)
         labeled = LabeledData(features=gf, labels=pad_rows(data.labels),
                               offsets=pad_rows(data.offsets), weights=pad_rows(data.weights),

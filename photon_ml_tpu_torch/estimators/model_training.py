@@ -10,6 +10,15 @@ batched solvers (L-BFGS, TRON or OWL-QN, ``opt.solve``); on the fused
 sparse engine its maps are the ``csr_matvec_f32`` and ``csc_rmatvec_f32``
 kernels, and the variances run ``csc_rmatvec_f32`` with the "sq"
 transform.
+
+Over a (data x feat) device grid (``parallel.GridShardedFeatures``) the
+solve runs on ``parallel.mesh.BlockVector``s, as the JAX package's
+runs on sharded arrays: w, the gradient, the directions, the trial
+points, the box bounds, the normalization's factor and shift and the s/y
+rings are feat blocks of ``d_loc`` on the grid's feat columns, the row
+arrays data blocks of ``n_loc``. A model's means are made whole only
+after the solve (its first ``model_dim`` entries); ``GlmFit.blocks`` keeps
+the blocks for the caller's warm start and scoring.
 """
 
 from __future__ import annotations
@@ -41,15 +50,41 @@ class GlmFit:
     # per-iteration models in the original space, when ``track_models``
     # (the reference's ModelTracker)
     tracked_models: Optional[List[GeneralizedLinearModel]] = None
+    # on a device grid: the model's original-space means as the solve left
+    # them, feat blocks of the padded length (None off a grid)
+    blocks: Optional[object] = None
 
 
-def _normalized_box(box_constraints, data: LabeledData, intercept_index):
+def _grid_of(data: LabeledData):
+    """The data's grid features, or None off a grid."""
+    from photon_ml_tpu_torch.parallel.grid_features import GridShardedFeatures
+
+    return data.features if isinstance(data.features, GridShardedFeatures) else None
+
+
+def _on_grid(data: LabeledData, grid) -> LabeledData:
+    """The row arrays as data blocks and the normalization's factor and
+    shift as feat blocks (a no-op for what is placed already)."""
+    norm = data.norm
+    if norm is not None:
+        norm = dataclasses.replace(norm, **{
+            k: grid.feat_vector(getattr(norm, k)) for k in ("factor", "shift")
+            if getattr(norm, k) is not None})
+    return dataclasses.replace(
+        data, labels=grid.data_vector(data.labels), offsets=grid.data_vector(data.offsets),
+        weights=grid.data_vector(data.weights), norm=norm)
+
+
+def _normalized_box(box_constraints, data: LabeledData, intercept_index, grid=None):
     """Per-feature (lower, upper) of the original space → the training
     space: w_orig = factor ∘ w_norm with factor > 0, so the bounds divide by
     the same factor. A shift mixes the intercept with every coefficient, so
-    a bounded intercept under shift normalization is refused."""
+    a bounded intercept under shift normalization is refused. On a grid
+    the bounds become feat blocks."""
     lo, hi = (torch.as_tensor(np.asarray(b, dtype=np.float32), device=data.labels.device)
               for b in box_constraints)
+    if grid is not None:
+        lo, hi = grid.feat_vector(lo.cpu()), grid.feat_vector(hi.cpu())
     norm = data.norm
     if norm is None:
         return lo, hi
@@ -77,6 +112,7 @@ def train_glm(
     track_models: bool = False,
     intercept_index: Optional[int] = None,
     box_constraints=None,
+    model_dim: Optional[int] = None,
 ) -> List[GlmFit]:
     """Train one GLM per regularization weight, warm-starting down the sweep
     sorted high → low; fits come back in the caller's order.
@@ -86,7 +122,8 @@ def train_glm(
     optimum (and variances, tracked models) back. ``box_constraints`` =
     per-feature (lower [d], upper [d]) in the original space (the
     reference's constraint map); the configuration's scalar bounds apply
-    without it.
+    without it. ``model_dim`` keeps the models' first coefficients only
+    (a grid's padding columns dropped).
     """
     objective = make_glm_objective(loss_for_task(task))
     if regularization_weights is None:
@@ -98,16 +135,22 @@ def train_glm(
                 configuration.optimizer_config, track_coefficients=True
             ),
         )
+    grid = _grid_of(data)
+    if grid is not None:
+        data = _on_grid(data, grid)
     device = data.labels.device
     norm = data.norm
     if initial_model is not None:
-        w = initial_model.coefficients.means.to(device, torch.float32)
+        w = initial_model.coefficients.means
+        w = grid.feat_vector(w) if grid is not None else w.to(device, torch.float32)
         if norm is not None:
             w = norm.inverse_transform_model_coefficients(w, intercept_index)
+    elif grid is not None:
+        w = grid.feat_full(0.0)
     else:
         w = torch.zeros(data.dim, dtype=torch.float32, device=device)
     box = (None if box_constraints is None
-           else _normalized_box(box_constraints, data, intercept_index))
+           else _normalized_box(box_constraints, data, intercept_index, grid))
 
     reg = configuration.regularization
     # an explicit 0 pins L-BFGS/TRON where no weight of the sweep has L1
@@ -118,11 +161,18 @@ def train_glm(
     def to_original(w_i: torch.Tensor) -> torch.Tensor:
         return w_i if norm is None else norm.transform_model_coefficients(w_i, intercept_index)
 
+    def whole(x):
+        """A model's vector: a grid's blocks made whole, its first
+        ``model_dim`` entries."""
+        if grid is not None:
+            return x.full(length=model_dim)
+        return x if model_dim is None else x[:model_dim]
+
     fits = {}
     for lam in sorted(regularization_weights, reverse=True):
         l2 = reg.l2_weight(lam)
         result = solve(
-            objective, w.reshape(1, -1), data, configuration, l2_weight=l2,
+            objective, w.unsqueeze(0), data, configuration, l2_weight=l2,
             l1_weight=reg.l1_weight(lam) if use_l1 else 0.0, box=box,
         )
         if warm_start:
@@ -134,19 +184,23 @@ def train_glm(
             variances = 1.0 / (objective.hessian_diag(result.w[0], data, l2) + 1e-12)
             if norm is not None:
                 variances = norm.transform_model_variances(variances, intercept_index)
+        means = to_original(result.w[0])
         model = GeneralizedLinearModel(
-            coefficients=Coefficients(means=to_original(result.w[0]), variances=variances),
+            coefficients=Coefficients(
+                means=whole(means), variances=None if variances is None else whole(variances)),
             task=task,
         )
         tracked = None
         if track_models:
             iters = int(result.iterations[0])
+            hist = result.w_history[0]
             tracked = [
-                GeneralizedLinearModel(coefficients=Coefficients(means=to_original(w_i)),
+                GeneralizedLinearModel(coefficients=Coefficients(means=whole(to_original(hist[i]))),
                                        task=task)
-                for w_i in result.w_history[0, : iters + 1]
+                for i in range(iters + 1)
             ]
         fits[lam] = GlmFit(
-            regularization_weight=lam, model=model, result=result, tracked_models=tracked
+            regularization_weight=lam, model=model, result=result, tracked_models=tracked,
+            blocks=means if grid is not None else None,
         )
     return [fits[lam] for lam in regularization_weights]

@@ -23,11 +23,14 @@ launches keep the card busy. ``align_warm_start`` re-lays a model out onto
 another dataset's entities by id (``GameEstimator.resolve_coordinate``).
 
 A dataset placed over a device grid (``data.random_effect.place_dataset``)
-solves each bucket one device slice at a time: slice k's entities move to
-device k, its batched solve runs there (K6 once a slice), and the slices'
-results are concatenated back in slice order on the bucket's device, as
-are the scores. Entity solves are independent, so the result is the
-unsplit solve's, lane for lane.
+solves each bucket one device slice at a time, each slice where it was
+placed at build (K6 once a slice); the slices' results travel to the home
+device only to make the model, concatenated there in slice order, as do
+the scores. Entity solves are independent, so the result is the unsplit
+solve's, lane for lane. On a mesh that spans ranks a rank solves and
+scores only its own slices, and the other ranks' results arrive by
+``all_gather_blocks`` (every rank's model is the one-process model,
+bitwise).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.algorithm.schedule import ScheduleExecutor
-from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, ReBucket, slice_bucket
+from photon_ml_tpu_torch.data.random_effect import PlacedBucket, RandomEffectDataset, ReBucket
 from photon_ml_tpu_torch.losses.objective import GlmObjective, make_glm_objective
 from photon_ml_tpu_torch.losses.pointwise import loss_for_task
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
@@ -211,11 +214,11 @@ def train_random_effects(
 
     def warm_start(b: int, bucket: ReBucket) -> torch.Tensor:
         if initial_model is not None:
-            return _lanes(initial_model.coefficients[b].to(bucket.X.device, torch.float32),
+            return _lanes(initial_model.coefficients[b].to(bucket.home, torch.float32),
                           bucket.num_entities)
         return torch.zeros(
             (bucket.num_entities, bucket.local_dim), dtype=torch.float32,
-            device=bucket.X.device,
+            device=bucket.home,
         )
 
     def use_adaptive(bucket: ReBucket) -> bool:
@@ -227,9 +230,9 @@ def train_random_effects(
         return solver.oneshot(bucket, w0, b)
 
     def solve_bucket(b: int, bucket: ReBucket, w0: torch.Tensor):
-        if dataset.placement is None:
-            return solve_whole(b, bucket, w0)
-        return _solve_placed(solve_whole, b, bucket, w0, dataset.placement)
+        if isinstance(bucket, PlacedBucket):
+            return _solve_placed(solve_whole, b, bucket, w0)
+        return solve_whole(b, bucket, w0)
 
     def span_attrs(b: int, bucket: ReBucket) -> dict:
         return dict(bucket=b, mode="adaptive" if use_adaptive(bucket) else "oneshot",
@@ -239,7 +242,7 @@ def train_random_effects(
     if int(overlap_buckets) >= 2 and len(buckets) > 1:
         with ScheduleExecutor(
             max_in_flight=min(int(overlap_buckets), len(buckets)), name="re-buckets",
-            device=buckets[0].X.device,
+            device=buckets[0].home,
         ) as executor:
             for b, bucket in enumerate(buckets):
                 w0 = warm_start(b, bucket)
@@ -278,25 +281,21 @@ def train_random_effects(
     return model, results
 
 
-def _solve_placed(solve_whole, b: int, bucket: ReBucket, w0: torch.Tensor, devices):
-    """One bucket solved a device slice at a time (``devices`` in slice
-    order), the results concatenated back in that order on the bucket's
-    device; one SolverStats a slice."""
-    home = bucket.X.device
-    per = bucket.num_entities // len(devices)
-    outs = []
-    for k, dev in enumerate(devices):
-        lo, hi = k * per, (k + 1) * per
-        outs.append(solve_whole(b, slice_bucket(bucket, lo, hi, dev), w0[lo:hi].to(dev)))
+def _solve_placed(solve_whole, b: int, bucket: PlacedBucket, w0: torch.Tensor):
+    """One placed bucket solved a slice at a time where each slice lives
+    (this process's slices), the results concatenated in slice order on
+    the home device, the other ranks' gathered; one SolverStats a slice
+    solved here."""
+    per = bucket.per_slice
+    outs = {k: solve_whole(b, sl, w0[k * per:(k + 1) * per].to(sl.home))
+            for k, sl in bucket.local()}
 
-    def cat(parts):
-        return None if parts[0] is None else torch.cat([p.to(home) for p in parts])
+    def cat(i, name=None):
+        parts = {k: (o[i] if name is None else getattr(o[i], name)) for k, o in outs.items()}
+        return None if next(iter(parts.values())) is None else bucket.gather(parts)
 
-    res = SolveResult(**{
-        f.name: cat([getattr(o[0], f.name) for o in outs])
-        for f in dataclasses.fields(SolveResult)
-    })
-    return res, cat([o[1] for o in outs]), cat([o[2] for o in outs]), [o[3] for o in outs]
+    res = SolveResult(**{f.name: cat(0, f.name) for f in dataclasses.fields(SolveResult)})
+    return res, cat(1), cat(2), [o[3] for o in outs.values()]
 
 
 def _lanes(w: torch.Tensor, num_entities: int) -> torch.Tensor:
@@ -310,20 +309,16 @@ def _lanes(w: torch.Tensor, num_entities: int) -> torch.Tensor:
     return w
 
 
-def _bucket_scores(bucket: ReBucket, w: torch.Tensor, devices) -> torch.Tensor:
-    """x·w of every active slot of a bucket, flat [E*S]: per device slice
-    on its device when the dataset is placed."""
+def _bucket_scores(bucket: ReBucket, w: torch.Tensor) -> torch.Tensor:
+    """x·w of every active slot of a bucket, flat [E*S]: a placed bucket's
+    slice by slice where each lives, gathered on the home device."""
     w = _lanes(w, bucket.num_entities)
-    if devices is None:
+    if not isinstance(bucket, PlacedBucket):
         return torch.einsum("esd,ed->es", bucket.X, w).reshape(-1)
-    home = bucket.X.device
-    per = bucket.num_entities // len(devices)
-    parts = []
-    for k, dev in enumerate(devices):
-        lo, hi = k * per, (k + 1) * per
-        parts.append(torch.einsum("esd,ed->es", bucket.X[lo:hi].to(dev),
-                                  w[lo:hi].to(dev)).reshape(-1).to(home))
-    return torch.cat(parts)
+    per = bucket.per_slice
+    return bucket.gather({
+        k: torch.einsum("esd,ed->es", sl.X, w[k * per:(k + 1) * per].to(sl.home)).reshape(-1)
+        for k, sl in bucket.local()})
 
 
 def align_warm_start(
@@ -346,7 +341,7 @@ def align_warm_start(
             "dataset: projected local spaces are seed/dim-dependent and "
             "global-space coefficients do not map back exactly"
         )
-    dev = dataset.buckets[0].X.device
+    dev = dataset.buckets[0].home
     if model.projector_type is ProjectorType.RANDOM or model.score_table()[0].numel() == 0:
         # back-projected dense coefficients, through the host
         dense = dict(model.items())
@@ -398,7 +393,7 @@ def score_random_effects_device(
     slot; uncovered rows read the trailing 0). No per-row entity lookup."""
     parts = []
     for w, bucket, p in zip(model.coefficients, dataset.buckets, dataset.passive):
-        parts.append(_bucket_scores(bucket, w, dataset.placement))
+        parts.append(_bucket_scores(bucket, w))
         if p is not None:
             parts.append((p.X * w[p.entity_index]).sum(-1))
     flat = torch.cat(parts + [torch.zeros(1, dtype=torch.float32, device=dataset.row_gather.device)])

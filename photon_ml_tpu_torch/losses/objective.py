@@ -34,6 +34,7 @@ from photon_ml_tpu_torch.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops import pallas_kernels
 from photon_ml_tpu_torch.ops.data import LabeledData
 from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.opt.state import blockwise
 
 _IDENTITY_NORM = NormalizationContext()
 
@@ -45,6 +46,10 @@ def _norm_of(data: LabeledData) -> NormalizationContext:
 def _wmask(weights: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     # weight-0 padding rows must be exact no-ops even when the unweighted
     # term overflows to inf (0 * inf = NaN would poison the sum)
+    return blockwise(_wmask_block, weights, terms)
+
+
+def _wmask_block(weights: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     return torch.where(weights > 0, weights * terms, torch.zeros_like(terms))
 
 
@@ -70,7 +75,7 @@ def make_glm_objective(loss: Type[PointwiseLoss]) -> GlmObjective:
 
     def value(w: torch.Tensor, data: LabeledData, l2) -> torch.Tensor:
         z = margins(w, data)
-        loss_sum = _wmask(data.weights, loss.value(z, data.labels)).sum(-1)
+        loss_sum = _wmask(data.weights, blockwise(loss.value, z, data.labels)).sum(-1)
         return loss_sum + 0.5 * l2 * _sq_norm(w)
 
     def value_and_grad(
@@ -89,8 +94,8 @@ def make_glm_objective(loss: Type[PointwiseLoss]) -> GlmObjective:
                 loss_sum, raw, _ = fused
                 return loss_sum + 0.5 * l2 * _sq_norm(w), raw + l2 * w
         z = margins(w, data)
-        loss_sum = _wmask(data.weights, loss.value(z, data.labels)).sum(-1)
-        c = _wmask(data.weights, loss.d1(z, data.labels))
+        loss_sum = _wmask(data.weights, blockwise(loss.value, z, data.labels)).sum(-1)
+        c = _wmask(data.weights, blockwise(loss.d1, z, data.labels))
         raw = data.features.rmatvec(c)
         grad = norm.apply_to_gradient(raw, c.sum(-1))
         return loss_sum + 0.5 * l2 * _sq_norm(w), grad + l2 * w
@@ -102,7 +107,7 @@ def make_glm_objective(loss: Type[PointwiseLoss]) -> GlmObjective:
         z = margins(w, data)
         ev = norm.effective_coefficients(v)
         zv = data.features.matvec(ev) - norm.margin_shift(ev).unsqueeze(-1)
-        c2 = _wmask(data.weights, loss.d2(z, data.labels) * zv)
+        c2 = _wmask(data.weights, blockwise(loss.d2, z, data.labels) * zv)
         raw = data.features.rmatvec(c2)
         return norm.apply_to_gradient(raw, c2.sum(-1)) + l2 * v
 
@@ -112,7 +117,7 @@ def make_glm_objective(loss: Type[PointwiseLoss]) -> GlmObjective:
         layouts never densify: Σ a(x−s)² = (X∘X)ᵀa − 2s·(Xᵀa) + s²·Σa."""
         norm = _norm_of(data)
         z = margins(w, data)
-        a = _wmask(data.weights, loss.d2(z, data.labels))
+        a = _wmask(data.weights, blockwise(loss.d2, z, data.labels))
         sq = data.features.rmatvec_sq(a)
         if norm.shift is not None:
             lin = data.features.rmatvec(a)

@@ -28,8 +28,11 @@ from photon_ml_tpu_torch.opt.state import (
     LaneState,
     SolveResult,
     absolute_tolerances,
+    blockwise,
     function_values_converged,
     gradient_converged,
+    norm,
+    select,
 )
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -61,6 +64,7 @@ class LbfgsState(LaneState):
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner product (block vectors too: ``opt/state.py``)."""
     return (a * b).sum(-1)
 
 
@@ -114,8 +118,8 @@ def update_history(s_hist, y_hist, rho, count, s_vec, y_vec, lanes=None) -> torc
         good = lanes & good
     slot = torch.remainder(count, m)
     g2 = good.unsqueeze(-1)
-    s_hist[lane, slot] = torch.where(g2, s_vec.to(s_hist.dtype), s_hist[lane, slot])
-    y_hist[lane, slot] = torch.where(g2, y_vec.to(y_hist.dtype), y_hist[lane, slot])
+    s_hist[lane, slot] = select(g2, s_vec.to(s_hist.dtype), s_hist[lane, slot])
+    y_hist[lane, slot] = select(g2, y_vec.to(y_hist.dtype), y_hist[lane, slot])
     rho[lane, slot] = torch.where(good, 1.0 / torch.clamp(sy, min=1e-30), rho[lane, slot])
     return torch.where(good, count + 1, count)
 
@@ -145,13 +149,21 @@ def resolve_history_dtype(config: OptimizerConfig, working_dtype: torch.dtype) -
     return getattr(torch, config.history_dtype) if config.history_dtype else working_dtype
 
 
+def _as_bound(b, like):
+    """A bound as a tensor on ``like``'s device and dtype; a block vector
+    (a grid's per-coefficient bound) as it is."""
+    if hasattr(b, "blockwise"):
+        return b
+    return torch.as_tensor(b, dtype=like.dtype, device=like.device)
+
+
 def _project_box(w: torch.Tensor, lower, upper) -> torch.Tensor:
     """Clip w into [lower, upper] (either side None = unbounded); bounds are
     scalars or [d] arrays, broadcast over the lanes."""
     if lower is not None:
-        w = torch.maximum(w, torch.as_tensor(lower, dtype=w.dtype, device=w.device))
+        w = blockwise(torch.maximum, w, _as_bound(lower, w))
     if upper is not None:
-        w = torch.minimum(w, torch.as_tensor(upper, dtype=w.dtype, device=w.device))
+        w = blockwise(torch.minimum, w, _as_bound(upper, w))
     return w
 
 
@@ -163,7 +175,7 @@ def resolve_box(box, config: OptimizerConfig, like: torch.Tensor):
     lo, hi = box if box is not None else (config.constraint_lower, config.constraint_upper)
 
     def bound(b):
-        return None if b is None else torch.as_tensor(b, dtype=like.dtype, device=like.device)
+        return None if b is None else _as_bound(b, like)
 
     return bound(lo), bound(hi), lo is not None or hi is not None
 
@@ -177,9 +189,12 @@ def init_histories(w0: torch.Tensor, f0: torch.Tensor, config: OptimizerConfig):
     history = torch.full((E, max_iter + 1), float("nan"), dtype=w0.dtype, device=w0.device)
     history[:, 0] = f0
     if config.track_coefficients:
-        w_hist = torch.full(
-            (E, max_iter + 1, d), float("nan"), dtype=w0.dtype, device=w0.device
-        )
+        if isinstance(w0, torch.Tensor):
+            w_hist = torch.full(
+                (E, max_iter + 1, d), float("nan"), dtype=w0.dtype, device=w0.device
+            )
+        else:
+            w_hist = w0.new_full((E, max_iter + 1), float("nan"))
         w_hist[:, 0] = w0
     else:
         w_hist = torch.zeros((E, 0), dtype=w0.dtype, device=w0.device)
@@ -235,9 +250,15 @@ def empty_memory(w0: torch.Tensor, config: OptimizerConfig) -> dict:
     E, d = w0.shape
     m = config.history_length
     hdtype = resolve_history_dtype(config, w0.dtype)
+    if isinstance(w0, torch.Tensor):
+        s_hist, y_hist = (torch.zeros((E, m, d), dtype=hdtype, device=w0.device)
+                          for _ in range(2))
+    else:
+        # a grid's rings: [E, m, d_loc] blocks on the feat columns' devices
+        s_hist, y_hist = (w0.new_full((E, m), 0.0, hdtype) for _ in range(2))
     return {
-        "s_hist": torch.zeros((E, m, d), dtype=hdtype, device=w0.device),
-        "y_hist": torch.zeros((E, m, d), dtype=hdtype, device=w0.device),
+        "s_hist": s_hist,
+        "y_hist": y_hist,
         "rho": torch.zeros((E, m), dtype=w0.dtype, device=w0.device),
     }
 
@@ -246,9 +267,7 @@ def lbfgs_init(evaluate: Evaluate, w0: torch.Tensor, config: OptimizerConfig) ->
     """Evaluate the initial point and build the resumable state (absolute
     tolerances included — reference Optimizer.scala:68-71)."""
     f0, g0 = evaluate(w0)
-    abs_f_tol, abs_g_tol = absolute_tolerances(
-        f0, torch.linalg.vector_norm(g0, dim=-1), config.tolerance
-    )
+    abs_f_tol, abs_g_tol = absolute_tolerances(f0, norm(g0), config.tolerance)
     history, w_hist = init_histories(w0, f0, config)
     zeros_i = torch.zeros(w0.shape[0], dtype=torch.int64, device=w0.device)
     return LbfgsState(
@@ -269,7 +288,7 @@ def _lbfgs_step(evaluate: Evaluate, s: LbfgsState, lanes: torch.Tensor,
     # not a descent direction (box projection can perturb the pairs):
     # restart from -g
     bad = dphi0 >= 0
-    d = torch.where(bad.unsqueeze(-1), -s.g, d)
+    d = select(bad.unsqueeze(-1), -s.g, d)
     dphi0 = torch.where(bad, -dot(s.g, s.g), dphi0)
 
     def eval_step(t):
@@ -279,7 +298,7 @@ def _lbfgs_step(evaluate: Evaluate, s: LbfgsState, lanes: torch.Tensor,
     # first iteration: t ~ 1/||d|| (Breeze's firstStepSize); then t = 1
     t_init = torch.where(
         s.count == 0,
-        1.0 / torch.clamp(torch.linalg.vector_norm(d, dim=-1), min=1e-12),
+        1.0 / torch.clamp(norm(d), min=1e-12),
         torch.ones_like(dphi0),
     )
     ls = strong_wolfe_search(
@@ -301,7 +320,7 @@ def _lbfgs_step(evaluate: Evaluate, s: LbfgsState, lanes: torch.Tensor,
     # reported as converged
     no_step = (~ls.success) | (ls.t <= 0)
     f_conv = ls.success & function_values_converged(s.f, f_new, s.abs_f_tol)
-    g_conv = gradient_converged(torch.linalg.vector_norm(g_new, dim=-1), s.abs_g_tol)
+    g_conv = gradient_converged(norm(g_new), s.abs_g_tol)
 
     reason = select_reason(it, max_iter, [
         (g_conv, ConvergenceReason.GRADIENT_CONVERGED),
@@ -313,9 +332,9 @@ def _lbfgs_step(evaluate: Evaluate, s: LbfgsState, lanes: torch.Tensor,
     record_iteration(s.history, s.w_hist, lanes, it, f_new, w_new, config)
     return dataclasses.replace(
         s,
-        w=torch.where(lane2, w_new, s.w),
+        w=select(lane2, w_new, s.w),
         f=torch.where(lanes, f_new, s.f),
-        g=torch.where(lane2, g_new, s.g),
+        g=select(lane2, g_new, s.g),
         count=count,
         it=it,
         reason=torch.where(lanes, reason, s.reason),
@@ -351,7 +370,7 @@ def lbfgs_finalize(state: LbfgsState, config: OptimizerConfig) -> SolveResult:
     return SolveResult(
         w=state.w,
         value=state.f,
-        grad_norm=torch.linalg.vector_norm(state.g, dim=-1),
+        grad_norm=norm(state.g),
         iterations=state.it,
         reason=finalize_reason(state.reason),
         value_history=state.history,

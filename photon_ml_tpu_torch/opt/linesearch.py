@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.opt.state import select
+
 C1 = 1e-4
 C2 = 0.9
 
@@ -76,7 +78,7 @@ def strong_wolfe_search(
         better = active & suff & ((~has_best) | (f_t < f_best))
         t_best = where(better, t, t_best)
         f_best = where(better, f_t, f_best)
-        g_best = where(better.unsqueeze(-1), g_t, g_best)
+        g_best = select(better.unsqueeze(-1), g_t, g_best)
         has_best = has_best | (active & suff)
 
         # bracketing step
@@ -106,7 +108,7 @@ def strong_wolfe_search(
         accepted = active & (new_stage == 2)
         t_acc = where(accepted, t, t_acc)
         f_acc = where(accepted, f_t, f_acc)
-        g_acc = where(accepted.unsqueeze(-1), g_t, g_acc)
+        g_acc = select(accepted.unsqueeze(-1), g_t, g_acc)
         success = success | accepted
 
         def step(zoomed, bracketed, old):
@@ -125,6 +127,6 @@ def strong_wolfe_search(
     return LineSearchResult(
         t=where(success, t_acc, where(has_best, t_best, zero)),
         f=where(success, f_acc, where(has_best, f_best, f0)),
-        g=where(success.unsqueeze(-1), g_acc, g_best),
+        g=select(success.unsqueeze(-1), g_acc, g_best),
         success=success | has_best,
     )

@@ -48,8 +48,11 @@ from photon_ml_tpu_torch.opt.state import (
     LaneState,
     SolveResult,
     absolute_tolerances,
+    blockwise,
     function_values_converged,
     gradient_converged,
+    norm,
+    select,
 )
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -62,17 +65,35 @@ def pseudo_gradient(w: torch.Tensor, g: torch.Tensor, l1: torch.Tensor) -> torch
     at w_j = 0 the subdifferential is [g - l1, g + l1], whose least-norm
     element is 0 if it holds 0, else the nearer end. ``l1`` broadcasts
     against w ([E, 1] for per-lane weights)."""
+    return blockwise(_pseudo_gradient, w, g, l1)
+
+
+def _pseudo_gradient(w: torch.Tensor, g: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
     pg_zero = torch.where(g + l1 < 0, g + l1, torch.where(g - l1 > 0, g - l1, 0.0))
     return torch.where(w == 0, pg_zero, g + l1 * torch.sign(w))
 
 
 def _project_orthant(w: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """pi(w; xi): zero the coordinates that left the orthant xi."""
+    return blockwise(_in_orthant, w, xi)
+
+
+def _in_orthant(w: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.sign(w) == xi, w, 0.0)
 
 
 def _l1_value(f, w, l1):
-    return f + l1 * w.abs().sum(-1)
+    return f + l1 * blockwise(torch.abs, w).sum(-1)
+
+
+def _aligned(d: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """d where it points against pg, else 0."""
+    return torch.where(d * pg < 0, d, 0.0)
+
+
+def _orthant(w: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """sign(w), or sign(-pg) where w = 0."""
+    return torch.where(w != 0, torch.sign(w), torch.sign(-pg))
 
 
 @dataclasses.dataclass
@@ -104,9 +125,7 @@ def owlqn_init(evaluate: Evaluate, w0: torch.Tensor, l1_weight: float,
     f0, g0 = evaluate(w0)
     F0 = _l1_value(f0, w0, l1)
     pg0 = pseudo_gradient(w0, g0, l1.unsqueeze(-1))
-    abs_f_tol, abs_g_tol = absolute_tolerances(
-        F0, torch.linalg.vector_norm(pg0, dim=-1), config.tolerance
-    )
+    abs_f_tol, abs_g_tol = absolute_tolerances(F0, norm(pg0), config.tolerance)
     history, w_hist = init_histories(w0, F0, config)
     zeros_i = torch.zeros(E, dtype=torch.int64, device=w0.device)
     return OwlqnState(
@@ -124,12 +143,11 @@ def _owlqn_step(evaluate: Evaluate, s: OwlqnState, lanes: torch.Tensor,
     l1 = s.l1.unsqueeze(-1)
     pg = pseudo_gradient(s.w, s.g, l1)
     d = two_loop_direction(pg, s.s_hist, s.y_hist, s.rho, s.count)
-    d = torch.where(d * pg < 0, d, 0.0)  # align with -pg
-    # orthant to search in: sign(w), or sign(-pg) where w = 0
-    xi = torch.where(s.w != 0, torch.sign(s.w), torch.sign(-pg))
+    d = blockwise(_aligned, d, pg)  # align with -pg
+    xi = blockwise(_orthant, s.w, pg)  # the orthant to search in
     t = torch.where(
         s.count == 0,
-        1.0 / torch.clamp(torch.linalg.vector_norm(d, dim=-1), min=1e-12),
+        1.0 / torch.clamp(norm(d), min=1e-12),
         torch.ones_like(s.f),
     )
 
@@ -148,28 +166,28 @@ def _owlqn_step(evaluate: Evaluate, s: OwlqnState, lanes: torch.Tensor,
         # projected step (Andrew & Gao)
         ok_c = F_c <= s.F + GAMMA * dot(pg, w_c - s.w)
         a2 = active.unsqueeze(-1)
-        w_t = torch.where(a2, w_c, w_t)
+        w_t = select(a2, w_c, w_t)
         f_t = torch.where(active, f_c, f_t)
-        g_t = torch.where(a2, g_c, g_t)
+        g_t = select(a2, g_c, g_t)
         F_t = torch.where(active, F_c, F_t)
         t = torch.where(active & ~ok_c, t * BACKTRACK, t)
         ok = ok | (active & ok_c)
 
     ok2 = ok.unsqueeze(-1)
-    w_new = torch.where(ok2, w_t, s.w)
+    w_new = select(ok2, w_t, s.w)
     f_new = torch.where(ok, f_t, s.f)
-    g_new = torch.where(ok2, g_t, s.g)
+    g_new = select(ok2, g_t, s.g)
     F_new = torch.where(ok, F_t, s.F)
     if has_box:
         # post-step projection (reference LBFGS.scala:72, inherited by
         # OWLQN); f and g recomputed at the projected point, so the
         # curvature pairs see the true state, only where it clipped
         w_proj = _project_box(w_new, box_lo, box_hi)
-        clipped = lanes & (w_proj != w_new).any(-1)
+        clipped = lanes & blockwise(torch.ne, w_proj, w_new).any(-1)
         if bool(clipped.any()):
             f_p, g_p = evaluate(w_proj)
             f_new = torch.where(clipped, f_p, f_new)
-            g_new = torch.where(clipped.unsqueeze(-1), g_p, g_new)
+            g_new = select(clipped.unsqueeze(-1), g_p, g_new)
             F_new = torch.where(clipped, _l1_value(f_p, w_proj, s.l1), F_new)
         w_new = w_proj
 
@@ -178,7 +196,7 @@ def _owlqn_step(evaluate: Evaluate, s: OwlqnState, lanes: torch.Tensor,
     )
     it = s.it + 1
     pg_new = pseudo_gradient(w_new, g_new, l1)
-    g_conv = gradient_converged(torch.linalg.vector_norm(pg_new, dim=-1), s.abs_g_tol)
+    g_conv = gradient_converged(norm(pg_new), s.abs_g_tol)
     f_conv = ok & function_values_converged(s.F, F_new, s.abs_f_tol)
     reason = select_reason(it, config.max_iterations, [
         (g_conv, ConvergenceReason.GRADIENT_CONVERGED),
@@ -190,9 +208,9 @@ def _owlqn_step(evaluate: Evaluate, s: OwlqnState, lanes: torch.Tensor,
     record_iteration(s.history, s.w_hist, lanes, it, F_new, w_new, config)
     return dataclasses.replace(
         s,
-        w=torch.where(lane2, w_new, s.w),
+        w=select(lane2, w_new, s.w),
         f=torch.where(lanes, f_new, s.f),
-        g=torch.where(lane2, g_new, s.g),
+        g=select(lane2, g_new, s.g),
         F=torch.where(lanes, F_new, s.F),
         count=count,
         it=it,
@@ -224,7 +242,7 @@ def owlqn_finalize(state: OwlqnState, config: OptimizerConfig) -> SolveResult:
     return SolveResult(
         w=state.w,
         value=state.F,
-        grad_norm=torch.linalg.vector_norm(pg, dim=-1),
+        grad_norm=norm(pg),
         iterations=state.it,
         reason=finalize_reason(state.reason),
         value_history=state.history,

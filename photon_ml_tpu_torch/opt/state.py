@@ -74,3 +74,42 @@ def absolute_tolerances(f0: torch.Tensor, g0_norm: torch.Tensor, rel_tol: float)
     abs_f_tol = rel_tol * torch.clamp(f0.abs(), min=1e-15)
     abs_g_tol = rel_tol * torch.clamp(g0_norm, min=1e-15)
     return abs_f_tol, abs_g_tol
+
+
+# The solvers' vector operations. The solvers hold their vectors (w,
+# gradients, directions, the s/y rings) as plain [E, d] tensors or, for the
+# fixed effect of a device grid, as ``parallel.mesh.BlockVector``s of d_loc
+# blocks on the grid's feat columns. Arithmetic operators and ``sum(-1)``
+# work on either; the few operations that are torch functions go through
+# these helpers. On plain tensors each is exactly the torch call the
+# solvers made before, so the batched random-effect path computes what it
+# did, bit for bit.
+
+def _blocked(args):
+    return next((a for a in args if hasattr(a, "blockwise")), None)
+
+
+def blockwise(fn: Callable, *args):
+    """``fn(*args)``; with a block vector among ``args``, block by block."""
+    bv = _blocked(args)
+    return fn(*args) if bv is None else bv.blockwise(fn, *args)
+
+
+def select(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` with a per-lane ``cond``."""
+    return blockwise(torch.where, cond, a, b)
+
+
+def dot(a, b) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def norm(x) -> torch.Tensor:
+    """The 2-norm over the vector axis, per lane."""
+    if isinstance(x, torch.Tensor):
+        return torch.linalg.vector_norm(x, dim=-1)
+    return torch.sqrt(dot(x, x))
+
+
+def zeros_like(x):
+    return torch.zeros_like(x) if isinstance(x, torch.Tensor) else x.zeros_like()

@@ -42,6 +42,9 @@ from photon_ml_tpu_torch.opt.state import (
     absolute_tolerances,
     function_values_converged,
     gradient_converged,
+    norm,
+    select,
+    zeros_like,
 )
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -50,20 +53,16 @@ ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
 SIGMA1, SIGMA2, SIGMA3 = 0.25, 0.5, 4.0
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(x, dim=-1)
-
-
 def truncated_cg(hess_vec, g, delta, max_cg: int, cg_tol: float, lanes: torch.Tensor):
     """Steihaug truncated CG over the ``lanes``: approximately solve
     H s = -g with ‖s‖ ≤ delta, per lane. Returns (s, r), r the final
     residual -g - H s (the predicted-reduction formula's, reference
     TRON.scala:275-335). Lanes outside ``lanes`` return s = 0."""
     r = -g
-    s = torch.zeros_like(g)
+    s = zeros_like(g)
     d = r
     rtr = dot(r, r)
-    stop_norm = cg_tol * _norm(g)
+    stop_norm = cg_tol * norm(g)
     done = (~lanes) | (torch.sqrt(rtr) <= stop_norm)
     for _ in range(max_cg):
         active = ~done
@@ -75,21 +74,21 @@ def truncated_cg(hess_vec, g, delta, max_cg: int, cg_tol: float, lanes: torch.Te
         s_try = s + alpha.unsqueeze(-1) * d
         # negative curvature or a boundary hit: move to the trust-region
         # edge along d and stop
-        hit = (dhd <= 0) | (_norm(s_try) > delta)
+        hit = (dhd <= 0) | (norm(s_try) > delta)
         std, dd, ss = dot(s, d), dot(d, d), dot(s, s)
         rad = torch.sqrt(torch.clamp(std * std + dd * (delta * delta - ss), min=0.0))
         tau = (-std + rad) / torch.clamp(dd, min=1e-30)
         hit2 = hit.unsqueeze(-1)
-        s_new = torch.where(hit2, s + tau.unsqueeze(-1) * d, s_try)
-        r_new = torch.where(hit2, r - tau.unsqueeze(-1) * hd, r - alpha.unsqueeze(-1) * hd)
+        s_new = select(hit2, s + tau.unsqueeze(-1) * d, s_try)
+        r_new = select(hit2, r - tau.unsqueeze(-1) * hd, r - alpha.unsqueeze(-1) * hd)
         rtr_new = dot(r_new, r_new)
         converged = torch.sqrt(rtr_new) <= stop_norm
         beta = rtr_new / torch.clamp(rtr, min=1e-30)
-        d_new = torch.where((hit | converged).unsqueeze(-1), d, r_new + beta.unsqueeze(-1) * d)
+        d_new = select((hit | converged).unsqueeze(-1), d, r_new + beta.unsqueeze(-1) * d)
         a2 = active.unsqueeze(-1)
-        s = torch.where(a2, s_new, s)
-        r = torch.where(a2, r_new, r)
-        d = torch.where(a2, d_new, d)
+        s = select(a2, s_new, s)
+        r = select(a2, r_new, r)
+        d = select(a2, d_new, d)
         rtr = torch.where(active, rtr_new, rtr)
         done = done | (active & (hit | converged))
     return s, r
@@ -121,7 +120,7 @@ def tron_init(objective: LaneObjective, w0: torch.Tensor, config: OptimizerConfi
             "is first-order only (use LBFGS, reference OptimizerFactory.scala)"
         )
     f0, g0 = objective.value_and_grad(w0)
-    g0_norm = _norm(g0)
+    g0_norm = norm(g0)
     abs_f_tol, abs_g_tol = absolute_tolerances(f0, g0_norm, config.tolerance)
     history, w_hist = init_histories(w0, f0, config)
     zeros_i = torch.zeros(w0.shape[0], dtype=torch.int64, device=w0.device)
@@ -154,7 +153,7 @@ def _tron_step(objective: LaneObjective, s: TronState, lanes: torch.Tensor,
     gs = dot(s.g, step)
     prered = -0.5 * (gs - dot(step, resid))
     actred = s.f - f_try
-    snorm = _norm(step)
+    snorm = norm(step)
 
     # trust-radius update (reference TRON.scala:200-240 / LIBLINEAR)
     denom = f_try - s.f - gs
@@ -180,12 +179,12 @@ def _tron_step(objective: LaneObjective, s: TronState, lanes: torch.Tensor,
     accept = actred > ETA0 * prered
     failures = torch.where(accept, s.failures, s.failures + 1)
     acc2 = accept.unsqueeze(-1)
-    w_new = torch.where(acc2, w_try, s.w)
+    w_new = select(acc2, w_try, s.w)
     f_new = torch.where(accept, f_try, s.f)
-    g_new = torch.where(acc2, g_try, s.g)
+    g_new = select(acc2, g_try, s.g)
 
     it = s.it + 1
-    g_conv = gradient_converged(_norm(g_new), s.abs_g_tol)
+    g_conv = gradient_converged(norm(g_new), s.abs_g_tol)
     f_conv = accept & function_values_converged(s.f, f_new, s.abs_f_tol)
     not_improving = (failures >= config.max_improvement_failures) | (
         (prered <= 0) & (actred <= 0)
@@ -200,9 +199,9 @@ def _tron_step(objective: LaneObjective, s: TronState, lanes: torch.Tensor,
     record_iteration(s.history, s.w_hist, lanes, it, f_new, w_new, config)
     return dataclasses.replace(
         s,
-        w=torch.where(lane2, w_new, s.w),
+        w=select(lane2, w_new, s.w),
         f=torch.where(lanes, f_new, s.f),
-        g=torch.where(lane2, g_new, s.g),
+        g=select(lane2, g_new, s.g),
         delta=torch.where(lanes, delta, s.delta),
         it=it,
         failures=torch.where(lanes, failures, s.failures),
@@ -233,7 +232,7 @@ def tron_finalize(state: TronState, config: OptimizerConfig) -> SolveResult:
     return SolveResult(
         w=state.w,
         value=state.f,
-        grad_norm=_norm(state.g),
+        grad_norm=norm(state.g),
         iterations=state.it,
         reason=finalize_reason(state.reason),
         value_history=state.history,

@@ -13,14 +13,18 @@ engine of its own on its mesh device:
 - ``rmatvec``: g_j = sum_i X_ij^T c_i (gradients summed over ``data``).
 
 Each sum runs on the output's device in tile order, no atomics, so it
-repeats bitwise (``parallel/mesh.py``). Vectors arrive whole (a tensor on
-the mesh's home device; each tile's block is sliced from it and moved to
-the tile's device) or as a :class:`~.mesh.ShardedTensor` from
-:func:`shard_vector_feat` / :func:`shard_vector_data`, and leave the same
-way. When the mesh spans ranks of ``torch.distributed``, this process
-builds and runs only its own tiles; the partials of the others arrive by
-one ``all_gather`` a map, and every rank sums all of them in tile order,
-so the result is bitwise that of one process.
+repeats bitwise (``parallel/mesh.py``). Vectors arrive whole (a tensor;
+each tile's block is sliced from it and moved to the tile's device, and
+the sums land on the input's device) or as a
+:class:`~.mesh.BlockVector` from :func:`shard_vector_feat` /
+:func:`shard_vector_data`: then w and the gradient stay feat blocks of
+``d_loc`` on the feat columns' devices and the margins data blocks of
+``n_loc`` on the data rows', each output block summed on its own
+device, as the JAX grid keeps them ``P(FEAT_AXIS)`` and ``P(DATA_AXIS)``.
+When the mesh spans ranks of ``torch.distributed``, this process builds
+and runs only its own tiles; the partials of the others arrive by one
+``all_gather`` a map, and every rank sums in tile order the output blocks
+it holds, so the result is bitwise that of one process.
 
 Tile engines: ``fused`` (``ops/fused_perm.py``: ``csr_matvec_f32`` and
 ``csc_rmatvec_f32`` on the card, the bf16 payload by ``payload_dtype``),
@@ -52,12 +56,11 @@ from photon_ml_tpu_torch.ops.features import EllFeatures, coalesce_coo, scatter_
 from photon_ml_tpu_torch.ops.sparse_perm import select_hot_cols, split_hot_entries
 from photon_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    BlockVector,
     Mesh,
-    P,
-    ShardedTensor,
     all_gather_blocks,
+    block_devices,
     default_devices,
-    place,
     world,
 )
 from photon_ml_tpu_torch.utils.nativesort import lexsort_pairs
@@ -97,16 +100,16 @@ def grid_mesh(n_data: int, n_feat: int, devices=None, device: DeviceLike = DEFAU
 
 
 def _as_blocks(x, mesh: Mesh, axis: int, length: int) -> Dict[tuple, torch.Tensor]:
-    """The input block of every local tile: from a ShardedTensor's shards,
-    or sliced from a whole tensor along the tile axis ``axis`` (0: data,
-    1: feat) and moved to the tile's device."""
+    """The input block of every local tile: a BlockVector's block, or sliced
+    from a whole tensor along the tile axis ``axis`` (0: data, 1: feat);
+    moved to the tile's device (a no-op where they share one)."""
     out = {}
     for pos in mesh.local_positions():
         dev = mesh.devices[pos]
-        if isinstance(x, ShardedTensor):
-            out[pos] = x.shards[pos].to(dev)
+        k = pos[axis]
+        if isinstance(x, BlockVector):
+            out[pos] = x.blocks[k].to(dev)
         else:
-            k = pos[axis]
             out[pos] = x[..., k * length:(k + 1) * length].to(dev)
     return out
 
@@ -150,46 +153,47 @@ class GridShardedFeatures:
         return [(pos, self.shards[pos[0]][pos[1]]) for pos in self.mesh.local_positions()]
 
     def _reduce(self, partial: Dict[tuple, torch.Tensor], over: int,
-                out_device: torch.device) -> List[torch.Tensor]:
-        """Per output block k (a data block when summing over feat, ``over``
-        = 1; a feat block when summing over data, ``over`` = 0), the sum of
-        its tiles' partials in tile order on ``out_device``."""
+                out_devices: Dict[int, torch.device]) -> Dict[int, torch.Tensor]:
+        """Per output block k of ``out_devices`` (a data block when summing
+        over feat, ``over`` = 1; a feat block when summing over data,
+        ``over`` = 0), the sum of its tiles' partials in tile order on
+        ``out_devices[k]``."""
         positions = list(np.ndindex(self.mesh.devices.shape))
         if world()[1] > 1:
             like = next(iter(partial.values()))
             partial = all_gather_blocks(partial, positions, self.mesh,
-                                        torch.empty_like(like, device=out_device))
-        n_out = self.mesh.devices.shape[1 - over]
-        sums = []
-        for k in range(n_out):
+                                        torch.empty_like(like, device=self.mesh.home))
+        sums = {}
+        for k, dev in out_devices.items():
             acc = None
             for t in range(self.mesh.devices.shape[over]):
                 pos = (k, t) if over == 1 else (t, k)
-                p = partial[pos].to(out_device)
+                p = partial[pos].to(dev)
                 acc = p if acc is None else acc + p
-            sums.append(acc)
+            sums[k] = acc
         return sums
 
-    def _out(self, sums: List[torch.Tensor], like, axis_name: str):
-        if isinstance(like, ShardedTensor):
-            axis = self.mesh.axis_names.index(axis_name)
-            n = sum(s.shape[-1] for s in sums)
-            st = ShardedTensor((n,), sums[0].dtype, self.mesh, P(axis_name), {})
-            for pos in self.mesh.local_positions():
-                st.shards[pos] = sums[pos[axis]].to(self.mesh.devices[pos])
-            return st
-        return torch.cat(sums, dim=-1)
-
-    def _home(self, x) -> torch.device:
-        return self.mesh.home if isinstance(x, ShardedTensor) else x.device
+    def _map(self, x, in_axis: str, out_axis: str, length: int, fn):
+        """``fn(tile, block)`` over the local tiles, summed over ``in_axis``:
+        a whole input gives a whole output on its device, a BlockVector a
+        BlockVector over ``out_axis``."""
+        a_in = self.mesh.axis_names.index(in_axis)
+        blocks = _as_blocks(x, self.mesh, a_in, length)
+        partial = {pos: fn(tile, blocks[pos]) for pos, tile in self.tiles()}
+        over = a_in
+        if isinstance(x, BlockVector):
+            sums = self._reduce(partial, over, block_devices(self.mesh, out_axis))
+            n_out = self.mesh.shape[out_axis] * next(iter(sums.values())).shape[-1]
+            return BlockVector(self.mesh, out_axis, n_out, sums)
+        n_out = self.mesh.devices.shape[1 - over]
+        sums = self._reduce(partial, over, {k: x.device for k in range(n_out)})
+        return torch.cat([sums[k] for k in range(n_out)], dim=-1)
 
     def matvec(self, w):
         """X·w: data-split margins, each summed over the feat axis."""
         if isinstance(w, torch.Tensor) and w.dim() == 2:
             return torch.stack([self.matvec(wi) for wi in w])
-        blocks = _as_blocks(w, self.mesh, 1, self.d_loc)
-        partial = {pos: tile.matvec(blocks[pos]) for pos, tile in self.tiles()}
-        return self._out(self._reduce(partial, 1, self._home(w)), w, DATA_AXIS)
+        return self._map(w, FEAT_AXIS, DATA_AXIS, self.d_loc, lambda t, b: t.matvec(b))
 
     def rmatvec(self, c):
         return self._rmatvec(c, squared=False)
@@ -202,28 +206,40 @@ class GridShardedFeatures:
         data axis."""
         if isinstance(c, torch.Tensor) and c.dim() == 2:
             return torch.stack([self._rmatvec(ci, squared) for ci in c])
-        blocks = _as_blocks(c, self.mesh, 0, self.n_loc)
-        partial = {
-            pos: (tile.rmatvec_sq(blocks[pos]) if squared else tile.rmatvec(blocks[pos]))
-            for pos, tile in self.tiles()
-        }
-        return self._out(self._reduce(partial, 0, self._home(c)), c, FEAT_AXIS)
+        if squared:
+            return self._map(c, DATA_AXIS, FEAT_AXIS, self.n_loc, lambda t, b: t.rmatvec_sq(b))
+        return self._map(c, DATA_AXIS, FEAT_AXIS, self.n_loc, lambda t, b: t.rmatvec(b))
 
     def row_norms_sq(self) -> torch.Tensor:
         partial = {pos: tile.row_norms_sq() for pos, tile in self.tiles()}
-        return torch.cat(self._reduce(partial, 1, self.mesh.home))
+        n_out = self._n_dd()
+        sums = self._reduce(partial, 1, {k: self.mesh.home for k in range(n_out)})
+        return torch.cat([sums[k] for k in range(n_out)])
+
+    def feat_vector(self, x) -> BlockVector:
+        """``x`` ([d_pad], whole or already placed) as feat blocks."""
+        return shard_vector_feat(x, self.mesh)
+
+    def feat_full(self, value: float) -> BlockVector:
+        """A [d_pad] vector of ``value`` made as feat blocks."""
+        return BlockVector.full_of(self.mesh, FEAT_AXIS, self.dim, value)
+
+    def data_vector(self, x) -> BlockVector:
+        """``x`` ([n_pad], whole or already placed) as data blocks."""
+        return shard_vector_data(x, self.mesh)
 
 
-def shard_vector_feat(x, mesh: Mesh) -> ShardedTensor:
-    """A [d_pad] vector split over the feat axis (replicated over data):
-    the layout of w and the gradient."""
-    return place(x, mesh, P(FEAT_AXIS))
+def shard_vector_feat(x, mesh: Mesh) -> BlockVector:
+    """A [d_pad] vector as feat blocks of d_loc, block j on the device of
+    feat column j (one tensor where a column's positions share a device):
+    the layout of w, the gradient and the solver's history."""
+    return BlockVector.place(x, mesh, FEAT_AXIS)
 
 
-def shard_vector_data(x, mesh: Mesh) -> ShardedTensor:
-    """An [n_pad] vector split over the data axis (labels, offsets,
-    weights, margins)."""
-    return place(x, mesh, P(DATA_AXIS))
+def shard_vector_data(x, mesh: Mesh) -> BlockVector:
+    """An [n_pad] vector as data blocks of n_loc (labels, offsets, weights,
+    margins)."""
+    return BlockVector.place(x, mesh, DATA_AXIS)
 
 
 def grid_from_coo(

@@ -17,17 +17,34 @@ its block. The devices of a mesh may repeat (``devices=[cuda:0] * 4``):
 then every block sits on the one card, the analog of the JAX tests'
 forced host devices. On ``cpu`` every block lives on the host.
 
+A :class:`BlockVector` is a vector split into equal blocks along one mesh
+axis, block k on the device of the first of this process's positions
+with index k on that axis (positions sharing a device share one tensor):
+the layout of a grid fixed effect's solver state (``feat``) and row arrays
+(``data``), as the JAX package keeps them ``P(FEAT_AXIS)`` and
+``P(DATA_AXIS)``. Its blocks may carry leading dimensions (``[E, d_loc]``
+for E solver lanes, ``[E, m, d_loc]`` for the s/y rings); indexing and the
+arithmetic operators act on the leading dimensions block by block, with
+plain tensors (per-lane scalars) moved to each block's device. A
+reduction over the vector axis (``sum(-1)``, ``any(-1)``) moves each
+block's partial to the mesh's home device and adds the partials there in
+block order: only those scalars travel, so a solve repeats bitwise. The
+solvers reach the operations that are torch functions (``where``,
+elementwise maps, norms) through ``opt/state.py``'s vector helpers, which
+call :meth:`BlockVector.blockwise`.
+
 When the process group of ``torch.distributed`` has more than one rank,
 a mesh position may belong to another rank (``Mesh.ranks``): this process
 holds only its own positions' blocks, and :func:`fetch_global` assembles a
 global array with ``dist.all_gather``, a collective every rank must call
-in the same order.
+in the same order; a block vector's reduction gathers the partials of the
+blocks a rank lacks the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -309,6 +326,289 @@ def all_gather_blocks(local: Dict[tuple, torch.Tensor], positions: Sequence[tupl
     return {pos: gathered[int(mesh.ranks[pos])][i] for i, pos in enumerate(positions)}
 
 
+def block_devices(mesh: Mesh, axis: str) -> Dict[int, torch.device]:
+    """Block index -> device for the blocks of ``axis`` this process holds:
+    the device of its first position with that index."""
+    a = mesh.axis_names.index(axis)
+    out: Dict[int, torch.device] = {}
+    for pos in mesh.local_positions():
+        out.setdefault(pos[a], mesh.devices[pos])
+    return dict(sorted(out.items()))
+
+
+def _canonical_positions(mesh: Mesh, axis: str) -> list:
+    """Per block index, the first mesh position with that index: its owner
+    rank supplies the block's value in a gather."""
+    a = mesh.axis_names.index(axis)
+    canon: Dict[int, tuple] = {}
+    for pos in np.ndindex(mesh.devices.shape):
+        canon.setdefault(pos[a], pos)
+    return [canon[k] for k in range(mesh.devices.shape[a])]
+
+
+def gather_needed(mesh: Mesh, axis: str) -> bool:
+    """Whether some rank of the mesh lacks a block of ``axis`` (then the
+    blocks' partials must be all-gathered). The same answer on every rank."""
+    if world()[1] <= 1:
+        return False
+    a = mesh.axis_names.index(axis)
+    n = mesh.devices.shape[a]
+    for r in np.unique(mesh.ranks):
+        held = {pos[a] for pos in np.ndindex(mesh.devices.shape) if mesh.ranks[pos] == r}
+        if len(held) < n:
+            return True
+    return False
+
+
+def _move(x, dev: torch.device):
+    if isinstance(x, torch.Tensor) and x.device != dev:
+        return x.to(dev)
+    return x
+
+
+def _move_index(idx, dev: torch.device):
+    if isinstance(idx, tuple):
+        return tuple(_move(i, dev) for i in idx)
+    return _move(idx, dev)
+
+
+class BlockVector:
+    """A vector of length ``length`` split into ``mesh.shape[axis]`` blocks
+    (``blocks``: block index -> tensor ``[..., length // n]`` on its
+    device, this process's blocks only)."""
+
+    __slots__ = ("mesh", "axis", "length", "blocks")
+
+    def __init__(self, mesh: Mesh, axis: str, length: int, blocks: Dict[int, torch.Tensor]):
+        n = mesh.shape[axis]
+        if length % n:
+            raise ValueError(f"a vector of {length} does not split over {n} {axis!r} blocks")
+        self.mesh = mesh
+        self.axis = axis
+        self.length = int(length)
+        self.blocks = dict(sorted(blocks.items()))
+
+    # ------------------------------------------------------------ layout
+
+    @property
+    def n_blocks(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def block_len(self) -> int:
+        return self.length // self.n_blocks
+
+    def _any(self) -> torch.Tensor:
+        return next(iter(self.blocks.values()))
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(tuple(self._any().shape[:-1]) + (self.length,))
+
+    @property
+    def ndim(self) -> int:
+        return self._any().dim()
+
+    def dim(self) -> int:
+        return self.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._any().dtype
+
+    @property
+    def device(self) -> torch.device:
+        """Where reductions land: the mesh's home device."""
+        return self.mesh.home
+
+    def __repr__(self) -> str:
+        return (f"BlockVector(shape={tuple(self.shape)}, axis={self.axis!r}, "
+                f"blocks={ {k: tuple(b.shape) for k, b in self.blocks.items()} })")
+
+    def _like(self, blocks: Dict[int, torch.Tensor]) -> "BlockVector":
+        return BlockVector(self.mesh, self.axis, self.length, blocks)
+
+    # -------------------------------------------------------- construction
+
+    @classmethod
+    def place(cls, x, mesh: Mesh, axis: str) -> "BlockVector":
+        """A whole vector (tensor or numpy, the same in every process; the
+        vector axis last) cut into this process's blocks on their devices."""
+        if isinstance(x, BlockVector):
+            if x.mesh is mesh and x.axis == axis:
+                return x
+            x = x.full()
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        length = t.shape[-1]
+        n = mesh.shape[axis]
+        if length % n:
+            raise ValueError(f"a vector of {length} does not split over {n} {axis!r} blocks")
+        bl = length // n
+        return cls(mesh, axis, length, {
+            k: t[..., k * bl:(k + 1) * bl].contiguous().to(dev)
+            for k, dev in block_devices(mesh, axis).items()
+        })
+
+    @classmethod
+    def full_of(cls, mesh: Mesh, axis: str, length: int, value: float, lead=(),
+                dtype=torch.float32) -> "BlockVector":
+        bl = length // mesh.shape[axis]
+        return cls(mesh, axis, length, {
+            k: torch.full(tuple(lead) + (bl,), value, dtype=dtype, device=dev)
+            for k, dev in block_devices(mesh, axis).items()
+        })
+
+    def new_full(self, lead, value: float, dtype=None) -> "BlockVector":
+        """A vector of this layout with leading dimensions ``lead``, filled."""
+        return BlockVector.full_of(self.mesh, self.axis, self.length, value, lead,
+                                   dtype or self.dtype)
+
+    def zeros_like(self) -> "BlockVector":
+        return self._like({k: torch.zeros_like(b) for k, b in self.blocks.items()})
+
+    def clone(self) -> "BlockVector":
+        return self._like({k: b.clone() for k, b in self.blocks.items()})
+
+    def to(self, dtype: torch.dtype) -> "BlockVector":
+        return self._like({k: b.to(dtype) for k, b in self.blocks.items()})
+
+    def unsqueeze(self, dim: int) -> "BlockVector":
+        if dim != 0:
+            raise ValueError("a block vector grows leading dimensions only")
+        return self._like({k: b.unsqueeze(0) for k, b in self.blocks.items()})
+
+    # ---------------------------------------------------------- blockwise
+
+    def blockwise(self, fn: Callable, *args) -> "BlockVector":
+        """``fn`` block by block over ``args``: block vectors of this layout
+        give their block, tensors (per-lane values) move to the block's
+        device, other values pass as they are."""
+        out = {}
+        for k, blk in self.blocks.items():
+            dev = blk.device
+            out[k] = fn(*[a.blocks[k] if isinstance(a, BlockVector) else _move(a, dev)
+                          for a in args])
+        return self._like(out)
+
+    def _binary(self, other, fn, reflected=False):
+        if reflected:
+            return self.blockwise(lambda a, b: fn(b, a), self, other)
+        return self.blockwise(fn, self, other)
+
+    def __add__(self, other):
+        return self._binary(other, torch.add)
+
+    def __radd__(self, other):
+        return self._binary(other, torch.add, True)
+
+    def __sub__(self, other):
+        return self._binary(other, torch.sub)
+
+    def __rsub__(self, other):
+        return self._binary(other, torch.sub, True)
+
+    def __mul__(self, other):
+        return self._binary(other, torch.mul)
+
+    def __rmul__(self, other):
+        return self._binary(other, torch.mul, True)
+
+    def __truediv__(self, other):
+        return self._binary(other, torch.div)
+
+    def __rtruediv__(self, other):
+        return self._binary(other, torch.div, True)
+
+    def __neg__(self):
+        return self._like({k: -b for k, b in self.blocks.items()})
+
+    # --------------------------------------------------------- reductions
+
+    def _combine(self, partials: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        """Every block's partial on the home device, gathered from the other
+        ranks where this one lacks blocks."""
+        home = self.mesh.home
+        vals = {k: p.to(home) for k, p in partials.items()}
+        if gather_needed(self.mesh, self.axis):
+            canon = _canonical_positions(self.mesh, self.axis)
+            got = all_gather_blocks({canon[k]: v for k, v in vals.items()}, canon,
+                                    self.mesh, next(iter(vals.values())))
+            vals = {k: got[canon[k]] for k in range(self.n_blocks)}
+        return vals
+
+    def _reduce(self, fn: Callable, combine: Callable) -> torch.Tensor:
+        vals = self._combine({k: fn(b) for k, b in self.blocks.items()})
+        acc = vals[0]
+        for k in range(1, self.n_blocks):
+            acc = combine(acc, vals[k])
+        return acc
+
+    def sum(self, dim: Optional[int] = None) -> torch.Tensor:
+        """The sum over the vector axis (``dim`` = -1: per leading index; None:
+        of everything), block partials added in block order on home."""
+        if dim is None:
+            return self._reduce(lambda b: b.sum(), torch.add)
+        if dim not in (-1, self.ndim - 1):
+            raise ValueError("a block vector reduces over its vector axis only")
+        return self._reduce(lambda b: b.sum(-1), torch.add)
+
+    def any(self, dim: int = -1) -> torch.Tensor:
+        if dim not in (-1, self.ndim - 1):
+            raise ValueError("a block vector reduces over its vector axis only")
+        return self._reduce(lambda b: b.any(-1), torch.logical_or)
+
+    # ----------------------------------------------------------- indexing
+
+    def _element(self, i: int):
+        i = i + self.length if i < 0 else i
+        return divmod(int(i), self.block_len)
+
+    def __getitem__(self, idx):
+        """Leading dimensions block by block; on a 1-D vector an int is an
+        element (a 0-d tensor on home)."""
+        if self.ndim == 1 and isinstance(idx, int):
+            k, j = self._element(idx)
+            part = {k: self.blocks[k][j]} if k in self.blocks else {}
+            home = self.mesh.home
+            if gather_needed(self.mesh, self.axis):
+                canon = _canonical_positions(self.mesh, self.axis)
+                like = torch.zeros((), dtype=self.dtype, device=home)
+                got = all_gather_blocks({canon[k]: v.to(home) for k, v in part.items()},
+                                        [canon[k]], self.mesh, like)
+                return got[canon[k]]
+            return part[k].to(home)
+        return self._like({k: b[_move_index(idx, b.device)] for k, b in self.blocks.items()})
+
+    def __setitem__(self, idx, value) -> None:
+        if self.ndim == 1 and isinstance(idx, int):
+            k, j = self._element(idx)
+            if k in self.blocks:
+                self.blocks[k][j] = _move(value, self.blocks[k].device)
+            return
+        for k, b in self.blocks.items():
+            v = value.blocks[k] if isinstance(value, BlockVector) else _move(value, b.device)
+            b[_move_index(idx, b.device)] = v
+
+    # -------------------------------------------------------- assembling
+
+    def full(self, device=None, length: Optional[int] = None) -> torch.Tensor:
+        """The whole vector on ``device`` (default home), its first ``length``
+        entries only when given: the one place a whole vector is made.
+        Gathers the other ranks' blocks where this one lacks some."""
+        dev = torch.device(device) if device is not None else self.mesh.home
+        vals = self._combine(dict(self.blocks)) if gather_needed(self.mesh, self.axis) \
+            else self.blocks
+        length = self.length if length is None else int(length)
+        out = torch.empty(tuple(self._any().shape[:-1]) + (length,), dtype=self.dtype,
+                          device=dev)
+        bl = self.block_len
+        for k in range(self.n_blocks):
+            lo, hi = k * bl, min((k + 1) * bl, length)
+            if hi > lo:
+                out[..., lo:hi] = vals[k][..., :hi - lo].to(dev)
+        return out
+
+
 # Device->host fetch observers: callbacks invoked with the byte size of
 # every device array fetch_global materializes on the host. The tests of
 # the device score plane install one to show that no code path pulls a
@@ -328,10 +628,13 @@ def remove_fetch_observer(callback) -> None:
 def fetch_global(a) -> np.ndarray:
     """``np.asarray`` for arrays that may be sharded or on a device: a
     :class:`ShardedTensor` is assembled (all-gathered first when it spans
-    processes), a tensor copied to the host, numpy passed through. In a
-    multi-process run this is a collective for a sharded array: every
-    process calls it in the same order."""
-    if isinstance(a, ShardedTensor):
+    processes), a tensor copied to the host, numpy passed through; a
+    ``BlockVector`` likewise. In a multi-process run this is a collective
+    for a sharded array: every process calls it in the same order."""
+    if isinstance(a, BlockVector):
+        out = a.full("cpu").numpy()
+        was_device = True
+    elif isinstance(a, ShardedTensor):
         mesh = a.mesh
         if a.is_fully_addressable:
             out = a.full("cpu").numpy()

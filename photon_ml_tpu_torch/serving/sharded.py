@@ -6,7 +6,8 @@ Port of ``photon_ml_tpu/serving/sharded.py``. The single-table
 in front of it). Here each coordinate's table is partitioned into ``S``
 shards (the cyclic row layout mirrors the grid placement of
 ``parallel/grid_features.py``), stacked as one tensor ``[S, cap+1, dim]``
-on the scorer's device — so a batch of B requests becomes one gather
+on the scorer's device (or split over a serving mesh, below) — so a
+batch of B requests becomes one gather
 ``table[shard, slot, idx]`` per coordinate, with no host work beyond the
 O(B) routing-index probe. Each table is DOUBLE-BUFFERED (two halves): hot
 swaps stage into the spare half and flip an index, so publishing a delta
@@ -20,6 +21,15 @@ Residency semantics, in order of degradation:
   (``serving/admission.py``), so the next request finds it resident;
 - unknown entity → the zero cold slot, the Photon-ML left-join FE-only
   fallback — same as the single-table scorer.
+
+On a serving mesh of n positions with ``S % n == 0`` each generation half
+of a table is split, as the reference splits it ``P(DATA_AXIS)``, into n
+blocks of ``[S/n, cap+1, dim]``, block b on position b's device
+(:class:`SplitTable`; positions that repeat one card split too): a batch
+gathers each block's rows on that block's device and places them back by
+row index on the batch's device, so each row's term comes from one block
+and the scores are bitwise the one-table scorer's. With ``S % n != 0`` the
+table stays whole on the mesh's first device, as in the reference.
 
 Table writes are in place (``table[shards, slots] = values``: the tensor
 and its ``data_ptr`` stay the same, no full-table copy, no accumulation);
@@ -99,21 +109,91 @@ def serving_mesh(num_devices: Optional[int] = None,
     return data_parallel_mesh(num_devices=num_devices, device=device)
 
 
-def _mesh_device(mesh, device: DeviceLike) -> torch.device:
-    """The one device a table lives on. A mesh whose positions name several
-    cards would split the shard axis over them (the reference's layout when
-    ``S`` divides the device count); that layout is not ported, so such a
-    mesh is refused rather than silently collapsed onto one card."""
+def _mesh_devices(mesh, device: DeviceLike) -> List[torch.device]:
+    """The devices of a serving mesh's positions in order (``[device]``
+    without a mesh). A position naming a card this machine lacks raises:
+    a mesh is never collapsed onto fewer cards than it names."""
     if mesh is None:
-        return resolve_device(device)
-    devices = {torch.device(d) for d in mesh.devices.flat}
-    if len(devices) > 1:
-        raise ValueError(
-            f"a serving mesh over {sorted(map(str, devices))} would split "
-            "each table's shard axis across cards, which this package does "
-            "not do; give each scorer replica one device"
-        )
-    return resolve_device(next(iter(devices)))
+        return [resolve_device(device)]
+    out = [resolve_device(d) for d in mesh.devices.flat]
+    for d in out:
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            raise ValueError(
+                f"a serving mesh over {[str(x) for x in out]} names {d}, and this "
+                f"machine has {torch.cuda.device_count()} card(s)")
+    return out
+
+
+class SplitTable:
+    """One generation half of a table split over a serving mesh: block b
+    holds shards ``[b·S/n, (b+1)·S/n)`` as ``[S/n, cap+1, dim]`` on
+    ``devices[b]``. Writes go to the block of each row's shard; a batch is
+    routed on the host into each block's rows (:meth:`route`) and gathered
+    block by block (:meth:`gather`)."""
+
+    def __init__(self, blocks: Sequence[torch.Tensor]):
+        self.blocks = list(blocks)
+
+    @property
+    def per(self) -> int:
+        return self.blocks[0].shape[0]
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        b = self.blocks[0]
+        return (self.per * len(self.blocks), b.shape[1], b.shape[2])
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [b.device for b in self.blocks]
+
+    def clone(self) -> "SplitTable":
+        return SplitTable([b.clone() for b in self.blocks])
+
+    def nbytes(self) -> int:
+        return sum(int(b.numel()) * b.element_size() for b in self.blocks)
+
+    def block_rows(self, shards: np.ndarray) -> List[np.ndarray]:
+        """Per block, the positions in ``shards`` whose shard it holds."""
+        blk = np.asarray(shards) // self.per
+        return [np.nonzero(blk == b)[0] for b in range(len(self.blocks))]
+
+    def write(self, shards: np.ndarray, slots: np.ndarray, values: np.ndarray) -> None:
+        """``table[shards, slots] = values`` block by block, in place."""
+        for b, (blk, rows) in enumerate(zip(self.blocks, self.block_rows(shards))):
+            if rows.size == 0:
+                continue
+            with device_stream(blk.device):
+                sh, sl, vals = upload(blk.device, [
+                    np.asarray(shards, dtype=np.int64)[rows] - b * self.per,
+                    np.asarray(slots, dtype=np.int64)[rows],
+                    np.ascontiguousarray(values[rows])])
+                blk[sh, sl] = vals
+
+    def route(self, shards: np.ndarray, slots: np.ndarray, idx: np.ndarray) -> tuple:
+        """A batch's ``(shard, slot)`` per row and its ``[B, nnz]`` column
+        indices, split on the host by block: (the blocks with rows, and per
+        such block its rows, local shards, slots and indices)."""
+        present, arrays = [], []
+        for b, rows in enumerate(self.block_rows(shards)):
+            if rows.size:
+                present.append(b)
+                arrays += [rows, np.asarray(shards)[rows] - b * self.per,
+                           np.asarray(slots)[rows], np.asarray(idx, dtype=np.int64)[rows]]
+        return present, arrays
+
+    def gather(self, present: Sequence[int], arrays: Sequence[torch.Tensor],
+               shape) -> torch.Tensor:
+        """``table[shards, slots, idx]`` of a batch routed by :meth:`route`
+        (its arrays uploaded, four a block), ``[B, nnz]`` on their device:
+        each block gathers its rows on its own device, and the rows are
+        placed back by index (each row from one block)."""
+        out = torch.empty(shape, dtype=self.blocks[0].dtype, device=arrays[0].device)
+        for j, b in enumerate(present):
+            blk = self.blocks[b]
+            rows, sh, sl, idx = (a.to(blk.device) for a in arrays[4 * j:4 * j + 4])
+            out[rows.to(out.device)] = blk[sh[:, None], sl[:, None], idx].to(out.device)
+        return out
 
 
 class ShardedReTable:
@@ -136,6 +216,10 @@ class ShardedReTable:
     stays authoritative for non-resident rows; hot-swap row updates that
     diverge from it are kept in an override map so an evicted row re-admits
     with its swapped content, not the stale packed bytes.
+
+    On a ``mesh`` of n positions with ``S % n == 0`` each half is a
+    :class:`SplitTable` of n blocks on the positions' devices; otherwise a
+    tensor on the mesh's first device.
     """
 
     def __init__(
@@ -147,35 +231,46 @@ class ShardedReTable:
     ):
         if backing.ndim != 2:
             raise ValueError(f"backing store must be 2-D, got {backing.shape}")
-        self.device = _mesh_device(mesh, device)
+        devices = _mesh_devices(mesh, device)
+        self.device = devices[0]
         self._backing = backing
         self._overrides: Dict[int, np.ndarray] = {}
         self.routing = routing
         self._mesh = mesh
         S, cap, dim = routing.num_shards, routing.shard_capacity, backing.shape[1]
         base = routing.base_rows
-        with device_stream(self.device):
-            first = torch.zeros(
-                (S, cap + 1, dim), dtype=torch.float32, device=self.device
-            )
-            # cyclic layout: row r at (r % S, r // S), so shard s holds rows
-            # s, s+S, ... in order — one host-to-device copy a shard, with
-            # no [S, cap+1, dim] host staging array
-            for s in range(min(S, base)):
-                rows = np.ascontiguousarray(
-                    backing[s:base:S], dtype=np.float32
-                )
-                first[s, : rows.shape[0]] = torch.from_numpy(rows).to(self.device)
-            # both generation halves start converged (identical bytes)
-            self._tables = [first, first.clone()]
+        # the reference's rule: split when the shard count divides the
+        # mesh's positions' count, else one table on the first device
+        split = len(devices) > 1 and S % len(devices) == 0
+        per = S // len(devices) if split else S
+        blocks = []
+        for b, dev in enumerate(devices if split else devices[:1]):
+            with device_stream(dev):
+                blk = torch.zeros((per, cap + 1, dim), dtype=torch.float32, device=dev)
+                # cyclic layout: row r at (r % S, r // S), so shard s holds
+                # rows s, s+S, ... in order — one host-to-device copy a
+                # shard, with no [S, cap+1, dim] host staging array
+                for s in range(b * per, min((b + 1) * per, base)):
+                    rows = np.ascontiguousarray(backing[s:base:S], dtype=np.float32)
+                    blk[s - b * per, : rows.shape[0]] = torch.from_numpy(rows).to(dev)
+                blocks.append(blk)
+        # both generation halves start converged (identical bytes)
+        first = SplitTable(blocks) if split else blocks[0]
+        self._tables = [first, first.clone()]
         self._gen = 0
+
+    @property
+    def split(self) -> bool:
+        """Whether the halves are split over the mesh (:class:`SplitTable`)."""
+        return isinstance(self._tables[0], SplitTable)
 
     # ------------------------------------------------------------- reading
 
     @property
     def table(self) -> torch.Tensor:
-        """ACTIVE generation half — device tensor [S, cap+1, dim]; slot
-        ``cap`` of every shard is the zero cold slot."""
+        """ACTIVE generation half — device tensor [S, cap+1, dim] (a
+        :class:`SplitTable` on a splitting mesh); slot ``cap`` of every
+        shard is the zero cold slot."""
         return self._tables[self._gen]
 
     @property
@@ -248,6 +343,9 @@ class ShardedReTable:
         if sig not in _SCATTER_SIGNATURES:
             with _SCATTER_LOCK:
                 _SCATTER_SIGNATURES.add(sig)
+        if isinstance(table, SplitTable):
+            table.write(shards, slots, values)
+            return
         with device_stream(self.device):
             sh, sl, vals = upload(
                 self.device,
@@ -413,7 +511,9 @@ class ShardedGameScorer:
       attached via :meth:`attach_admission`.
     - ``routing`` may be a shared :class:`RoutingIndex` (multi-scorer
       mode: every replica gathers through the same entity placement).
-    - ``device`` (or a ``mesh`` over one device) is where the tables live.
+    - ``device``, or a ``mesh``'s first position, is where the FE vectors,
+      the batch and the unsplit tables live; a mesh of n positions with
+      ``n`` dividing ``num_shards`` splits every RE table over them.
     """
 
     def __init__(
@@ -429,7 +529,7 @@ class ShardedGameScorer:
         score_delta: bool = True,
         device: DeviceLike = DEFAULT_DEVICE,
     ):
-        self.device = _mesh_device(mesh, device)
+        self.device = _mesh_devices(mesh, device)[0]
         self._artifact = artifact
         self._task = artifact.task
         self.num_shards = int(num_shards)
@@ -478,7 +578,7 @@ class ShardedGameScorer:
                     (cid, table.feature_shard, table.random_effect_type)
                 )
                 self._providers[cid] = ShardedReTable(
-                    np.asarray(table.weights), routing[cid], device=self.device,
+                    np.asarray(table.weights), routing[cid], mesh=mesh, device=self.device,
                 )
             else:
                 self._fe_specs.append((cid, table.feature_shard))
@@ -522,7 +622,8 @@ class ShardedGameScorer:
         each RE coordinate, and the FE vectors)."""
         total = sum(int(w.numel()) * w.element_size() for w in self._fe_params.values())
         for p in self._providers.values():
-            total += sum(int(t.numel()) * t.element_size() for t in p._tables)
+            total += sum(t.nbytes() if isinstance(t, SplitTable)
+                         else int(t.numel()) * t.element_size() for t in p._tables)
         return total
 
     def attach_admission(self, controller) -> None:
@@ -633,7 +734,8 @@ class ShardedGameScorer:
             # build the replacement table OUTSIDE write_lock — concurrent
             # scoring keeps gathering the old provider; only the pointer
             # install blocks
-            fresh_provider = ShardedReTable(backing, routing, device=self.device)
+            fresh_provider = ShardedReTable(backing, routing, mesh=self._mesh,
+                                            device=self.device)
             with self.write_lock:
                 self._providers[cid] = fresh_provider
             return routing.shard_capacity != old_cap
@@ -719,14 +821,14 @@ class ShardedGameScorer:
             artifact, fe_params = (
                 (self._artifact, self._fe_params) if view is None else view
             )
-            route_arrays, cold, sdelta_rows = self._route(
+            route_arrays, layout, cold, sdelta_rows = self._route(
                 requests, n, bucket, shards, artifact
             )
             if stages is not None:
                 # the "route" stage includes any write_lock wait
                 stages["route_done"] = time.perf_counter()
             out = self._gather_score(
-                bucket, order, feats, upload(self.device, route_arrays),
+                bucket, order, feats, upload(self.device, route_arrays), layout,
                 list(sdelta_rows), fe_params,
             )
             if stages is not None:
@@ -756,10 +858,13 @@ class ShardedGameScorer:
     def _route(self, requests, n: int, bucket: int, shards, artifact):
         """Host routing of one batch through ``artifact``'s entity indexes:
         per RE coordinate the ``[bucket]`` shard and slot arrays (pads and
-        FE-only rows at shard 0's cold slot), each request's cold
-        coordinates, and the rows whose measured score deltas the
-        importance plane wants."""
+        FE-only rows at shard 0's cold slot), or for a split table each
+        block's rows, shards, slots and column indices
+        (:meth:`SplitTable.route`; ``layout`` names the blocks, None for a
+        whole table), each request's cold coordinates, and the rows whose
+        measured score deltas the importance plane wants."""
         route_arrays: List[np.ndarray] = []
+        layout: List[Optional[List[int]]] = []
         cold: Dict[int, List[str]] = {}
         sdelta_rows: Dict[str, np.ndarray] = {}
         with span("serve/route", n=n):
@@ -790,22 +895,31 @@ class ShardedGameScorer:
                 full_slots = np.full(bucket, routing.cold_slot, dtype=np.int64)
                 full_shards[:n] = cid_shards
                 full_slots[:n] = cid_slots
-                route_arrays += [full_shards, full_slots]
+                table = self._providers[cid].table
+                if isinstance(table, SplitTable):
+                    present, arrays = table.route(full_shards, full_slots,
+                                                  shards[feature_shard][1])
+                    layout.append(present)
+                    route_arrays += arrays
+                else:
+                    layout.append(None)
+                    route_arrays += [full_shards, full_slots]
                 served_cold = np.nonzero(
                     full_slots[:n] == routing.cold_slot
                 )[0]
                 for i in served_cold:
                     cold.setdefault(int(i), []).append(cid)
-        return route_arrays, cold, sdelta_rows
+        return route_arrays, layout, cold, sdelta_rows
 
-    def _gather_score(self, bucket, order, feats, routed,
+    def _gather_score(self, bucket, order, feats, routed, layout,
                       delta_cids, fe_params) -> List[torch.Tensor]:
         """Issue one uploaded batch's score on the device: ``[z, mean]``
         plus, per coordinate in ``delta_cids``, ``|RE term|`` (the
         request's measured ``|score - fe_only_score|`` for it). ``feats``
         is ``[offsets, values per shard..., indices per shard...]`` in
         ``order``; ``routed`` the ``(shard, slot)`` arrays per RE
-        coordinate; ``fe_params`` the FE tensors the batch reads."""
+        coordinate, or for a split table its blocks' arrays (``layout``,
+        :meth:`_route`); ``fe_params`` the FE tensors the batch reads."""
         k = len(order)
         vals = dict(zip(order, feats[1:1 + k]))
         idx = dict(zip(order, feats[1 + k:1 + 2 * k]))
@@ -816,9 +930,16 @@ class ShardedGameScorer:
             for cid, shard in self._fe_specs:
                 z = z + (vals[shard] * fe_params[cid][idx[shard]]).sum(dim=1)
             terms = {}
-            for j, ((cid, shard, _), table) in enumerate(zip(self._re_specs, tables)):
-                sh = routed[2 * j][:, None]
-                sl = routed[2 * j + 1][:, None]
-                terms[cid] = (vals[shard] * table[sh, sl, idx[shard]]).sum(dim=1)
+            at = 0
+            for (cid, shard, _), table, present in zip(self._re_specs, tables, layout):
+                if present is not None:
+                    rows = table.gather(present, routed[at:at + 4 * len(present)],
+                                        idx[shard].shape)
+                    at += 4 * len(present)
+                else:
+                    sh, sl = routed[at], routed[at + 1]
+                    at += 2
+                    rows = table[sh[:, None], sl[:, None], idx[shard]]
+                terms[cid] = (vals[shard] * rows).sum(dim=1)
                 z = z + terms[cid]
             return [z, mean_function(self._task, z)] + [terms[c].abs() for c in delta_cids]

@@ -303,3 +303,34 @@ def test_replay_with_watch_dir_matches_jax(nl, tmp_path):
     assert out["t"][0] == out["j"][0] == [(1, False, len(TOUCHED + NEW))]
     assert out["t"][2] == out["j"][2]
     assert_scores_close(out["t"][1], out["j"][1])
+
+
+def test_swap_and_rollback_on_a_split_table_are_the_one_table_scorers_bitwise(nl):
+    """On a serving mesh of 4 positions each RE table of 4 shards splits
+    into 4 blocks; a swap and a gated rollback serve bitwise the scores of
+    the one-table scorers, and the rollback restores the blocks' bytes."""
+    split = T.ShardedGameScorer(nl["ta"], max_nnz=nl["nnz"], num_shards=4, device="cpu",
+                                mesh=T.serving_mesh(4, device="cpu"))
+    whole = T.ShardedGameScorer(nl["ta"], max_nnz=nl["nnz"], num_shards=4, device="cpu")
+    single = T.GameScorer(nl["ta"], max_nnz=nl["nnz"], growth_headroom=True, device="cpu")
+    assert all(p.split for p in split._providers.values())
+
+    def blocks(scorer):
+        return {f"{cid}/{i}": torch.cat(t.blocks) for cid, p in scorer._providers.items()
+                for i, t in enumerate(p._tables)}
+
+    for s in (split, whole, single):
+        T.HotSwapManager(s, fingerprint=nl["fp"]).apply_delta(nl["tdelta_dir"])
+    swapped = scores(split, nl["treq"])
+    assert swapped == scores(whole, nl["treq"]) == scores(single, nl["treq"])
+    before = blocks(split)
+    _, tbad = _garbage(nl)
+    for s in (split, whole):
+        gate = T.ValidationGate(nl["treq"], nl["labels"], max_auc_regression=0.05,
+                                bucket_size=16)
+        m = T.HotSwapManager(s, fingerprint=nl["fp"], gate=gate)
+        assert m.apply_delta(tbad).rolled_back
+    assert scores(split, nl["treq"]) == swapped == scores(whole, nl["treq"])
+    assert _bitwise(blocks(split), before)
+    assert _bitwise(blocks(split), {k: t.clone() for k, t in _tables(whole).items()
+                                    if "/" in k})

@@ -3,8 +3,10 @@
 a timeout of its own): ``barrier``; ``host_shard_files`` equal to the JAX
 package's rule; ``fetch_global`` gathering a sharded array; a 2 x 1 grid
 with a tile a rank, bitwise the one-process 2 x 1 grid (maps and an
-L-BFGS solve); a GLMix fit over that grid on the host score plane (the
-effective plane under several ranks), its schedule sync.
+L-BFGS solve), and so a 1 x 2 grid, a feat column a rank; a GLMix fit over that grid on the host score plane (the
+effective plane under several ranks), its schedule sync, each rank
+solving only the random-effect slices of its own grid position, the
+model bitwise the one-process model.
 
 Run as a script, this file is one rank:
 ``python tests/test_torch_multihost.py RANK WORLD PORT OUT.npz``.
@@ -32,8 +34,9 @@ def _problem(seed=5, n=90, d=23, k=4):
     return rows, cols, vals, (n, d), y
 
 
-def _grid_outputs(mesh_kw):
-    """Maps and an L-BFGS solve over a 2 x 1 ELL grid of ``_problem``."""
+def _grid_outputs(mesh_kw, grid=(2, 1)):
+    """Maps and an L-BFGS solve over a 2 x 1 (or ``grid``) ELL grid of
+    ``_problem``."""
     import torch
 
     from photon_ml_tpu_torch.estimators.model_training import train_glm
@@ -43,7 +46,7 @@ def _grid_outputs(mesh_kw):
     from photon_ml_tpu_torch.types import TaskType
 
     rows, cols, vals, shape, y = _problem()
-    gf = grid_from_coo(rows, cols, vals, shape, grid_mesh(2, 1, **mesh_kw), engine="ell")
+    gf = grid_from_coo(rows, cols, vals, shape, grid_mesh(*grid, **mesh_kw), engine="ell")
     w = torch.linspace(-1, 1, gf.dim)
     c = torch.linspace(1, -1, gf.num_rows)
     pad = gf.num_rows - shape[0]
@@ -81,11 +84,18 @@ def _glmix_fit(parallel_devices=None, schedule="async"):
                          "u", RandomEffectDataConfiguration("userId"))},
         num_outer_iterations=2, device="cpu", schedule=schedule,
         parallel=ParallelConfiguration(2, 1, engine="ell", devices=parallel_devices))
-    fit = est.fit(data)
+    coords = est.build_coordinates(data)
+    fit = est.fit(data, coordinates=coords)
+    re_model = fit.model.models["per_user"]
     return {"fit_w": fit.model.models["fixed"].coefficients.means.numpy(),
             "fit_scores": fit.model.score(data).numpy(),
             "plane": np.array(est._effective_score_plane()),
-            "schedule": np.array(est._effective_schedule())}
+            "schedule": np.array(est._effective_schedule()),
+            "fit_re_w": np.concatenate([c.numpy().ravel() for c in re_model.coefficients]),
+            "fit_objective": np.array([v for _, v in fit.objective_history]),
+            "re_lanes": np.array([st.num_entities
+                                  for st in coords["per_user"].last_solver_stats]),
+            "re_slices": np.array([len(b.local()) for b in coords["per_user"].dataset.buckets])}
 
 
 def rank_main(rank: int, world: int, port: int, out: str) -> int:
@@ -111,6 +121,9 @@ def rank_main(rank: int, world: int, port: int, out: str) -> int:
     except ValueError as e:
         result["refusal"] = np.array(str(e))
     result.update(_grid_outputs({"device": "cpu"}))
+    # a feat column a rank: the solve's dot products and norms gather the
+    # other rank's block partials
+    result.update({f"feat_{k}": v for k, v in _grid_outputs({"device": "cpu"}, (1, 2)).items()})
     result.update(_glmix_fit())
     barrier("end")
     np.savez(out, **result)
@@ -186,6 +199,13 @@ def test_a_tile_a_rank_is_the_one_process_grid_bitwise(ranks):
             np.testing.assert_array_equal(res[key], one[key], err_msg=key)
 
 
+def test_a_feat_column_a_rank_is_the_one_process_grid_bitwise(ranks):
+    one = _grid_outputs({"devices": ["cpu", "cpu"]}, (1, 2))
+    for res in ranks:
+        for key in ("z", "g", "gsq", "rn", "w"):
+            np.testing.assert_array_equal(res[f"feat_{key}"], one[key], err_msg=key)
+
+
 def test_several_ranks_train_on_the_host_plane_sync(ranks):
     # the fit is the one-process grid fit's within the coefficient tolerance
     # (each rank solves its random effects' lanes in one batch, the one
@@ -197,6 +217,21 @@ def test_several_ranks_train_on_the_host_plane_sync(ranks):
         np.testing.assert_allclose(res["fit_w"], solo["fit_w"], atol=2e-3)
         np.testing.assert_allclose(res["fit_scores"], solo["fit_scores"], atol=2e-3)
     np.testing.assert_array_equal(ranks[0]["fit_w"], ranks[1]["fit_w"])
+
+
+def test_each_rank_solves_its_own_slices_and_the_model_is_bitwise_one_process(ranks):
+    # 7 users padded to 8 entity lanes over the grid's 2 positions: each
+    # rank holds and solves one slice of 4 lanes a bucket, the one process
+    # both; the other rank's coefficients and scores arrive by all_gather
+    solo = _glmix_fit(["cpu", "cpu"], schedule="sync")
+    buckets = solo["re_slices"].size
+    np.testing.assert_array_equal(solo["re_slices"], np.full(buckets, 2))
+    np.testing.assert_array_equal(solo["re_lanes"], np.full(2 * buckets, 4))
+    for res in ranks:
+        np.testing.assert_array_equal(res["re_slices"], np.ones(buckets))
+        np.testing.assert_array_equal(res["re_lanes"], np.full(buckets, 4))
+        for key in ("fit_w", "fit_scores", "fit_re_w", "fit_objective"):
+            np.testing.assert_array_equal(res[key], solo[key], err_msg=key)
 
 
 if __name__ == "__main__":

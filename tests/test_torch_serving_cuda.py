@@ -12,6 +12,10 @@ thread seen by the next gather.
   next batch on the scoring thread gathers (its score equals full
   residency bitwise); so does a hot swap's delta, and a variant view of
   it scores the same.
+- On a serving mesh of 4 positions on the one card a table of 4 shards
+  splits into 4 blocks on the card; its scores, before and after row
+  updates, are bitwise the single table's; a mesh naming a card the
+  machine lacks is refused.
 
 Run on a machine with a card: ``python -m pytest --noconftest
 tests/test_torch_serving_cuda.py``. Without one, every test here skips.
@@ -164,3 +168,26 @@ def test_hot_swap_on_another_thread_is_seen_by_the_next_gather(card):
     registry.apply_delta("v", delta)
     variant = registry.scorer("v").score_batch(reqs, bucket_size=64)
     assert _scores(variant).tolist() == _scores(want).tolist()
+
+
+def test_split_table_on_a_mesh_of_the_card_scores_bitwise(card):
+    from photon_ml_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh
+
+    art, reqs = _artifact(), _requests(61)
+    split = T.ShardedGameScorer(art, max_nnz=MAX_NNZ, num_shards=4, device="cuda",
+                                mesh=data_parallel_mesh(devices=[card] * 4))
+    full = T.GameScorer(art, max_nnz=MAX_NNZ, device="cuda")
+    p = split._providers["per_user"]
+    assert p.split and all(b.is_cuda for t in p._tables for b in t.blocks)
+    assert _scores(T.replay_requests(split, reqs)[0]).tolist() == _scores(
+        T.replay_requests(full, reqs)[0]).tolist()
+    rows, vals = np.array([3, 7, 150]), np.full((3, D_RE), 0.5, np.float32)
+    for s in (split, full):
+        s.update_random_effect_rows("per_user", rows, vals)
+    assert _scores(T.replay_requests(split, reqs)[0]).tolist() == _scores(
+        T.replay_requests(full, reqs)[0]).tolist()
+    missing = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(ValueError, match=f"names {missing}"):
+        T.ShardedGameScorer(art, max_nnz=MAX_NNZ, num_shards=4,
+                            mesh=Mesh(["cuda:0", missing], ("data",)))
+

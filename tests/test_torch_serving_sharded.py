@@ -11,12 +11,19 @@ JAX package's, on the same artifact, requests and write sequences.
   distinct write signatures equals the JAX scatter's program count;
   ``ShardedReTable.update_rows`` flips generations without pausing a
   scoring thread and leaves both halves equal.
+- On a serving mesh of 4 ``cpu`` positions a table of 4 shards splits into
+  4 blocks: its scores are bitwise the single-table scorer's and within
+  rtol 2e-4 of the JAX scorer split over ``serving_mesh(4)``; its writes
+  land in the right block (the unsplit table's bytes); with a shard count
+  the positions do not divide it stays whole; a mesh naming cards the
+  machine lacks is refused.
 """
 
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_serving_parity import assert_results_close
 import photon_ml_tpu.serving as J
@@ -325,3 +332,63 @@ def test_mesh_of_one_device_places_tables_there():
     assert s._providers["per_user"].table.device.type == "cpu"
     cap = s.routing["per_user"].shard_capacity
     assert s.table_bytes() == 4 * (D_FE + 2 * s.num_shards * (cap + 1) * D_RE)
+
+
+def test_split_table_over_four_positions_scores_bitwise_and_as_jax():
+    split = _sharded(T, num_shards=4, mesh=T.serving_mesh(4, device="cpu"))
+    jsplit = _sharded(J, num_shards=4, mesh=J.serving_mesh(4))
+    p = split._providers["per_user"]
+    cap = split.routing["per_user"].shard_capacity
+    assert p.split and all(isinstance(t, tsharded.SplitTable) for t in p._tables)
+    assert [tuple(b.shape) for b in p.table.blocks] == [(1, cap + 1, D_RE)] * 4
+    assert len(jsplit._providers["per_user"].table.sharding.device_set) == 4
+    single = T.GameScorer(_artifact(T), max_nnz=MAX_NNZ, device="cpu")
+    treq = _requests(T, 37, ghost_every=7, missing_every=11)
+    jreq = _requests(J, 37, ghost_every=7, missing_every=11)
+    tres, _ = T.replay_requests(split, treq, bucket_sizes=(4, 8))
+    jres, _ = J.replay_requests(jsplit, jreq, bucket_sizes=(4, 8))
+    one, _ = T.replay_requests(single, treq, bucket_sizes=(4, 8))
+    assert [r.score for r in tres] == [r.score for r in one]  # bitwise
+    assert_results_close(tres, jres)
+    assert split.table_bytes() == _sharded(T, num_shards=4).table_bytes()
+
+    # the same row updates as the unsplit table: its bytes, block by block
+    whole = _sharded(T, num_shards=4, device_budget_rows=16)
+    split = _sharded(T, num_shards=4, device_budget_rows=16,
+                     mesh=T.serving_mesh(4, device="cpu"))
+    rng = np.random.default_rng(4)
+    for _ in range(4):
+        rows = np.unique(rng.integers(0, N_ENT + 3, size=3))  # new rows too
+        vals = rng.standard_normal((rows.size, D_RE)).astype(np.float32)
+        for s in (whole, split):
+            s.update_random_effect_rows("per_user", rows, vals)
+        p, w = split._providers["per_user"], whole._providers["per_user"]
+        assert p.generation == w.generation
+        for half in range(2):
+            np.testing.assert_array_equal(torch.cat(p._tables[half].blocks).numpy(),
+                                          w._tables[half].numpy())
+    reqs = _requests(T, 16, seed=3)
+    assert ([r.score for r in split.score_batch(reqs, bucket_size=16)]
+            == [r.score for r in whole.score_batch(reqs, bucket_size=16)])
+
+
+def test_split_needs_the_shard_count_to_divide_the_positions():
+    s = _sharded(T, num_shards=4, mesh=T.serving_mesh(3, device="cpu"))
+    p = s._providers["per_user"]
+    assert not p.split and p.table.shape[0] == 4 and p.table.device.type == "cpu"
+    assert len(_sharded(J, num_shards=4, mesh=J.serving_mesh(3))._providers[
+        "per_user"].table.sharding.device_set) == 1
+
+
+def test_a_mesh_naming_cards_the_machine_lacks_is_refused():
+    from photon_ml_tpu_torch.parallel.mesh import Mesh
+
+    missing = f"cuda:{torch.cuda.device_count()}"
+    mesh = Mesh(["cuda:0", missing], ("data",))
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match=f"names {missing}"):
+            _sharded(T, num_shards=4, mesh=mesh)
+    else:
+        with pytest.raises(RuntimeError, match="is False"):
+            _sharded(T, num_shards=4, mesh=mesh)
+
